@@ -2,7 +2,9 @@
 
 The port never imports jax. A caller that holds JAX objects reads them out
 with `scene_leaves` (plain `np.asarray` on each leaf) and hands the numpy
-dict to `scene_from_numpy`; a JAX PRNG key's data (`jax.random.key_data`,
+dict to `scene_from_numpy` (the BVH packs come across as they are, so the
+port walks the JAX package's own tree; the TPU's cluster tables `cl_*`
+are not read); a JAX PRNG key's data (`jax.random.key_data`,
 the checkpoint `key` field) becomes a port key with `key_from_numpy`.
 """
 from __future__ import annotations
@@ -12,7 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .scene.compile import MediumTable, RenderConfig, SceneData, TextureTable
+from .scene.compile import (MediumTable, RenderConfig, SceneData,
+                            TextureTable, resolve_device)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
 _NESTED = {"medium": ("ior",), "world_medium": ("ior",)}
@@ -42,9 +45,11 @@ def scene_leaves(scene) -> dict:
     return out
 
 
-def scene_from_numpy(leaves: dict, cfg_fields: dict, device="cpu"):
+def scene_from_numpy(leaves: dict, cfg_fields: dict, device="cuda"):
     """(SceneData, RenderConfig) of the port from numpy leaves
-    (`scene_leaves`) and a RenderConfig's fields (`dataclasses.asdict`)."""
+    (`scene_leaves`) and a RenderConfig's fields (`dataclasses.asdict`),
+    on `device` (the CUDA device by default; raises when there is none)."""
+    device = resolve_device(device)
     def t(name):
         return torch.tensor(np.asarray(leaves[name]))
 

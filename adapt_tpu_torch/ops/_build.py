@@ -1,10 +1,11 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native code at first use and load it with ctypes.
 
-Each `csrc/*.cu` file compiles into a shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), under
-`build/adapt_tpu_torch/` at the repository root, at first use. The file
-name carries a hash of the source and the flags: an edited source builds
-anew, and an unchanged one is loaded from the last build.
+Each `csrc/*.cu` file compiles with nvcc into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds); the BVH
+builder (native/bvh_builder.cpp) compiles with g++ the same way. Both go
+under `build/adapt_tpu_torch/` at the repository root. The file name
+carries a hash of the source and the flags: an edited source builds anew,
+and an unchanged one is loaded from the last build.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict = {}
-build_seconds: dict = {}   # source name -> seconds its nvcc call took
+build_seconds: dict = {}   # library name -> seconds its compiler call took
 
 
 def _nvcc() -> str:
@@ -37,22 +38,28 @@ def _nvcc() -> str:
                        "from source on the machine with the GPU")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+def compiled(name: str, src: Path, compiler, flags) -> ctypes.CDLL:
+    """The loaded library `name` built from `src` by `compiler()` (a
+    callable giving the compiler's path, asked only when a build is
+    needed) with `flags`. A failed build raises."""
     if name in _LIBS:
         return _LIBS[name]
-    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        subprocess.run([compiler(), *flags, "-o", str(tmp), str(src)],
                        check=True)
         build_seconds[name] = time.perf_counter() - t0
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    return compiled(name, CSRC / f"{name}.cu", _nvcc, NVCC_FLAGS)

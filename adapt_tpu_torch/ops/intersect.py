@@ -1,11 +1,18 @@
 """Wavefront ray-scene intersection (port of adapt_tpu/ops/intersect.py).
 
-The small-scene tier: every triangle is tested against every ray by the
-hand-written kernels of ops/intersect_kernels.py (their plain twins on the
-CPU); spheres use the reference's quadratic form in plain PyTorch. The JAX
-package's one-hot gathers, wavefront sorts and cluster tiers are TPU
-workarounds with no counterpart here: lookups are plain indexing. Scenes
-that need the BVH tier raise (scene/compile.py `check_supported`).
+Two tiers, chosen as the JAX package chooses on its accelerator
+(adapt_tpu/scene/compile.py:628-632):
+
+* small scenes (fewer than BVH_THRESHOLD prims, or at most 256 triangles
+  and 256 prims): every triangle is tested against every ray by the
+  hand-written kernels of ops/intersect_kernels.py; spheres use the
+  reference's quadratic form in plain PyTorch;
+* every other scene: the BVH kernels of ops/bvh_kernels.py walk the
+  scene's BVH, triangles and spheres alike.
+
+On the CPU the wrappers run their plain twins. The JAX package's one-hot
+gathers, wavefront sorts and cluster tiers are TPU workarounds with no
+counterpart here: lookups are plain indexing.
 """
 from __future__ import annotations
 
@@ -14,12 +21,12 @@ import dataclasses
 import torch
 
 from ..constants import INV_PI, INV_2PI
-from . import intersect_kernels as kernels
+from . import bvh_kernels, intersect_kernels as kernels
 from .math3d import axis_vec, dot, normalize
 
 RAY_EPS = kernels.RAY_EPS
 FAR = kernels.FAR
-DEAD = -3e38           # far0 of a dead lane: no hit can lie before it
+DEAD = kernels.DEAD
 
 
 @dataclasses.dataclass
@@ -38,17 +45,6 @@ class Interaction:
         return self.obj_id >= 0
 
 
-def _far0(ray_o, max_t, alive):
-    N = ray_o.shape[0]
-    if max_t is None:
-        far0 = torch.full((N,), FAR, device=ray_o.device)
-    else:
-        far0 = torch.where(max_t > 0.0, max_t - RAY_EPS, FAR)
-    if alive is not None:
-        far0 = torch.where(alive, far0, DEAD)
-    return far0
-
-
 def _sphere_hit(ray_o, ray_d, center, radius):
     """Reference sphere test (tracer_base.py:183-198): (N,S) hit distance
     or -1."""
@@ -63,11 +59,10 @@ def _sphere_hit(ray_o, ray_d, center, radius):
     return torch.where(c2r < r2, ray_t, -1.0)
 
 
-def _no_bvh(cfg):
-    if cfg.use_bvh:
-        raise NotImplementedError(
-            "the BVH tier (scenes of 64 prims or more) is not ported yet "
-            "(ROADMAP.md queue A item 13 / kernel B5)")
+def _bvh_tier(scene, cfg):
+    """The BVH kernels serve this scene (else the brute-force ones)."""
+    T, P = scene.tri_n.shape[0], scene.n_prims
+    return cfg.use_bvh and not (0 < T <= 256 and P <= 256)
 
 
 def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
@@ -76,9 +71,14 @@ def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     max_t: optional (N,) clip distance (hits accepted strictly before
     max_t - eps). alive: optional (N,) bool; dead lanes are forced to miss
     (far0 = -3e38) and come back with t = -3e38."""
-    _no_bvh(cfg)
+    far0 = kernels.far_bound(ray_o, max_t, alive)
+    if _bvh_tier(scene, cfg):
+        best_t, prim, u, v = bvh_kernels.bvh_closest_hit(scene, ray_o, ray_d,
+                                                         far0)
+        is_sphere_hit = scene.prim_is_sphere[prim.clamp(min=0)] & (prim >= 0)
+        return _assemble_interaction(scene, cfg, ray_o, ray_d, best_t, prim,
+                                     u, v, is_sphere_hit)
     N = ray_o.shape[0]
-    far0 = _far0(ray_o, max_t, alive)
     best_t = far0
     best_prim = torch.full((N,), -1, dtype=torch.int32, device=ray_o.device)
     best_u = torch.zeros(N, device=ray_o.device)
@@ -158,8 +158,9 @@ def _assemble_interaction(scene, cfg, ray_o, ray_d, best_t, best_prim,
 def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Boolean occlusion test (shadow rays): any hit strictly before max_t.
     Dead lanes (alive False) come back un-occluded."""
-    _no_bvh(cfg)
-    far = _far0(ray_o, max_t, alive)
+    far = kernels.far_bound(ray_o, max_t, alive)
+    if _bvh_tier(scene, cfg):
+        return bvh_kernels.bvh_any_hit(scene, ray_o, ray_d, far)
     occluded = torch.zeros(ray_o.shape[0], dtype=torch.bool,
                            device=ray_o.device)
     if scene.tri_n.shape[0] > 0:

@@ -18,6 +18,7 @@ from .math3d import axis_vec
 
 RAY_EPS = 1e-4
 FAR = 1e7
+DEAD = -3e38           # far0 of a dead lane: no hit can lie before it
 # elements per (rays, triangles) table of the twins; bounds their memory
 TWIN_LANES = 1 << 22
 
@@ -27,6 +28,19 @@ launches = {"tri_closest_hit": 0, "tri_any_hit": 0}
 def reset_launches():
     for k in launches:
         launches[k] = 0
+
+
+def far_bound(ray_o, max_t=None, alive=None):
+    """(N,) far bound every intersection kernel takes: hits count strictly
+    before it. FAR without max_t, max_t - RAY_EPS where max_t > 0, DEAD
+    where `alive` is False."""
+    if max_t is None:
+        far = torch.full((ray_o.shape[0],), FAR, device=ray_o.device)
+    else:
+        far = torch.where(max_t > 0.0, max_t - RAY_EPS, FAR)
+    if alive is not None:
+        far = torch.where(alive, far, DEAD)
+    return far
 
 
 def tri_table(scene):

@@ -1,0 +1,140 @@
+"""Where the time of a PT pass goes on the GPU: wall time per spp, device
+busy and idle share, launches per spp, and device and host time by range.
+
+    python -m adapt_tpu_torch.profile_pt scenes/cbox knot290k.xml --spp 2
+
+Loads the scene on the CUDA device, renders one warm-up spp (which also
+runs the auto-compaction probe), times `--runs` unprofiled render_batch
+calls of `--spp` samples (host clock around work that ends in a
+synchronize), then traces one more under torch.profiler with one range per
+stage of the bounce loop. Prints one line per range and a JSON summary
+(also written to `--out` when given). Needs one CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+from . import rng
+from .ops import bxdf_ops
+from .renderer import compact, pt
+from .scene.compile import load_scene
+
+# (module, attribute, range name): the stages a PT pass spends time in
+RANGES = (
+    (rng, "lane_uniform", "rng.lane_uniform"),
+    (pt, "ray_intersect", "ray_intersect"),
+    (pt, "does_intersect", "does_intersect"),
+    (bxdf_ops, "surface_sample", "surface_sample"),
+    (bxdf_ops, "surface_eval", "surface_eval"),
+    (bxdf_ops, "surface_pdf", "surface_pdf"),
+    (bxdf_ops, "gather_mat", "gather_mat"),
+    (pt, "camera_rays", "camera_rays"),
+    (compact, "run_compacted", "bounce loop"),
+)
+TOP = 8               # kernels listed by device time
+
+
+def _ranged(fn, name):
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+    return wrapped
+
+
+def _timed(r, spp):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render_batch(spp)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("directory")
+    ap.add_argument("file")
+    ap.add_argument("--spp", type=int, default=2)
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--max-bounce", type=int, default=0,
+                    help="override the scene's max_bounce (0: keep)")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    scene, cfg, _ = load_scene(args.directory, args.file)
+    if args.max_bounce:
+        cfg = dataclasses.replace(cfg, max_bounce=args.max_bounce)
+    r = pt.Renderer(scene, cfg, seed=0)
+    r.render_batch(1)
+    walls = [_timed(r, args.spp) / args.spp for _ in range(args.runs)]
+    wall = statistics.median(walls)
+
+    saved = [(m, a, getattr(m, a)) for m, a, _ in RANGES]
+    for (m, a, name), (_, _, fn) in zip(RANGES, saved):
+        setattr(m, a, _ranged(fn, name))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            prof_wall = _timed(r, args.spp) / args.spp
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+    spp = args.spp
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events
+               if e.device_type == cuda and not e.is_user_annotation]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / spp
+    rows = []
+    for _, _, name in RANGES:
+        hits = [e for e in events if e.name == name and e.device_type != cuda]
+        if hits:      # device ms: the kernels launched inside the range
+            rows.append({
+                "range": name, "calls": len(hits) / spp,
+                "device_ms": sum(e.device_time_total for e in hits) / 1e3
+                / spp,
+                "host_ms": sum(e.cpu_time_total for e in hits) / 1e3 / spp})
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3 / spp
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
+    out = {"scene": args.file, "w": cfg.w, "h": cfg.h,
+           "max_bounce": cfg.max_bounce, "spp": spp, "card": card,
+           "schedule": list(r._sched or ()),
+           "ms_per_spp": [1e3 * w for w in walls],
+           "profiled_ms_per_spp": 1e3 * prof_wall,
+           "device_busy_ms_per_spp": busy,
+           "idle_share": 1.0 - busy / (1e3 * wall),
+           "kernels_per_spp": len(kernels) / spp, "ranges": rows,
+           "top_kernels_ms_per_spp": dict(top)}
+    print(f"{args.file} {cfg.w}x{cfg.h} mb {cfg.max_bounce} [{card}]: "
+          f"ms/spp {', '.join(f'{1e3 * w:.3f}' for w in walls)} "
+          f"(profiled {1e3 * prof_wall:.3f}); device busy {busy:.3f} ms/spp,"
+          f" idle share {out['idle_share']:.3f}; "
+          f"{out['kernels_per_spp']:.0f} kernels/spp; schedule "
+          f"{out['schedule']}")
+    for row in rows:
+        print(f"  {row['range']:<20} calls {row['calls']:>6.1f}  device "
+              f"{row['device_ms']:9.3f} ms  host {row['host_ms']:9.3f} ms")
+    for name, ms in top:
+        print(f"  kernel {name[:60]:<60} {ms:9.3f} ms/spp")
+    print(json.dumps(out))
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,13 +5,17 @@ The whole ray wavefront advances through the bounce pipeline in lockstep:
 intersect -> russian roulette -> BSDF sample -> NEE -> emission MIS ->
 re-intersect, with dead rays masked out. The random stream is the JAX
 package's, consumed in the same order (pt.py:79-110, :183-189, :221,
-:236-239), so renders compare to it pixel by pixel. There is no length
-compaction: the bounce loop is a plain Python loop over full-width lanes.
+:236-239), so renders compare to it pixel by pixel. The bounce loop is a
+Python loop over a state dict; a length-compaction schedule
+(renderer/compact.py) narrows it to the alive lanes at its splits.
+Renderers of scenes with AUTO_MIN_PRIMS prims or more derive that
+schedule from one probe pass (adapt_tpu/renderer/pt.py:357-392).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import rng
@@ -21,7 +25,13 @@ from ..ops.math3d import norm
 from ..ops.sampling import balance_heuristic
 from ..ops.texture_ops import get_uv_item, process_ns
 from ..scene.compile import check_supported
+from . import compact
 from .base import ProgressiveRenderer, camera_rays, crop_pix_ids
+
+# Auto-compaction gate: scenes with at least this many prims derive a
+# schedule from a first-pass alive probe (compact.derive_schedule); small
+# scenes stay schedule-free (adapt_tpu/renderer/pt.py:357-361).
+_AUTO_MIN_PRIMS = 20000
 
 
 def _hit_light(mat, it):
@@ -39,27 +49,40 @@ def _finish_it(scene, cfg, it):
     return it
 
 
-def trace_pt(scene, cfg, key, ray_o, ray_d):
+def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=(),
+             collect_alive=False):
     """Trace a (N,3) ray wavefront through the bounce pipeline; returns
-    the (N,3) radiance of each lane."""
+    the (N,3) radiance of each lane.
+
+    schedule: length-compaction splits (renderer/compact.py); the per-lane
+    draws are keyed by (bounce, original lane id), so a compacted trace
+    equals the plain one lane for lane. collect_alive: also return the
+    (max_bounce,) alive lane counts after each bounce (no compaction), the
+    profile auto-compaction derives its schedule from."""
     check_supported(scene, cfg)
     N = ray_o.shape[0]
     dev = ray_o.device
     world_ior = scene.world_medium.ior[0]
     D = 7 + 4 * max(cfg.num_shadow_ray, 1)   # uniforms drawn per bounce
-    pos = torch.arange(N, dtype=torch.int32, device=dev)
 
     it = _finish_it(scene, cfg, ray_intersect(scene, cfg, ray_o, ray_d))
     mat = bxdf_ops.gather_mat(scene, it.obj_id)
-    hit_light = _hit_light(mat, it)
-    color = torch.zeros((N, 3), device=dev)
-    contribution = torch.ones((N, 3), device=dev)
-    emission_weight = torch.ones(N, device=dev)
-    active = torch.ones(N, dtype=torch.bool, device=dev)
+    init = dict(
+        ray_o=ray_o, ray_d=ray_d, it=it, mat=mat,
+        hit_light=_hit_light(mat, it),
+        color=torch.zeros((N, 3), device=dev),
+        contribution=torch.ones((N, 3), device=dev),
+        emission_weight=torch.ones(N, device=dev),
+        active=torch.ones(N, dtype=torch.bool, device=dev),
+        pos=torch.arange(N, dtype=torch.int32, device=dev))
 
-    for b in range(cfg.max_bounce):
-        active = active & it.is_hit
-        u_all = rng.lane_uniform(rng.fold_in(key, b), pos, D)
+    def bounce(b, st):
+        it, mat, hit_light = st["it"], st["mat"], st["hit_light"]
+        ray_o, ray_d = st["ray_o"], st["ray_d"]
+        contribution = st["contribution"]
+        active = st["active"] & it.is_hit
+        n = active.shape[0]
+        u_all = rng.lane_uniform(rng.fold_in(key, b), st["pos"], D)
 
         # --- russian roulette (vanilla_renderer.py:50-57) ---
         max_val = contribution.amax(dim=-1)
@@ -83,7 +106,7 @@ def trace_pt(scene, cfg, key, ray_o, ray_d):
                                     world_ior)
 
         # --- next-event estimation (vanilla_renderer.py:67-97) ---
-        direct_int = torch.zeros((N, 3), device=dev)
+        direct_int = torch.zeros((n, 3), device=dev)
         for s in range(cfg.num_shadow_ray):
             eid, emitter_pdf, valid = emitter_ops.sample_light_index(
                 cfg, u_all[:, 7 + 4 * s], hit_light)
@@ -104,7 +127,7 @@ def trace_pt(scene, cfg, key, ray_o, ray_d):
                 mis_w = torch.where(emitter_ops.is_delta_pos(scene, eid), 1.0,
                                     balance_heuristic(light_pdf, bsdf_pdf))
             else:
-                mis_w = torch.ones(N, device=dev)
+                mis_w = torch.ones(n, device=dev)
             contrib = direct_spec * shadow_int \
                 * (mis_w / emitter_pdf)[:, None]
             ok = valid & ~occluded
@@ -115,13 +138,13 @@ def trace_pt(scene, cfg, key, ray_o, ray_d):
         emit_le = emitter_ops.eval_le(scene, hit_light.clamp(min=0), ray_d,
                                       it.n_s)
         emit_int = torch.where((hit_light >= 0)[:, None], emit_le, 0.0)
-        color = color + torch.where(
+        color = st["color"] + torch.where(
             active[:, None],
-            (direct_int + emit_int * emission_weight[:, None])
+            (direct_int + emit_int * st["emission_weight"][:, None])
             * contribution, 0.0)
         # the last bounce's continuation would feed nothing: stop here
         if b == cfg.max_bounce - 1:
-            break
+            return dict(st, color=color, active=active)
         contribution = contribution * indirect_spec \
             / torch.clamp(ray_pdf, min=1e-9)[:, None]
 
@@ -130,6 +153,7 @@ def trace_pt(scene, cfg, key, ray_o, ray_d):
                                                   new_dir, alive=active))
         mat = bxdf_ops.gather_mat(scene, it.obj_id)
         hit_light = _hit_light(mat, it)
+        emission_weight = st["emission_weight"]
         if cfg.use_mis:
             surf_delta = mat.is_delta & (it.obj_id >= 0)
             can_mis = (hit_light >= 0) & ~surf_delta & ~is_specular
@@ -138,8 +162,19 @@ def trace_pt(scene, cfg, key, ray_o, ray_d):
                 emitter_ops.solid_angle_pdf(scene, hit_light.clamp(min=0),
                                             it.n_s, it.t, new_dir), 0.0)
             emission_weight = balance_heuristic(ray_pdf, e_pdf)
-        ray_o, ray_d = hit_point, new_dir
-    return color
+        return dict(ray_o=hit_point, ray_d=new_dir, it=it, mat=mat,
+                    hit_light=hit_light, color=color,
+                    contribution=contribution,
+                    emission_weight=emission_weight, active=active,
+                    pos=st["pos"])
+
+    if collect_alive:
+        st, counts = init, []
+        for b in range(cfg.max_bounce):
+            st = bounce(b, st)
+            counts.append(st["active"].sum())
+        return st["color"], torch.stack(counts)
+    return compact.run_compacted(bounce, init, cfg.max_bounce, schedule)
 
 
 def _scatter(cfg, pix, color):
@@ -150,15 +185,16 @@ def _scatter(cfg, pix, color):
     return film
 
 
-def render_pass_pt(scene, cfg, key, cnt):
+def render_pass_pt(scene, cfg, key, cnt, schedule=()):
     """One progressive sample for every pixel; returns (N, 3) radiance."""
     pix = crop_pix_ids(cfg, scene.device)
     key, cam_key = rng.split(key)
     ray_o, ray_d = camera_rays(scene, cfg, cam_key, cnt, pix_ids=pix)
-    return _scatter(cfg, pix, trace_pt(scene, cfg, key, ray_o, ray_d))
+    return _scatter(cfg, pix, trace_pt(scene, cfg, key, ray_o, ray_d,
+                                       schedule=schedule))
 
 
-def render_batch_pt(scene, cfg, key, cnt0, spp):
+def render_batch_pt(scene, cfg, key, cnt0, spp, schedule=()):
     """SUM of spp progressive samples, (N, 3); the JAX package's stream
     at fuse=1 (sample i: key fold_in i, camera key split off fold_in 0,
     trace key fold_in 7919)."""
@@ -169,8 +205,8 @@ def render_batch_pt(scene, cfg, key, cnt0, spp):
         k_cam, _ = rng.split(rng.fold_in(sub, 0))
         ray_o, ray_d = camera_rays(scene, cfg, k_cam, cnt0 + i, pix_ids=pix)
         color = torch.nan_to_num(
-            trace_pt(scene, cfg, rng.fold_in(sub, 7919), ray_o, ray_d),
-            nan=0.0)
+            trace_pt(scene, cfg, rng.fold_in(sub, 7919), ray_o, ray_d,
+                     schedule=schedule), nan=0.0)
         acc = color if acc is None else acc + color
     if acc is None:
         n = cfg.n_pixels if pix is None else pix.shape[0]
@@ -178,19 +214,49 @@ def render_batch_pt(scene, cfg, key, cnt0, spp):
     return _scatter(cfg, pix, acc)
 
 
+def probe_alive_pt(scene, cfg, key, cnt):
+    """One full pass that also returns the (max_bounce,) alive counts:
+    the auto-compaction probe. Returns (radiance (N,3), counts)."""
+    key, cam_key = rng.split(key)
+    ray_o, ray_d = camera_rays(scene, cfg, cam_key, cnt)
+    return trace_pt(scene, cfg, key, ray_o, ray_d, collect_alive=True)
+
+
 class Renderer(ProgressiveRenderer):
-    """Unidirectional MIS path tracer (reference vanilla_renderer.py:22)."""
+    """Unidirectional MIS path tracer (reference vanilla_renderer.py:22).
+
+    Scenes of at least _AUTO_MIN_PRIMS prims probe the alive profile once,
+    before their first pass, and length-compact every pass with the
+    derived schedule."""
 
     def __init__(self, scene, cfg, seed: int = 0):
         check_supported(scene, cfg)
         super().__init__(scene, cfg, seed)
+        self._auto = scene.n_prims >= _AUTO_MIN_PRIMS
+        self._sched = None
+
+    def _schedule(self):
+        if self._auto and self._sched is None:
+            # the probe draws from a fold_in of the current key (self.key
+            # untouched) and its sample is discarded, so the stream and
+            # the image equal a schedule-free renderer's exactly
+            _, counts = probe_alive_pt(self.scene, self.cfg,
+                                       rng.fold_in(self.key, 0x5EED), 1)
+            profile = counts.cpu().numpy().astype(np.float64) \
+                / self.cfg.n_pixels
+            self._sched = compact.derive_schedule(profile,
+                                                  self.cfg.max_bounce)
+        return self._sched or ()
 
     def render_pass(self, key, cnt):
-        return render_pass_pt(self.scene, self.cfg, key, cnt)
+        return render_pass_pt(self.scene, self.cfg, key, cnt,
+                              schedule=self._schedule())
 
     def render_batch(self, spp: int):
+        sched = self._schedule()
         self.key, sub = rng.split(self.key)
-        acc = render_batch_pt(self.scene, self.cfg, sub, self.cnt + 1, spp)
+        acc = render_batch_pt(self.scene, self.cfg, sub, self.cnt + 1, spp,
+                              schedule=sched)
         self.cnt += spp
         self.color = self.color + acc.reshape(self.cfg.w, self.cfg.h, 3)
         return self.color

@@ -6,12 +6,18 @@ into `SceneData`, with the JAX package's field names and the same
 precompute (triangles in plane + dual-basis form, so the ray/triangle test
 is t = (d - o.n)/(dir.n), u = (o + t dir).U - cu, v = (o + t dir).V - cv).
 
-Tables the slice does not read (BVH and cluster packs, texture atlases,
-grid volumes, per-object media beyond the IOR) are not built. Scenes that
-need them are recognised from their configuration and raise
-NotImplementedError at render (`check_supported`; grid volumes and BxDF
-mixtures already here), naming the ROADMAP item that ports them: the port
-never silently takes another path.
+Scenes of BVH_THRESHOLD prims or more also get the JAX package's BVH
+tables (`bvh_node_pack`, `bvh_prim_pack`; native binned-SAH build,
+native/), which the BVH kernels walk. Tables the port does not read (the
+TPU's cluster cut `cl_*`, texture atlases, grid volumes, per-object media
+beyond the IOR) are not built. Scenes that need them are recognised from
+their configuration and raise NotImplementedError at render
+(`check_supported`; grid volumes and BxDF mixtures already here), naming
+the ROADMAP item that ports them: the port never silently takes another
+path.
+
+Scenes load onto the CUDA device unless the caller asks for another; with
+no CUDA device that default raises (`resolve_device`).
 """
 from __future__ import annotations
 
@@ -21,11 +27,12 @@ import numpy as np
 import torch
 
 from ..constants import BRDFTag, EmitterTag, SPHERE
+from ..native import bvh_build
 from ..ops.math3d import np_rotation_between, fov2focal
 
-# Below this many prims the JAX package skips the BVH and scans every
-# triangle (adapt_tpu/scene/compile.py:455); the port's brute-force
-# kernels cover exactly that tier.
+# Below this many prims the JAX package builds no BVH and scans every
+# triangle (adapt_tpu/scene/compile.py:455); ops/intersect.py picks the
+# brute-force or the BVH kernels.
 BVH_THRESHOLD = 64
 
 
@@ -68,6 +75,11 @@ class SceneData:
     pre0: torch.Tensor       # (P,3) e1 (tri) / center (sphere)
     prim_obj: torch.Tensor   # (P,) i32 owning object
     prim_is_sphere: torch.Tensor  # (P,) bool
+    # --- BVH (skip-offset DFS order; 1-row inverted placeholders below
+    # BVH_THRESHOLD prims) ---
+    bvh_node_pack: torch.Tensor  # (M,9) f32: lo(3) hi(3) base cnt skip
+    bvh_prim_pack: torch.Tensor  # (P,14) f32, leaf-contiguous order:
+    # n|center(3) d|radius U(3) cu V(3) cv is_sphere gid
     # --- objects (O) ---
     obj_start: torch.Tensor      # (O,) first global prim id
     obj_cnt: torch.Tensor        # (O,) prim count
@@ -100,6 +112,11 @@ class SceneData:
     @property
     def device(self) -> torch.device:
         return self.tri_n.device
+
+    @property
+    def n_prims(self) -> int:
+        """Triangles plus spheres (a host int: read from shapes)."""
+        return self.tri_gid.shape[0] + self.sph_gid.shape[0]
 
     def to(self, device) -> "SceneData":
         """Copy of the scene with every table on `device`."""
@@ -185,8 +202,6 @@ def check_supported(scene: SceneData, cfg: RenderConfig):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
-    if cfg.use_bvh:
-        nope("the BVH tier (scenes of 64 prims or more)", "13 / kernel B5")
     if cfg.bsdf_types or cfg.has_null_bsdf:
         nope(f"BSDFs {cfg.bsdf_types}", 9)
     if set(cfg.brdf_types) - {BRDFTag.LAMBERTIAN}:
@@ -198,6 +213,60 @@ def check_supported(scene: SceneData, cfg: RenderConfig):
         nope("textures", 9)
     if cfg.volume_kind:
         nope("grid volumes", 14)
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must be present (the
+    port's entry points default to the card and never fall back to the
+    CPU: the CPU takes device="cpu")."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU by default; pass "
+            "device='cpu' to run on the CPU")
+    return device
+
+
+def _bvh_tables(prims, sph_ids, prim_n, prim_d, prim_U, prim_cu, prim_V,
+                prim_cv, prim_is_sphere):
+    """(bvh_node_pack (M,9), bvh_prim_pack (P,14)) f32, as
+    adapt_tpu/scene/compile.py:453-490 builds them."""
+    P = prims.shape[0]
+    prim_lo = prims.min(axis=1)
+    prim_hi = prims.max(axis=1)
+    if sph_ids.size:
+        c = prims[sph_ids, 0]
+        r = prims[sph_ids, 1, :1]
+        prim_lo[sph_ids] = c - r
+        prim_hi[sph_ids] = c + r
+    node_f, node_i, prim_order = bvh_build(
+        np.concatenate([prim_lo, prim_hi], axis=1).astype(np.float32))
+    # int fields ride float32 rows: exact only below 2^24
+    if P >= (1 << 24) or node_i.max() >= (1 << 24):
+        raise ValueError(
+            f"scene too large for the f32-packed BVH rows: P={P}, "
+            f"max node field {int(node_i.max())} (>= 2^24)")
+    node_pack = np.concatenate(
+        [node_f.astype(np.float32), node_i.astype(np.float32)], axis=1)
+    a = prim_n.copy()
+    b = prim_d.copy()
+    if sph_ids.size:
+        a[sph_ids] = prims[sph_ids, 0]           # sphere center
+        b[sph_ids] = prims[sph_ids, 1, 0]        # sphere radius
+    prim_pack = np.concatenate(
+        [a, b[:, None], prim_U, prim_cu[:, None], prim_V,
+         prim_cv[:, None], prim_is_sphere[:, None].astype(np.float32),
+         np.arange(P, dtype=np.float32)[:, None]], axis=1)
+    return node_pack, prim_pack[prim_order]
+
+
+def _placeholder_bvh():
+    """The JAX package's tables below BVH_THRESHOLD: an inverted box with
+    skip 1, so an accidental walk misses and ends."""
+    node = np.zeros((1, 9), np.float32)
+    node[:, 0:3], node[:, 3:6] = 3e38, -3e38
+    node[:, 8] = 1.0
+    return node, np.zeros((1, 14), np.float32)
 
 
 def _medium_table(mediums) -> MediumTable:
@@ -216,10 +285,11 @@ def _stack3(vals):
     return np.stack(vals).astype(np.float32)
 
 
-def compile_scene(emitters, array_info, objects, configs, device="cpu"):
+def compile_scene(emitters, array_info, objects, configs, device="cuda"):
     """Assemble (SceneData, RenderConfig) from parsed host structures,
     with the precompute of adapt_tpu/scene/compile.py:383-738."""
     from .bxdf import Mixture_np
+    device = resolve_device(device)
     if configs.get("volume"):
         raise NotImplementedError(
             "grid volumes are not ported yet (ROADMAP.md queue A item 14)")
@@ -273,6 +343,12 @@ def compile_scene(emitters, array_info, objects, configs, device="cpu"):
         pre0[sph_ids] = prims[sph_ids, 0]        # sphere center
     prim_is_sphere = np.zeros(P, bool)
     prim_is_sphere[sph_ids] = True
+    if P >= BVH_THRESHOLD:
+        node_pack, prim_pack = _bvh_tables(
+            prims, sph_ids, prim_n, prim_d, prim_U, prim_cu, prim_V, prim_cv,
+            prim_is_sphere)
+    else:
+        node_pack, prim_pack = _placeholder_bvh()
 
     cam_dir = configs["transform"][0]
     if cam_dir is None or np.ndim(cam_dir) != 1 or np.size(cam_dir) != 3:
@@ -376,6 +452,8 @@ def compile_scene(emitters, array_info, objects, configs, device="cpu"):
         pre0=_t(pre0, np.float32),
         prim_obj=_t(prim_obj),
         prim_is_sphere=_t(prim_is_sphere),
+        bvh_node_pack=_t(node_pack),
+        bvh_prim_pack=_t(prim_pack),
         obj_start=_t(obj_start),
         obj_cnt=_t(obj_cnt),
         obj_is_sphere=_t(obj_is_sphere),
@@ -404,9 +482,13 @@ def compile_scene(emitters, array_info, objects, configs, device="cpu"):
     return scene.to(device), cfg
 
 
-def load_scene(directory: str, file: str, device="cpu"):
-    """Parse + compile a scene in one call; returns (scene, cfg, configs)."""
+def load_scene(directory: str, file: str, device="cuda"):
+    """Parse + compile a scene in one call; returns (scene, cfg, configs).
+
+    The tables go to `device`, the CUDA device by default (raises when
+    there is none); the CPU takes device="cpu"."""
     from ..parsers.xml_parser import scene_parsing
+    device = resolve_device(device)
     emitters, array_info, objects, configs = scene_parsing(directory, file)
     scene, cfg = compile_scene(emitters, array_info, objects, configs,
                                device)

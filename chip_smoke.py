@@ -2,26 +2,38 @@
 """Drive the PyTorch/CUDA port (adapt_tpu_torch) once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
-It needs nvcc (the kernels build from csrc/ into build/adapt_tpu_torch/)
-and one CUDA device. Each phase prints one line; any failure ends the run
-with a non-zero exit and no result line.
+It needs nvcc and g++ (the kernels build from csrc/, the BVH builder from
+native/, all into build/adapt_tpu_torch/, started together) and one CUDA
+device. Each phase prints one line; any failure ends the run with a
+non-zero exit and no result line.
 
-1. device: the card's name and power limit, and the kernels' build time;
+1. device: the card's name and power limit, the build times, the
+   procedural meshes (scripts/gen_procedural.py) and the knot290k scene's
+   set-up time (parse, BVH build, upload);
 2. kernels: each hand-written CUDA kernel against its plain PyTorch twin
-   at cbox 512^2 shapes (262,144 rays a batch): hit ids and occlusion
-   exactly equal, t within rtol 2e-6, u/v within rtol 2e-5 atol 2e-6;
-   times by CUDA events, median of 5;
+   at 512^2 shapes (262,144 rays a batch): the brute-force pair on cbox,
+   the BVH pair on knot290k (primary rays; bounce rays from the primary
+   hits in seeded random directions with 15% dead lanes; shadow rays to
+   the point light). Hit ids and occlusion exactly equal, t within rtol
+   2e-6, u/v within rtol 2e-5 atol 2e-6 (same operation order: 0
+   expected); times by CUDA events, median of 5, and each kernel's bound;
 3. golden: render_pass_pt on the card at the settings of
-   tests/test_goldens.py against tests/goldens/cbox_pt_48.npy, with both
-   kernels launched;
-4. main path: Renderer on cbox 512^2 at 8 bounces (bench.py's setting),
-   render_batch of a few spp with the launch counts read around it; the
-   image must be finite with mean > 0.05 and match the same render with
-   the twins in place of the kernels under the goldens' bounds.
+   tests/test_goldens.py against tests/goldens/cbox_pt_48.npy;
+4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
+   setting), render_batch of a few spp with the launch counts read around
+   it; the image must be finite with mean > 0.05 and match the same render
+   with the twins in place of the kernels under the goldens' bounds;
+5. knot290k main path: Renderer on knot290k.xml at its own settings (512^2,
+   12 bounces, auto-compaction): the derived schedule, one warm-up spp,
+   then render_batch of a few spp with 12 launches of each BVH kernel per
+   spp and none of the brute-force ones; the image equal to the same
+   render with no compaction, and at 64^2 the render with the twins in
+   place matches under the goldens' bounds.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
 result line {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -32,11 +44,26 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SPP = 4            # main-path samples per pixel (after one warm-up spp)
+SPP = 4            # cbox main-path samples per pixel (after one warm-up spp)
+KNOT_SPP = 3       # knot290k main-path samples per pixel (after one warm-up)
 REPS = 5           # kernel timing repetitions (median)
-SOURCE = "adapt_tpu_torch/csrc/tri_intersect.cu"
-REPLACES = {"tri_closest_hit": "adapt_tpu/ops/intersect_pallas.py:58",
-            "tri_any_hit": "adapt_tpu/ops/intersect_pallas.py:109"}
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 operations/s outside
+# the tensor cores; a kernel's bound is the larger of its two times
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+# operations of one (ray, triangle) test of csrc/tri_intersect.cu: six
+# 3-term dots (5 each), the flat test, t, u, v and the five compares
+TRI_PAIR_OPS = 47
+KERNELS = {
+    "tri_closest_hit": ("adapt_tpu_torch/csrc/tri_intersect.cu",
+                        "adapt_tpu/ops/intersect_pallas.py:58"),
+    "tri_any_hit": ("adapt_tpu_torch/csrc/tri_intersect.cu",
+                    "adapt_tpu/ops/intersect_pallas.py:109"),
+    "bvh_closest_hit": ("adapt_tpu_torch/csrc/bvh_intersect.cu",
+                        "adapt_tpu/ops/cluster_pallas.py:647"),
+    "bvh_any_hit": ("adapt_tpu_torch/csrc/bvh_intersect.cu",
+                    "adapt_tpu/ops/cluster_pallas.py:766"),
+}
 
 
 def _require(ok, what):
@@ -56,11 +83,13 @@ def _check(img, ref):
     return err, float(img.mean()), float(ref.mean())
 
 
-def _time_ms(torch, fn):
-    """Median over REPS of one call, by CUDA events, after a warm-up."""
-    fn()
+def _time_ms(torch, fn, reps=REPS):
+    """Median over reps of one call, by CUDA events, after a warm-up
+    (none when reps == 1)."""
+    if reps > 1:
+        fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -71,35 +100,99 @@ def _time_ms(torch, fn):
     return statistics.median(times)
 
 
+def _bound(nbytes, ops):
+    """(least ms the card could take, what sets it)."""
+    b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def _close(torch, got, want, far, name):
+    """Kernel outputs (t, id, u, v, ...) against the twin's; returns the
+    max abs difference of the floats."""
+    t, ids, u, v = got[:4]
+    wt, wids, wu, wv = want[:4]
+    _require(torch.equal(ids, wids), f"{name}: hit ids differ from the twin")
+    torch.testing.assert_close(t, wt, rtol=2e-6, atol=0.0)
+    torch.testing.assert_close(u, wu, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(v, wv, rtol=2e-5, atol=2e-6)
+    _require(bool((t[far < 0] == -3e38).all()),
+             f"{name}: a dead lane did not come back with t = -3e38")
+    _require(float((ids >= 0).float().mean()) > 0.2, f"{name}: few hits")
+    return max(float((a - b).abs().max()) for a, b in
+               ((t, wt), (u, wu), (v, wv)))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
     import numpy as np
-    from adapt_tpu_torch import rng
-    from adapt_tpu_torch.ops import _build, intersect_kernels as K
+    from adapt_tpu_torch import native, rng
+    from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
+    from adapt_tpu_torch.ops import intersect_kernels as K
     from adapt_tpu_torch.ops.intersect import DEAD
+    from adapt_tpu_torch.parsers.xml_parser import scene_parsing
     from adapt_tpu_torch.renderer import pt
     from adapt_tpu_torch.renderer.base import camera_rays
-    from adapt_tpu_torch.scene.compile import load_scene
+    from adapt_tpu_torch.scene import compile as C
 
-    # ---- 1. device ----
+    def reset():
+        K.reset_launches()
+        BK.reset_launches()
+
+    def counts():
+        return {**K.launches, **BK.launches}
+
+    # ---- 1. device, builds, assets, set-up ----
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    K._lib()
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(fn) for fn in (K._lib, BK._lib, native._lib)]:
+            f.result()
     build_s = time.perf_counter() - t0
-    print(f"phase 1 device: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | kernels built and loaded in "
-          f"{build_s:.2f} s (nvcc {_build.build_seconds})", flush=True)
-
-    # ---- 2. kernels against their twins at 512^2 shapes ----
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
+                                                 "gen_procedural.py")],
+                   check=True, cwd=ROOT, stdout=subprocess.DEVNULL)
+    gen_s = time.perf_counter() - t0
     dev = torch.device("cuda")
-    scene, cfg0, _ = load_scene(os.path.join(ROOT, "scenes", "cbox"),
-                                "cbox.xml", device=dev)
+    cbox_dir = os.path.join(ROOT, "scenes", "cbox")
+    t0 = time.perf_counter()
+    parsed = scene_parsing(cbox_dir, "knot290k.xml")
+    parse_s = time.perf_counter() - t0
+    bvh_s = []
+    build_bvh = C.bvh_build
+
+    def timed_build(aabbs):
+        t = time.perf_counter()
+        out = build_bvh(aabbs)
+        bvh_s.append(time.perf_counter() - t)
+        return out
+    C.bvh_build = timed_build
+    t0 = time.perf_counter()
+    kscene, kcfg = C.compile_scene(*parsed, device="cpu")
+    compile_s = time.perf_counter() - t0
+    C.bvh_build = build_bvh
+    t0 = time.perf_counter()
+    kscene = kscene.to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    _require(kscene.n_prims == 290010 and kcfg.max_bounce == 12
+             and (kcfg.w, kcfg.h) == (512, 512), "knot290k settings")
+    print(f"phase 1 device: {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | builds started together, all done in "
+          f"{build_s:.2f} s {_build.build_seconds} | meshes {gen_s:.2f} s | "
+          f"knot290k set-up: parse {parse_s:.2f} s, compile {compile_s:.2f} "
+          f"s of which BVH build {bvh_s[0]:.2f} s "
+          f"({kscene.bvh_node_pack.shape[0]} nodes), upload {upload_s:.3f} "
+          f"s", flush=True)
+
+    # ---- 2a. brute-force kernels against their twins, cbox 512^2 ----
+    scene, cfg0, _ = C.load_scene(cbox_dir, "cbox.xml")
     cfg = dataclasses.replace(cfg0, max_bounce=8)        # bench.py:35
     ro, rd = camera_rays(scene, cfg, rng.split(rng.PRNGKey(0))[1], 1)
     ro = ro.contiguous()
@@ -119,30 +212,19 @@ def main():
     sd = to_l / dist[:, None]
     far_s = torch.where(alive, dist - K.RAY_EPS, DEAD)
 
-    errs = {"tri_closest_hit": 0.0, "tri_any_hit": 0.0}
+    errs = {k: 0.0 for k in KERNELS}
     for o, d, far in ((ro, rd, far_p), (bo, bd, far_b)):
         got = K.tri_closest_hit(scene, o, d, far)
         want = K.tri_closest_hit_plain(scene, o, d, far)
-        t, row, u, v, ng, obj = got
-        wt, wrow, wu, wv, wng, wobj = want
-        _require(torch.equal(row, wrow) and torch.equal(obj, wobj),
-                 "closest-hit rows / objects differ from the twin")
-        _require(torch.equal(ng, wng), "closest-hit normals differ")
-        torch.testing.assert_close(t, wt, rtol=2e-6, atol=0.0)
-        torch.testing.assert_close(u, wu, rtol=2e-5, atol=2e-6)
-        torch.testing.assert_close(v, wv, rtol=2e-5, atol=2e-6)
-        _require(bool((t[far < 0] == DEAD).all()),
-                 "a dead lane did not come back with t = -3e38")
-        _require(float((row >= 0).float().mean()) > 0.2, "too few hits")
-        errs["tri_closest_hit"] = max(
-            errs["tri_closest_hit"],
-            *[float((a - b).abs().max()) for a, b in
-              ((t, wt), (u, wu), (v, wv), (ng, wng))])
+        _require(torch.equal(got[5], want[5]) and torch.equal(got[4], want[4]),
+                 "closest-hit objects / normals differ from the twin")
+        errs["tri_closest_hit"] = max(errs["tri_closest_hit"], _close(
+            torch, got, want, far, "tri_closest_hit"))
     n_occ = 0
     for o, d, far in ((so, sd, far_s), (bo, bd, far_b)):
         occ = K.tri_any_hit(scene, o, d, far)
-        wocc = K.tri_any_hit_plain(scene, o, d, far)
-        _require(torch.equal(occ, wocc), "occlusion differs from the twin")
+        _require(torch.equal(occ, K.tri_any_hit_plain(scene, o, d, far)),
+                 "tri_any_hit: occlusion differs from the twin")
         _require(not bool(occ[far < 0].any()), "a dead lane is occluded")
         n_occ += int(occ.sum())
     _require(n_occ > 0, "no shadow ray was occluded")
@@ -155,10 +237,88 @@ def main():
             _time_ms(torch, lambda: K.tri_any_hit(scene, so, sd, far_s)),
             _time_ms(torch, lambda: K.tri_any_hit_plain(scene, so, sd,
                                                         far_s)))}
-    print("phase 2 kernels vs twins at %d rays: " % N + "; ".join(
-        f"{k} exact ids, max abs err {errs[k]:.3g}, kernel {t:.4f} ms, "
-        f"twin {p:.4f} ms" for k, (t, p) in times.items())
-        + f" [{card}]", flush=True)
+    # bounds: rays, far and the tables read once, outputs written once;
+    # the closest hit tests every pair, the any hit each ray's rows up to
+    # its first occluder (what these rays need)
+    T = scene.tri_n.shape[0]
+    geo_t, _u, _v, valid = K._hit_tables(K.tri_table(scene)[0], so, sd)
+    first = torch.where(valid & (geo_t < far_s[:, None]),
+                        torch.arange(T, device=dev), T).amin(dim=1)
+    any_pairs = int(torch.where(far_s < 0, 0,
+                                torch.clamp(first + 1, max=T)).sum())
+    bounds = {
+        "tri_closest_hit": _bound(N * 28 + T * 64 + N * 32,
+                                  N * T * TRI_PAIR_OPS),
+        "tri_any_hit": _bound(N * 28 + T * 48 + N, any_pairs * TRI_PAIR_OPS)}
+    print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
+          + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
+                      f"{t:.4f} ms, twin {p:.4f} ms, bound "
+                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                      for k, (t, p) in times.items()) + f" [{card}]",
+          flush=True)
+
+    # ---- 2b. BVH kernels against their twin, knot290k 512^2 ----
+    kro, krd = camera_rays(kscene, kcfg, rng.split(rng.PRNGKey(1))[1], 1)
+    kro = kro.contiguous()
+    kfar_p = torch.full((N,), K.FAR, device=dev)
+    pt_t, p_prim = BK.bvh_closest_hit(kscene, kro, krd, kfar_p)[:2]
+    kalive = (p_prim >= 0) & (torch.rand(N, generator=g, device=dev) > 0.15)
+    kbo = kro + torch.where(kalive, pt_t, 0.0)[:, None] * krd
+    kbd = torch.randn((N, 3), generator=g, device=dev)
+    kbd = kbd / kbd.norm(dim=-1, keepdim=True)
+    kfar_b = torch.where(kalive, K.FAR, DEAD)
+    kto_l = kscene.emit_pos[0] - kbo
+    kdist = kto_l.norm(dim=-1)
+    ksd = kto_l / kdist[:, None]
+    kfar_s = torch.where(kalive, kdist - K.RAY_EPS, DEAD)
+    work = {}
+    for o, d, far, tag in ((kro, krd, kfar_p, "primary"),
+                           (kbo, kbd, kfar_b, "bounce")):
+        got = BK.bvh_closest_hit(kscene, o, d, far)
+        want = bvh.walk(kscene, o, d, far, stats=True)
+        errs["bvh_closest_hit"] = max(errs["bvh_closest_hit"], _close(
+            torch, got, want, far, f"bvh_closest_hit ({tag} rays)"))
+        work[("bvh_closest_hit", tag)] = (int(want[4].sum()),
+                                          int(want[5].sum()))
+    for o, d, far, tag in ((kbo, ksd, kfar_s, "shadow"),
+                           (kbo, kbd, kfar_b, "bounce")):
+        occ = BK.bvh_any_hit(kscene, o, d, far)
+        want = bvh.walk(kscene, o, d, far, any_hit=True, stats=True)
+        _require(torch.equal(occ, want[1] >= 0),
+                 f"bvh_any_hit ({tag} rays): occlusion differs from the twin")
+        _require(not bool(occ[far < 0].any()), "a dead lane is occluded")
+        work[("bvh_any_hit", tag)] = (int(want[4].sum()), int(want[5].sum()))
+    _require(0 < int(BK.bvh_any_hit(kscene, kbo, ksd, kfar_s).sum())
+             < int(kalive.sum()), "shadow rays all or none occluded")
+    ktimes = {
+        "bvh_closest_hit": (
+            _time_ms(torch, lambda: BK.bvh_closest_hit(kscene, kbo, kbd,
+                                                       kfar_b)),
+            _time_ms(torch, lambda: BK.bvh_closest_hit_plain(
+                kscene, kbo, kbd, kfar_b), reps=1)),
+        "bvh_any_hit": (
+            _time_ms(torch, lambda: BK.bvh_any_hit(kscene, kbo, ksd,
+                                                   kfar_s)),
+            _time_ms(torch, lambda: BK.bvh_any_hit_plain(
+                kscene, kbo, ksd, kfar_s), reps=1))}
+    times.update(ktimes)
+    # bounds: rays, far and both tables read once, outputs written once;
+    # operations: the node visits and prim tests these rays need (twin)
+    tables = 4 * (kscene.bvh_node_pack.numel() + kscene.bvh_prim_pack.numel())
+    for k, tag, out_bytes in (("bvh_closest_hit", "bounce", 16),
+                              ("bvh_any_hit", "shadow", 1)):
+        visits, tests = work[(k, tag)]
+        bounds[k] = _bound(N * 28 + tables + N * out_bytes,
+                           visits * bvh.NODE_OPS + tests * bvh.PRIM_OPS)
+    print("phase 2b BVH kernels vs twin, knot290k, %d rays: " % N
+          + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
+                      f"{t:.4f} ms, twin {p:.4f} ms (one call), bound "
+                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                      for k, (t, p) in ktimes.items())
+          + " | node visits / prim tests per ray: " + ", ".join(
+              f"{k} {tag} {v / N:.2f} / {s / N:.2f}"
+              for (k, tag), (v, s) in work.items()) + f" [{card}]",
+          flush=True)
 
     # ---- 3. golden on the card ----
     w = 48                                   # tests/test_goldens.py:25-29
@@ -166,10 +326,11 @@ def main():
         cfg0, w=w, h=w, focal=cfg0.focal * w / 512, end_x=w, end_y=w,
         max_bounce=3, anti_alias=False, stratified_sampling=False,
         use_rr=False)
-    K.reset_launches()
+    reset()
     img = pt.render_pass_pt(scene, small, rng.PRNGKey(42), 1)
-    golden_launches = dict(K.launches)
-    _require(all(n > 0 for n in golden_launches.values()),
+    golden_launches = counts()
+    _require(golden_launches["tri_closest_hit"] > 0
+             and golden_launches["tri_any_hit"] > 0,
              f"a kernel did not launch: {golden_launches}")
     err, mean, ref_mean = _check(
         img.cpu().numpy(),
@@ -178,47 +339,52 @@ def main():
           f"{mean:.6f} vs {ref_mean:.6f}, launches {golden_launches}",
           flush=True)
 
-    # ---- 4. main path at full size ----
+    @contextlib.contextmanager
+    def twins():
+        """The path's wrappers swapped for their plain twins."""
+        saved = (K.tri_closest_hit, K.tri_any_hit, BK.bvh_closest_hit,
+                 BK.bvh_any_hit)
+        K.tri_closest_hit = K.tri_closest_hit_plain
+        K.tri_any_hit = K.tri_any_hit_plain
+        BK.bvh_closest_hit = BK.bvh_closest_hit_plain
+        BK.bvh_any_hit = BK.bvh_any_hit_plain
+        try:
+            yield
+        finally:
+            (K.tri_closest_hit, K.tri_any_hit, BK.bvh_closest_hit,
+             BK.bvh_any_hit) = saved
+
+    def timed_batch(r, spp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render_batch(spp)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def rays_per_spp(c):
+        return c.n_pixels * (1 + c.max_bounce * c.num_shadow_ray
+                             + (c.max_bounce - 1))    # bench.py:61-63
+
+    # ---- 4. cbox main path at full size ----
     r = pt.Renderer(scene, cfg, seed=0)
     r.render_batch(1)                         # warm-up sample, not timed
-    torch.cuda.synchronize()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    r.render_batch(SPP)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(K.launches)
+    reset()
+    dt = timed_batch(r, SPP)
+    launches = counts()
     image = r.image()
     _require(image.shape == (cfg.h, cfg.w, 3), f"image shape {image.shape}")
     _require(bool(np.isfinite(image).all()) and image.mean() > 0.05,
              f"image not finite or too dark (mean {image.mean()})")
-    per_spp = {"tri_closest_hit": cfg.max_bounce,
-               "tri_any_hit": cfg.max_bounce * cfg.num_shadow_ray}
-    _require(launches == {k: SPP * n for k, n in per_spp.items()},
-             f"launch counts {launches}, want {per_spp} per spp")
-
-    @contextlib.contextmanager
-    def twins():
-        """The path's two wrappers swapped for their plain twins."""
-        saved = K.tri_closest_hit, K.tri_any_hit
-        K.tri_closest_hit = K.tri_closest_hit_plain
-        K.tri_any_hit = K.tri_any_hit_plain
-        try:
-            yield
-        finally:
-            K.tri_closest_hit, K.tri_any_hit = saved
-
+    want = {"tri_closest_hit": SPP * cfg.max_bounce,
+            "tri_any_hit": SPP * cfg.max_bounce * cfg.num_shadow_ray,
+            "bvh_closest_hit": 0, "bvh_any_hit": 0}
+    _require(launches == want, f"cbox launch counts {launches}, want {want}")
     r_twin = pt.Renderer(scene, cfg, seed=0)
     with twins():
         r_twin.render_batch(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r_twin.render_batch(SPP)
-        torch.cuda.synchronize()
-        dt_twin = time.perf_counter() - t0
+        dt_twin = timed_batch(r_twin, SPP)
     twin_err, _, _ = _check(image, r_twin.image())
-    rays = cfg.n_pixels * (1 + cfg.max_bounce * cfg.num_shadow_ray
-                           + (cfg.max_bounce - 1))    # bench.py:61-63
+    rays = rays_per_spp(cfg)
     print(f"phase 4 main path cbox {cfg.w}x{cfg.h} mb {cfg.max_bounce}, "
           f"{SPP} spp: {1e3 * dt / SPP:.2f} ms/spp, "
           f"{rays * SPP / dt / 1e6:.3f} Mrays/s [{card}]; twins in place: "
@@ -227,11 +393,62 @@ def main():
           f"{image.mean():.6f}, max abs diff to twins {twin_err:.3g}; "
           f"launches {launches}", flush=True)
 
+    # ---- 5. knot290k main path at full size, auto-compaction ----
+    r = pt.Renderer(kscene, kcfg, seed=0)
+    _require(r._auto, "knot290k is under the auto-compaction gate")
+    t0 = time.perf_counter()
+    r.render_batch(1)                 # the alive probe + one warm-up spp
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    sched = r._sched
+    reset()
+    dt = timed_batch(r, KNOT_SPP)
+    klaunches = counts()
+    kimage = r.image()
+    _require(kimage.shape == (kcfg.h, kcfg.w, 3), f"shape {kimage.shape}")
+    _require(bool(np.isfinite(kimage).all()) and kimage.mean() > 0,
+             f"image not finite or black (mean {kimage.mean()})")
+    want = {"tri_closest_hit": 0, "tri_any_hit": 0,
+            "bvh_closest_hit": KNOT_SPP * kcfg.max_bounce,
+            "bvh_any_hit": KNOT_SPP * kcfg.max_bounce * kcfg.num_shadow_ray}
+    _require(klaunches == want,
+             f"knot290k launch counts {klaunches}, want {want}")
+    plain = pt.Renderer(kscene, kcfg, seed=0)
+    plain._sched = ()                 # the same render without compaction
+    plain.render_batch(1)
+    dt_plain = timed_batch(plain, KNOT_SPP)
+    _require(torch.equal(plain.color, r.color),
+             "the compacted render differs from the uncompacted one")
+    w = 64
+    small = dataclasses.replace(kcfg, w=w, h=w, focal=kcfg.focal * w / 512,
+                                end_x=w, end_y=w)
+    rk = pt.Renderer(kscene, small, seed=1)
+    rk.render_batch(1)
+    rt = pt.Renderer(kscene, small, seed=1)
+    with twins():
+        rt.render_batch(1)
+    ktwin_err, _, _ = _check(rk.image(), rt.image())
+    rays = rays_per_spp(kcfg)
+    print(f"phase 5 main path knot290k {kcfg.w}x{kcfg.h} mb "
+          f"{kcfg.max_bounce}, schedule {sched}, {KNOT_SPP} spp: "
+          f"{dt / KNOT_SPP:.4f} s/spp, {rays * KNOT_SPP / dt / 1e6:.3f} "
+          f"Mrays/s [{card}]; uncompacted: {dt_plain / KNOT_SPP:.4f} s/spp, "
+          f"{rays * KNOT_SPP / dt_plain / 1e6:.3f} Mrays/s, image equal; "
+          f"probe + warm-up spp {warm_s:.2f} s; image mean "
+          f"{kimage.mean():.6f}; 64^2 max abs diff to twins {ktwin_err:.3g}; "
+          f"launches {klaunches}", flush=True)
+
+    path_launches = {**{k: launches[k] for k in ("tri_closest_hit",
+                                                 "tri_any_hit")},
+                     **{k: klaunches[k] for k in ("bvh_closest_hit",
+                                                  "bvh_any_hit")}}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": launches[k],
-         "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1]}
-        for k in ("tri_closest_hit", "tri_any_hit")]}))
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": path_launches[k], "max_abs_err": errs[k],
+         "ms": times[k][0], "plain_ms": times[k][1],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
+        for k, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

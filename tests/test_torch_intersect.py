@@ -51,7 +51,8 @@ def _small(cfg, w, h=None):
 @pytest.fixture(scope="module")
 def cbox():
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "cbox.xml")
-    scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "cbox.xml")
+    scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "cbox.xml",
+                               device="cpu")
     return jscene, _small(jcfg, 32), scene, _small(cfg, 32)
 
 
@@ -198,7 +199,8 @@ def test_sphere_scene_matches_jax():
     """Triangles and spheres combined (csphere), ray counts of any size."""
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/csphere/",
                                      "single-ball.xml")
-    scene, cfg, _ = load_scene(SCENE_DIR + "/csphere/", "single-ball.xml")
+    scene, cfg, _ = load_scene(SCENE_DIR + "/csphere/", "single-ball.xml",
+                               device="cpu")
     jcfg, cfg = _small(jcfg, 17, 13), _small(cfg, 17, 13)
     ro, rd = _rays(scene, cfg, 2)
     want = jax_ray_intersect(jscene, jcfg, jnp.asarray(ro), jnp.asarray(rd))

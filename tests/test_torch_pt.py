@@ -42,7 +42,8 @@ def _close(img, ref):
 @pytest.fixture(scope="module")
 def cbox():
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "cbox.xml")
-    scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "cbox.xml")
+    scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "cbox.xml",
+                               device="cpu")
     return jscene, jcfg, scene, cfg
 
 
@@ -116,6 +117,23 @@ def test_render_batch_and_checkpoint(cbox):
             r.get_check_point())
 
 
+def test_knot_scene_pass_matches_jax():
+    """The BVH tier end to end: knot2k-test (2,000 triangles, a sphere
+    and the cbox walls) at 24^2 and its own 12 bounces, RR and MIS on."""
+    import test_torch_bvh  # noqa: F401  (generates the knot mesh)
+    jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml")
+    scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml",
+                               device="cpu")
+    kw = dict(w=24, h=24, focal=cfg.focal * 24 / 512, end_x=24, end_y=24)
+    assert cfg.max_bounce == 12 and cfg.use_bvh
+    ref = jpt.render_pass_pt(jscene, dataclasses.replace(jcfg, **kw),
+                             jax.random.PRNGKey(9), jnp.int32(1))
+    img = pt.render_pass_pt(scene, dataclasses.replace(cfg, **kw),
+                            rng.PRNGKey(9), 1)
+    _close(img.numpy(), ref)
+    assert img.mean() > 0.05
+
+
 def test_crop_window(cbox):
     _, _, scene, cfg = cbox
     cfg = dataclasses.replace(_small(cfg, 16), start_x=4, end_x=12,
@@ -138,7 +156,7 @@ def test_cpu_path_uses_twins_not_kernels(cbox):
 
 def test_port_imports_no_jax():
     code = ("import sys; import adapt_tpu_torch.renderer.pt, "
-            "adapt_tpu_torch.convert; "
+            "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")

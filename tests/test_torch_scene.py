@@ -31,19 +31,20 @@ def _assert_leaves_equal(a, b):
 def test_leaves_and_config_match_jax(scene_file):
     d, f = scene_file
     jscene, jcfg, _ = jax_load_scene(f"{SCENE_DIR}/{d}/", f)
-    scene, cfg, _ = load_scene(f"{SCENE_DIR}/{d}/", f)
+    scene, cfg, _ = load_scene(f"{SCENE_DIR}/{d}/", f, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jleaves = scene_leaves(jscene)
     assert set(jleaves) == set(LEAF_NAMES)
     _assert_leaves_equal(scene_leaves(scene), jleaves)
     # carried across from the JAX objects
-    conv, ccfg = scene_from_numpy(jleaves, dataclasses.asdict(jcfg))
+    conv, ccfg = scene_from_numpy(jleaves, dataclasses.asdict(jcfg),
+                                   device="cpu")
     assert ccfg == cfg
     _assert_leaves_equal(scene_leaves(conv), jleaves)
 
 
 def test_cbox_is_the_slice():
-    scene, cfg, _ = load_scene(f"{SCENE_DIR}/cbox/", "cbox.xml")
+    scene, cfg, _ = load_scene(f"{SCENE_DIR}/cbox/", "cbox.xml", device="cpu")
     assert scene.tri_n.shape[0] == 34 and scene.sph_center.shape[0] == 0
     assert scene.obj_start.shape[0] == 7
     assert cfg.brdf_types == (1,) and cfg.emitter_kinds == (0,)
@@ -55,7 +56,7 @@ def test_cbox_is_the_slice():
                                         ("vpt", "cbox.xml")])
 def test_unsupported_scene_raises_at_render(scene_file):
     d, f = scene_file
-    scene, cfg, _ = load_scene(f"{SCENE_DIR}/{d}/", f)
+    scene, cfg, _ = load_scene(f"{SCENE_DIR}/{d}/", f, device="cpu")
     cfg = dataclasses.replace(cfg, w=8, h=8, end_x=8, end_y=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_pass_pt(scene, cfg, rng.PRNGKey(0), 1)
@@ -64,7 +65,7 @@ def test_unsupported_scene_raises_at_render(scene_file):
 
 
 def test_scene_to_device_keeps_tables():
-    scene, _, _ = load_scene(f"{SCENE_DIR}/cbox/", "cbox.xml")
+    scene, _, _ = load_scene(f"{SCENE_DIR}/cbox/", "cbox.xml", device="cpu")
     moved = scene.to("cpu")
     assert moved is not scene
     _assert_leaves_equal(scene_leaves(moved), scene_leaves(scene))

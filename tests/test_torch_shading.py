@@ -47,7 +47,8 @@ def _unit(g, n):
 @pytest.fixture(scope="module")
 def cbox():
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "cbox.xml")
-    scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "cbox.xml")
+    scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "cbox.xml",
+                               device="cpu")
     return jscene, jcfg, scene, cfg
 
 
