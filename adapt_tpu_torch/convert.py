@@ -18,7 +18,8 @@ from .scene.compile import (MediumTable, RenderConfig, SceneData,
                             TextureTable, resolve_device)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
-_NESTED = {"medium": ("ior",), "world_medium": ("ior",)}
+_MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
+_NESTED = {"medium": _MEDIUM, "world_medium": _MEDIUM}
 
 # dotted names of every SceneData leaf the port reads; each resolves on a
 # JAX SceneData and on the port's alike (attributes, and dict keys in tex)

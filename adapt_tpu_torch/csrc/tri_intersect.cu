@@ -1,8 +1,10 @@
-// Brute-force ray/triangle closest-hit and any-hit kernels for Hopper (sm_90a).
+// Brute-force ray/triangle kernels for Hopper (sm_90a): closest hit, any hit
+// and the media walk's hits.
 //
 // Replace the Pallas TPU kernels adapt_tpu/ops/intersect_pallas.py
-// `_tri_kernel` (closest hit, :58) and `_occ_kernel` (any hit, :109): the
-// same plane + dual-basis test, over every triangle of a small scene.
+// `_tri_kernel` (closest hit, :58), `_occ_kernel` (any hit, :109) and
+// `_track_kernel` (media walk, :131): the same plane + dual-basis test, over
+// every triangle of a small scene.
 //
 //   t = (d - o.n) / (dir.n)     (|dir.n| < 1e-12 -> denominator 1e-12, and
 //   u = (o.U + t*(dir.U)) - cu   the row is rejected)
@@ -27,6 +29,8 @@
 // pair from shared memory plus 40 bytes per ray of device memory traffic,
 // so it is issue-bound, not memory-bound. Making it fast (wider tiles of
 // rays per thread, a BVH for larger T) is later work.
+//
+// The media-walk kernel (tri_track_kernel) is documented where it starts.
 
 #include <cuda_runtime.h>
 
@@ -156,6 +160,144 @@ __global__ void tri_any_kernel(const float* __restrict__ ro_all,
   if (live) occ_out[i] = occ;
 }
 
+// ---------------------------------------------------------------------------
+// Media walk (B3): everything a shadow ray through null medium boundaries
+// needs, in one pass, per ray:
+//   * the blocker: the closest valid hit on a non-null row before far
+//     (FAR / -1 / 0 on a miss: FAR, not far);
+//   * K eps-chained null interfaces: slot k is the smallest null hit t with
+//     prev < t < min(t_blk, far), ties to the lowest row; prev starts at 0
+//     and becomes the slot's t + CHAIN_SEP after each slot, even an empty
+//     one (t = FAR); empty slots are FAR / -1 / 0;
+//   * overflow: a null hit beyond the K slots is still before the blocker
+//     (the caller re-walks that lane sequentially).
+// dn = dot(n_g, d) of the chosen row, summed as (a0*b0 + a1*b1) + a2*b2,
+// plus 0.0 (the Pallas kernel's one-hot sum turns -0.0 into +0.0).
+//
+// The TPU kernel computes the (T, 2048) hit tables once and runs K + 1
+// min-reductions over them. Here one thread per ray runs K + 2 sweeps over
+// the table, staged in shared memory (kept resident when T <= TILE, as on
+// every scene of the brute-force tier): one over the non-null rows for the
+// blocker, K chained sweeps over the null rows, one over the null rows for
+// overflow. Each sweep recomputes the hit math, which gives the same bits
+// and keeps no per-row state in registers. The null flags are a per-row
+// table rather than a list of null rows, so the wrapper needs no host round
+// trip to count them. Lanes whose far bound is at or below RAY_EPS (dead
+// lanes carry -3e38) cannot hit anything and skip the sweeps.
+//
+// Bound: at the vpt cbox's T = 36 (12 null rows) a ray takes 24 + 3 * 12
+// pair tests (~47 operations each) from shared memory and moves 28 bytes in
+// and 13 + 12 K bytes out, so it is issue-bound like the closest hit.
+
+constexpr float kFar = 1e7f;
+constexpr float kChainSep = 5e-5f;  // 0.5 * RAY_EPS
+
+__device__ __forceinline__ void stage_rows(float* s_geo, bool* s_null,
+                                           const float* geo,
+                                           const bool* null_tab, int base,
+                                           int T) {
+  __syncthreads();
+  for (int k = threadIdx.x; k < TILE * ROW; k += blockDim.x) {
+    const int r = base + k / ROW;
+    s_geo[k] = r < T ? geo[(size_t)base * ROW + k] : 0.0f;
+  }
+  for (int k = threadIdx.x; k < TILE; k += blockDim.x)
+    s_null[k] = base + k < T ? null_tab[base + k] : false;
+  __syncthreads();
+}
+
+__device__ __forceinline__ float normal_dot(const float* rd,
+                                            const float* ng_tab, int row) {
+  const float d = dot3(rd[0], rd[1], rd[2], ng_tab + (size_t)row * 3);
+  return __fadd_rn(d, 0.0f);
+}
+
+__global__ void tri_track_kernel(
+    const float* __restrict__ ro_all, const float* __restrict__ rd_all,
+    const float* __restrict__ far_all, int n, const float* __restrict__ geo,
+    const float* __restrict__ ng_tab, const int* __restrict__ obj_tab,
+    const bool* __restrict__ null_tab, int T, int K,
+    float* __restrict__ t_null, int* __restrict__ obj_null,
+    float* __restrict__ dn_null, float* __restrict__ tb_out,
+    int* __restrict__ ob_out, float* __restrict__ db_out,
+    bool* __restrict__ ov_out) {
+  __shared__ float s_geo[TILE * ROW];
+  __shared__ bool s_null[TILE];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  float ro[3] = {0.0f, 0.0f, 0.0f}, rd[3] = {0.0f, 0.0f, 1.0f};
+  float far = -3e38f;
+  if (live) {
+    for (int c = 0; c < 3; ++c) {
+      ro[c] = ro_all[(size_t)i * 3 + c];
+      rd[c] = rd_all[(size_t)i * 3 + c];
+    }
+    far = far_all[i];
+  }
+  const bool walk = far > 1e-4f;
+  const bool resident = T <= TILE;  // one tile, staged once for all sweeps
+
+  // closest blocker: strict < from FAR, so the lowest row wins a tie and
+  // rows at FAR (invalid) never win
+  float t_blk = kFar;
+  int i_blk = -1;
+  for (int base = 0; base < T; base += TILE) {
+    stage_rows(s_geo, s_null, geo, null_tab, base, T);
+    const int m = walk ? min(TILE, T - base) : 0;
+    for (int j = 0; j < m; ++j) {
+      if (s_null[j]) continue;
+      float t, u, v;
+      const float tm =
+          tri_test(ro, rd, s_geo + j * ROW, &t, &u, &v) ? t : kFar;
+      if (tm < t_blk) {
+        t_blk = tm;
+        i_blk = base + j;
+      }
+    }
+  }
+  const float t_cut = fminf(t_blk, far);
+
+  // K chained null slots, then (k == K) the overflow sweep
+  float prev = 0.0f;
+  bool overflow = false;
+  for (int k = 0; k <= K; ++k) {
+    float best = kFar;
+    int bi = -1;
+    for (int base = 0; base < T; base += TILE) {
+      if (!resident) stage_rows(s_geo, s_null, geo, null_tab, base, T);
+      const int m = walk ? min(TILE, T - base) : 0;
+      for (int j = 0; j < m; ++j) {
+        if (!s_null[j]) continue;
+        float t, u, v;
+        const float tm =
+            tri_test(ro, rd, s_geo + j * ROW, &t, &u, &v) ? t : kFar;
+        if (tm < t_cut && tm > prev && tm < best) {
+          best = tm;
+          bi = base + j;
+        }
+      }
+    }
+    if (k == K) {
+      overflow = bi >= 0;
+      break;
+    }
+    if (live) {
+      const bool hit = bi >= 0 && best < far;
+      const size_t o = (size_t)k * n + i;
+      t_null[o] = hit ? best : kFar;
+      obj_null[o] = hit ? obj_tab[bi] : -1;
+      dn_null[o] = hit ? normal_dot(rd, ng_tab, bi) : 0.0f;
+    }
+    prev = __fadd_rn(best, kChainSep);
+  }
+  if (!live) return;
+  const bool hit_b = i_blk >= 0 && t_blk < far;
+  tb_out[i] = hit_b ? t_blk : kFar;
+  ob_out[i] = hit_b ? obj_tab[i_blk] : -1;
+  db_out[i] = hit_b ? normal_dot(rd, ng_tab, i_blk) : 0.0f;
+  ov_out[i] = overflow;
+}
+
 static int blocks_for(int n) { return (n + TILE - 1) / TILE; }
 
 extern "C" int tri_closest_hit(const float* ro, const float* rd,
@@ -173,5 +315,18 @@ extern "C" int tri_any_hit(const float* ro, const float* rd, const float* far,
                            void* stream) {
   tri_any_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
       ro, rd, far, n, geo, T, occ);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tri_track_hits(const float* ro, const float* rd,
+                              const float* far, int n, const float* geo,
+                              const float* ng, const int* obj,
+                              const bool* null_tab, int T, int K,
+                              float* t_null, int* obj_null, float* dn_null,
+                              float* tb, int* ob, float* db, bool* ov,
+                              void* stream) {
+  tri_track_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
+      ro, rd, far, n, geo, ng, obj, null_tab, T, K, t_null, obj_null, dn_null,
+      tb, ob, db, ov);
   return (int)cudaGetLastError();
 }

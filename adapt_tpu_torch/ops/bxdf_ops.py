@@ -1,10 +1,11 @@
 """BxDF evaluation / sampling / pdf (port of adapt_tpu/ops/bxdf_ops.py).
 
-The slice ports the lambertian BRDF, the material gather and the unified
+The port has the lambertian BRDF, the NULL BSDF (a medium boundary that
+light passes straight through), the material gather and the unified
 surface dispatch. Each model is a branchless batched function over the
 whole wavefront; the dispatcher evaluates only the models present in the
-scene (cfg.brdf_types) and blends with masks. Any tag that is not ported
-raises instead of being skipped.
+scene (cfg.brdf_types, cfg.bsdf_types) and blends with masks. Any tag
+that is not ported raises instead of being skipped.
 
 Conventions (as in the reference):
   incid : ray direction pointing INTO the surface (camera->surface)
@@ -16,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ..constants import BRDFTag, INV_PI
+from ..constants import BRDFTag, BSDFTag, INV_PI
 from .math3d import axis_vec, dot, delocalize_rotate
 from .sampling import cosine_hemisphere
 
@@ -58,13 +59,45 @@ def eval_lambertian(mat, it, normal, out):
 
 
 def _ported(cfg):
-    """The BRDF tags present; raises on any the slice does not port."""
+    """The BRDF tags present; raises on any BxDF tag the port does not
+    have yet."""
     extra = set(cfg.brdf_types) - {BRDFTag.LAMBERTIAN}
-    if extra or cfg.bsdf_types:
+    extra_bsdf = set(cfg.bsdf_types) - {BSDFTag.NULL}
+    if extra or extra_bsdf:
         raise NotImplementedError(
-            f"BxDF tags {sorted(extra) or cfg.bsdf_types} are not ported "
-            "yet (ROADMAP.md queue A item 9)")
+            f"BxDF tags {sorted(extra) or sorted(extra_bsdf)} are not "
+            "ported yet (ROADMAP.md queue A item 9)")
     return cfg.brdf_types
+
+
+def _null(mat):
+    return (mat.kind == BSDFTag.NULL) & mat.is_bsdf
+
+
+def bsdf_sample(cfg, mat, it, incid, u, world_ior):
+    """BSDF sampling dispatch (reference bsdf.py:252-262); the NULL tag
+    passes the ray through: direction incid, throughput 1, pdf 1, delta
+    (adapt_tpu/ops/bxdf_ops.py:591-595)."""
+    _ported(cfg)
+    null = _null(mat)
+    out = torch.where(null[:, None], incid, 0.0)
+    spec = torch.where(null[:, None], 1.0, torch.zeros_like(mat.kd))
+    pdf = torch.where(null, 1.0, 0.0)
+    return out, spec, pdf, null
+
+
+def bsdf_eval(cfg, mat, it, incid, out, world_ior):
+    """BSDF eval dispatch (reference bsdf.py:242-250): zero for NULL."""
+    _ported(cfg)
+    return torch.zeros_like(mat.kd)
+
+
+def bsdf_pdf(cfg, mat, it, outdir, incid, world_ior):
+    """BSDF pdf dispatch (reference bsdf.py:211-236): 1 for NULL where
+    outdir continues incid, else 0."""
+    _ported(cfg)
+    passthrough = dot(incid, outdir) > 1.0 - 1e-4
+    return torch.where(_null(mat) & passthrough, 1.0, 0.0)
 
 
 def brdf_eval(cfg, mat, it, incid, out):
@@ -132,6 +165,9 @@ def surface_eval(cfg, mat, it, incid, out, world_ior):
     if _ported(cfg):
         res = torch.where(~mat.is_bsdf[:, None],
                           brdf_eval(cfg, mat, it, incid, out), res)
+    if cfg.bsdf_types:
+        res = torch.where(mat.is_bsdf[:, None],
+                          bsdf_eval(cfg, mat, it, incid, out, world_ior), res)
     return res
 
 
@@ -150,6 +186,14 @@ def surface_sample(cfg, mat, it, incid, u, world_ior):
         spec = torch.where(sel[:, None], b_spec, spec)
         pdf = torch.where(sel, b_pdf, pdf)
         is_specular = torch.where(sel, b_del, is_specular)
+    if cfg.bsdf_types:
+        s_out, s_spec, s_pdf, s_del = bsdf_sample(cfg, mat, it, incid, u,
+                                                  world_ior)
+        sel = mat.is_bsdf
+        out = torch.where(sel[:, None], s_out, out)
+        spec = torch.where(sel[:, None], s_spec, spec)
+        pdf = torch.where(sel, s_pdf, pdf)
+        is_specular = torch.where(sel, s_del, is_specular)
     return out, spec, pdf, is_specular
 
 
@@ -160,4 +204,7 @@ def surface_pdf(cfg, mat, it, outdir, incid, world_ior):
     if _ported(cfg):
         pdf = torch.where(~mat.is_bsdf, brdf_pdf(cfg, mat, it, outdir, incid),
                           pdf)
+    if cfg.bsdf_types:
+        pdf = torch.where(mat.is_bsdf,
+                          bsdf_pdf(cfg, mat, it, outdir, incid, world_ior), pdf)
     return pdf

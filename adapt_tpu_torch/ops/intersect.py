@@ -10,6 +10,10 @@ Two tiers, chosen as the JAX package chooses on its accelerator
 * every other scene: the BVH kernels of ops/bvh_kernels.py walk the
   scene's BVH, triangles and spheres alike.
 
+Media walks on the brute-force tier take `ray_track_hits` (kernel B3 plus
+the sphere roots): the closest blocker and the null medium interfaces in
+front of it, in one pass.
+
 On the CPU the wrappers run their plain twins. The JAX package's one-hot
 gathers, wavefront sorts and cluster tiers are TPU workarounds with no
 counterpart here: lookups are plain indexing.
@@ -169,3 +173,108 @@ def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
         ts = _sphere_hit(ray_o, ray_d, scene.sph_center, scene.sph_radius)
         occluded |= ((ts > RAY_EPS) & (ts < far[:, None])).any(dim=1)
     return occluded
+
+
+def _is_null_obj(scene, obj_id):
+    """Null BSDF flag per object id (medium boundary, bsdf.py:238-240)."""
+    idx = obj_id.clamp(min=0)
+    return (obj_id >= 0) & scene.mat_is_bsdf[idx] & (scene.mat_type[idx] < 0)
+
+
+def ray_track_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=2,
+                   all_null=False):
+    """Everything a media walk needs along each ray, in one batch: the
+    closest blocking (non-null) hit and the first K null medium
+    interfaces in front of it (port of adapt_tpu/ops/intersect.py:643-763).
+
+    Triangles go through kernel B3 (intersect_kernels.tri_track_hits);
+    spheres merge in here: null spheres contribute both quadratic roots
+    (the walk sees entry, then exit), non-null spheres tighten the
+    blocker. Lanes with more than K null interfaces before the blocker
+    raise `overflow`, and the caller re-walks them sequentially, so any
+    K >= 1 is exact. all_null treats every prim as an interface (no
+    blocker): the plain first-K-interfaces extraction of `ray_k_hits`.
+
+    Returns (t_null (K,N), obj_null (K,N), dn_null (K,N), t_blk (N,),
+    obj_blk (N,), dn_blk (N,), overflow (N,)); empty null slots are
+    FAR / -1 / 0 and valid ones a prefix; dn = dot(n_g, d). Only for the
+    brute-force tier with triangles, as the JAX package keeps it to its
+    Pallas tier."""
+    if _bvh_tier(scene, cfg) or scene.tri_n.shape[0] == 0:
+        raise ValueError("ray_track_hits serves the brute-force tier of a "
+                         "scene with triangles")
+    far0 = kernels.far_bound(ray_o, max_t, alive)
+    T = scene.tri_n.shape[0]
+    S = scene.sph_center.shape[0]
+    tri_null = torch.ones(T, dtype=torch.bool, device=ray_o.device) \
+        if all_null else _is_null_obj(scene, scene.tri_obj)
+    tn_, on_, dn_, tb, ob, db, ovf = kernels.tri_track_hits(
+        scene, ray_o, ray_d, far0, K, tri_null)
+    if S == 0:
+        return tn_, on_, dn_, tb, ob, db, ovf
+
+    # sphere roots: reference quadratic (tracer_base.py:183-198)
+    N = ray_o.shape[0]
+    s2c = scene.sph_center[None, :, :] - ray_o[:, None, :]       # (N,S,3)
+    cn2 = dot(s2c, s2c)
+    proj = dot(ray_d[:, None, :], s2c)
+    r2 = (scene.sph_radius * scene.sph_radius)[None, :]
+    c2r = cn2 - proj * proj
+    hit_disc = c2r < r2
+    cut = torch.sqrt(torch.clamp(r2 - c2r, min=0.0))
+    r_safe = torch.clamp(scene.sph_radius, min=1e-12)[None, :]
+    sph_obj = scene.prim_obj[scene.sph_gid]
+    sph_null = torch.ones(S, dtype=torch.bool, device=ray_o.device) \
+        if all_null else _is_null_obj(scene, sph_obj)
+    roots_t, roots_dn = [], []
+    for sign in (-1.0, 1.0):
+        t_s = proj + sign * cut                                   # (N,S)
+        roots_t.append(torch.where(hit_disc & (t_s > RAY_EPS), t_s, FAR))
+        roots_dn.append((t_s - proj) / r_safe)
+    sph_obj_rows = sph_obj[:, None].expand(S, N)
+
+    def pick(cand, objs, dns):
+        """(t, obj, dn) of the smallest of the (M, N) candidates below
+        far0, ties to the lowest row, and the min itself (FAR when none)."""
+        best, row, found = kernels._pick(cand.T)
+        hit = found & (best < far0)
+        o = objs.gather(0, row[None])[0]
+        d = dns.gather(0, row[None])[0] + 0.0
+        return (torch.where(hit, best, FAR),
+                torch.where(hit, o, -1).to(torch.int32),
+                torch.where(hit, d, 0.0)), best
+
+    # non-null spheres tighten the blocker (their first valid root)
+    if not all_null:
+        bt = torch.cat([tb[None]] + [torch.where(sph_null[None, :], FAR,
+                                                 rt).T for rt in roots_t])
+        (tb, ob, db), _ = pick(bt, torch.cat([ob[None], sph_obj_rows,
+                                              sph_obj_rows]),
+                               torch.cat([db[None]] + [r.T for r in roots_dn]))
+
+    # null sphere roots merge into the interface chain
+    t_cut = torch.minimum(tb, far0)
+    mt = torch.cat([torch.where(tn_ < t_cut[None], tn_, FAR)]
+                   + [torch.where(sph_null[None, :] & (rt < t_cut[:, None]),
+                                  rt, FAR).T for rt in roots_t])  # (M,N)
+    mobj = torch.cat([on_, sph_obj_rows, sph_obj_rows])
+    mdn = torch.cat([dn_] + [r.T for r in roots_dn])
+    outs = []
+    prev = torch.zeros(N, device=ray_o.device)
+    for _k in range(K):
+        slot, best = pick(torch.where(mt > prev[None], mt, FAR), mobj, mdn)
+        outs.append(slot)
+        prev = best + kernels.CHAIN_SEP
+    rem = torch.where(mt > prev[None], mt, FAR).amin(dim=0)
+    ovf = ovf | ((rem < far0) & (rem < FAR))
+    t_k, o_k, d_k = (torch.stack(x) for x in zip(*outs))
+    return t_k, o_k, d_k, tb, ob, db, ovf
+
+
+def ray_k_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=7):
+    """First K surface interfaces along each ray, front to back: the
+    all-null case of ray_track_hits (every prim an interface). Returns
+    (t, obj, dn), each (K, N)."""
+    tn_, on_, dn_, _tb, _ob, _db, _ovf = ray_track_hits(
+        scene, cfg, ray_o, ray_d, max_t, alive=alive, K=K, all_null=True)
+    return tn_, on_, dn_

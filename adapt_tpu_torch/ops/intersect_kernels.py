@@ -1,12 +1,14 @@
-"""Ray/triangle closest-hit and any-hit: CUDA kernels and their PyTorch twins.
+"""Ray/triangle closest hit, any hit and media-walk hits: CUDA kernels and
+their PyTorch twins.
 
-`tri_closest_hit` and `tri_any_hit` are the port of the Pallas TPU kernels
-adapt_tpu/ops/intersect_pallas.py `_tri_kernel` (via `tri_closest_hit`)
-and `_occ_kernel` (via `tri_any_hit`). On a CUDA tensor each wrapper
-launches its hand-written kernel (csrc/tri_intersect.cu, built by
-ops/_build.py) or raises; on a CPU tensor it runs the plain PyTorch twin
-beside it, which computes the same (N, T) tables in ray chunks with the
-same operation order. `launches` counts kernel launches per wrapper.
+`tri_closest_hit`, `tri_any_hit` and `tri_track_hits` are the port of the
+Pallas TPU kernels adapt_tpu/ops/intersect_pallas.py `_tri_kernel` (via
+`tri_closest_hit`), `_occ_kernel` (via `tri_any_hit`) and `_track_kernel`
+(via `tri_track_hits`). On a CUDA tensor each wrapper launches its
+hand-written kernel (csrc/tri_intersect.cu, built by ops/_build.py) or
+raises; on a CPU tensor it runs the plain PyTorch twin beside it, which
+computes the same (N, T) tables in ray chunks with the same operation
+order. `launches` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
@@ -19,10 +21,14 @@ from .math3d import axis_vec
 RAY_EPS = 1e-4
 FAR = 1e7
 DEAD = -3e38           # far0 of a dead lane: no hit can lie before it
+# separation of successive media-walk interfaces: half the walk's RAY_EPS,
+# so surfaces eps-layered RAY_EPS apart are both accepted despite the
+# rounding of a global-t subtraction (adapt_tpu/ops/intersect_pallas.py:29-38)
+CHAIN_SEP = 0.5 * RAY_EPS
 # elements per (rays, triangles) table of the twins; bounds their memory
 TWIN_LANES = 1 << 22
 
-launches = {"tri_closest_hit": 0, "tri_any_hit": 0}
+launches = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0}
 
 
 def reset_launches():
@@ -116,6 +122,65 @@ def tri_any_hit_plain(scene, ray_o, ray_d, far0):
     return torch.cat(occ)
 
 
+def _normal_dots(ng, rd):
+    """(n, T) dot(n_g, d) of every (ray, triangle) pair, summed as
+    (a0*b0 + a1*b1) + a2*b2."""
+    return (rd[:, 0:1] * ng[:, 0] + rd[:, 1:2] * ng[:, 1]) \
+        + rd[:, 2:3] * ng[:, 2]
+
+
+def _pick(cand):
+    """Per ray: the smallest candidate, ties to the lowest row. Returns
+    (best_t, row, found); found is False where no candidate lies below
+    FAR (then best_t = FAR)."""
+    T = cand.shape[1]
+    best_t = cand.amin(dim=1)
+    rows = torch.arange(T, device=cand.device)
+    best_i = torch.where(cand == best_t[:, None], rows, T).amin(dim=1)
+    found = best_t < FAR
+    return torch.where(found, best_t, FAR), best_i, found
+
+
+def tri_track_hits_plain(scene, ray_o, ray_d, far0, K, null_flags):
+    """Twin of `tri_track_hits` in plain PyTorch (any device)."""
+    geo, ng, obj = tri_table(scene)
+    T = geo.shape[0]
+    null = null_flags.to(torch.bool)
+    outs = []
+    for s, e in _chunks(ray_o.shape[0], T):
+        t, _u, _v, valid = _hit_tables(geo, ray_o[s:e], ray_d[s:e])
+        dn = _normal_dots(ng, ray_d[s:e])
+        far = far0[s:e]
+        tm = torch.where(valid, t, FAR)
+
+        def slot(best_t, best_i, hit):
+            # + 0.0: the Pallas kernel's one-hot sum turns -0.0 into +0.0
+            d = dn.gather(1, best_i[:, None])[:, 0] + 0.0
+            return (torch.where(hit, best_t, FAR),
+                    torch.where(hit, obj[best_i], -1).to(torch.int32),
+                    torch.where(hit, d, 0.0))
+
+        # closest blocker: any non-null row ends the walk
+        t_blk, i_blk, found = _pick(torch.where(null, FAR, tm))
+        tb, ob, db = slot(t_blk, i_blk, found & (t_blk < far))
+        # K eps-chained null interfaces strictly before the blocker
+        t_cut = torch.minimum(t_blk, far)
+        tm_n = torch.where(null & (tm < t_cut[:, None]), tm, FAR)
+        prev = torch.zeros_like(far)
+        slots = []
+        for _k in range(K):
+            best_t, best_i, found = _pick(
+                torch.where(tm_n > prev[:, None], tm_n, FAR))
+            slots.append(slot(best_t, best_i, found & (best_t < far)))
+            prev = best_t + CHAIN_SEP
+        # a null candidate left beyond the chain: the caller re-walks it
+        ov = ((tm_n > prev[:, None]) & (tm_n < FAR)).any(dim=1)
+        outs.append(tuple(torch.stack(x) for x in zip(*slots))
+                    + (tb, ob, db, ov))
+    return tuple(torch.cat(parts, dim=1 if i < 3 else 0)
+                 for i, parts in enumerate(zip(*outs)))
+
+
 # ------------------------------- kernels -------------------------------
 
 _P = ctypes.c_void_p
@@ -130,7 +195,11 @@ def _lib():
                                         _P]
         lib.tri_any_hit.argtypes = [_P, _P, _P, ctypes.c_int, _P,
                                     ctypes.c_int, _P, _P]
-        lib.tri_closest_hit.restype = lib.tri_any_hit.restype = ctypes.c_int
+        lib.tri_track_hits.argtypes = [_P, _P, _P, ctypes.c_int, _P, _P, _P,
+                                       _P, ctypes.c_int, ctypes.c_int, _P, _P,
+                                       _P, _P, _P, _P, _P, _P]
+        for fn in (lib.tri_closest_hit, lib.tri_any_hit, lib.tri_track_hits):
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -214,3 +283,53 @@ def tri_any_hit(scene, ray_o, ray_d, far0):
     _check(err, "tri_any_hit")
     launches["tri_any_hit"] += 1
     return occ
+
+
+def tri_track_hits(scene, ray_o, ray_d, far0, K, null_flags):
+    """Everything a media walk needs along each ray, in one pass: the
+    closest blocking (non-null) hit, the first K null interfaces in front
+    of it, and whether more null interfaces lie there.
+
+    null_flags: (T,) bool per triangle row (True = null medium boundary).
+    Returns (t_null (K,N), obj_null (K,N), dn_null (K,N), t_blk (N,),
+    obj_blk (N,), dn_blk (N,), overflow (N,) bool), as
+    adapt_tpu/ops/intersect_pallas.py `tri_track_hits` does:
+    * the blocker is the closest valid hit on a non-null row before far0;
+      on a miss t_blk = FAR (not far0), obj_blk = -1, dn_blk = 0;
+    * null slot k is the smallest null hit t with t > prev and t <
+      min(t_blk, far0), ties to the lowest row; prev starts at 0 and
+      becomes the slot's t + CHAIN_SEP after each slot, even an empty one
+      (t = FAR); empty slots are FAR / -1 / 0 and valid slots a prefix;
+    * dn = dot(n_g, d) of the row (the walk's enter/exit test);
+    * overflow: a null hit beyond the K slots is still before the
+      blocker. Dead lanes (far0 = -3e38) get no hits and no overflow.
+    A hit needs t < FAR as well as t < far0 (the JAX kernel differs only
+    where far0 > FAR)."""
+    if K < 1:
+        raise ValueError(f"K must be at least 1, got {K}")
+    if _is_cpu(ray_o):
+        return tri_track_hits_plain(scene, ray_o, ray_d, far0, K, null_flags)
+    ro, rd, far, n, geo, ng, obj = _operands(scene, ray_o, ray_d, far0)
+    T = geo.shape[0]
+    null = null_flags.to(torch.bool).contiguous()
+    if null.device != ro.device or tuple(null.shape) != (T,):
+        raise ValueError(f"null_flags: want shape ({T},) on {ro.device}, got "
+                         f"{tuple(null.shape)} on {null.device}")
+    t_k = torch.empty((K, n), device=ro.device)
+    o_k = torch.empty((K, n), dtype=torch.int32, device=ro.device)
+    d_k = torch.empty((K, n), device=ro.device)
+    tb = torch.empty(n, device=ro.device)
+    ob = torch.empty(n, dtype=torch.int32, device=ro.device)
+    db = torch.empty(n, device=ro.device)
+    ov = torch.empty(n, dtype=torch.bool, device=ro.device)
+    if n == 0:
+        return t_k, o_k, d_k, tb, ob, db, ov
+    stream = torch.cuda.current_stream(ro.device).cuda_stream
+    err = _lib().tri_track_hits(
+        ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
+        ng.data_ptr(), obj.data_ptr(), null.data_ptr(), T, K,
+        t_k.data_ptr(), o_k.data_ptr(), d_k.data_ptr(), tb.data_ptr(),
+        ob.data_ptr(), db.data_ptr(), ov.data_ptr(), stream)
+    _check(err, "tri_track_hits")
+    launches["tri_track_hits"] += 1
+    return t_k, o_k, d_k, tb, ob, db, ov

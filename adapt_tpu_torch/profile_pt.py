@@ -1,13 +1,16 @@
-"""Where the time of a PT pass goes on the GPU: wall time per spp, device
-busy and idle share, launches per spp, and device and host time by range.
+"""Where the time of a PT (or VPT) pass goes on the GPU: wall time per spp,
+device busy and idle share, launches per spp, and device and host time by
+range.
 
     python -m adapt_tpu_torch.profile_pt scenes/cbox knot290k.xml --spp 2
+    python -m adapt_tpu_torch.profile_pt scenes/vpt cbox.xml --renderer vpt
 
 Loads the scene on the CUDA device, renders one warm-up spp (which also
 runs the auto-compaction probe), times `--runs` unprofiled render_batch
 calls of `--spp` samples (host clock around work that ends in a
 synchronize), then traces one more under torch.profiler with one range per
-stage of the bounce loop. Prints one line per range and a JSON summary
+stage of the bounce loop. Prints one line per range, the kernels that
+take the most device time and the port's own kernels, and a JSON summary
 (also written to `--out` when given). Needs one CUDA device.
 """
 from __future__ import annotations
@@ -22,23 +25,41 @@ import time
 import torch
 
 from . import rng
-from .ops import bxdf_ops
-from .renderer import compact, pt
+from .ops import bxdf_ops, emitter_ops, medium_ops
+from .renderer import compact, pt, vpt
 from .scene.compile import load_scene
 
-# (module, attribute, range name): the stages a PT pass spends time in
-RANGES = (
-    (rng, "lane_uniform", "rng.lane_uniform"),
-    (pt, "ray_intersect", "ray_intersect"),
-    (pt, "does_intersect", "does_intersect"),
+_SHADING = (
     (bxdf_ops, "surface_sample", "surface_sample"),
     (bxdf_ops, "surface_eval", "surface_eval"),
     (bxdf_ops, "surface_pdf", "surface_pdf"),
     (bxdf_ops, "gather_mat", "gather_mat"),
-    (pt, "camera_rays", "camera_rays"),
-    (compact, "run_compacted", "bounce loop"),
 )
+# (module, attribute, range name): the stages a pass spends time in, per
+# renderer; ranges may nest (track_ray holds ray_track_hits)
+RANGES = {
+    "pt": ((rng, "lane_uniform", "rng.lane_uniform"),
+           (pt, "ray_intersect", "ray_intersect"),
+           (pt, "does_intersect", "does_intersect"),
+           *_SHADING,
+           (pt, "camera_rays", "camera_rays"),
+           (compact, "run_compacted", "bounce loop")),
+    "vpt": ((rng, "lane_uniform", "rng.lane_uniform"),
+            (vpt, "ray_intersect", "ray_intersect"),
+            (vpt, "track_ray", "track_ray"),
+            (vpt, "ray_track_hits", "ray_track_hits"),
+            (medium_ops, "sample_mfp", "sample_mfp"),
+            (medium_ops, "phase_sample", "phase_sample"),
+            (medium_ops, "phase_eval", "phase_eval"),
+            (emitter_ops, "sample_hit", "sample_hit"),
+            *_SHADING,
+            (vpt, "camera_rays", "camera_rays"),
+            (compact, "run_compacted", "iteration loop")),
+}
 TOP = 8               # kernels listed by device time
+# the port's hand-written kernels (csrc/), always listed: launched through
+# ctypes, they are attributed to no range
+OWN_KERNELS = ("tri_", "bvh_")
 
 
 def _ranged(fn, name):
@@ -64,8 +85,10 @@ def main(argv=None):
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--max-bounce", type=int, default=0,
                     help="override the scene's max_bounce (0: keep)")
+    ap.add_argument("--renderer", choices=tuple(RANGES), default="pt")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
+    ranges = RANGES[args.renderer]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -73,13 +96,14 @@ def main(argv=None):
     scene, cfg, _ = load_scene(args.directory, args.file)
     if args.max_bounce:
         cfg = dataclasses.replace(cfg, max_bounce=args.max_bounce)
-    r = pt.Renderer(scene, cfg, seed=0)
+    r = vpt.VolumeRenderer(scene, cfg, seed=0) if args.renderer == "vpt" \
+        else pt.Renderer(scene, cfg, seed=0)
     r.render_batch(1)
     walls = [_timed(r, args.spp) / args.spp for _ in range(args.runs)]
     wall = statistics.median(walls)
 
-    saved = [(m, a, getattr(m, a)) for m, a, _ in RANGES]
-    for (m, a, name), (_, _, fn) in zip(RANGES, saved):
+    saved = [(m, a, getattr(m, a)) for m, a, _ in ranges]
+    for (m, a, name), (_, _, fn) in zip(ranges, saved):
         setattr(m, a, _ranged(fn, name))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -97,7 +121,7 @@ def main(argv=None):
                if e.device_type == cuda and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / spp
     rows = []
-    for _, _, name in RANGES:
+    for _, _, name in ranges:
         hits = [e for e in events if e.name == name and e.device_type != cuda]
         if hits:      # device ms: the kernels launched inside the range
             rows.append({
@@ -110,15 +134,19 @@ def main(argv=None):
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3 / spp
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
+    own = {k: v for k, v in by_name.items() if k.startswith(OWN_KERNELS)}
     out = {"scene": args.file, "w": cfg.w, "h": cfg.h,
            "max_bounce": cfg.max_bounce, "spp": spp, "card": card,
-           "schedule": list(r._sched or ()),
+           "renderer": args.renderer,
+           "schedule": list(r.schedule if args.renderer == "vpt"
+                            else r._sched or ()),
            "ms_per_spp": [1e3 * w for w in walls],
            "profiled_ms_per_spp": 1e3 * prof_wall,
            "device_busy_ms_per_spp": busy,
            "idle_share": 1.0 - busy / (1e3 * wall),
            "kernels_per_spp": len(kernels) / spp, "ranges": rows,
-           "top_kernels_ms_per_spp": dict(top)}
+           "top_kernels_ms_per_spp": dict(top),
+           "own_kernels_ms_per_spp": own}
     print(f"{args.file} {cfg.w}x{cfg.h} mb {cfg.max_bounce} [{card}]: "
           f"ms/spp {', '.join(f'{1e3 * w:.3f}' for w in walls)} "
           f"(profiled {1e3 * prof_wall:.3f}); device busy {busy:.3f} ms/spp,"
@@ -128,7 +156,7 @@ def main(argv=None):
     for row in rows:
         print(f"  {row['range']:<20} calls {row['calls']:>6.1f}  device "
               f"{row['device_ms']:9.3f} ms  host {row['host_ms']:9.3f} ms")
-    for name, ms in top:
+    for name, ms in top + sorted(own.items()):
         print(f"  kernel {name[:60]:<60} {ms:9.3f} ms/spp")
     print(json.dumps(out))
     if args.out:

@@ -9,12 +9,11 @@ is t = (d - o.n)/(dir.n), u = (o + t dir).U - cu, v = (o + t dir).V - cv).
 Scenes of BVH_THRESHOLD prims or more also get the JAX package's BVH
 tables (`bvh_node_pack`, `bvh_prim_pack`; native binned-SAH build,
 native/), which the BVH kernels walk. Tables the port does not read (the
-TPU's cluster cut `cl_*`, texture atlases, grid volumes, per-object media
-beyond the IOR) are not built. Scenes that need them are recognised from
-their configuration and raise NotImplementedError at render
-(`check_supported`; grid volumes and BxDF mixtures already here), naming
-the ROADMAP item that ports them: the port never silently takes another
-path.
+TPU's cluster cut `cl_*`, texture atlases, grid volumes) are not built.
+Scenes that need them are recognised from their configuration and raise
+NotImplementedError at render (`check_supported`; grid volumes and BxDF
+mixtures already here), naming the ROADMAP item that ports them: the port
+never silently takes another path.
 
 Scenes load onto the CUDA device unless the caller asks for another; with
 no CUDA device that default raises (`resolve_device`).
@@ -26,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..constants import BRDFTag, EmitterTag, SPHERE
+from ..constants import BRDFTag, BSDFTag, EmitterTag, MediumTag, SPHERE
 from ..native import bvh_build
 from ..ops.math3d import np_rotation_between, fov2focal
 
@@ -38,8 +37,14 @@ BVH_THRESHOLD = 64
 
 @dataclasses.dataclass
 class MediumTable:
-    """Per-object (or world) medium parameters the slice reads."""
+    """Per-object (or world) homogeneous medium parameters."""
+    kind: torch.Tensor     # (...,) i32 MediumTag (-1 = transparent)
     ior: torch.Tensor      # (...,) f32
+    u_a: torch.Tensor      # (...,3) absorption
+    u_s: torch.Tensor      # (...,3) scattering
+    u_e: torch.Tensor      # (...,3) extinction u_a + u_s
+    ph_par: torch.Tensor   # (...,3) phase parameters (HG g per lobe)
+    ph_pdf: torch.Tensor   # (...,3) multi-HG lobe weights
 
 
 @dataclasses.dataclass
@@ -73,6 +78,8 @@ class SceneData:
     prim_ng: torch.Tensor    # (P,3) geometric normals
     prim_vn: torch.Tensor    # (P,3,3) vertex normals (zeros when absent)
     pre0: torch.Tensor       # (P,3) e1 (tri) / center (sphere)
+    pre1: torch.Tensor       # (P,3) e2 (tri) / radius row (sphere)
+    pre2: torch.Tensor       # (P,3) p0 (tri) / zeros (sphere)
     prim_obj: torch.Tensor   # (P,) i32 owning object
     prim_is_sphere: torch.Tensor  # (P,) bool
     # --- BVH (skip-offset DFS order; 1-row inverted placeholders below
@@ -85,6 +92,8 @@ class SceneData:
     obj_cnt: torch.Tensor        # (O,) prim count
     obj_is_sphere: torch.Tensor  # (O,) i32
     obj_emitter: torch.Tensor    # (O,) i32 emitter id or -1
+    obj_aabb_min: torch.Tensor   # (O,3)
+    obj_aabb_max: torch.Tensor   # (O,3)
     # --- materials (O) ---
     mat_type: torch.Tensor     # (O,) i32 BRDFTag / BSDFTag
     mat_is_bsdf: torch.Tensor  # (O,) bool
@@ -192,22 +201,32 @@ class RenderConfig:
         return self.w * self.h
 
 
-def check_supported(scene: SceneData, cfg: RenderConfig):
-    """Raise NotImplementedError for what the PT slice cannot render.
+def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
+    """Raise NotImplementedError for what a renderer of the port cannot
+    render yet; `renderer` is "pt" or "vpt".
 
-    Participating media are not on this list: the JAX package's PT reads
-    only the world IOR and ignores them too (cbox itself declares a
-    scattering world medium)."""
+    PT: lambertian BRDFs and point lights. Participating media are not on
+    its list: the JAX package's PT reads only the world IOR and ignores
+    them too (cbox itself declares a scattering world medium).
+    VPT: also null BSDFs (medium boundaries), area lights and HG,
+    multi-HG and Rayleigh media."""
     def nope(what, item):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
-    if cfg.bsdf_types or cfg.has_null_bsdf:
+    vpt = renderer == "vpt"
+    bsdfs = set(cfg.bsdf_types) - ({BSDFTag.NULL} if vpt else set())
+    if bsdfs or (cfg.has_null_bsdf and not vpt):
         nope(f"BSDFs {cfg.bsdf_types}", 9)
     if set(cfg.brdf_types) - {BRDFTag.LAMBERTIAN}:
         nope(f"BRDFs {cfg.brdf_types} other than lambertian", 9)
-    if set(cfg.emitter_kinds) - {EmitterTag.POINT}:
-        nope(f"emitter kinds {cfg.emitter_kinds} other than point", 9)
+    lights = {EmitterTag.POINT} | ({EmitterTag.AREA} if vpt else set())
+    if set(cfg.emitter_kinds) - lights:
+        nope(f"emitter kinds {cfg.emitter_kinds} other than "
+             f"{sorted(lights)}", 9)
+    if vpt and set(cfg.medium_kinds) - {MediumTag.HG, MediumTag.MULTI_HG,
+                                        MediumTag.RAYLEIGH}:
+        nope(f"medium kinds {cfg.medium_kinds}", 11)
     if (cfg.has_normal_map or cfg.has_bump_map
             or any(t.present for t in scene.tex.values())):
         nope("textures", 9)
@@ -270,8 +289,15 @@ def _placeholder_bvh():
 
 
 def _medium_table(mediums) -> MediumTable:
+    """Stack host medium records (adapt_tpu/scene/compile.py:260-268)."""
+    def f(attr):
+        return _t(np.stack([np.asarray(getattr(m, attr), np.float32)
+                            for m in mediums]))
     return MediumTable(
-        ior=torch.tensor(np.array([m.ior for m in mediums], np.float32)))
+        kind=_t([m.type_id for m in mediums], np.int32),
+        ior=_t([m.ior for m in mediums], np.float32),
+        u_a=f("u_a"), u_s=f("u_s"), u_e=f("u_e"), ph_par=f("par"),
+        ph_pdf=f("pdf"))
 
 
 def _t(x, dtype=None):
@@ -338,9 +364,14 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
     prim_cu[tri_ids] = (U * p0).sum(-1)
     prim_cv[tri_ids] = (V * p0).sum(-1)
 
+    # reference-layout edge vectors (adapt_tpu/scene/compile.py:429-435)
     pre0 = prims[:, 1] - prims[:, 0]
+    pre1 = prims[:, 2] - prims[:, 0]
+    pre2 = prims[:, 0].copy()
     if sph_ids.size:
         pre0[sph_ids] = prims[sph_ids, 0]        # sphere center
+        pre1[sph_ids] = prims[sph_ids, 1]        # radius row
+        pre2[sph_ids] = 0.0
     prim_is_sphere = np.zeros(P, bool)
     prim_is_sphere[sph_ids] = True
     if P >= BVH_THRESHOLD:
@@ -427,6 +458,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
     for i, obj in enumerate(objects):
         if obj.emitter_ref_id >= 0:
             emit_obj[obj.emitter_ref_id] = i
+    aabbs = np.stack([obj.aabb for obj in objects])  # (O,2,3)
     tex = {}
     for tag in ("albedo", "normal", "bump", "roughness"):
         mode = np.array([-255 if r is None else r.mode for r in
@@ -450,6 +482,8 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         prim_ng=_t(array_info["n_g"], np.float32),
         prim_vn=_t(array_info["n_s"], np.float32),
         pre0=_t(pre0, np.float32),
+        pre1=_t(pre1, np.float32),
+        pre2=_t(pre2, np.float32),
         prim_obj=_t(prim_obj),
         prim_is_sphere=_t(prim_is_sphere),
         bvh_node_pack=_t(node_pack),
@@ -458,6 +492,8 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         obj_cnt=_t(obj_cnt),
         obj_is_sphere=_t(obj_is_sphere),
         obj_emitter=_t([obj.emitter_ref_id for obj in objects], np.int32),
+        obj_aabb_min=_t(aabbs[:, 0]),
+        obj_aabb_max=_t(aabbs[:, 1]),
         mat_type=_t([m.type_id for m in mats], np.int32),
         mat_is_bsdf=_t([m.is_bsdf for m in mats], bool),
         mat_is_delta=_t([m.is_delta for m in mats], bool),

@@ -7,9 +7,9 @@ native/, all into build/adapt_tpu_torch/, started together) and one CUDA
 device. Each phase prints one line; any failure ends the run with a
 non-zero exit and no result line.
 
-1. device: the card's name and power limit, the build times, the
-   procedural meshes (scripts/gen_procedural.py) and the knot290k scene's
-   set-up time (parse, BVH build, upload);
+1. device: the card's name and power limit, the build times, knot290k's
+   procedural mesh (scripts/gen_procedural.py `ensure`) and the knot290k
+   scene's set-up time (parse, BVH build, upload);
 2. kernels: each hand-written CUDA kernel against its plain PyTorch twin
    at 512^2 shapes (262,144 rays a batch): the brute-force pair on cbox,
    the BVH pair on knot290k (primary rays; bounce rays from the primary
@@ -17,8 +17,14 @@ non-zero exit and no result line.
    the point light). Hit ids and occlusion exactly equal, t within rtol
    2e-6, u/v within rtol 2e-5 atol 2e-6 (same operation order: 0
    expected); times by CUDA events, median of 5, and each kernel's bound;
+   2c: the media-walk kernel on the vpt cbox (NEE shadow rays from the
+   primary hits to area-light samples at K = 2; bounce rays with 15% dead
+   lanes at K = 2 and, every triangle an interface, at K = 7): every
+   output exactly equal to the twin's, with the null-hit, overflow and
+   blocker shares;
 3. golden: render_pass_pt on the card at the settings of
-   tests/test_goldens.py against tests/goldens/cbox_pt_48.npy;
+   tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
+   same for render_pass_vpt against tests/goldens/vptcbox_48.npy;
 4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
    setting), render_batch of a few spp with the launch counts read around
    it; the image must be finite with mean > 0.05 and match the same render
@@ -28,7 +34,13 @@ non-zero exit and no result line.
    then render_batch of a few spp with 12 launches of each BVH kernel per
    spp and none of the brute-force ones; the image equal to the same
    render with no compaction, and at 64^2 the render with the twins in
-   place matches under the goldens' bounds.
+   place matches under the goldens' bounds;
+6. vpt cbox main path: VolumeRenderer on scenes/vpt/cbox.xml at its own
+   settings (512^2, 16 bounces, 24 iterations, schedule ((7, 2), (13, 8))):
+   one warm-up spp, then render_batch of a few spp with one media-walk
+   launch per iteration and shadow ray; the image equal to the same render
+   with no compaction, and at 64^2 the render with the twins in place
+   matches under the goldens' bounds.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
 result line {"ok": true, "device": {...}}.
@@ -36,6 +48,8 @@ result line {"ok": true, "device": {...}}.
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import os
 import statistics
@@ -46,6 +60,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPP = 4            # cbox main-path samples per pixel (after one warm-up spp)
 KNOT_SPP = 3       # knot290k main-path samples per pixel (after one warm-up)
+VPT_SPP = 3        # vpt cbox main-path samples per pixel (after one warm-up)
 REPS = 5           # kernel timing repetitions (median)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 operations/s outside
 # the tensor cores; a kernel's bound is the larger of its two times
@@ -63,6 +78,8 @@ KERNELS = {
                         "adapt_tpu/ops/cluster_pallas.py:647"),
     "bvh_any_hit": ("adapt_tpu_torch/csrc/bvh_intersect.cu",
                     "adapt_tpu/ops/cluster_pallas.py:766"),
+    "tri_track_hits": ("adapt_tpu_torch/csrc/tri_intersect.cu",
+                       "adapt_tpu/ops/intersect_pallas.py:131"),
 }
 
 
@@ -122,6 +139,19 @@ def _close(torch, got, want, far, name):
                ((t, wt), (u, wu), (v, wv)))
 
 
+def knot_mesh():
+    """Write knot290k.xml's one procedural mesh if it is missing, with
+    scripts/gen_procedural.py `ensure` (numpy only: the script's
+    `ensure_all` also writes grid volumes through the JAX package, which
+    this script never loads)."""
+    spec = importlib.util.spec_from_file_location(
+        "gen_procedural", os.path.join(ROOT, "scripts", "gen_procedural.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen.ensure("knot290k.obj", 1450, 100)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -130,10 +160,10 @@ def main():
     import numpy as np
     from adapt_tpu_torch import native, rng
     from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
-    from adapt_tpu_torch.ops import intersect_kernels as K
-    from adapt_tpu_torch.ops.intersect import DEAD
+    from adapt_tpu_torch.ops import emitter_ops, intersect_kernels as K
+    from adapt_tpu_torch.ops.intersect import DEAD, _is_null_obj
     from adapt_tpu_torch.parsers.xml_parser import scene_parsing
-    from adapt_tpu_torch.renderer import pt
+    from adapt_tpu_torch.renderer import pt, vpt
     from adapt_tpu_torch.renderer.base import camera_rays
     from adapt_tpu_torch.scene import compile as C
 
@@ -155,9 +185,7 @@ def main():
             f.result()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
-                                                 "gen_procedural.py")],
-                   check=True, cwd=ROOT, stdout=subprocess.DEVNULL)
+    knot_mesh()
     gen_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     cbox_dir = os.path.join(ROOT, "scenes", "cbox")
@@ -185,7 +213,7 @@ def main():
              and (kcfg.w, kcfg.h) == (512, 512), "knot290k settings")
     print(f"phase 1 device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | builds started together, all done in "
-          f"{build_s:.2f} s {_build.build_seconds} | meshes {gen_s:.2f} s | "
+          f"{build_s:.2f} s {_build.build_seconds} | knot mesh {gen_s:.2f} s | "
           f"knot290k set-up: parse {parse_s:.2f} s, compile {compile_s:.2f} "
           f"s of which BVH build {bvh_s[0]:.2f} s "
           f"({kscene.bvh_node_pack.shape[0]} nodes), upload {upload_s:.3f} "
@@ -320,6 +348,76 @@ def main():
               for (k, tag), (v, s) in work.items()) + f" [{card}]",
           flush=True)
 
+    # ---- 2c. media-walk kernel against its twin, vpt cbox 512^2 ----
+    vscene, vcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "vpt"),
+                                   "cbox.xml")
+    _require(vcfg.max_bounce == 16 and (vcfg.w, vcfg.h) == (512, 512)
+             and vcfg.n_null_objs == 1, "vpt cbox settings")
+    vro, vrd = camera_rays(vscene, vcfg, rng.split(rng.PRNGKey(2))[1], 1)
+    vro = vro.contiguous()
+    v_t = K.tri_closest_hit_plain(vscene, vro, vrd, far_p)[0]
+    v_hit = v_t < K.FAR
+    v_p = vro + torch.where(v_hit, v_t, 0.0)[:, None] * vrd
+    e_pos = emitter_ops.sample_hit(
+        vscene, vcfg, torch.zeros(N, dtype=torch.int32, device=dev), v_p,
+        torch.rand((N, 3), generator=g, device=dev))[0]
+    v_to = e_pos - v_p
+    v_dist = v_to.norm(dim=-1)
+    v_sd = v_to / v_dist[:, None]
+    v_far_s = K.far_bound(v_p, v_dist, v_hit)
+    v_bd = torch.randn((N, 3), generator=g, device=dev)
+    v_bd = v_bd / v_bd.norm(dim=-1, keepdim=True)
+    v_far_b = torch.where(
+        v_hit & (torch.rand(N, generator=g, device=dev) > 0.15), K.FAR, DEAD)
+    null_f = _is_null_obj(vscene, vscene.tri_obj)
+    all_f = torch.ones_like(null_f)
+    track_sets = (("shadow", v_sd, v_far_s, 2, null_f),
+                  ("bounce", v_bd, v_far_b, 2, null_f),
+                  ("bounce all-null", v_bd, v_far_b, 7, all_f))
+    shares = []
+    for tag, d, far, k, nf in track_sets:
+        got = K.tri_track_hits(vscene, v_p, d, far, k, nf)
+        want = K.tri_track_hits_plain(vscene, v_p, d, far, k, nf)
+        for name, a, b in zip(("t_null", "obj_null", "dn_null", "t_blk",
+                               "obj_blk", "dn_blk", "overflow"), got, want):
+            _require(a.dtype == b.dtype and torch.equal(a, b),
+                     f"tri_track_hits ({tag}): {name} differs from the twin")
+        for i in (0, 2, 3, 5):                 # the float outputs
+            errs["tri_track_hits"] = max(
+                errs["tri_track_hits"], float((got[i] - want[i]).abs().max()))
+        live = far > K.RAY_EPS
+        _require(not bool((got[0][:, ~live] < K.FAR).any()
+                          | got[6][~live].any()),
+                 f"tri_track_hits ({tag}): a dead lane has hits")
+        nl = max(int(live.sum()), 1)
+        shares.append((tag, k, float(((got[0][0] < K.FAR) & live).sum()) / nl,
+                       float((got[6] & live).sum()) / nl,
+                       float(((got[3] < K.FAR) & live).sum()) / nl))
+    _require(all(sh[2] > 0 for sh in shares), "no null interface was hit")
+    _require(shares[1][4] > 0, "no bounce ray was blocked")
+    times["tri_track_hits"] = (
+        _time_ms(torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s,
+                                                 2, null_f)),
+        _time_ms(torch, lambda: K.tri_track_hits_plain(vscene, v_p, v_sd,
+                                                       v_far_s, 2, null_f)))
+    # bound: rays and far read once, the table (12 + 3 floats, obj, flag
+    # per row) read once, 3 K + 4 outputs written once; operations: every
+    # (ray, triangle) test that a lane able to hit needs, once
+    VT = vscene.tri_n.shape[0]
+    walking = int((v_far_s > K.RAY_EPS).sum())
+    bounds["tri_track_hits"] = _bound(
+        N * 28 + VT * 65 + N * (2 * 12 + 13), walking * VT * TRI_PAIR_OPS)
+    tt, tp = times["tri_track_hits"]
+    print(f"phase 2c media-walk kernel vs twin, vpt cbox, {N} rays, "
+          f"{VT} triangles ({int(null_f.sum())} null): every output equal, "
+          f"max abs err {errs['tri_track_hits']:.3g}; "
+          + "; ".join(f"{tag} K={k}: null-hit share {a:.4f}, overflow share "
+                      f"{o:.5f}, blocked share {b:.4f}"
+                      for tag, k, a, o, b in shares)
+          + f" (shares of live lanes) | shadow K=2: kernel {tt:.4f} ms, twin "
+          f"{tp:.4f} ms, bound {bounds['tri_track_hits'][0]:.4f} ms "
+          f"({bounds['tri_track_hits'][1]}) [{card}]", flush=True)
+
     # ---- 3. golden on the card ----
     w = 48                                   # tests/test_goldens.py:25-29
     small = dataclasses.replace(
@@ -339,20 +437,39 @@ def main():
           f"{mean:.6f} vs {ref_mean:.6f}, launches {golden_launches}",
           flush=True)
 
+    # ---- 3b. vpt golden on the card ----
+    vsmall = dataclasses.replace(
+        vcfg, w=w, h=w, focal=vcfg.focal * w / 512, end_x=w, end_y=w,
+        max_bounce=3, anti_alias=False, stratified_sampling=False,
+        use_rr=False)
+    reset()
+    img = vpt.render_pass_vpt(vscene, vsmall, rng.PRNGKey(42), 1)
+    vgolden_launches = counts()
+    _require(vgolden_launches["tri_track_hits"] > 0
+             and vgolden_launches["tri_closest_hit"] > 0,
+             f"a kernel did not launch: {vgolden_launches}")
+    err, mean, ref_mean = _check(
+        img.cpu().numpy(),
+        np.load(os.path.join(ROOT, "tests", "goldens", "vptcbox_48.npy")))
+    print(f"phase 3b golden vptcbox_48 on cuda: max abs diff {err:.3g}, mean "
+          f"{mean:.6f} vs {ref_mean:.6f}, launches {vgolden_launches}",
+          flush=True)
+
     @contextlib.contextmanager
     def twins():
         """The path's wrappers swapped for their plain twins."""
-        saved = (K.tri_closest_hit, K.tri_any_hit, BK.bvh_closest_hit,
-                 BK.bvh_any_hit)
+        saved = (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
+                 BK.bvh_closest_hit, BK.bvh_any_hit)
         K.tri_closest_hit = K.tri_closest_hit_plain
         K.tri_any_hit = K.tri_any_hit_plain
+        K.tri_track_hits = K.tri_track_hits_plain
         BK.bvh_closest_hit = BK.bvh_closest_hit_plain
         BK.bvh_any_hit = BK.bvh_any_hit_plain
         try:
             yield
         finally:
-            (K.tri_closest_hit, K.tri_any_hit, BK.bvh_closest_hit,
-             BK.bvh_any_hit) = saved
+            (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
+             BK.bvh_closest_hit, BK.bvh_any_hit) = saved
 
     def timed_batch(r, spp):
         torch.cuda.synchronize()
@@ -377,7 +494,7 @@ def main():
              f"image not finite or too dark (mean {image.mean()})")
     want = {"tri_closest_hit": SPP * cfg.max_bounce,
             "tri_any_hit": SPP * cfg.max_bounce * cfg.num_shadow_ray,
-            "bvh_closest_hit": 0, "bvh_any_hit": 0}
+            "tri_track_hits": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0}
     _require(launches == want, f"cbox launch counts {launches}, want {want}")
     r_twin = pt.Renderer(scene, cfg, seed=0)
     with twins():
@@ -408,7 +525,7 @@ def main():
     _require(kimage.shape == (kcfg.h, kcfg.w, 3), f"shape {kimage.shape}")
     _require(bool(np.isfinite(kimage).all()) and kimage.mean() > 0,
              f"image not finite or black (mean {kimage.mean()})")
-    want = {"tri_closest_hit": 0, "tri_any_hit": 0,
+    want = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0,
             "bvh_closest_hit": KNOT_SPP * kcfg.max_bounce,
             "bvh_any_hit": KNOT_SPP * kcfg.max_bounce * kcfg.num_shadow_ray}
     _require(klaunches == want,
@@ -438,10 +555,49 @@ def main():
           f"{kimage.mean():.6f}; 64^2 max abs diff to twins {ktwin_err:.3g}; "
           f"launches {klaunches}", flush=True)
 
+    # ---- 6. vpt cbox main path at full size ----
+    iters = vcfg.max_bounce + vpt.NULL_BUDGET
+    r = vpt.VolumeRenderer(vscene, vcfg, seed=0)
+    r.render_batch(1)                         # warm-up sample, not timed
+    reset()
+    dt = timed_batch(r, VPT_SPP)
+    vlaunches = counts()
+    vimage = r.image()
+    _require(vimage.shape == (vcfg.h, vcfg.w, 3), f"shape {vimage.shape}")
+    _require(bool(np.isfinite(vimage).all()) and vimage.mean() > 0,
+             f"image not finite or black (mean {vimage.mean()})")
+    _require(vlaunches["tri_track_hits"]
+             == VPT_SPP * iters * vcfg.num_shadow_ray
+             and vlaunches["tri_closest_hit"] >= VPT_SPP * iters
+             and vlaunches["tri_any_hit"] == 0
+             and vlaunches["bvh_closest_hit"] == vlaunches["bvh_any_hit"] == 0,
+             f"vpt launch counts {vlaunches}")
+    plain = vpt.VolumeRenderer(vscene, vcfg, seed=0, schedule=())
+    plain.render_batch(1)
+    dt_plain = timed_batch(plain, VPT_SPP)
+    _require(torch.equal(plain.color, r.color),
+             "the compacted vpt render differs from the uncompacted one")
+    w = 64
+    small = dataclasses.replace(vcfg, w=w, h=w, focal=vcfg.focal * w / 512,
+                                end_x=w, end_y=w)
+    rv = vpt.VolumeRenderer(vscene, small, seed=1)
+    rv.render_batch(1)
+    rt = vpt.VolumeRenderer(vscene, small, seed=1)
+    with twins():
+        rt.render_batch(1)
+    vtwin_err, _, _ = _check(rv.image(), rt.image())
+    print(f"phase 6 main path vpt cbox {vcfg.w}x{vcfg.h} mb "
+          f"{vcfg.max_bounce}, {iters} iterations, schedule {r.schedule}, "
+          f"{VPT_SPP} spp: {1e3 * dt / VPT_SPP:.2f} ms/spp [{card}]; "
+          f"uncompacted: {1e3 * dt_plain / VPT_SPP:.2f} ms/spp, image equal; "
+          f"image mean {vimage.mean():.6f}; 64^2 max abs diff to twins "
+          f"{vtwin_err:.3g}; launches {vlaunches}", flush=True)
+
     path_launches = {**{k: launches[k] for k in ("tri_closest_hit",
                                                  "tri_any_hit")},
                      **{k: klaunches[k] for k in ("bvh_closest_hit",
-                                                  "bvh_any_hit")}}
+                                                  "bvh_any_hit")},
+                     "tri_track_hits": vlaunches["tri_track_hits"]}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "max_abs_err": errs[k],

@@ -151,14 +151,34 @@ def test_cpu_path_uses_twins_not_kernels(cbox):
     intersect_kernels.reset_launches()
     pt.render_pass_pt(scene, _small(cfg, 8), rng.PRNGKey(0), 1)
     assert intersect_kernels.launches == {"tri_closest_hit": 0,
-                                          "tri_any_hit": 0}
+                                          "tri_any_hit": 0,
+                                          "tri_track_hits": 0}
 
 
 def test_port_imports_no_jax():
     code = ("import sys; import adapt_tpu_torch.renderer.pt, "
+            "adapt_tpu_torch.renderer.vpt, adapt_tpu_torch.ops.medium_ops, "
             "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_chip_smoke_mesh_step_imports_no_jax():
+    """chip_smoke.py's set-up writes knot290k's mesh without loading the
+    JAX package (scripts/gen_procedural.py's `ensure_all` would, through
+    its volume writer). Holds the lock tests/test_torch_bvh.py generates
+    the meshes under."""
+    code = ("import fcntl, os, sys; import chip_smoke; "
+            "d = os.path.join('scenes', 'meshes', 'procedural'); "
+            "os.makedirs(d, exist_ok=True); "
+            "fh = open(os.path.join(d, '.lock'), 'w'); "
+            "fcntl.flock(fh, fcntl.LOCK_EX); chip_smoke.knot_mesh(); "
+            "assert os.path.getsize(os.path.join(d, 'knot290k.obj')) > 0; "
+            "bad = [m for m in sys.modules if m in ('jax', 'adapt_tpu') "
+            "or m.startswith(('jax.', 'adapt_tpu.'))]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=300)

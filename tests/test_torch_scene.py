@@ -1,4 +1,5 @@
-"""The port's scene tables equal the JAX package's, leaf for leaf.
+"""The port's scene tables equal the JAX package's, leaf for leaf (the
+medium tables, pre0/pre1/pre2 and the object AABBs included).
 
 Scenes the PT slice cannot render load (or refuse at load) and raise
 NotImplementedError when rendered, instead of taking another path.
@@ -27,7 +28,8 @@ def _assert_leaves_equal(a, b):
 
 
 @pytest.mark.parametrize("scene_file", [("cbox", "cbox.xml"),
-                                        ("csphere", "single-ball.xml")])
+                                        ("csphere", "single-ball.xml"),
+                                        ("vpt", "cbox.xml")])
 def test_leaves_and_config_match_jax(scene_file):
     d, f = scene_file
     jscene, jcfg, _ = jax_load_scene(f"{SCENE_DIR}/{d}/", f)
