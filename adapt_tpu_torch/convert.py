@@ -6,6 +6,9 @@ dict to `scene_from_numpy` (the BVH packs come across as they are, so the
 port walks the JAX package's own tree; the TPU's cluster tables `cl_*`
 are not read); a JAX PRNG key's data (`jax.random.key_data`,
 the checkpoint `key` field) becomes a port key with `key_from_numpy`.
+BDPT vertex buffers cross in the JAX package's layout (scalars (D, N),
+vectors (3, D, N)) with `vertex_buffers_from_numpy`, and back with
+`vertex_buffers_to_numpy`; the port keeps vectors as (D, N, 3).
 """
 from __future__ import annotations
 
@@ -74,3 +77,34 @@ def key_from_numpy(data) -> tuple:
 def key_to_numpy(key) -> np.ndarray:
     """The port's key -> uint32[2], as `jax.random.key_data` gives it."""
     return np.array(key, np.uint32)
+
+
+def vertex_buffers_from_numpy(bufs: dict, device="cuda") -> dict:
+    """BDPT vertex buffers of the JAX package (a dict of arrays: scalars
+    (D, N), vectors (3, D, N), `tex` None) -> the port's layout (vectors
+    (D, N, 3)) on `device`."""
+    device = resolve_device(device)
+    out = {}
+    for k, v in bufs.items():
+        if v is None:
+            out[k] = None
+            continue
+        a = np.asarray(v)
+        if a.ndim == 3:
+            a = np.moveaxis(a, 0, -1)
+        out[k] = torch.tensor(np.ascontiguousarray(a), device=device)
+    return out
+
+
+def vertex_buffers_to_numpy(buf: dict) -> dict:
+    """The port's BDPT vertex buffers -> numpy in the JAX package's layout
+    (vectors (3, D, N))."""
+    out = {}
+    for k, v in buf.items():
+        if v is None:
+            out[k] = None
+            continue
+        a = v.cpu().numpy()
+        out[k] = np.ascontiguousarray(np.moveaxis(a, -1, 0)) \
+            if a.ndim == 3 else a
+    return out

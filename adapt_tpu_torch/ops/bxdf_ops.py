@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ..constants import BRDFTag, BSDFTag, INV_PI
+from ..constants import BRDFTag, BSDFTag, INV_PI, TRANSPORT_UNI
 from .math3d import axis_vec, dot, delocalize_rotate
 from .sampling import cosine_hemisphere
 
@@ -158,8 +158,15 @@ def _apply_two_sides(cfg, mat, it, incid):
                                n_g=torch.where(flip, -it.n_g, it.n_g))
 
 
-def surface_eval(cfg, mat, it, incid, out, world_ior):
-    """PathTracer.eval for surface interactions (path_tracer.py:459-479)."""
+def surface_eval(cfg, mat, it, incid, out, world_ior, mode=TRANSPORT_UNI,
+                 scene=None):
+    """PathTracer.eval for surface interactions (path_tracer.py:459-479).
+
+    mode (TRANSPORT_RAD / _IMP / _UNI) scales refraction only, in the JAX
+    package's refracting BSDFs; the ported tags do not refract, so it
+    changes nothing yet. scene feeds the JAX package's BxDF-mixture lanes;
+    mixtures are refused at compile (ROADMAP.md queue A item 9), so it is
+    unused. Both are taken so that callers read like the reference."""
     it = _apply_two_sides(cfg, mat, it, incid)
     res = torch.zeros_like(mat.kd)
     if _ported(cfg):
@@ -171,8 +178,10 @@ def surface_eval(cfg, mat, it, incid, out, world_ior):
     return res
 
 
-def surface_sample(cfg, mat, it, incid, u, world_ior):
-    """PathTracer.sample_new_ray surface path (path_tracer.py:447-457)."""
+def surface_sample(cfg, mat, it, incid, u, world_ior, mode=TRANSPORT_UNI,
+                   scene=None):
+    """PathTracer.sample_new_ray surface path (path_tracer.py:447-457).
+    mode, scene: see surface_eval."""
     it = _apply_two_sides(cfg, mat, it, incid)
     N = incid.shape[0]
     out = axis_vec(1, incid.device).expand(N, 3)
@@ -197,8 +206,9 @@ def surface_sample(cfg, mat, it, incid, u, world_ior):
     return out, spec, pdf, is_specular
 
 
-def surface_pdf(cfg, mat, it, outdir, incid, world_ior):
-    """PathTracer.surface_pdf (path_tracer.py:481-494)."""
+def surface_pdf(cfg, mat, it, outdir, incid, world_ior, scene=None):
+    """PathTracer.surface_pdf (path_tracer.py:481-494). scene: see
+    surface_eval."""
     it = _apply_two_sides(cfg, mat, it, incid)
     pdf = torch.zeros(incid.shape[:-1], device=incid.device)
     if _ported(cfg):

@@ -10,8 +10,8 @@ from __future__ import annotations
 import torch
 
 from ..constants import EmitterTag, BIT_POS_DELTA
-from .math3d import delocalize_rotate, dot, normalize
-from .sampling import sample_triangle, uniform_sphere
+from .math3d import axis_vec, delocalize_rotate, dot, normalize
+from .sampling import cosine_hemisphere, sample_triangle, uniform_sphere
 
 
 def sample_light_index(cfg, u, no_sample):
@@ -109,6 +109,66 @@ def sample_hit(scene, cfg, eid, hit_pos, u):
                 f"emitter kind {k} is not ported yet (ROADMAP.md queue A "
                 "item 9)")
     return ret_pos, ret_int, ret_pdf, normal
+
+
+def _rotate(anchor, local_dir):
+    """The JAX package's name (emitter_ops.py:24) for delocalize_rotate,
+    kept so sample_le reads like the reference."""
+    return delocalize_rotate(anchor, local_dir)
+
+
+def sample_le(scene, cfg, eid, u):
+    """Emission sampling for light subpaths (abtract_source.py:160-208).
+
+    u: (N,5). The area branch consumes all five (triangle pick, two for
+    the position, two for the direction): sharing one between position and
+    direction would correlate them, and the estimator divides by
+    pdf_pos * pdf_dir as if they were independent. The point branch takes
+    u[:, :2]. Returns (ray_o, ray_d, pdf_pos, pdf_dir, normal)."""
+    N = eid.shape[0]
+    dev = u.device
+    ray_o = scene.emit_pos[eid]
+    ray_d = axis_vec(1, dev).expand(N, 3)
+    normal = ray_d
+    pdf_dir = torch.zeros(N, device=dev)
+    pdf_pos = torch.ones(N, device=dev)
+    kind = scene.emit_kind[eid]
+    for k in cfg.emitter_kinds:
+        m = kind == k
+        if k == EmitterTag.POINT:
+            d, pdf = uniform_sphere(u[:, 0], u[:, 1])
+            ray_d = torch.where(m[:, None], d, ray_d)
+            normal = torch.where(m[:, None], d, normal)
+            pdf_dir = torch.where(m, pdf, pdf_dir)
+        elif k == EmitterTag.AREA:
+            obj = scene.emit_obj[eid].clamp(min=0)
+            is_sphere = scene.obj_is_sphere[obj] > 0
+            start = scene.obj_start[obj]
+            cnt = scene.obj_cnt[obj].clamp(min=1)
+            tri_local = torch.minimum((u[:, 0] * cnt).to(torch.int32),
+                                      cnt - 1)
+            tri_id = start + tri_local
+            tri_n = scene.prim_ng[tri_id]
+            tri_o = sample_triangle(scene.pre0[tri_id], scene.pre1[tri_id],
+                                    u[:, 1], u[:, 2]) + scene.pre2[tri_id]
+            sph_n, _ = uniform_sphere(u[:, 1], u[:, 2])
+            center = scene.pre0[start]
+            radius = scene.pre1[start][:, 0]
+            sph_o = center + sph_n * radius[:, None]
+            a_n = torch.where(is_sphere[:, None], sph_n, tri_n)
+            a_o = torch.where(is_sphere[:, None], sph_o, tri_o)
+            local_d, c_pdf = cosine_hemisphere(u[:, 3], u[:, 4])
+            a_d = _rotate(a_n, local_d)
+            ray_o = torch.where(m[:, None], a_o, ray_o)
+            ray_d = torch.where(m[:, None], a_d, ray_d)
+            normal = torch.where(m[:, None], a_n, normal)
+            pdf_dir = torch.where(m, c_pdf, pdf_dir)
+            pdf_pos = torch.where(m, scene.emit_inv_area[eid], pdf_pos)
+        else:
+            raise NotImplementedError(
+                f"emitter kind {k} is not ported yet (ROADMAP.md queue A "
+                "item 9)")
+    return ray_o, ray_d, pdf_pos, pdf_dir, normal
 
 
 def eval_le(scene, eid, inci_dir, normal):

@@ -1,17 +1,20 @@
-"""Where the time of a PT (or VPT) pass goes on the GPU: wall time per spp,
-device busy and idle share, launches per spp, and device and host time by
-range.
+"""Where the time of a PT (VPT, BDPT) pass goes on the GPU: wall time per
+spp, device busy and idle share, launches per spp, and device and host time
+by range.
 
     python -m adapt_tpu_torch.profile_pt scenes/cbox knot290k.xml --spp 2
     python -m adapt_tpu_torch.profile_pt scenes/vpt cbox.xml --renderer vpt
+    python -m adapt_tpu_torch.profile_pt scenes/cbox cbox.xml \
+        --renderer bdpt --max-bounce 6
 
 Loads the scene on the CUDA device, renders one warm-up spp (which also
 runs the auto-compaction probe), times `--runs` unprofiled render_batch
 calls of `--spp` samples (host clock around work that ends in a
 synchronize), then traces one more under torch.profiler with one range per
-stage of the bounce loop. Prints one line per range, the kernels that
-take the most device time and the port's own kernels, and a JSON summary
-(also written to `--out` when given). Needs one CUDA device.
+stage of the bounce loop (for BDPT: the two walks, and each connection
+case). Prints one line per range, the kernels that take the most device
+time and the port's own kernels, and a JSON summary (also written to
+`--out` when given). Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from . import rng
 from .ops import bxdf_ops, emitter_ops, medium_ops
-from .renderer import compact, pt, vpt
+from .renderer import bdpt, compact, pt, vpt
 from .scene.compile import load_scene
 
 _SHADING = (
@@ -55,18 +58,41 @@ RANGES = {
             *_SHADING,
             (vpt, "camera_rays", "camera_rays"),
             (compact, "run_compacted", "iteration loop")),
+    # "{case}": one range per connection case (s0, t1, s1, gen)
+    "bdpt": ((rng, "uniform", "rng.uniform"),
+             (bdpt, "generate_eye_path", "eye walk"),
+             (bdpt, "generate_light_path", "light walk"),
+             (bdpt, "ray_intersect", "ray_intersect"),
+             (bdpt, "connect_strategy", "connect {case}"),
+             (bdpt, "eval_vertex", "eval_vertex"),
+             (bdpt, "pdf_vertex", "pdf_vertex"),
+             (bdpt, "_mis_weight", "_mis_weight"),
+             (bdpt, "track_ray", "track_ray"),
+             (vpt, "ray_track_hits", "ray_track_hits"),
+             (medium_ops, "sample_mfp", "sample_mfp"),
+             (medium_ops, "phase_sample", "phase_sample"),
+             (emitter_ops, "sample_hit", "sample_hit"),
+             *_SHADING,
+             (bdpt, "splat_sorted_accumulate", "film splat")),
 }
+CASES = ("s0", "t1", "s1", "gen")
 TOP = 8               # kernels listed by device time
 # the port's hand-written kernels (csrc/), always listed: launched through
 # ctypes, they are attributed to no range
-OWN_KERNELS = ("tri_", "bvh_")
+OWN_KERNELS = ("tri_", "bvh_", "splat_")
 
 
 def _ranged(fn, name):
     def wrapped(*args, **kw):
-        with torch.profiler.record_function(name):
+        with torch.profiler.record_function(name.format(case=kw.get("case"))):
             return fn(*args, **kw)
     return wrapped
+
+
+def _names(ranges):
+    """Every range name, "{case}" ones once per case."""
+    return [n.format(case=c) for _, _, n in ranges
+            for c in (CASES if "{case}" in n else (None,))]
 
 
 def _timed(r, spp):
@@ -96,8 +122,8 @@ def main(argv=None):
     scene, cfg, _ = load_scene(args.directory, args.file)
     if args.max_bounce:
         cfg = dataclasses.replace(cfg, max_bounce=args.max_bounce)
-    r = vpt.VolumeRenderer(scene, cfg, seed=0) if args.renderer == "vpt" \
-        else pt.Renderer(scene, cfg, seed=0)
+    r = {"pt": pt.Renderer, "vpt": vpt.VolumeRenderer,
+         "bdpt": bdpt.BDPT}[args.renderer](scene, cfg, seed=0)
     r.render_batch(1)
     walls = [_timed(r, args.spp) / args.spp for _ in range(args.runs)]
     wall = statistics.median(walls)
@@ -121,7 +147,7 @@ def main(argv=None):
                if e.device_type == cuda and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / spp
     rows = []
-    for _, _, name in ranges:
+    for name in _names(ranges):
         hits = [e for e in events if e.name == name and e.device_type != cuda]
         if hits:      # device ms: the kernels launched inside the range
             rows.append({
@@ -138,8 +164,8 @@ def main(argv=None):
     out = {"scene": args.file, "w": cfg.w, "h": cfg.h,
            "max_bounce": cfg.max_bounce, "spp": spp, "card": card,
            "renderer": args.renderer,
-           "schedule": list(r.schedule if args.renderer == "vpt"
-                            else r._sched or ()),
+           "schedule": list(getattr(r, "schedule", None)
+                            or getattr(r, "_sched", None) or ()),
            "ms_per_spp": [1e3 * w for w in walls],
            "profiled_ms_per_spp": 1e3 * prof_wall,
            "device_busy_ms_per_spp": busy,

@@ -197,12 +197,19 @@ def _track_loop(scene, cfg, start_p, ray_d, depth, active):
     return tr, acc
 
 
-def track_ray(scene, cfg, start_p, ray_d, depth, active=None):
+def track_ray(scene, cfg, start_p, ray_d, depth, key=None, thp=None,
+              active=None):
     """Transmittance and ior-weighted propagation time along a shadow
     path crossing up to TRACK_STEPS medium interfaces (reference
     vpt.py:101-137). Returns (tr (N,3), acc_depth (N,)); tr = 0 where a
     non-null surface blocks the segment. active: dead lanes take no
-    intersection work (their results are unused)."""
+    intersection work (their results are unused). key and thp feed only
+    the JAX package's grid-volume ratio tracking, which the port does not
+    have yet: a scene with a grid volume raises. (The JAX `key_hint`, a
+    TPU wavefront sort key, has no counterpart.)"""
+    if cfg.volume_kind:
+        raise NotImplementedError(
+            "grid volumes are not ported yet (ROADMAP.md queue A item 14)")
     N = start_p.shape[0]
     w_ior = scene.world_medium.ior[0]
     if not (cfg.world_scattering or cfg.has_null_bsdf or cfg.volume_kind

@@ -112,6 +112,7 @@ class SceneData:
     emit_r: torch.Tensor         # (E,)
     emit_bits: torch.Tensor      # (E,) i32 bool_bits
     emit_obj: torch.Tensor       # (E,) i32 attached object or -1
+    emit_time: torch.Tensor      # (E,) emission time offset (BDPT)
     # --- world, camera, textures ---
     world_medium: MediumTable    # (1,)
     cam_r: torch.Tensor          # (3,3)
@@ -197,24 +198,31 @@ class RenderConfig:
     modulated: bool = False
 
     @property
+    def transient(self) -> bool:
+        """BDPT bins path time (reference bdpt.py:40-47, 95-108)."""
+        return self.decomposition != "none" and self.t_bins > 0
+
+    @property
     def n_pixels(self) -> int:
         return self.w * self.h
 
 
 def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
     """Raise NotImplementedError for what a renderer of the port cannot
-    render yet; `renderer` is "pt" or "vpt".
+    render yet; `renderer` is "pt", "vpt" or "bdpt".
 
     PT: lambertian BRDFs and point lights. Participating media are not on
     its list: the JAX package's PT reads only the world IOR and ignores
     them too (cbox itself declares a scattering world medium).
-    VPT: also null BSDFs (medium boundaries), area lights and HG,
+    VPT and BDPT: also null BSDFs (medium boundaries), area lights and HG,
     multi-HG and Rayleigh media."""
     def nope(what, item):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
-    vpt = renderer == "vpt"
+    if renderer not in ("pt", "vpt", "bdpt"):
+        raise ValueError(f"unknown renderer {renderer!r}")
+    vpt = renderer != "pt"                    # the media renderers
     bsdfs = set(cfg.bsdf_types) - ({BSDFTag.NULL} if vpt else set())
     if bsdfs or (cfg.has_null_bsdf and not vpt):
         nope(f"BSDFs {cfg.bsdf_types}", 9)
@@ -510,6 +518,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         emit_r=_t([e.r for e in emitters], np.float32),
         emit_bits=_t([e.bool_bits for e in emitters], np.int32),
         emit_obj=_t(emit_obj),
+        emit_time=_t([e.emit_time for e in emitters], np.float32),
         world_medium=_medium_table([world.medium]),
         cam_r=_t(cam_r, np.float32),
         cam_t=_t(cam_t, np.float32),

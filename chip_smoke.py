@@ -21,10 +21,15 @@ non-zero exit and no result line.
    primary hits to area-light samples at K = 2; bounce rays with 15% dead
    lanes at K = 2 and, every triangle an interface, at K = 7): every
    output exactly equal to the twin's, with the null-hit, overflow and
-   blocker shares;
+   blocker shares; 2d: the film-splat kernel on three 512^2 streams of
+   1,572,864 updates (the t=1 stream of one BDPT cbox pass at 6 bounces, a
+   uniform one with 10% dropped, and one whose first 1024-pixel tile holds
+   70,000 updates), bit-equal to its plain version, with index_add_'s time
+   beside it;
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
-   same for render_pass_vpt against tests/goldens/vptcbox_48.npy;
+   same for render_pass_vpt against tests/goldens/vptcbox_48.npy; 3c: for
+   render_pass_bdpt against tests/goldens/cbox_bdpt_48.npy;
 4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
    setting), render_batch of a few spp with the launch counts read around
    it; the image must be finite with mean > 0.05 and match the same render
@@ -40,7 +45,17 @@ non-zero exit and no result line.
    one warm-up spp, then render_batch of a few spp with one media-walk
    launch per iteration and shadow ray; the image equal to the same render
    with no compaction, and at 64^2 the render with the twins in place
-   matches under the goldens' bounds.
+   matches under the goldens' bounds;
+7. BDPT main path: BDPT on cbox 512^2 at 6 bounces (the JAX package's
+   bench row, scripts/bench_all.py:74-78): one warm-up spp, then
+   render_batch of a few spp with the launch counts the code gives (12
+   closest hits, 3 media walks and 1 film splat per spp); the image
+   finite, and at 64^2 the render with the twins in place matches under
+   the goldens' bounds;
+8. transient BDPT: one render_pass_bdpt on scenes/trans/cbox-point.xml at
+   its own settings (512^2, 12 bounces, 400 time bins): bins and counts of
+   the right shape, finite, some counts; the any-hit and film-splat kernels
+   launched, the media walk not.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
 result line {"ok": true, "device": {...}}.
@@ -61,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SPP = 4            # cbox main-path samples per pixel (after one warm-up spp)
 KNOT_SPP = 3       # knot290k main-path samples per pixel (after one warm-up)
 VPT_SPP = 3        # vpt cbox main-path samples per pixel (after one warm-up)
+BDPT_SPP = 3       # BDPT cbox main-path samples per pixel (after one warm-up)
 REPS = 5           # kernel timing repetitions (median)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 operations/s outside
 # the tensor cores; a kernel's bound is the larger of its two times
@@ -80,6 +96,8 @@ KERNELS = {
                     "adapt_tpu/ops/cluster_pallas.py:766"),
     "tri_track_hits": ("adapt_tpu_torch/csrc/tri_intersect.cu",
                        "adapt_tpu/ops/intersect_pallas.py:131"),
+    "splat_sorted_accumulate": ("adapt_tpu_torch/csrc/splat.cu",
+                                "adapt_tpu/ops/splat_pallas.py:52"),
 }
 
 
@@ -161,18 +179,20 @@ def main():
     from adapt_tpu_torch import native, rng
     from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
     from adapt_tpu_torch.ops import emitter_ops, intersect_kernels as K
+    from adapt_tpu_torch.ops import splat as S
     from adapt_tpu_torch.ops.intersect import DEAD, _is_null_obj
     from adapt_tpu_torch.parsers.xml_parser import scene_parsing
-    from adapt_tpu_torch.renderer import pt, vpt
+    from adapt_tpu_torch.renderer import bdpt as B, pt, vpt
     from adapt_tpu_torch.renderer.base import camera_rays
     from adapt_tpu_torch.scene import compile as C
 
     def reset():
         K.reset_launches()
         BK.reset_launches()
+        S.reset_launches()
 
     def counts():
-        return {**K.launches, **BK.launches}
+        return {**K.launches, **BK.launches, **S.launches}
 
     # ---- 1. device, builds, assets, set-up ----
     card = subprocess.run(
@@ -180,8 +200,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
-        for f in [ex.submit(fn) for fn in (K._lib, BK._lib, native._lib)]:
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        for f in [ex.submit(fn) for fn in (K._lib, BK._lib, S._lib,
+                                           native._lib)]:
             f.result()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -418,6 +439,82 @@ def main():
           f"{tp:.4f} ms, bound {bounds['tri_track_hits'][0]:.4f} ms "
           f"({bounds['tri_track_hits'][1]}) [{card}]", flush=True)
 
+    # ---- 2d. film-splat kernel against its plain version, 512^2 ----
+    bcfg = dataclasses.replace(cfg0, max_bounce=6)  # scripts/bench_all.py:74-78
+    P = bcfg.n_pixels
+    t1_stream = []
+
+    def capture(film, idx, rgb):
+        t1_stream.append((film, idx, rgb))
+        return S.splat_sorted_accumulate(film, idx, rgb)
+    B.splat_sorted_accumulate = capture
+    try:
+        B.render_pass_bdpt(scene, bcfg, rng.PRNGKey(3), 1)
+    finally:
+        B.splat_sorted_accumulate = S.splat_sorted_accumulate
+    _require(len(t1_stream) == 1, "one film splat a BDPT pass")
+    film1, idx1, rgb1 = t1_stream[0]
+    M = idx1.shape[0]
+    _require(M == len(B._strategy_groups(bcfg, 6)["t1"]) * P,
+             f"t=1 stream of {M} updates")
+
+    def splat_stream(hot):
+        """M sorted updates with random rgb over a random film: 10% dropped
+        (id P) and the rest uniform, or `hot` of them in pixels [0, 1024)."""
+        ids = torch.randint(0, P, (M,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if hot:
+            ids[:hot] = torch.randint(0, 1024, (hot,), generator=g,
+                                      device=dev, dtype=torch.int32)
+        else:
+            ids = torch.where(torch.rand(M, generator=g, device=dev) < 0.1,
+                              P, ids)
+        return (torch.rand((P, 3), generator=g, device=dev),
+                torch.sort(ids).values.contiguous(),
+                torch.rand((M, 3), generator=g, device=dev))
+    streams = (("bdpt t=1", (film1, idx1, rgb1)),
+               ("uniform", splat_stream(0)),
+               ("skewed", splat_stream(70000)))
+    _require(int((streams[2][1][1] < 1024).sum()) >= 65536,
+             "the skewed stream's first tile holds 65,536 updates")
+    splat_rows = []
+    for tag, (film, idx, rgb) in streams:
+        got = S.splat_sorted_accumulate(film, idx, rgb)
+        want = S.splat_sorted_accumulate_plain(film, idx, rgb)
+        _require(torch.equal(got, want),
+                 f"splat_sorted_accumulate ({tag}): differs from the plain "
+                 "version")
+        errs["splat_sorted_accumulate"] = max(
+            errs["splat_sorted_accumulate"], float((got - want).abs().max()))
+        kept = idx < P
+        ik, rk = idx[kept], rgb[kept]
+        lib = torch.index_add(film, 0, ik, rk)
+        torch.testing.assert_close(lib, got, rtol=1e-5, atol=1e-5)
+        nk = int(kept.sum())
+        # bound: each kept update's id and rgb read once, the film read and
+        # the output written once; 3 adds an update
+        splat_rows.append((
+            tag, nk,
+            _time_ms(torch, lambda: S.splat_sorted_accumulate(film, idx,
+                                                              rgb)),
+            _time_ms(torch, lambda: S.splat_sorted_accumulate_plain(
+                film, idx, rgb)),
+            _bound(nk * 16 + P * 24, 3 * nk),
+            _time_ms(torch, lambda: torch.index_add(film, 0, ik, rk)),
+            int(torch.bincount(idx[kept], minlength=P).max()) if nk else 0))
+    # the JSON line takes the uniform stream: the main path's shapes with
+    # every pixel at work (the main path's own t=1 stream keeps nothing on
+    # cbox, see phase 7)
+    _tag, _nk, sk, sp, sb, sl, _mx = splat_rows[1]
+    times["splat_sorted_accumulate"] = (sk, sp, sl)
+    bounds["splat_sorted_accumulate"] = sb
+    print(f"phase 2d film-splat kernel vs plain, {P} pixels, {M} updates: "
+          "bit-equal on every stream; " + "; ".join(
+              f"{tag}: {nk} kept (most in one pixel {mx}), kernel {k:.4f} ms,"
+              f" plain {p:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), index_add_ "
+              f"{lb:.4f} ms" for tag, nk, k, p, b, lb, mx in splat_rows)
+          + f" [{card}]", flush=True)
+
     # ---- 3. golden on the card ----
     w = 48                                   # tests/test_goldens.py:25-29
     small = dataclasses.replace(
@@ -455,21 +552,39 @@ def main():
           f"{mean:.6f} vs {ref_mean:.6f}, launches {vgolden_launches}",
           flush=True)
 
+    # ---- 3c. BDPT golden on the card ----
+    reset()
+    img, _, _ = B.render_pass_bdpt(scene, small, rng.PRNGKey(42), 1)
+    bgolden_launches = counts()
+    _require(bgolden_launches["tri_closest_hit"] > 0
+             and bgolden_launches["tri_track_hits"] > 0
+             and bgolden_launches["splat_sorted_accumulate"] > 0,
+             f"a kernel did not launch: {bgolden_launches}")
+    err, mean, ref_mean = _check(
+        img.cpu().numpy(),
+        np.load(os.path.join(ROOT, "tests", "goldens", "cbox_bdpt_48.npy")))
+    print(f"phase 3c golden cbox_bdpt_48 on cuda: max abs diff {err:.3g}, "
+          f"mean {mean:.6f} vs {ref_mean:.6f}, launches {bgolden_launches}",
+          flush=True)
+
     @contextlib.contextmanager
     def twins():
         """The path's wrappers swapped for their plain twins."""
         saved = (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
-                 BK.bvh_closest_hit, BK.bvh_any_hit)
+                 BK.bvh_closest_hit, BK.bvh_any_hit,
+                 B.splat_sorted_accumulate)
         K.tri_closest_hit = K.tri_closest_hit_plain
         K.tri_any_hit = K.tri_any_hit_plain
         K.tri_track_hits = K.tri_track_hits_plain
         BK.bvh_closest_hit = BK.bvh_closest_hit_plain
         BK.bvh_any_hit = BK.bvh_any_hit_plain
+        B.splat_sorted_accumulate = S.splat_sorted_accumulate_plain
         try:
             yield
         finally:
             (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
-             BK.bvh_closest_hit, BK.bvh_any_hit) = saved
+             BK.bvh_closest_hit, BK.bvh_any_hit,
+             B.splat_sorted_accumulate) = saved
 
     def timed_batch(r, spp):
         torch.cuda.synchronize()
@@ -494,7 +609,8 @@ def main():
              f"image not finite or too dark (mean {image.mean()})")
     want = {"tri_closest_hit": SPP * cfg.max_bounce,
             "tri_any_hit": SPP * cfg.max_bounce * cfg.num_shadow_ray,
-            "tri_track_hits": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0}
+            "tri_track_hits": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0,
+            "splat_sorted_accumulate": 0}
     _require(launches == want, f"cbox launch counts {launches}, want {want}")
     r_twin = pt.Renderer(scene, cfg, seed=0)
     with twins():
@@ -527,7 +643,8 @@ def main():
              f"image not finite or black (mean {kimage.mean()})")
     want = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0,
             "bvh_closest_hit": KNOT_SPP * kcfg.max_bounce,
-            "bvh_any_hit": KNOT_SPP * kcfg.max_bounce * kcfg.num_shadow_ray}
+            "bvh_any_hit": KNOT_SPP * kcfg.max_bounce * kcfg.num_shadow_ray,
+            "splat_sorted_accumulate": 0}
     _require(klaunches == want,
              f"knot290k launch counts {klaunches}, want {want}")
     plain = pt.Renderer(kscene, kcfg, seed=0)
@@ -570,7 +687,8 @@ def main():
              == VPT_SPP * iters * vcfg.num_shadow_ray
              and vlaunches["tri_closest_hit"] >= VPT_SPP * iters
              and vlaunches["tri_any_hit"] == 0
-             and vlaunches["bvh_closest_hit"] == vlaunches["bvh_any_hit"] == 0,
+             and vlaunches["bvh_closest_hit"] == vlaunches["bvh_any_hit"] == 0
+             and vlaunches["splat_sorted_accumulate"] == 0,
              f"vpt launch counts {vlaunches}")
     plain = vpt.VolumeRenderer(vscene, vcfg, seed=0, schedule=())
     plain.render_batch(1)
@@ -593,17 +711,88 @@ def main():
           f"image mean {vimage.mean():.6f}; 64^2 max abs diff to twins "
           f"{vtwin_err:.3g}; launches {vlaunches}", flush=True)
 
+    # ---- 7. BDPT main path at full size ----
+    groups = B._strategy_groups(bcfg, bcfg.max_bounce)
+    Q = max(1, B.FLAT_LANES // P)
+    chunks = {case: -(-len(rows) // Q) for case, rows in groups.items()}
+    r = B.BDPT(scene, bcfg, seed=0)
+    r.render_batch(1)                         # warm-up sample, not timed
+    reset()
+    dt = timed_batch(r, BDPT_SPP)
+    blaunches = counts()
+    bimage = r.image()
+    _require(bimage.shape == (bcfg.h, bcfg.w, 3), f"shape {bimage.shape}")
+    _require(bool(np.isfinite(bimage).all()) and bimage.mean() > 0,
+             f"image not finite or black (mean {bimage.mean()})")
+    # two walks of max_bounce closest hits; one media walk for each chunk
+    # of the t1, s1 and gen groups (no null surface, so no overflow
+    # fallback); one film splat a pass
+    want = {"tri_closest_hit": BDPT_SPP * 2 * bcfg.max_bounce,
+            "tri_any_hit": 0,
+            "tri_track_hits": BDPT_SPP * (chunks["t1"] + chunks["s1"]
+                                          + chunks["gen"]),
+            "bvh_closest_hit": 0, "bvh_any_hit": 0,
+            "splat_sorted_accumulate": BDPT_SPP}
+    _require(blaunches == want,
+             f"BDPT launch counts {blaunches}, want {want}")
+    w = 64
+    small = dataclasses.replace(bcfg, w=w, h=w, focal=bcfg.focal * w / 512,
+                                end_x=w, end_y=w)
+    rb = B.BDPT(scene, small, seed=1)
+    rb.render_batch(1)
+    rt = B.BDPT(scene, small, seed=1)
+    with twins():
+        rt.render_batch(1)
+    btwin_err, _, _ = _check(rb.image(), rt.image())
+    print(f"phase 7 main path BDPT cbox {bcfg.w}x{bcfg.h} mb "
+          f"{bcfg.max_bounce}, {sum(map(len, groups.values()))} strategies "
+          f"in chunks {chunks}, {BDPT_SPP} spp: {1e3 * dt / BDPT_SPP:.2f} "
+          f"ms/spp [{card}]; image mean {bimage.mean():.6f}; 64^2 max abs "
+          f"diff to twins {btwin_err:.3g}; launches {blaunches}", flush=True)
+
+    # ---- 8. transient BDPT at full size ----
+    tscene, tcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "trans"),
+                                   "cbox-point.xml")
+    _require(tcfg.transient and tcfg.t_bins == 400 and tcfg.max_bounce == 12
+             and (tcfg.w, tcfg.h) == (512, 512), "trans cbox-point settings")
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tcolor, tbins, tcnts = B.render_pass_bdpt(tscene, tcfg, rng.PRNGKey(5), 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tlaunches = counts()
+    _require(tuple(tbins.shape) == (P, 400, 3)
+             and tuple(tcnts.shape) == (P, 400), "transient shapes")
+    _require(bool(torch.isfinite(tbins).all() & torch.isfinite(tcolor).all()),
+             "transient bins or image not finite")
+    n_cnt = int(tcnts.sum())
+    _require(n_cnt > 0 and bool((tcnts >= 0).all()), "no transient counts")
+    _require(tlaunches["tri_any_hit"] > 0
+             and tlaunches["splat_sorted_accumulate"] == 1
+             and tlaunches["tri_track_hits"] == 0,
+             f"transient launch counts {tlaunches}")
+    print(f"phase 8 transient BDPT trans/cbox-point {tcfg.w}x{tcfg.h} mb "
+          f"{tcfg.max_bounce}, {tcfg.t_bins} bins: {1e3 * dt:.2f} ms per pass "
+          f"[{card}]; {n_cnt} samples binned, {int((tcnts > 0).sum())} bins "
+          f"filled; image mean {float(tcolor.mean()):.6f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{tlaunches}", flush=True)
+
     path_launches = {**{k: launches[k] for k in ("tri_closest_hit",
                                                  "tri_any_hit")},
                      **{k: klaunches[k] for k in ("bvh_closest_hit",
                                                   "bvh_any_hit")},
-                     "tri_track_hits": vlaunches["tri_track_hits"]}
+                     "tri_track_hits": vlaunches["tri_track_hits"],
+                     "splat_sorted_accumulate":
+                         blaunches["splat_sorted_accumulate"]}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "max_abs_err": errs[k],
          "ms": times[k][0], "plain_ms": times[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None}
+         "library_ms": times[k][2] if len(times[k]) > 2 else None}
         for k, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

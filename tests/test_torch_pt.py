@@ -20,8 +20,8 @@ from adapt_tpu.renderer.base import camera_rays as jax_camera_rays
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch import rng
 from adapt_tpu_torch.convert import key_from_numpy
-from adapt_tpu_torch.ops import intersect_kernels
-from adapt_tpu_torch.renderer import pt
+from adapt_tpu_torch.ops import intersect_kernels, splat
+from adapt_tpu_torch.renderer import bdpt, pt
 from adapt_tpu_torch.renderer.base import camera_rays, crop_pix_ids
 from adapt_tpu_torch.scene.compile import load_scene
 
@@ -147,17 +147,27 @@ def test_crop_window(cbox):
 
 
 def test_cpu_path_uses_twins_not_kernels(cbox):
+    """PT, and BDPT (whose walks, visibility and film splat reach the
+    closest-hit, media-walk and film-splat wrappers), on CPU tensors take
+    the plain versions: no kernel launches."""
     _, _, scene, cfg = cbox
     intersect_kernels.reset_launches()
+    splat.reset_launches()
     pt.render_pass_pt(scene, _small(cfg, 8), rng.PRNGKey(0), 1)
+    img, _, _ = bdpt.render_pass_bdpt(
+        scene, dataclasses.replace(_small(cfg, 8), max_bounce=2),
+        rng.PRNGKey(0), 1)
+    assert img.device.type == "cpu" and torch.isfinite(img).all()
     assert intersect_kernels.launches == {"tri_closest_hit": 0,
                                           "tri_any_hit": 0,
                                           "tri_track_hits": 0}
+    assert splat.launches == {"splat_sorted_accumulate": 0}
 
 
 def test_port_imports_no_jax():
     code = ("import sys; import adapt_tpu_torch.renderer.pt, "
             "adapt_tpu_torch.renderer.vpt, adapt_tpu_torch.ops.medium_ops, "
+            "adapt_tpu_torch.renderer.bdpt, adapt_tpu_torch.ops.splat, "
             "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
