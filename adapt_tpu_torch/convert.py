@@ -3,8 +3,9 @@
 The port never imports jax. A caller that holds JAX objects reads them out
 with `scene_leaves` (plain `np.asarray` on each leaf) and hands the numpy
 dict to `scene_from_numpy` (the BVH packs come across as they are, so the
-port walks the JAX package's own tree; the TPU's cluster tables `cl_*`
-are not read); a JAX PRNG key's data (`jax.random.key_data`,
+port walks the JAX package's own tree; the cluster tables `cl_*` come
+across in the port's prim-major layout, so both packages sweep the same
+clusters); a JAX PRNG key's data (`jax.random.key_data`,
 the checkpoint `key` field) becomes a port key with `key_from_numpy`.
 BDPT vertex buffers cross in the JAX package's layout (scalars (D, N),
 vectors (3, D, N)) with `vertex_buffers_from_numpy`, and back with
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from .scene.compile import (MediumTable, RenderConfig, SceneData,
-                            TextureTable, resolve_device)
+                            TextureTable, front_boxes, prim_slots,
+                            resolve_device)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
 _MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
@@ -39,11 +41,30 @@ def _resolve(obj, dotted):
     return obj
 
 
+def _jax_cluster_leaves(scene) -> dict:
+    """The port's cluster tables from a JAX SceneData's: `cl_aabb` (C,8)
+    loses its two padded columns, the prim-major copy `cl_rows_pm`
+    (C*CM,24) its six padded fields, `cl_chunk` (C*8,K) becomes (C,K,6);
+    the inflated boxes, the live counts and the prim-to-slot map are derived as the port's
+    compiler derives them."""
+    aabb = np.ascontiguousarray(np.asarray(scene.cl_aabb)[:, :6])
+    rows = np.ascontiguousarray(np.asarray(scene.cl_rows_pm)[:, :18])
+    ch = np.asarray(scene.cl_chunk)
+    chunk = ch.reshape(-1, 8, ch.shape[1])[:, :6].transpose(0, 2, 1)
+    count, slot = prim_slots(rows, aabb.shape[0],
+                             np.asarray(scene.prim_obj).shape[0])
+    return dict(cl_aabb=aabb, cl_front=front_boxes(aabb), cl_rows=rows,
+                cl_chunk=np.ascontiguousarray(chunk), cl_count=count,
+                cl_slot=slot)
+
+
 def scene_leaves(scene) -> dict:
     """{dotted name: numpy array} for LEAF_NAMES of a JAX or port scene."""
     out = {}
+    layout = {} if isinstance(scene, SceneData) \
+        else _jax_cluster_leaves(scene)
     for name in LEAF_NAMES:
-        x = _resolve(scene, name)
+        x = layout[name] if name in layout else _resolve(scene, name)
         out[name] = x.cpu().numpy() if isinstance(x, torch.Tensor) \
             else np.asarray(x)
     return out

@@ -7,16 +7,22 @@ Two tiers, chosen as the JAX package chooses on its accelerator
   and 256 prims): every triangle is tested against every ray by the
   hand-written kernels of ops/intersect_kernels.py; spheres use the
   reference's quadratic form in plain PyTorch;
-* every other scene: the BVH kernels of ops/bvh_kernels.py walk the
-  scene's BVH, triangles and spheres alike.
+* every other scene (the big tier), triangles and spheres alike, by the
+  kernels `cfg.big_tier` names: "bvh" (the default), the BVH kernels of
+  ops/bvh_kernels.py walk the scene's BVH; "sweep", the cluster kernels of
+  ops/cluster_kernels.py sweep every cluster of the BVH's cluster cut;
+  "qpick", the queue-pick schedule there (front pass, one sort, pick
+  passes, exact cleanup by the BVH walk). The three give the same hits
+  but for rays that graze an edge or tie exactly (the cluster kernels
+  round u and v in another order than the BVH kernels).
 
 Media walks on the brute-force tier take `ray_track_hits` (kernel B3 plus
 the sphere roots): the closest blocker and the null medium interfaces in
 front of it, in one pass.
 
 On the CPU the wrappers run their plain twins. The JAX package's one-hot
-gathers, wavefront sorts and cluster tiers are TPU workarounds with no
-counterpart here: lookups are plain indexing.
+gathers and wavefront sorts are TPU workarounds with no counterpart here:
+lookups are plain indexing.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import dataclasses
 import torch
 
 from ..constants import INV_PI, INV_2PI
-from . import bvh_kernels, intersect_kernels as kernels
+from . import bvh_kernels, cluster_kernels, intersect_kernels as kernels
 from .math3d import axis_vec, dot, normalize
 
 RAY_EPS = kernels.RAY_EPS
@@ -63,10 +69,18 @@ def _sphere_hit(ray_o, ray_d, center, radius):
     return torch.where(c2r < r2, ray_t, -1.0)
 
 
+BIG_TIERS = ("bvh", "sweep", "qpick")
+
+
 def _bvh_tier(scene, cfg):
-    """The BVH kernels serve this scene (else the brute-force ones)."""
+    """The big tier's kernels serve this scene (else the brute-force
+    ones)."""
     T, P = scene.tri_n.shape[0], scene.n_prims
-    return cfg.use_bvh and not (0 < T <= 256 and P <= 256)
+    big = cfg.use_bvh and not (0 < T <= 256 and P <= 256)
+    if big and cfg.big_tier not in BIG_TIERS:
+        raise ValueError(f"big_tier must be one of {BIG_TIERS}, got "
+                         f"{cfg.big_tier!r}")
+    return big
 
 
 def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
@@ -76,6 +90,19 @@ def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     max_t - eps). alive: optional (N,) bool; dead lanes are forced to miss
     (far0 = -3e38) and come back with t = -3e38."""
     far0 = kernels.far_bound(ray_o, max_t, alive)
+    if _bvh_tier(scene, cfg) and cfg.big_tier != "bvh":
+        if cfg.big_tier == "sweep":
+            t, gid, u, v, ng, obj = cluster_kernels.cluster_closest_hit(
+                scene, ray_o, ray_d, far0)
+        else:
+            t, wid = cluster_kernels.qpick_closest(scene, ray_o, ray_d, far0)
+            gid, u, v, ng, obj = cluster_kernels.resolve_winner(
+                scene, wid, t, ray_o, ray_d)
+        # sphere normals and uv are final already: no sphere block
+        no_sphere = torch.zeros_like(gid, dtype=torch.bool)
+        return _assemble_interaction(scene, cfg, ray_o, ray_d, t, gid, u, v,
+                                     no_sphere, pre_ng=ng, pre_obj=obj,
+                                     pre_final=True)
     if _bvh_tier(scene, cfg):
         best_t, prim, u, v = bvh_kernels.bvh_closest_hit(scene, ray_o, ray_d,
                                                          far0)
@@ -112,13 +139,15 @@ def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
 
 def _assemble_interaction(scene, cfg, ray_o, ray_d, best_t, best_prim,
                           best_u, best_v, is_sphere_hit, pre_ng=None,
-                          pre_obj=None):
+                          pre_obj=None, pre_final=False):
     """Interaction record from raw hit data (reference
     tracer_base.py:215-237). pre_ng/pre_obj: per-lane normal and object id
-    the closest-hit kernel already read from its table."""
+    the closest-hit kernel already read from its table. pre_final: sphere
+    normals and uv are final too (the cluster tier), so the sphere block
+    is skipped."""
     hit = best_prim >= 0
     prim = best_prim.clamp(min=0)
-    spheres = scene.sph_center.shape[0] > 0
+    spheres = scene.sph_center.shape[0] > 0 and not pre_final
     if pre_obj is not None:
         obj_id = pre_obj
         if spheres:
@@ -164,7 +193,10 @@ def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     Dead lanes (alive False) come back un-occluded."""
     far = kernels.far_bound(ray_o, max_t, alive)
     if _bvh_tier(scene, cfg):
-        return bvh_kernels.bvh_any_hit(scene, ray_o, ray_d, far)
+        any_hit = {"bvh": bvh_kernels.bvh_any_hit,
+                   "sweep": cluster_kernels.cluster_any_hit,
+                   "qpick": cluster_kernels.qpick_any}[cfg.big_tier]
+        return any_hit(scene, ray_o, ray_d, far)
     occluded = torch.zeros(ray_o.shape[0], dtype=torch.bool,
                            device=ray_o.device)
     if scene.tri_n.shape[0] > 0:

@@ -3,6 +3,7 @@ spp, device busy and idle share, launches per spp, and device and host time
 by range.
 
     python -m adapt_tpu_torch.profile_pt scenes/cbox knot290k.xml --spp 2
+    python -m adapt_tpu_torch.profile_pt scenes/cbox knot290k.xml --tier qpick
     python -m adapt_tpu_torch.profile_pt scenes/vpt cbox.xml --renderer vpt
     python -m adapt_tpu_torch.profile_pt scenes/cbox cbox.xml \
         --renderer bdpt --max-bounce 6
@@ -12,7 +13,9 @@ runs the auto-compaction probe), times `--runs` unprofiled render_batch
 calls of `--spp` samples (host clock around work that ends in a
 synchronize), then traces one more under torch.profiler with one range per
 stage of the bounce loop (for BDPT: the two walks, and each connection
-case). Prints one line per range, the kernels that take the most device
+case; under `--tier qpick`, PT's front pass and sort, tile picks, unsort
+and winner read-out). `--tier` names the kernels of the big-scene tier
+(`RenderConfig.big_tier`: bvh, sweep or qpick). Prints one line per range, the kernels that take the most device
 time and the port's own kernels, and a JSON summary (also written to
 `--out` when given). Needs one CUDA device.
 """
@@ -28,7 +31,8 @@ import time
 import torch
 
 from . import rng
-from .ops import bxdf_ops, emitter_ops, medium_ops
+from .ops import bxdf_ops, cluster_kernels, emitter_ops, medium_ops
+from .ops.intersect import BIG_TIERS
 from .renderer import bdpt, compact, pt, vpt
 from .scene.compile import load_scene
 
@@ -44,6 +48,10 @@ RANGES = {
     "pt": ((rng, "lane_uniform", "rng.lane_uniform"),
            (pt, "ray_intersect", "ray_intersect"),
            (pt, "does_intersect", "does_intersect"),
+           (cluster_kernels, "_front_sort", "qpick front + sort"),
+           (cluster_kernels, "tile_picks", "qpick tile_picks"),
+           (cluster_kernels, "_unsort", "qpick unsort"),
+           (cluster_kernels, "resolve_winner", "resolve_winner"),
            *_SHADING,
            (pt, "camera_rays", "camera_rays"),
            (compact, "run_compacted", "bounce loop")),
@@ -79,7 +87,7 @@ CASES = ("s0", "t1", "s1", "gen")
 TOP = 8               # kernels listed by device time
 # the port's hand-written kernels (csrc/), always listed: launched through
 # ctypes, they are attributed to no range
-OWN_KERNELS = ("tri_", "bvh_", "splat_")
+OWN_KERNELS = ("tri_", "bvh_", "splat_", "cluster_")
 
 
 def _ranged(fn, name):
@@ -112,6 +120,8 @@ def main(argv=None):
     ap.add_argument("--max-bounce", type=int, default=0,
                     help="override the scene's max_bounce (0: keep)")
     ap.add_argument("--renderer", choices=tuple(RANGES), default="pt")
+    ap.add_argument("--tier", choices=BIG_TIERS, default="bvh",
+                    help="kernels of the big-scene tier (big_tier)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     ranges = RANGES[args.renderer]
@@ -120,6 +130,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     scene, cfg, _ = load_scene(args.directory, args.file)
+    cfg = dataclasses.replace(cfg, big_tier=args.tier)
     if args.max_bounce:
         cfg = dataclasses.replace(cfg, max_bounce=args.max_bounce)
     r = {"pt": pt.Renderer, "vpt": vpt.VolumeRenderer,
@@ -163,7 +174,7 @@ def main(argv=None):
     own = {k: v for k, v in by_name.items() if k.startswith(OWN_KERNELS)}
     out = {"scene": args.file, "w": cfg.w, "h": cfg.h,
            "max_bounce": cfg.max_bounce, "spp": spp, "card": card,
-           "renderer": args.renderer,
+           "renderer": args.renderer, "tier": args.tier,
            "schedule": list(getattr(r, "schedule", None)
                             or getattr(r, "_sched", None) or ()),
            "ms_per_spp": [1e3 * w for w in walls],
@@ -173,7 +184,8 @@ def main(argv=None):
            "kernels_per_spp": len(kernels) / spp, "ranges": rows,
            "top_kernels_ms_per_spp": dict(top),
            "own_kernels_ms_per_spp": own}
-    print(f"{args.file} {cfg.w}x{cfg.h} mb {cfg.max_bounce} [{card}]: "
+    print(f"{args.file} {cfg.w}x{cfg.h} mb {cfg.max_bounce} tier "
+          f"{args.tier} [{card}]: "
           f"ms/spp {', '.join(f'{1e3 * w:.3f}' for w in walls)} "
           f"(profiled {1e3 * prof_wall:.3f}); device busy {busy:.3f} ms/spp,"
           f" idle share {out['idle_share']:.3f}; "

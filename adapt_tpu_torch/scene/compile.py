@@ -8,8 +8,10 @@ is t = (d - o.n)/(dir.n), u = (o + t dir).U - cu, v = (o + t dir).V - cv).
 
 Scenes of BVH_THRESHOLD prims or more also get the JAX package's BVH
 tables (`bvh_node_pack`, `bvh_prim_pack`; native binned-SAH build,
-native/), which the BVH kernels walk. Tables the port does not read (the
-TPU's cluster cut `cl_*`, texture atlases, grid volumes) are not built.
+native/), which the BVH kernels walk, and its cluster cut of that tree
+(`cl_*`: disjoint subtrees of at most CLUSTER_MAX prims, prim-major
+rows), which the cluster kernels sweep. Tables the port does not read
+(texture atlases, grid volumes) are not built.
 Scenes that need them are recognised from their configuration and raise
 NotImplementedError at render (`check_supported`; grid volumes and BxDF
 mixtures already here), naming the ROADMAP item that ports them: the port
@@ -33,6 +35,10 @@ from ..ops.math3d import np_rotation_between, fov2focal
 # triangle (adapt_tpu/scene/compile.py:455); ops/intersect.py picks the
 # brute-force or the BVH kernels.
 BVH_THRESHOLD = 64
+# Prim slots of one cluster block (the JAX package's shipped CM) and prims
+# under one chunk box inside it (adapt_tpu/scene/compile.py:320-351).
+CLUSTER_MAX = 256
+CLUSTER_CHUNK = 128
 
 
 @dataclasses.dataclass
@@ -87,6 +93,15 @@ class SceneData:
     bvh_node_pack: torch.Tensor  # (M,9) f32: lo(3) hi(3) base cnt skip
     bvh_prim_pack: torch.Tensor  # (P,14) f32, leaf-contiguous order:
     # n|center(3) d|radius U(3) cu V(3) cv is_sphere gid
+    # --- cluster cut of the BVH (C clusters of CM slots, K = CM / 128
+    # chunks each; one empty inverted cluster below BVH_THRESHOLD) ---
+    cl_aabb: torch.Tensor    # (C,6) f32 lo|hi of each cluster's subtree
+    cl_front: torch.Tensor   # (C,6) f32 cl_aabb inflated (front pass)
+    cl_rows: torch.Tensor    # (C*CM,18) f32 prim-major: the 14 fields of
+    # bvh_prim_pack (gid -1 = padding slot), then n_g(3) and obj
+    cl_chunk: torch.Tensor   # (C,K,6) f32 lo|hi of each 128-prim chunk
+    cl_count: torch.Tensor   # (C,) i32 live prims (leading slots) a cluster
+    cl_slot: torch.Tensor    # (P,) i32 row of cl_rows that holds prim gid
     # --- objects (O) ---
     obj_start: torch.Tensor      # (O,) first global prim id
     obj_cnt: torch.Tensor        # (O,) prim count
@@ -128,6 +143,15 @@ class SceneData:
         """Triangles plus spheres (a host int: read from shapes)."""
         return self.tri_gid.shape[0] + self.sph_gid.shape[0]
 
+    @property
+    def n_clusters(self) -> int:
+        return self.cl_aabb.shape[0]
+
+    @property
+    def cluster_size(self) -> int:
+        """Slots of one cluster block, CM (a host int)."""
+        return self.cl_rows.shape[0] // self.cl_aabb.shape[0]
+
     def to(self, device) -> "SceneData":
         """Copy of the scene with every table on `device`."""
         def move(x):
@@ -147,9 +171,12 @@ class SceneData:
 class RenderConfig:
     """Hashable static render configuration; the JAX package's fields.
 
-    use_pallas / use_cluster name TPU intersection tiers that the port
-    does not have: its load_scene leaves them False (what the JAX package
-    sets off the TPU) and nothing in the port reads them."""
+    use_pallas / use_cluster name the JAX package's TPU tier switches:
+    the port's load_scene leaves them False (what the JAX package sets off
+    the TPU) and nothing in the port reads them. big_tier is the port's
+    own field: which kernels intersect a scene of the big tier
+    (ops/intersect.py), "bvh" (the BVH walk, the default), "sweep" (the
+    all-cluster sweep) or "qpick" (the queue-pick schedule)."""
     w: int
     h: int
     focal: float
@@ -196,6 +223,7 @@ class RenderConfig:
     t_interval: float = 1.0
     sol: float = 1.0
     modulated: bool = False
+    big_tier: str = "bvh"
 
     @property
     def transient(self) -> bool:
@@ -254,10 +282,83 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _cluster_cut(node_pack, rows18, prim_aabb):
+    """Cut the skip-offset tree into disjoint subtree clusters (numpy copy
+    of adapt_tpu/scene/compile.py `_cluster_cut`, CM fixed at CLUSTER_MAX).
+
+    A cluster is a whole subtree of at most CM prims (or a leaf). Prims
+    are leaf-contiguous in DFS order, so each cluster is a contiguous range
+    of `rows18` (P,18; DFS order), padded to CM slots whose gid is -1.
+    prim_aabb is (P,6) lo|hi in the same order; each 128-prim chunk of a
+    cluster gets the box of its prims (an empty chunk an inverted one).
+
+    Returns (cl_aabb (C,6), cl_rows (C*CM,18), cl_chunk (C,K,6)): the JAX
+    tables' members, boxes and row values in prim-major layout."""
+    M, P = node_pack.shape[0], rows18.shape[0]
+    base = node_pack[:, 6].astype(np.int64)
+    cnt = node_pack[:, 7].astype(np.int64)
+    skip = node_pack[:, 8].astype(np.int64)
+    cm, ck = CLUSTER_MAX, CLUSTER_CHUNK
+    # first leaf prim at or after each node (leaf bases increase in DFS)
+    big = np.int64(1) << 60
+    nxt = np.minimum.accumulate(np.where(cnt > 0, base, big)[::-1])[::-1]
+    nxt = np.append(np.where(nxt >= big, P, nxt), P)
+    clusters = []
+    i = 0
+    while i < M:
+        s = int(nxt[i])
+        n = int(nxt[min(int(skip[i]), M)]) - s
+        if n <= cm or cnt[i] > 0:
+            clusters.append((s, n, node_pack[i, 0:6]))
+            i = int(skip[i])
+        else:
+            i += 1
+    C, K = len(clusters), cm // ck
+    aabb = np.zeros((C, 6), np.float32)
+    rows = np.zeros((C, cm, 18), np.float32)
+    rows[:, :, 13] = -1.0                      # gid: mark padding
+    chunk = np.zeros((C, K, 6), np.float32)
+    chunk[:, :, 0:3] = np.float32(3e38)        # empty chunks never hit
+    chunk[:, :, 3:6] = np.float32(-3e38)
+    for k, (s, n, box) in enumerate(clusters):
+        aabb[k] = box
+        rows[k, :n] = rows18[s:s + n]
+        for q in range(-(-n // ck)):
+            sl = prim_aabb[s + q * ck:s + min(n, (q + 1) * ck)]
+            chunk[k, q, 0:3] = sl[:, 0:3].min(0)
+            chunk[k, q, 3:6] = sl[:, 3:6].max(0)
+    return aabb, rows.reshape(C * cm, 18), chunk
+
+
+def front_boxes(cl_aabb):
+    """(C,6) f32 boxes of the front pass: each cluster box inflated by
+    1e-6 of |lo| + |hi| + 1 a side (adapt_tpu/ops/cluster_pallas.py
+    :1578-1581), so that its entry distance bounds every hit inside from
+    below despite rounding. An inverted (placeholder) box stays as it is."""
+    lo, hi = cl_aabb[:, 0:3], cl_aabb[:, 3:6]
+    with np.errstate(over="ignore"):
+        ext = np.abs(lo) + np.abs(hi) + np.float32(1.0)
+        out = np.concatenate([lo - np.float32(1e-6) * ext,
+                              hi + np.float32(1e-6) * ext], axis=1)
+    real = (lo <= hi).all(axis=1, keepdims=True)
+    return np.where(real, out, cl_aabb).astype(np.float32)
+
+
+def prim_slots(cl_rows, C, P):
+    """(cl_count (C,) i32: live prims of each cluster, which fill its
+    leading slots; cl_slot (P,) i32: the row of cl_rows that holds each
+    prim)."""
+    gid = cl_rows[:, 13].astype(np.int64)
+    live = np.nonzero(gid >= 0)[0]
+    slot = np.full(P, -1, np.int32)
+    slot[gid[live]] = live
+    return (gid.reshape(C, -1) >= 0).sum(axis=1).astype(np.int32), slot
+
+
 def _bvh_tables(prims, sph_ids, prim_n, prim_d, prim_U, prim_cu, prim_V,
-                prim_cv, prim_is_sphere):
-    """(bvh_node_pack (M,9), bvh_prim_pack (P,14)) f32, as
-    adapt_tpu/scene/compile.py:453-490 builds them."""
+                prim_cv, prim_is_sphere, n_g, prim_obj):
+    """(bvh_node_pack (M,9), bvh_prim_pack (P,14), cl_aabb, cl_rows,
+    cl_chunk) f32, as adapt_tpu/scene/compile.py:453-492 builds them."""
     P = prims.shape[0]
     prim_lo = prims.min(axis=1)
     prim_hi = prims.max(axis=1)
@@ -284,16 +385,27 @@ def _bvh_tables(prims, sph_ids, prim_n, prim_d, prim_U, prim_cu, prim_V,
         [a, b[:, None], prim_U, prim_cu[:, None], prim_V,
          prim_cv[:, None], prim_is_sphere[:, None].astype(np.float32),
          np.arange(P, dtype=np.float32)[:, None]], axis=1)
-    return node_pack, prim_pack[prim_order]
+    rows18 = np.concatenate(
+        [prim_pack, n_g.astype(np.float32),
+         prim_obj[:, None].astype(np.float32)], axis=1)
+    prim_ab = np.concatenate([prim_lo, prim_hi],
+                             axis=1).astype(np.float32)[prim_order]
+    return (node_pack, prim_pack[prim_order],
+            *_cluster_cut(node_pack, rows18[prim_order], prim_ab))
 
 
 def _placeholder_bvh():
     """The JAX package's tables below BVH_THRESHOLD: an inverted box with
-    skip 1, so an accidental walk misses and ends."""
+    skip 1, so an accidental walk misses and ends; one inverted cluster of
+    128 padding slots, so an accidental sweep misses too."""
     node = np.zeros((1, 9), np.float32)
     node[:, 0:3], node[:, 3:6] = 3e38, -3e38
     node[:, 8] = 1.0
-    return node, np.zeros((1, 14), np.float32)
+    box = np.zeros((1, 6), np.float32)
+    box[:, 0:3], box[:, 3:6] = 3e38, -3e38
+    rows = np.zeros((CLUSTER_CHUNK, 18), np.float32)
+    rows[:, 13] = -1.0
+    return node, np.zeros((1, 14), np.float32), box, rows, box[:, None, :]
 
 
 def _medium_table(mediums) -> MediumTable:
@@ -383,11 +495,12 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
     prim_is_sphere = np.zeros(P, bool)
     prim_is_sphere[sph_ids] = True
     if P >= BVH_THRESHOLD:
-        node_pack, prim_pack = _bvh_tables(
+        node_pack, prim_pack, cl_aabb, cl_rows, cl_chunk = _bvh_tables(
             prims, sph_ids, prim_n, prim_d, prim_U, prim_cu, prim_V, prim_cv,
-            prim_is_sphere)
+            prim_is_sphere, array_info["n_g"], prim_obj)
     else:
-        node_pack, prim_pack = _placeholder_bvh()
+        node_pack, prim_pack, cl_aabb, cl_rows, cl_chunk = _placeholder_bvh()
+    cl_count, cl_slot = prim_slots(cl_rows, cl_aabb.shape[0], P)
 
     cam_dir = configs["transform"][0]
     if cam_dir is None or np.ndim(cam_dir) != 1 or np.size(cam_dir) != 3:
@@ -496,6 +609,12 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         prim_is_sphere=_t(prim_is_sphere),
         bvh_node_pack=_t(node_pack),
         bvh_prim_pack=_t(prim_pack),
+        cl_aabb=_t(cl_aabb),
+        cl_front=_t(front_boxes(cl_aabb)),
+        cl_rows=_t(cl_rows),
+        cl_chunk=_t(cl_chunk),
+        cl_count=_t(cl_count),
+        cl_slot=_t(cl_slot),
         obj_start=_t(obj_start),
         obj_cnt=_t(obj_cnt),
         obj_is_sphere=_t(obj_is_sphere),

@@ -25,7 +25,13 @@ non-zero exit and no result line.
    1,572,864 updates (the t=1 stream of one BDPT cbox pass at 6 bounces, a
    uniform one with 10% dropped, and one whose first 1024-pixel tile holds
    70,000 updates), bit-equal to its plain version, with index_add_'s time
-   beside it;
+   beside it; 2e: the five cluster kernels on knot290k (the all-cluster
+   sweep's closest hit and any hit, the queue-pick schedule's front pass
+   and its two pick passes on the picks the schedule itself derives):
+   every output bit-equal to the plain version's, the sweep kernels also
+   against the BVH kernels on the same rays (under 1e-4 of lanes may
+   differ: the two prim tests round u and v in another order, so a ray
+   grazing an edge may take the neighbour), with times and bounds;
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
    same for render_pass_vpt against tests/goldens/vptcbox_48.npy; 3c: for
@@ -55,7 +61,17 @@ non-zero exit and no result line.
 8. transient BDPT: one render_pass_bdpt on scenes/trans/cbox-point.xml at
    its own settings (512^2, 12 bounces, 400 time bins): bins and counts of
    the right shape, finite, some counts; the any-hit and film-splat kernels
-   launched, the media walk not.
+   launched, the media walk not;
+9. cluster tier main paths: Renderer on knot290k.xml at its own settings
+   (512^2, 12 bounces, auto-compaction) with `big_tier="sweep"` and with
+   `big_tier="qpick"`: one warm-up spp, then render_batch of a few spp
+   with the launch counts the code gives (sweep: 12 sweep closest hits and
+   12 sweep any hits per spp and no BVH kernel; queue-pick: 24 front
+   passes, 24 + 24 pick passes and 12 + 12 BVH cleanup walks per spp); each
+   image against phase 5's BVH-tier image of the same seed: the mean under
+   the goldens' bound, every pixel within 5e-2 but for at most 1e-4 of
+   them, whose path took another prim at a grazed edge (`_check_tier`);
+   ms/spp of each tier beside the BVH tier's.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
 result line {"ok": true, "device": {...}}.
@@ -78,6 +94,13 @@ KNOT_SPP = 3       # knot290k main-path samples per pixel (after one warm-up)
 VPT_SPP = 3        # vpt cbox main-path samples per pixel (after one warm-up)
 BDPT_SPP = 3       # BDPT cbox main-path samples per pixel (after one warm-up)
 REPS = 5           # kernel timing repetitions (median)
+# largest share of lanes on which a cluster sweep kernel may take another
+# prim than the BVH kernel (the two round u and v in another order)
+LANES_DIFFER = 1e-4
+# largest share of pixels of a cluster-tier image that may lie 5e-2 or more
+# from the BVH tier's (a path that took the neighbour prim at a grazed
+# edge); 1.53e-5 and 3.81e-6 were measured on knot290k at 4 spp
+PIXELS_DIFFER = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 operations/s outside
 # the tensor cores; a kernel's bound is the larger of its two times
 HBM_BPS = 3.35e12
@@ -98,6 +121,16 @@ KERNELS = {
                        "adapt_tpu/ops/intersect_pallas.py:131"),
     "splat_sorted_accumulate": ("adapt_tpu_torch/csrc/splat.cu",
                                 "adapt_tpu/ops/splat_pallas.py:52"),
+    "cluster_closest_hit": ("adapt_tpu_torch/csrc/cluster_intersect.cu",
+                            "adapt_tpu/ops/cluster_pallas.py:513"),
+    "cluster_any_hit": ("adapt_tpu_torch/csrc/cluster_intersect.cu",
+                        "adapt_tpu/ops/cluster_pallas.py:600"),
+    "cluster_front": ("adapt_tpu_torch/csrc/cluster_intersect.cu",
+                      "adapt_tpu/ops/cluster_pallas.py:1515"),
+    "cluster_pick_closest": ("adapt_tpu_torch/csrc/cluster_intersect.cu",
+                             "adapt_tpu/ops/cluster_pallas.py:1385"),
+    "cluster_pick_any": ("adapt_tpu_torch/csrc/cluster_intersect.cu",
+                         "adapt_tpu/ops/cluster_pallas.py:1691"),
 }
 
 
@@ -105,6 +138,11 @@ def _require(ok, what):
     """A failed check ends the run (explicit, so `python -O` keeps it)."""
     if not ok:
         raise SystemExit(f"chip_smoke: check failed: {what}")
+
+
+def _shown(launches):
+    """The kernels a run launched, for a phase's line."""
+    return {k: n for k, n in launches.items() if n}
 
 
 def _check(img, ref):
@@ -116,6 +154,24 @@ def _check(img, ref):
     err = float(abs(img - ref).max())
     _require(err < 5e-2, f"max abs diff {err}")
     return err, float(img.mean()), float(ref.mean())
+
+
+def _check_tier(img, ref):
+    """A cluster-tier image against the BVH tier's from the same seed: the
+    mean within 1e-3 relative, as the goldens' `_check` holds it. The two
+    tiers round u and v in another order, so a ray that grazes an edge may
+    take another prim and its pixel another path: up to PIXELS_DIFFER of
+    the pixels may lie beyond the goldens' 5e-2, every other pixel within
+    it. Returns (largest difference of the pixels within 5e-2, share of
+    pixels beyond it, largest difference)."""
+    _require(img.shape == ref.shape, f"shape {img.shape} vs {ref.shape}")
+    _require(abs(img.mean() - ref.mean()) < 1e-3 * max(ref.mean(), 1e-3),
+             f"mean {img.mean()} vs {ref.mean()}")
+    diff = abs(img - ref).max(axis=-1)
+    beyond = float((diff >= 5e-2).mean())
+    _require(beyond <= PIXELS_DIFFER,
+             f"{beyond} of the pixels differ by 5e-2 or more")
+    return float(diff[diff < 5e-2].max()), beyond, float(diff.max())
 
 
 def _time_ms(torch, fn, reps=REPS):
@@ -178,6 +234,7 @@ def main():
     import numpy as np
     from adapt_tpu_torch import native, rng
     from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
+    from adapt_tpu_torch.ops import cluster_kernels as CK
     from adapt_tpu_torch.ops import emitter_ops, intersect_kernels as K
     from adapt_tpu_torch.ops import splat as S
     from adapt_tpu_torch.ops.intersect import DEAD, _is_null_obj
@@ -190,9 +247,12 @@ def main():
         K.reset_launches()
         BK.reset_launches()
         S.reset_launches()
+        CK.reset_launches()
 
     def counts():
-        return {**K.launches, **BK.launches, **S.launches}
+        return {**K.launches, **BK.launches, **S.launches, **CK.launches}
+
+    none = {k: 0 for k in KERNELS}
 
     # ---- 1. device, builds, assets, set-up ----
     card = subprocess.run(
@@ -200,8 +260,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
-        for f in [ex.submit(fn) for fn in (K._lib, BK._lib, S._lib,
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+        for f in [ex.submit(fn) for fn in (K._lib, BK._lib, S._lib, CK._lib,
                                            native._lib)]:
             f.result()
     build_s = time.perf_counter() - t0
@@ -369,6 +429,193 @@ def main():
               for (k, tag), (v, s) in work.items()) + f" [{card}]",
           flush=True)
 
+    # ---- 2e. cluster kernels against their plain versions, knot290k ----
+    NC, CM = kscene.n_clusters, kscene.cluster_size
+    _require(kscene.cl_rows.shape == (NC * CM, 18) and CM == 256
+             and int(kscene.cl_count.sum()) == kscene.n_prims,
+             "knot290k cluster tables")
+
+    def same(got, want, name):
+        """Every output of the kernel equal to the plain version's, bit
+        for bit; returns the largest absolute difference of the floats."""
+        err = 0.0
+        for a, b in zip(got, want):
+            _require(a.dtype == b.dtype and torch.equal(a, b),
+                     f"{name}: an output differs from the plain version")
+            if a.is_floating_point():
+                err = max(err, float((a - b).abs().max()))
+        return err
+
+    cwork, vs_bvh = {}, {}
+    for o, d, far, tag in ((kro, krd, kfar_p, "primary"),
+                           (kbo, kbd, kfar_b, "bounce")):
+        name = "cluster_closest_hit"
+        got = CK.cluster_closest_hit(kscene, o, d, far)
+        *want, boxes, prims, whole = CK.cluster_closest_hit_plain(
+            kscene, o, d, far, stats=True)
+        errs[name] = max(errs[name], same(got, want, f"{name} ({tag} rays)"))
+        _require(bool((got[0][far < 0] == -3e38).all()),
+                 f"{name}: a dead lane did not come back with t = -3e38")
+        _require(float((got[1] >= 0).float().mean()) > 0.2,
+                 f"{name} ({tag} rays): few hits")
+        cwork[(name, tag)] = (boxes, prims, whole)
+        b_t, b_prim = BK.bvh_closest_hit(kscene, o, d, far)[:2]
+        differ = got[1] != b_prim
+        vs_bvh[(name, tag)] = float(differ.float().mean())
+        torch.testing.assert_close(got[0][~differ], b_t[~differ], rtol=2e-6,
+                                   atol=0.0)
+    for o, d, far, tag in ((kbo, ksd, kfar_s, "shadow"),
+                           (kbo, kbd, kfar_b, "bounce")):
+        name = "cluster_any_hit"
+        occ = CK.cluster_any_hit(kscene, o, d, far)
+        want, boxes, prims, whole = CK.cluster_any_hit_plain(
+            kscene, o, d, far, stats=True)
+        same([occ], [want], f"{name} ({tag} rays)")
+        _require(not bool(occ[far < 0].any()), "a dead lane is occluded")
+        cwork[(name, tag)] = (boxes, prims, whole)
+        vs_bvh[(name, tag)] = float(
+            (occ != BK.bvh_any_hit(kscene, o, d, far)).float().mean())
+    _require(max(vs_bvh.values()) < LANES_DIFFER,
+             f"sweep kernels differ from the BVH kernels: {vs_bvh}")
+    for o, d, far, tag in ((kro, krd, kfar_p, "primary"),
+                           (kbo, kbd, kfar_b, "bounce"),
+                           (kbo, ksd, kfar_s, "shadow")):
+        got = CK.cluster_front(kscene, o, d, far)
+        errs["cluster_front"] = max(errs["cluster_front"], same(
+            got, CK.cluster_front_plain(kscene, o, d, far),
+            f"cluster_front ({tag} rays)"))
+        _require(bool((got[0][far < 0] == NC).all()),
+                 "cluster_front: a dead lane enters a cluster")
+    # the pick passes on the picks the schedule derives: bounce rays for
+    # the closest hit, shadow rays for the any hit, both in sorted order
+    _perm, pro, prd, pfar, pcid, pnxt = CK._front_sort(kscene, kbo, kbd,
+                                                       kfar_b)
+    ppicks, pcovered = CK.tile_picks(pcid, NC, CK.QP_P)
+    p_t, p_wid = pfar, torch.full_like(pcid, -1)
+    pick_in = []
+    for p in range(CK.QP_P):
+        name = "cluster_pick_closest"
+        got = CK.cluster_pick_closest(kscene, pro, prd, p_t, p_wid, ppicks[p])
+        *want, tests, whole = CK.cluster_pick_closest_plain(
+            kscene, pro, prd, p_t, p_wid, ppicks[p], stats=True)
+        errs[name] = max(errs[name], same(got, want, f"{name} (pass {p})"))
+        pick_in.append((p_t, p_wid, ppicks[p], tests, whole))
+        p_t, p_wid = got
+    pick_hits = float((p_wid >= 0).float().mean())
+    _require(pick_hits > 0, "cluster_pick_closest: no hit")
+    entering = pcid < NC
+    resid = entering & (~pcovered | (pnxt < p_t))
+    pick_shares = (float(entering.float().mean()),
+                   float((pcovered & entering).float().mean()),
+                   float(resid.float().mean()))
+    _perm, aro, ard, afar, acid, _nxt = CK._front_sort(kscene, kbo, ksd,
+                                                       kfar_s)
+    apicks, _cov = CK.tile_picks(acid, NC, CK.QP_P)
+    any_in = []
+    a_occ = torch.zeros_like(afar, dtype=torch.bool)
+    for p in range(CK.QP_P):
+        name = "cluster_pick_any"
+        occ = CK.cluster_pick_any(kscene, aro, ard, afar, apicks[p])
+        want, tests, whole = CK.cluster_pick_any_plain(
+            kscene, aro, ard, afar, apicks[p], stats=True)
+        same([occ], [want], f"{name} (pass {p})")
+        any_in.append((apicks[p], tests, whole))
+        a_occ |= occ
+    _require(bool(a_occ.any()) and not bool(a_occ[afar < 0].any()),
+             "cluster_pick_any: no lane or a dead lane occluded")
+    t0_, w0_, pk0, pick_tests, pick_whole = pick_in[0]
+    apk0, any_tests, any_whole = any_in[0]
+    ctimes = {
+        "cluster_closest_hit": (
+            _time_ms(torch, lambda: CK.cluster_closest_hit(kscene, kbo, kbd,
+                                                           kfar_b)),
+            _time_ms(torch, lambda: CK.cluster_closest_hit_plain(
+                kscene, kbo, kbd, kfar_b), reps=1)),
+        "cluster_any_hit": (
+            _time_ms(torch, lambda: CK.cluster_any_hit(kscene, kbo, ksd,
+                                                       kfar_s)),
+            _time_ms(torch, lambda: CK.cluster_any_hit_plain(
+                kscene, kbo, ksd, kfar_s), reps=1)),
+        "cluster_front": (
+            _time_ms(torch, lambda: CK.cluster_front(kscene, kbo, kbd,
+                                                     kfar_b)),
+            _time_ms(torch, lambda: CK.cluster_front_plain(
+                kscene, kbo, kbd, kfar_b), reps=1)),
+        "cluster_pick_closest": (
+            _time_ms(torch, lambda: CK.cluster_pick_closest(
+                kscene, pro, prd, t0_, w0_, pk0)),
+            _time_ms(torch, lambda: CK.cluster_pick_closest_plain(
+                kscene, pro, prd, t0_, w0_, pk0), reps=1)),
+        "cluster_pick_any": (
+            _time_ms(torch, lambda: CK.cluster_pick_any(kscene, aro, ard,
+                                                        afar, apk0)),
+            _time_ms(torch, lambda: CK.cluster_pick_any_plain(
+                kscene, aro, ard, afar, apk0), reps=1))}
+    times.update(ctimes)
+    # bounds. Bytes: what a kernel must read once and write once. A sweep:
+    # rays and far of every lane, the cluster boxes and counts, the boxes
+    # of the live chunks and the live rows (72 B each; padding slots are
+    # never read), its outputs. A pick pass: the picks, the counts and live
+    # rows of its distinct picked clusters, the rays (24 B) of the lanes in
+    # tiles that have a pick (the others are never loaded), and per lane
+    # far, wid0, t and wid (closest) or the flag (any, whose far is read
+    # in tiles with a pick only). Operations: the box tests and (ray, row)
+    # tests these rays need as the plain versions count them, a row test
+    # that stops at its plane distance charged PLANE_OPS, a whole one
+    # PRIM_OPS.
+    def row_ops(tests, whole):
+        return tests * CK.PLANE_OPS + whole * (CK.PRIM_OPS - CK.PLANE_OPS)
+
+    live_chunks = int(((kscene.cl_count + 127) // 128).sum())
+    sweep_tables = (NC * (24 + 4) + live_chunks * 24
+                    + int(kscene.cl_count.sum()) * 72)
+    for k, tag, out_bytes in (("cluster_closest_hit", "bounce", 36),
+                              ("cluster_any_hit", "shadow", 1)):
+        boxes, prims, whole = cwork[(k, tag)]
+        bounds[k] = _bound(N * 28 + sweep_tables + N * out_bytes,
+                           boxes * CK.BOX_OPS + row_ops(prims, whole))
+    bounds["cluster_front"] = _bound(
+        N * 28 + NC * 24 + N * 8,
+        int((kfar_b > K.RAY_EPS).sum()) * NC * CK.BOX_OPS)
+    pick_bytes = {}
+    for k, pk, tests, whole, lane_b, active_b in (
+            ("cluster_pick_closest", pk0, pick_tests, pick_whole, 16, 24),
+            ("cluster_pick_any", apk0, any_tests, any_whole, 1, 28)):
+        tiles = torch.nonzero(pk >= 0).squeeze(1)
+        active = int(torch.clamp(N - tiles * CK.TILE, max=CK.TILE).sum())
+        picked = torch.unique(pk[pk >= 0]).long()
+        rows_b = 72 * int(kscene.cl_count[picked].sum())
+        pick_bytes[k] = (picked.numel(), rows_b, active)
+        bounds[k] = _bound(pk.numel() * 4 + picked.numel() * 4 + rows_b
+                           + active * active_b + N * lane_b,
+                           row_ops(tests, whole))
+    print("phase 2e cluster kernels vs plain, knot290k (%d clusters of %d "
+          "slots), %d rays: every output bit-equal; " % (NC, CM, N)
+          + "; ".join(f"{k} max abs err {errs[k]:.3g}, kernel {t:.4f} ms, "
+                      f"plain {p:.4f} ms (one call), bound "
+                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                      for k, (t, p) in ctimes.items())
+          + " | box tests / row tests per ray: " + ", ".join(
+              f"{k} {tag} {b / N:.1f} / {r / N:.1f}"
+              for (k, tag), (b, r, _w) in cwork.items())
+          + " | whole row tests per ray: " + ", ".join(
+              f"{k} {tag} {w / N:.2f}"
+              for (k, tag), (_b, _r, w) in cwork.items())
+          + f"; pick pass 0: closest {pick_tests / N:.1f} ({pick_whole / N:.2f}"
+          f" whole), any {any_tests / N:.1f} ({any_whole / N:.2f} whole) row "
+          "tests per ray; " + ", ".join(
+              f"{k} reads {c} clusters' {b} B of live rows and the rays of "
+              f"{a} lanes" for k, (c, b, a) in pick_bytes.items())
+          + " | bounce rays entering a "
+          f"cluster {pick_shares[0]:.4f}, covered by {CK.QP_P} picks "
+          f"{pick_shares[1]:.4f}, hit in a pick pass {pick_hits:.4f}, left to "
+          f"the cleanup {pick_shares[2]:.4f} | "
+          "share of lanes differing from the BVH kernels: " + ", ".join(
+              f"{k} {tag} {v:.3g}" for (k, tag), v in vs_bvh.items())
+          + f" | BVH kernels on the same rays: closest "
+          f"{times['bvh_closest_hit'][0]:.4f} ms, any "
+          f"{times['bvh_any_hit'][0]:.4f} ms [{card}]", flush=True)
+
     # ---- 2c. media-walk kernel against its twin, vpt cbox 512^2 ----
     vscene, vcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "vpt"),
                                    "cbox.xml")
@@ -531,7 +778,7 @@ def main():
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "cbox_pt_48.npy")))
     print(f"phase 3 golden cbox_pt_48 on cuda: max abs diff {err:.3g}, mean "
-          f"{mean:.6f} vs {ref_mean:.6f}, launches {golden_launches}",
+          f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(golden_launches)}",
           flush=True)
 
     # ---- 3b. vpt golden on the card ----
@@ -549,7 +796,7 @@ def main():
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "vptcbox_48.npy")))
     print(f"phase 3b golden vptcbox_48 on cuda: max abs diff {err:.3g}, mean "
-          f"{mean:.6f} vs {ref_mean:.6f}, launches {vgolden_launches}",
+          f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(vgolden_launches)}",
           flush=True)
 
     # ---- 3c. BDPT golden on the card ----
@@ -564,7 +811,8 @@ def main():
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "cbox_bdpt_48.npy")))
     print(f"phase 3c golden cbox_bdpt_48 on cuda: max abs diff {err:.3g}, "
-          f"mean {mean:.6f} vs {ref_mean:.6f}, launches {bgolden_launches}",
+          f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
+          f"{_shown(bgolden_launches)}",
           flush=True)
 
     @contextlib.contextmanager
@@ -607,10 +855,8 @@ def main():
     _require(image.shape == (cfg.h, cfg.w, 3), f"image shape {image.shape}")
     _require(bool(np.isfinite(image).all()) and image.mean() > 0.05,
              f"image not finite or too dark (mean {image.mean()})")
-    want = {"tri_closest_hit": SPP * cfg.max_bounce,
-            "tri_any_hit": SPP * cfg.max_bounce * cfg.num_shadow_ray,
-            "tri_track_hits": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0,
-            "splat_sorted_accumulate": 0}
+    want = {**none, "tri_closest_hit": SPP * cfg.max_bounce,
+            "tri_any_hit": SPP * cfg.max_bounce * cfg.num_shadow_ray}
     _require(launches == want, f"cbox launch counts {launches}, want {want}")
     r_twin = pt.Renderer(scene, cfg, seed=0)
     with twins():
@@ -624,7 +870,7 @@ def main():
           f"{1e3 * dt_twin / SPP:.2f} ms/spp, "
           f"{rays * SPP / dt_twin / 1e6:.3f} Mrays/s [{card}]; image mean "
           f"{image.mean():.6f}, max abs diff to twins {twin_err:.3g}; "
-          f"launches {launches}", flush=True)
+          f"launches {_shown(launches)}", flush=True)
 
     # ---- 5. knot290k main path at full size, auto-compaction ----
     r = pt.Renderer(kscene, kcfg, seed=0)
@@ -635,16 +881,14 @@ def main():
     warm_s = time.perf_counter() - t0
     sched = r._sched
     reset()
-    dt = timed_batch(r, KNOT_SPP)
+    dt = dt_knot = timed_batch(r, KNOT_SPP)
     klaunches = counts()
     kimage = r.image()
     _require(kimage.shape == (kcfg.h, kcfg.w, 3), f"shape {kimage.shape}")
     _require(bool(np.isfinite(kimage).all()) and kimage.mean() > 0,
              f"image not finite or black (mean {kimage.mean()})")
-    want = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0,
-            "bvh_closest_hit": KNOT_SPP * kcfg.max_bounce,
-            "bvh_any_hit": KNOT_SPP * kcfg.max_bounce * kcfg.num_shadow_ray,
-            "splat_sorted_accumulate": 0}
+    want = {**none, "bvh_closest_hit": KNOT_SPP * kcfg.max_bounce,
+            "bvh_any_hit": KNOT_SPP * kcfg.max_bounce * kcfg.num_shadow_ray}
     _require(klaunches == want,
              f"knot290k launch counts {klaunches}, want {want}")
     plain = pt.Renderer(kscene, kcfg, seed=0)
@@ -670,7 +914,7 @@ def main():
           f"{rays * KNOT_SPP / dt_plain / 1e6:.3f} Mrays/s, image equal; "
           f"probe + warm-up spp {warm_s:.2f} s; image mean "
           f"{kimage.mean():.6f}; 64^2 max abs diff to twins {ktwin_err:.3g}; "
-          f"launches {klaunches}", flush=True)
+          f"launches {_shown(klaunches)}", flush=True)
 
     # ---- 6. vpt cbox main path at full size ----
     iters = vcfg.max_bounce + vpt.NULL_BUDGET
@@ -709,7 +953,7 @@ def main():
           f"{VPT_SPP} spp: {1e3 * dt / VPT_SPP:.2f} ms/spp [{card}]; "
           f"uncompacted: {1e3 * dt_plain / VPT_SPP:.2f} ms/spp, image equal; "
           f"image mean {vimage.mean():.6f}; 64^2 max abs diff to twins "
-          f"{vtwin_err:.3g}; launches {vlaunches}", flush=True)
+          f"{vtwin_err:.3g}; launches {_shown(vlaunches)}", flush=True)
 
     # ---- 7. BDPT main path at full size ----
     groups = B._strategy_groups(bcfg, bcfg.max_bounce)
@@ -727,11 +971,9 @@ def main():
     # two walks of max_bounce closest hits; one media walk for each chunk
     # of the t1, s1 and gen groups (no null surface, so no overflow
     # fallback); one film splat a pass
-    want = {"tri_closest_hit": BDPT_SPP * 2 * bcfg.max_bounce,
-            "tri_any_hit": 0,
+    want = {**none, "tri_closest_hit": BDPT_SPP * 2 * bcfg.max_bounce,
             "tri_track_hits": BDPT_SPP * (chunks["t1"] + chunks["s1"]
                                           + chunks["gen"]),
-            "bvh_closest_hit": 0, "bvh_any_hit": 0,
             "splat_sorted_accumulate": BDPT_SPP}
     _require(blaunches == want,
              f"BDPT launch counts {blaunches}, want {want}")
@@ -748,7 +990,8 @@ def main():
           f"{bcfg.max_bounce}, {sum(map(len, groups.values()))} strategies "
           f"in chunks {chunks}, {BDPT_SPP} spp: {1e3 * dt / BDPT_SPP:.2f} "
           f"ms/spp [{card}]; image mean {bimage.mean():.6f}; 64^2 max abs "
-          f"diff to twins {btwin_err:.3g}; launches {blaunches}", flush=True)
+          f"diff to twins {btwin_err:.3g}; launches {_shown(blaunches)}",
+          flush=True)
 
     # ---- 8. transient BDPT at full size ----
     tscene, tcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "trans"),
@@ -778,7 +1021,46 @@ def main():
           f"[{card}]; {n_cnt} samples binned, {int((tcnts > 0).sum())} bins "
           f"filled; image mean {float(tcolor.mean()):.6f}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"{tlaunches}", flush=True)
+          f"{_shown(tlaunches)}", flush=True)
+
+    # ---- 9. knot290k main path under the two cluster-tier schedules ----
+    per = kcfg.max_bounce
+    shadows = kcfg.max_bounce * kcfg.num_shadow_ray
+    tier_want = {
+        "sweep": {**none, "cluster_closest_hit": KNOT_SPP * per,
+                  "cluster_any_hit": KNOT_SPP * shadows},
+        "qpick": {**none, "cluster_front": KNOT_SPP * (per + shadows),
+                  "cluster_pick_closest": KNOT_SPP * per * CK.QP_P,
+                  "cluster_pick_any": KNOT_SPP * shadows * CK.QP_P,
+                  "bvh_closest_hit": KNOT_SPP * per,
+                  "bvh_any_hit": KNOT_SPP * shadows}}
+    tier_launches, tier_rows = {}, []
+    for tier, want in tier_want.items():
+        r = pt.Renderer(kscene, dataclasses.replace(kcfg, big_tier=tier),
+                        seed=0)
+        _require(r._auto, "knot290k is under the auto-compaction gate")
+        r.render_batch(1)             # the alive probe + one warm-up spp
+        reset()
+        dt_tier = timed_batch(r, KNOT_SPP)
+        tier_launches[tier] = counts()
+        _require(tier_launches[tier] == want,
+                 f"{tier} launch counts {tier_launches[tier]}, want {want}")
+        timage = r.image()
+        _require(bool(np.isfinite(timage).all()),
+                 f"{tier}: image not finite")
+        tier_rows.append((tier, dt_tier, r._sched,
+                          *_check_tier(timage, kimage)))
+    print(f"phase 9 main path knot290k {kcfg.w}x{kcfg.h} mb "
+          f"{kcfg.max_bounce}, {KNOT_SPP} spp, cluster tier: " + "; ".join(
+              f"{tier}: {1e3 * d / KNOT_SPP:.2f} ms/spp, "
+              f"{rays_per_spp(kcfg) * KNOT_SPP / d / 1e6:.3f} Mrays/s, "
+              f"schedule {sc}, against the BVH tier's image {sh:.3g} of the "
+              f"pixels differ by 5e-2 or more (most {mx:.3g}), the others by "
+              f"at most {e:.3g}, launches "
+              f"{_shown(tier_launches[tier])}"
+              for tier, d, sc, e, sh, mx in tier_rows)
+          + f"; BVH tier (phase 5): {1e3 * dt_knot / KNOT_SPP:.2f} ms/spp "
+          f"[{card}]", flush=True)
 
     path_launches = {**{k: launches[k] for k in ("tri_closest_hit",
                                                  "tri_any_hit")},
@@ -786,7 +1068,12 @@ def main():
                                                   "bvh_any_hit")},
                      "tri_track_hits": vlaunches["tri_track_hits"],
                      "splat_sorted_accumulate":
-                         blaunches["splat_sorted_accumulate"]}
+                         blaunches["splat_sorted_accumulate"],
+                     **{k: tier_launches["sweep"][k] for k in (
+                         "cluster_closest_hit", "cluster_any_hit")},
+                     **{k: tier_launches["qpick"][k] for k in (
+                         "cluster_front", "cluster_pick_closest",
+                         "cluster_pick_any")}}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "max_abs_err": errs[k],
