@@ -19,9 +19,14 @@ the procedural assets when it is imported, under a file lock, so that
 they exist before any test of the suite runs, whatever order the test
 workers take (every worker imports every test module before the first
 test is scheduled); the generator writes only files that are absent.
+`knot_assets` makes the knot scene whole before each load of it (the
+port's tests call it first): see its docstring.
 """
+import contextlib
 import dataclasses
 import fcntl
+import importlib.util
+import io
 import os
 import subprocess
 import sys
@@ -31,6 +36,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from adapt_tpu import native as jax_native
 from adapt_tpu.ops.bvh import traverse as jax_traverse
 from adapt_tpu.ops.intersect import does_intersect as jax_does_intersect
 from adapt_tpu.ops.intersect import ray_intersect as jax_ray_intersect
@@ -43,19 +49,77 @@ from adapt_tpu_torch.scene.compile import load_scene
 from conftest import SCENE_DIR
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
+PROCEDURAL = os.path.join(REPO, "scenes", "meshes", "procedural")
+
+
+@contextlib.contextmanager
+def _asset_lock():
+    """The lock every port test takes around the procedural meshes."""
+    os.makedirs(PROCEDURAL, exist_ok=True)
+    with open(os.path.join(PROCEDURAL, ".lock"), "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        yield
 
 
 def _generate_assets():
-    out = os.path.join(REPO, "scenes", "meshes", "procedural")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, ".lock"), "w") as fh:
-        fcntl.flock(fh, fcntl.LOCK_EX)
+    with _asset_lock():
         subprocess.run([sys.executable,
                         os.path.join(REPO, "scripts", "gen_procedural.py")],
                        check=True, stdout=subprocess.DEVNULL)
 
 
+def knot_mesh(directory=PROCEDURAL):
+    """Make `directory`/knot2k.obj exactly what scripts/gen_procedural.py
+    writes for it (`torus_knot(100, 10)` through `write_obj`), and return
+    its path. The expected file is written to a temporary name beside it;
+    when the file on disk differs (absent, truncated, half-written), the
+    temporary one is renamed over it with `os.replace`, so a reader sees
+    the old inode or the whole new one, never a partial file. The script
+    is loaded by path, as chip_smoke.py `knot_mesh` loads it: no JAX."""
+    spec = importlib.util.spec_from_file_location(
+        "gen_procedural", os.path.join(REPO, "scripts", "gen_procedural.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    path = os.path.join(directory, "knot2k.obj")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen.write_obj(tmp, *gen.torus_knot(100, 10))
+    with open(tmp, "rb") as fh:
+        want = fh.read()
+    try:
+        with open(path, "rb") as fh:
+            same = fh.read() == want
+    except FileNotFoundError:
+        same = False
+    if same:
+        os.remove(tmp)
+    else:
+        os.replace(tmp, path)
+    return path
+
+
+def knot_assets():
+    """Everything a load of knot2k-test.xml by both packages needs, made
+    whole under the procedural meshes' lock; call it before each load.
+
+    * knot2k.obj, through `knot_mesh`. tests/test_cluster.py runs the
+      generator with no lock, and its `write_obj` writes in place.
+    * The JAX package's native library (adapt_tpu/native, built by `make`
+      in place at its first use in each process), loaded in this process.
+      When a test process finds it half-built by another worker, the JAX
+      package quietly takes its numpy median-split builder: another tree
+      and other cluster tables than the port's native binned-SAH build,
+      with the same hits. Once loaded it stays loaded for the process."""
+    with _asset_lock():
+        knot_mesh()
+        if jax_native.get_lib() is None:
+            raise RuntimeError("the JAX package's native BVH builder did "
+                               "not build: its numpy fallback builds "
+                               "another tree than the port's")
+
+
 _generate_assets()
+knot_assets()
 
 
 def _small(cfg, w):
@@ -66,6 +130,7 @@ def _small(cfg, w):
 
 @pytest.fixture(scope="module")
 def knot():
+    knot_assets()
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml")
     scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml",
                                device="cpu")
@@ -292,6 +357,7 @@ def twin_calls(monkeypatch):
 @pytest.mark.parametrize("scene_file,tier", [("knot2k-test.xml", "bvh"),
                                              ("cbox.xml", "tri")])
 def test_dispatch_picks_the_tier(twin_calls, scene_file, tier):
+    knot_assets()
     scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", scene_file,
                                device="cpu")
     cfg = _small(cfg, 8)
@@ -311,6 +377,35 @@ def test_wrappers_refuse_other_devices(knot):
         bvh_kernels.bvh_closest_hit(scene, ro, ro, ro[:, 0])
     with pytest.raises(ValueError, match="no kernel"):
         bvh_kernels.bvh_any_hit(scene, ro, ro, ro[:, 0])
+
+
+def test_knot_mesh_repairs_a_truncated_file(knot, tmp_path):
+    """A truncated knot2k.obj is replaced whole before the load: the scene
+    loads the same prims and the same BVH as from the repository's copy,
+    and a whole file is left as it is (same inode)."""
+    _, _, scene, _ = knot
+    scenes = tmp_path / "scenes"
+    (scenes / "cbox").mkdir(parents=True)
+    (scenes / "meshes" / "procedural").mkdir(parents=True)
+    with open(os.path.join(SCENE_DIR, "cbox", "knot2k-test.xml"), "rb") as f:
+        (scenes / "cbox" / "knot2k-test.xml").write_bytes(f.read())
+    os.symlink(os.path.abspath(os.path.join(SCENE_DIR, "meshes", "cornell")),
+               scenes / "meshes" / "cornell")
+    with open(os.path.join(PROCEDURAL, "knot2k.obj"), "rb") as f:
+        whole = f.read()
+    mesh = scenes / "meshes" / "procedural" / "knot2k.obj"
+    mesh.write_bytes(whole[:len(whole) // 2])
+    assert knot_mesh(str(mesh.parent)) == str(mesh)
+    assert mesh.read_bytes() == whole
+    inode = os.stat(mesh).st_ino
+    knot_mesh(str(mesh.parent))
+    assert os.stat(mesh).st_ino == inode and mesh.read_bytes() == whole
+    assert sorted(os.listdir(mesh.parent)) == ["knot2k.obj"]   # no temp
+    got, _, _ = load_scene(str(scenes / "cbox") + "/", "knot2k-test.xml",
+                           device="cpu")
+    assert got.n_prims == scene.n_prims == 2011
+    for name in ("bvh_node_pack", "bvh_prim_pack"):
+        assert torch.equal(getattr(got, name), getattr(scene, name)), name
 
 
 def test_builder_has_no_fallback(tmp_path, monkeypatch):

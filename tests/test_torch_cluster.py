@@ -63,7 +63,7 @@ from adapt_tpu_torch.renderer import pt
 from adapt_tpu_torch.scene.compile import CLUSTER_MAX, load_scene
 
 from conftest import SCENE_DIR
-from test_torch_bvh import _fma_bounds, _rays, _small, _within  # and the mesh
+from test_torch_bvh import _fma_bounds, _rays, _small, _within, knot_assets
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 DEAD = np.float32(-3e38)
@@ -84,6 +84,7 @@ def jax_schedule(shortlist=True, qpick=False, p=2):
 
 @pytest.fixture(scope="module")
 def knot():
+    knot_assets()
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml")
     scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml",
                                device="cpu")
@@ -574,6 +575,7 @@ def test_render_pass_matches_jax(tier, flags, w):
     within 5e-2). The two tiers render at different sizes, and the JAX
     caches are dropped around the call: its jitted pass reads the schedule
     flags when it is traced."""
+    knot_assets()
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml")
     scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml",
                                device="cpu")

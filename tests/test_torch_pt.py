@@ -120,7 +120,8 @@ def test_render_batch_and_checkpoint(cbox):
 def test_knot_scene_pass_matches_jax():
     """The BVH tier end to end: knot2k-test (2,000 triangles, a sphere
     and the cbox walls) at 24^2 and its own 12 bounces, RR and MIS on."""
-    import test_torch_bvh  # noqa: F401  (generates the knot mesh)
+    from test_torch_bvh import knot_assets
+    knot_assets()
     jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml")
     scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml",
                                device="cpu")
