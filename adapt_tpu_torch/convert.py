@@ -3,7 +3,8 @@
 The port never imports jax. A caller that holds JAX objects reads them out
 with `scene_leaves` (plain `np.asarray` on each leaf) and hands the numpy
 dict to `scene_from_numpy` (the BVH packs come across as they are, so the
-port walks the JAX package's own tree; the cluster tables `cl_*` come
+port walks the JAX package's own tree, and their float4 rows are made from
+them as the port's compiler makes them; the cluster tables `cl_*` come
 across in the port's prim-major layout, so both packages sweep the same
 clusters); a JAX PRNG key's data (`jax.random.key_data`,
 the checkpoint `key` field) becomes a port key with `key_from_numpy`.
@@ -20,7 +21,7 @@ import torch
 
 from .scene.compile import (MediumTable, RenderConfig, SceneData,
                             TextureTable, front_boxes, prim_slots,
-                            resolve_device)
+                            resolve_device, v4_packs)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
 _MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
@@ -41,19 +42,22 @@ def _resolve(obj, dotted):
     return obj
 
 
-def _jax_cluster_leaves(scene) -> dict:
-    """The port's cluster tables from a JAX SceneData's: `cl_aabb` (C,8)
-    loses its two padded columns, the prim-major copy `cl_rows_pm`
-    (C*CM,24) its six padded fields, `cl_chunk` (C*8,K) becomes (C,K,6);
-    the inflated boxes, the live counts and the prim-to-slot map are derived as the port's
+def _jax_layout_leaves(scene) -> dict:
+    """The port's own tables from a JAX SceneData's. The BVH packs' float4
+    rows by `v4_packs`. The cluster tables: `cl_aabb` (C,8) loses its two
+    padded columns, the prim-major copy `cl_rows_pm` (C*CM,24) its six
+    padded fields, `cl_chunk` (C*8,K) becomes (C,K,6); the inflated boxes,
+    the live counts and the prim-to-slot map are derived as the port's
     compiler derives them."""
+    node_v4, prim_v4 = v4_packs(scene.bvh_node_pack, scene.bvh_prim_pack)
     aabb = np.ascontiguousarray(np.asarray(scene.cl_aabb)[:, :6])
     rows = np.ascontiguousarray(np.asarray(scene.cl_rows_pm)[:, :18])
     ch = np.asarray(scene.cl_chunk)
     chunk = ch.reshape(-1, 8, ch.shape[1])[:, :6].transpose(0, 2, 1)
     count, slot = prim_slots(rows, aabb.shape[0],
                              np.asarray(scene.prim_obj).shape[0])
-    return dict(cl_aabb=aabb, cl_front=front_boxes(aabb), cl_rows=rows,
+    return dict(bvh_node_v4=node_v4, bvh_prim_v4=prim_v4, cl_aabb=aabb,
+                cl_front=front_boxes(aabb), cl_rows=rows,
                 cl_chunk=np.ascontiguousarray(chunk), cl_count=count,
                 cl_slot=slot)
 
@@ -62,7 +66,7 @@ def scene_leaves(scene) -> dict:
     """{dotted name: numpy array} for LEAF_NAMES of a JAX or port scene."""
     out = {}
     layout = {} if isinstance(scene, SceneData) \
-        else _jax_cluster_leaves(scene)
+        else _jax_layout_leaves(scene)
     for name in LEAF_NAMES:
         x = layout[name] if name in layout else _resolve(scene, name)
         out[name] = x.cpu().numpy() if isinstance(x, torch.Tensor) \

@@ -4,10 +4,12 @@
 kernel adapt_tpu/ops/splat_pallas.py `_splat_kernel` (via its
 `splat_sorted_accumulate`): film (P, 3) plus, for every pixel p, the sum of
 the rgb rows whose id is p, over a stream sorted by pixel id. Ids outside
-[0, P) are ignored (BDPT's `drop` sentinel is P). The TPU kernel's tile
-windows, MAX_WIN and its scatter fallback exist for a static VMEM window
-and have no counterpart: the CUDA kernel (csrc/splat.cu) gives each pixel
-one thread, which binary-searches its segment and adds it in stream order.
+[0, P) are ignored (BDPT's `drop` sentinel is P). The TPU kernel's
+MAX_WIN and its scatter fallback exist for a static VMEM window and have
+no counterpart: in the CUDA kernel (csrc/splat.cu) a block of 256 pixels
+finds its window of the stream once, each pixel thread finds its segment
+inside the window and adds it in stream order (from shared memory, chunk
+by chunk, in a block that holds a long segment).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `splat_sorted_accumulate_plain`, which adds in the kernel's

@@ -8,7 +8,9 @@ is t = (d - o.n)/(dir.n), u = (o + t dir).U - cu, v = (o + t dir).V - cv).
 
 Scenes of BVH_THRESHOLD prims or more also get the JAX package's BVH
 tables (`bvh_node_pack`, `bvh_prim_pack`; native binned-SAH build,
-native/), which the BVH kernels walk, and its cluster cut of that tree
+native/), which the plain walk and the any-hit kernel read, the same
+tables in aligned float4 rows (`bvh_node_v4`, `bvh_prim_v4`; `v4_packs`),
+which the closest-hit kernel reads, and its cluster cut of that tree
 (`cl_*`: disjoint subtrees of at most CLUSTER_MAX prims, prim-major
 rows), which the cluster kernels sweep. Tables the port does not read
 (texture atlases, grid volumes) are not built.
@@ -93,6 +95,8 @@ class SceneData:
     bvh_node_pack: torch.Tensor  # (M,9) f32: lo(3) hi(3) base cnt skip
     bvh_prim_pack: torch.Tensor  # (P,14) f32, leaf-contiguous order:
     # n|center(3) d|radius U(3) cu V(3) cv is_sphere gid
+    bvh_node_v4: torch.Tensor    # (M,8) f32 rows of 32 B (`v4_packs`)
+    bvh_prim_v4: torch.Tensor    # (P,16) f32 rows of 64 B (`v4_packs`)
     # --- cluster cut of the BVH (C clusters of CM slots, K = CM / 128
     # chunks each; one empty inverted cluster below BVH_THRESHOLD) ---
     cl_aabb: torch.Tensor    # (C,6) f32 lo|hi of each cluster's subtree
@@ -394,6 +398,30 @@ def _bvh_tables(prims, sph_ids, prim_n, prim_d, prim_U, prim_cu, prim_V,
             *_cluster_cut(node_pack, rows18[prim_order], prim_ab))
 
 
+def v4_packs(node_pack, prim_pack):
+    """The BVH tables in aligned rows for float4 loads: (bvh_node_v4 (M,8),
+    bvh_prim_v4 (P,16)) f32 from (bvh_node_pack (M,9), bvh_prim_pack
+    (P,14)). A node row is lo(3), then base | cnt << 24 as int32 bits, then
+    hi(3), then skip as int32 bits (cnt <= LEAF_MAX = 4 and ids below 2^24
+    fit); a prim row is the 14 fields of bvh_prim_pack as they are, then
+    two zeros. The float fields are copied bit for bit."""
+    node_pack = np.asarray(node_pack, np.float32)
+    prim_pack = np.asarray(prim_pack, np.float32)
+    base, cnt, skip = (node_pack[:, k].astype(np.int64) for k in (6, 7, 8))
+    if len(base) and (base.max() >= 1 << 24 or cnt.max() >= 1 << 7
+                      or base.min() < 0 or cnt.min() < 0):
+        raise ValueError("BVH node fields do not fit the packed int word")
+    nodes = np.zeros((node_pack.shape[0], 8), np.float32)
+    nodes[:, 0:3] = node_pack[:, 0:3]
+    nodes[:, 4:7] = node_pack[:, 3:6]
+    words = nodes.view(np.int32)
+    words[:, 3] = base | (cnt << 24)
+    words[:, 7] = skip
+    prims = np.zeros((prim_pack.shape[0], 16), np.float32)
+    prims[:, :14] = prim_pack
+    return nodes, prims
+
+
 def _placeholder_bvh():
     """The JAX package's tables below BVH_THRESHOLD: an inverted box with
     skip 1, so an accidental walk misses and ends; one inverted cluster of
@@ -501,6 +529,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
     else:
         node_pack, prim_pack, cl_aabb, cl_rows, cl_chunk = _placeholder_bvh()
     cl_count, cl_slot = prim_slots(cl_rows, cl_aabb.shape[0], P)
+    node_v4, prim_v4 = v4_packs(node_pack, prim_pack)
 
     cam_dir = configs["transform"][0]
     if cam_dir is None or np.ndim(cam_dir) != 1 or np.size(cam_dir) != 3:
@@ -609,6 +638,8 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         prim_is_sphere=_t(prim_is_sphere),
         bvh_node_pack=_t(node_pack),
         bvh_prim_pack=_t(prim_pack),
+        bvh_node_v4=_t(node_v4),
+        bvh_prim_v4=_t(prim_v4),
         cl_aabb=_t(cl_aabb),
         cl_front=_t(front_boxes(cl_aabb)),
         cl_rows=_t(cl_rows),

@@ -16,16 +16,21 @@ non-zero exit and no result line.
    hits in seeded random directions with 15% dead lanes; shadow rays to
    the point light). Hit ids and occlusion exactly equal, t within rtol
    2e-6, u/v within rtol 2e-5 atol 2e-6 (same operation order: 0
-   expected); times by CUDA events, median of 5, and each kernel's bound;
+   expected; the BVH closest hit bit-equal); times by CUDA events, median
+   of 5 single calls, and each kernel's bound; 2b also gives the BVH
+   kernels' device times (a CUDA graph of 10 calls, no host time), their
+   registers, spills, blocks resident per SM and waves;
    2c: the media-walk kernel on the vpt cbox (NEE shadow rays from the
    primary hits to area-light samples at K = 2; bounce rays with 15% dead
    lanes at K = 2 and, every triangle an interface, at K = 7): every
    output exactly equal to the twin's, with the null-hit, overflow and
-   blocker shares; 2d: the film-splat kernel on three 512^2 streams of
+   blocker shares; 2d: the film-splat kernel on four 512^2 streams of
    1,572,864 updates (the t=1 stream of one BDPT cbox pass at 6 bounces, a
-   uniform one with 10% dropped, and one whose first 1024-pixel tile holds
-   70,000 updates), bit-equal to its plain version, with index_add_'s time
-   beside it; 2e: the five cluster kernels on knot290k (the all-cluster
+   uniform one with 10% dropped, one whose first 1024-pixel tile holds
+   70,000 updates, and the uniform one with 200,000 of its updates moved
+   to one pixel), bit-equal to its plain version, with index_add_'s time
+   beside it, single calls and device times; 2e: the five cluster kernels
+   on knot290k (the all-cluster
    sweep's closest hit and any hit, the queue-pick schedule's front pass
    and its two pick passes on the picks the schedule itself derives):
    every output bit-equal to the plain version's, the sweep kernels also
@@ -188,6 +193,33 @@ def _time_ms(torch, fn, reps=REPS):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _graph_ms(torch, fn, calls=10):
+    """Device ms of one call: the median over 5 replays of a CUDA graph of
+    `calls` calls (after two calls on a side stream), by CUDA events. The
+    host's time to issue a call, which `_time_ms` includes, is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -387,6 +419,8 @@ def main():
         want = bvh.walk(kscene, o, d, far, stats=True)
         errs["bvh_closest_hit"] = max(errs["bvh_closest_hit"], _close(
             torch, got, want, far, f"bvh_closest_hit ({tag} rays)"))
+        _require(all(torch.equal(a, b) for a, b in zip(got, want[:4])),
+                 f"bvh_closest_hit ({tag} rays): not bit-equal to the twin")
         work[("bvh_closest_hit", tag)] = (int(want[4].sum()),
                                           int(want[5].sum()))
     for o, d, far, tag in ((kbo, ksd, kfar_s, "shadow"),
@@ -419,15 +453,39 @@ def main():
         visits, tests = work[(k, tag)]
         bounds[k] = _bound(N * 28 + tables + N * out_bytes,
                            visits * bvh.NODE_OPS + tests * bvh.PRIM_OPS)
+    # what the compiler and the card give each kernel: the closest hit
+    # runs one wave of persistent warps (its "waves" are the rays a
+    # resident thread takes), the any hit one thread a ray
+    kinfo = BK.kernel_info(N)
+    kdevice = {
+        "bvh_closest_hit": (
+            _graph_ms(torch, lambda: BK.bvh_closest_hit(kscene, kbo, kbd,
+                                                        kfar_b)),
+            _graph_ms(torch, lambda: BK.bvh_closest_hit(kscene, kro, krd,
+                                                        kfar_p))),
+        "bvh_any_hit": (
+            _graph_ms(torch, lambda: BK.bvh_any_hit(kscene, kbo, ksd,
+                                                    kfar_s)),
+            _graph_ms(torch, lambda: BK.bvh_any_hit(kscene, kbo, kbd,
+                                                    kfar_b)))}
     print("phase 2b BVH kernels vs twin, knot290k, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
-                      f"{t:.4f} ms, twin {p:.4f} ms (one call), bound "
-                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                      f"{t:.4f} ms (device {kdevice[k][0]:.4f}; "
+                      + ("primary rays" if k == "bvh_closest_hit"
+                         else "bounce rays")
+                      + f" {kdevice[k][1]:.4f}), twin {p:.4f} ms (one "
+                      f"call), bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
                       for k, (t, p) in ktimes.items())
           + " | node visits / prim tests per ray: " + ", ".join(
               f"{k} {tag} {v / N:.2f} / {s / N:.2f}"
-              for (k, tag), (v, s) in work.items()) + f" [{card}]",
-          flush=True)
+              for (k, tag), (v, s) in work.items())
+          + " | " + "; ".join(
+              f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
+              f"resident per SM x {sms} SMs, "
+              + (f"one wave, {w:.2f} rays per resident thread"
+                 if k == "bvh_closest_hit" else f"{w} waves")
+              for k, (r, sp, b, sms, bs, w) in kinfo.items())
+          + f" [{card}]", flush=True)
 
     # ---- 2e. cluster kernels against their plain versions, knot290k ----
     NC, CM = kscene.n_clusters, kscene.cluster_size
@@ -719,9 +777,17 @@ def main():
         return (torch.rand((P, 3), generator=g, device=dev),
                 torch.sort(ids).values.contiguous(),
                 torch.rand((M, 3), generator=g, device=dev))
+
+    def hot_stream(n_hot):
+        """The uniform stream with its first n_hot updates moved to one
+        pixel: a segment longer than the kernel stages at a time."""
+        film, idx, rgb = splat_stream(0)
+        idx[:n_hot] = 4321
+        return film, torch.sort(idx).values.contiguous(), rgb
     streams = (("bdpt t=1", (film1, idx1, rgb1)),
                ("uniform", splat_stream(0)),
-               ("skewed", splat_stream(70000)))
+               ("skewed", splat_stream(70000)),
+               ("one pixel 200000", hot_stream(200000)))
     _require(int((streams[2][1][1] < 1024).sum()) >= 65536,
              "the skewed stream's first tile holds 65,536 updates")
     splat_rows = []
@@ -738,6 +804,7 @@ def main():
         lib = torch.index_add(film, 0, ik, rk)
         torch.testing.assert_close(lib, got, rtol=1e-5, atol=1e-5)
         nk = int(kept.sum())
+        mx = int(torch.bincount(idx[kept], minlength=P).max()) if nk else 0
         # bound: each kept update's id and rgb read once, the film read and
         # the output written once; 3 adds an update
         splat_rows.append((
@@ -745,21 +812,25 @@ def main():
             _time_ms(torch, lambda: S.splat_sorted_accumulate(film, idx,
                                                               rgb)),
             _time_ms(torch, lambda: S.splat_sorted_accumulate_plain(
-                film, idx, rgb)),
+                film, idx, rgb), reps=REPS if mx < 1000 else 1),
             _bound(nk * 16 + P * 24, 3 * nk),
-            _time_ms(torch, lambda: torch.index_add(film, 0, ik, rk)),
-            int(torch.bincount(idx[kept], minlength=P).max()) if nk else 0))
+            _time_ms(torch, lambda: torch.index_add(film, 0, ik, rk)), mx,
+            _graph_ms(torch, lambda: S.splat_sorted_accumulate(film, idx,
+                                                               rgb)),
+            _graph_ms(torch, lambda: torch.index_add(film, 0, ik, rk))))
     # the JSON line takes the uniform stream: the main path's shapes with
     # every pixel at work (the main path's own t=1 stream keeps nothing on
     # cbox, see phase 7)
-    _tag, _nk, sk, sp, sb, sl, _mx = splat_rows[1]
+    _tag, _nk, sk, sp, sb, sl, _mx, _kb, _lb = splat_rows[1]
     times["splat_sorted_accumulate"] = (sk, sp, sl)
     bounds["splat_sorted_accumulate"] = sb
     print(f"phase 2d film-splat kernel vs plain, {P} pixels, {M} updates: "
           "bit-equal on every stream; " + "; ".join(
               f"{tag}: {nk} kept (most in one pixel {mx}), kernel {k:.4f} ms,"
-              f" plain {p:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), index_add_ "
-              f"{lb:.4f} ms" for tag, nk, k, p, b, lb, mx in splat_rows)
+              f" plain {p:.4f} ms{' (one call)' if mx >= 1000 else ''}, "
+              f"bound {b[0]:.4f} ms ({b[1]}), index_add_ {lb:.4f} ms; "
+              f"device: kernel {kb:.4f}, index_add_ {ib:.4f} ms"
+              for tag, nk, k, p, b, lb, mx, kb, ib in splat_rows)
           + f" [{card}]", flush=True)
 
     # ---- 3. golden on the card ----

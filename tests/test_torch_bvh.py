@@ -44,7 +44,8 @@ from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch.ops import _build, bvh, bvh_kernels, intersect_kernels
 from adapt_tpu_torch.ops.intersect import ray_intersect, does_intersect
 from adapt_tpu_torch.renderer.base import camera_rays
-from adapt_tpu_torch.scene.compile import load_scene
+from adapt_tpu_torch.convert import scene_from_numpy, scene_leaves
+from adapt_tpu_torch.scene.compile import load_scene, v4_packs
 
 from conftest import SCENE_DIR
 
@@ -223,6 +224,103 @@ def test_tables_equal_jax(knot):
         assert got.dtype == want.dtype == np.float32, name
         np.testing.assert_array_equal(got, want, err_msg=name)
     assert scene.bvh_prim_pack.shape[0] == scene.n_prims == 2011
+
+
+def _decoded(scene):
+    """(M,9) and (P,14) tables decoded from the scene's float4 packs."""
+    nodes, prims = scene.bvh_node_v4, scene.bvh_prim_v4
+    words = nodes.view(torch.int32)
+    node_pack = torch.cat([nodes[:, 0:3], nodes[:, 4:7],
+                           (words[:, 3:4] & 0xFFFFFF).float(),
+                           (words[:, 3:4] >> 24).float(),
+                           words[:, 7:8].float()], dim=1)
+    return node_pack, prims[:, :14]
+
+
+@pytest.mark.parametrize("scene_file", ["knot2k-test.xml", "cbox.xml"])
+def test_v4_packs_round_trip(knot, scene_file):
+    """The float4 packs hold the (M,9) and (P,14) tables exactly: base,
+    cnt and skip come back from the int words, every float bit for bit
+    (the placeholder tables of a small scene too)."""
+    scene = knot[2] if scene_file == "knot2k-test.xml" else load_scene(
+        SCENE_DIR + "/cbox/", scene_file, device="cpu")[0]
+    node_pack, prim_pack = scene.bvh_node_pack, scene.bvh_prim_pack
+    nodes, prims = scene.bvh_node_v4, scene.bvh_prim_v4
+    assert nodes.shape == (node_pack.shape[0], 8) and nodes.is_contiguous()
+    assert prims.shape == (prim_pack.shape[0], 16) and prims.is_contiguous()
+    assert nodes.dtype == prims.dtype == torch.float32
+    got_nodes, got_prims = _decoded(scene)
+    for got, want in ((got_nodes, node_pack), (got_prims, prim_pack)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (prims[:, 14:] == 0).all()
+    words = nodes.view(torch.int32)
+    cnt = words[:, 3] >> 24
+    assert (cnt <= bvh.LEAF_MAX).all()
+    assert (cnt > 0).any() == (node_pack.shape[0] > 1)    # leaves, or none
+    # v4_packs is the one function: the compiler's packs are its output
+    n4, p4 = v4_packs(node_pack.numpy(), prim_pack.numpy())
+    assert np.array_equal(n4.view(np.int32), words.numpy())
+    assert np.array_equal(p4, prims.numpy())
+
+
+def test_walk_over_decoded_v4_packs(knot):
+    """`walk` over tables decoded from the float4 packs equals `walk` over
+    the packs themselves, output for output."""
+    _, _, scene, cfg = knot
+    node_pack, prim_pack = _decoded(scene)
+    decoded = dataclasses.replace(scene, bvh_node_pack=node_pack,
+                                  bvh_prim_pack=prim_pack)
+    ro, rd, alive, max_t = _rays(scene, cfg, 17)
+    args = [torch.from_numpy(x) for x in (ro, rd, max_t, alive)]
+    for any_hit in (False, True):
+        want = bvh.traverse(scene, *args[:2], max_t=args[2], alive=args[3],
+                            any_hit=any_hit, stats=True)
+        got = bvh.traverse(decoded, *args[:2], max_t=args[2], alive=args[3],
+                           any_hit=any_hit, stats=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert (want[1] >= 0).float().mean() > 0.3
+
+
+def test_v4_packs_cross_from_jax(knot):
+    """`scene_leaves` of a JAX scene and `scene_from_numpy` make the same
+    float4 packs as `load_scene`."""
+    jscene, jcfg, scene, _ = knot
+    conv, _ = scene_from_numpy(scene_leaves(jscene), dataclasses.asdict(jcfg),
+                               device="cpu")
+    for name in ("bvh_node_v4", "bvh_prim_v4"):
+        got, want = getattr(conv, name), getattr(scene, name)
+        assert got.is_contiguous() and got.dtype == want.dtype, name
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            name
+
+
+def test_operands_refuse_bad_packs(knot):
+    """The kernels' operand checks refuse a pack of the wrong shape or
+    type, and one that does not start on a 16-byte boundary."""
+    _, _, scene, _ = knot
+    ro = torch.zeros((4, 3))
+    args = (ro, ro, ro[:, 0])
+    nodes = scene.bvh_node_v4
+    BK = bvh_kernels
+    assert BK._operands(scene, *args, BK.CLOSEST_TABLES)[4] is nodes
+    shifted = torch.empty(nodes.numel() + 1)[1:].view(nodes.shape)
+    shifted.copy_(nodes)
+    assert shifted.data_ptr() % 16
+    bad = {"misaligned": dict(bvh_node_v4=shifted),
+           "wide": dict(bvh_prim_v4=scene.bvh_prim_pack),
+           "narrow": dict(bvh_node_v4=scene.bvh_node_pack),
+           "type": dict(bvh_node_v4=nodes.double())}
+    for what, fields in bad.items():
+        with pytest.raises(ValueError, match="16-byte|want float32"):
+            BK._operands(dataclasses.replace(scene, **fields), *args,
+                         BK.CLOSEST_TABLES)
+    # the any-hit kernel's tables are the (M,9) and (P,14) packs
+    BK._operands(dataclasses.replace(scene, **bad["misaligned"]), *args,
+                 BK.ANY_TABLES)
+    with pytest.raises(ValueError, match="want float32"):
+        BK._operands(dataclasses.replace(scene, bvh_node_pack=nodes), *args,
+                     BK.ANY_TABLES)
 
 
 @pytest.mark.parametrize("seed", [3, 7])
@@ -434,19 +532,25 @@ def test_kernels_match_twin_on_card(knot):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     _, _, scene, cfg = knot
-    ro, rd, alive, max_t = _rays(scene, cfg, 21)
     dev = scene.to("cuda")
-    far = intersect_kernels.far_bound(*[torch.from_numpy(x).cuda()
-                                        for x in (ro, max_t, alive)])
-    args = [torch.from_numpy(x).cuda() for x in (ro, rd)] + [far]
+    for name in ("bvh_node_v4", "bvh_prim_v4"):
+        assert getattr(dev, name).data_ptr() % 16 == 0, name
     before = dict(bvh_kernels.launches)
-    got = bvh_kernels.bvh_closest_hit(dev, *args)
-    want = bvh_kernels.bvh_closest_hit_plain(dev, *args)
-    # same visit order and operation order: bit-equal
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
-    np.testing.assert_array_equal(
-        bvh_kernels.bvh_any_hit(dev, *args).cpu().numpy(),
-        bvh_kernels.bvh_any_hit_plain(dev, *args).cpu().numpy())
+    seeds = (21, 22, 23)
+    for seed in seeds:
+        ro, rd, alive, max_t = _rays(scene, cfg, seed)
+        far = intersect_kernels.far_bound(*[torch.from_numpy(x).cuda()
+                                            for x in (ro, max_t, alive)])
+        args = [torch.from_numpy(x).cuda() for x in (ro, rd)] + [far]
+        got = bvh_kernels.bvh_closest_hit(dev, *args)
+        want = bvh_kernels.bvh_closest_hit_plain(dev, *args)
+        # same visit order and operation order: bit-equal
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+        np.testing.assert_array_equal(
+            bvh_kernels.bvh_any_hit(dev, *args).cpu().numpy(),
+            bvh_kernels.bvh_any_hit_plain(dev, *args).cpu().numpy())
     assert bvh_kernels.launches == {
-        k: n + 1 for k, n in before.items()}
+        k: n + len(seeds) for k, n in before.items()}
+    info = bvh_kernels.kernel_info(ro.shape[0])
+    assert all(v[0] > 0 and v[2] > 0 for v in info.values()), info

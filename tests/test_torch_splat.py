@@ -96,6 +96,49 @@ def test_tpu_fallback_cases(case):
         np.testing.assert_array_equal(got, film)
 
 
+def _window_stream(case):
+    """Streams the CUDA kernel's block windows must get right (a block owns
+    256 consecutive pixels and scans its window 256 entries a step):
+    segments longer than a step, so a step ends inside a segment; one
+    pixel holding every update; negative ids next to `drop` ids with few
+    kept between them; a film whose last block holds one pixel."""
+    g = np.random.default_rng(len(case))
+    if case == "long_segments":
+        P = 1024
+        idx = np.repeat(np.arange(0, P, 97), 301)            # 301 a pixel
+    elif case == "one_pixel":
+        P = 600
+        idx = np.full(1500, 300)
+    elif case == "negative_and_drop":
+        P = 512
+        idx = np.concatenate([np.full(700, -1), np.full(300, -7),
+                              g.integers(255, 258, 5), np.full(900, P)])
+    else:                                                  # "ragged_tile"
+        P = 257
+        idx = g.integers(0, P, 4000)
+        idx[:300] = P - 1
+    idx = np.sort(idx).astype(np.int32)
+    rgb = g.uniform(size=(idx.shape[0], 3)).astype(np.float32)
+    film = g.uniform(size=(P, 3)).astype(np.float32)
+    return film, idx, rgb
+
+
+WINDOW_CASES = ["long_segments", "one_pixel", "negative_and_drop",
+                "ragged_tile"]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_block_window_streams(case):
+    film, idx, rgb = _window_stream(case)
+    got = _plain(film, idx, rgb)
+    np.testing.assert_allclose(got, _scatter64(film, idx, rgb), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got, _jax(film, idx, rgb), rtol=RTOL,
+                               atol=ATOL)
+    kept = (idx >= 0) & (idx < film.shape[0])
+    assert (got != film).any(axis=1).sum() == len(np.unique(idx[kept]))
+
+
 def test_plain_adds_in_stream_order():
     """Each pixel's sum is its updates added one by one in stream order,
     then the film: the CUDA kernel's order, so the two are bit-equal.
@@ -136,7 +179,8 @@ def test_kernel_matches_plain_on_card():
     P = 1 << 16
     streams = [_stream(P, 6 * P, seed=11),
                _stream(P, 70000, seed=12, drop_frac=0.0, hi=1024),
-               _stream(777, 1024, seed=13), _stream(P, 0, seed=14)]
+               _stream(777, 1024, seed=13), _stream(P, 0, seed=14),
+               *(_window_stream(case) for case in WINDOW_CASES)]
     before = splat.launches["splat_sorted_accumulate"]
     for film, idx, rgb in streams:
         args = [torch.from_numpy(x).cuda() for x in (film, idx, rgb)]
