@@ -20,8 +20,8 @@ import numpy as np
 import torch
 
 from .scene.compile import (MediumTable, RenderConfig, SceneData,
-                            TextureTable, front_boxes, prim_slots,
-                            resolve_device, v4_packs)
+                            TextureTable, cluster_v4, front_boxes,
+                            prim_slots, resolve_device, v4_packs)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
 _MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
@@ -47,8 +47,8 @@ def _jax_layout_leaves(scene) -> dict:
     rows by `v4_packs`. The cluster tables: `cl_aabb` (C,8) loses its two
     padded columns, the prim-major copy `cl_rows_pm` (C*CM,24) its six
     padded fields, `cl_chunk` (C*8,K) becomes (C,K,6); the inflated boxes,
-    the live counts and the prim-to-slot map are derived as the port's
-    compiler derives them."""
+    the float4 rows, the live counts and the prim-to-slot map are derived
+    as the port's compiler derives them."""
     node_v4, prim_v4 = v4_packs(scene.bvh_node_pack, scene.bvh_prim_pack)
     aabb = np.ascontiguousarray(np.asarray(scene.cl_aabb)[:, :6])
     rows = np.ascontiguousarray(np.asarray(scene.cl_rows_pm)[:, :18])
@@ -58,6 +58,7 @@ def _jax_layout_leaves(scene) -> dict:
                              np.asarray(scene.prim_obj).shape[0])
     return dict(bvh_node_v4=node_v4, bvh_prim_v4=prim_v4, cl_aabb=aabb,
                 cl_front=front_boxes(aabb), cl_rows=rows,
+                cl_rows_v4=cluster_v4(rows),
                 cl_chunk=np.ascontiguousarray(chunk), cl_count=count,
                 cl_slot=slot)
 

@@ -28,16 +28,17 @@
 // extraction, ray padding to lane blocks. Each kernel computes what its TPU
 // kernel computes:
 //
-// * sweep (closest, any): one thread per ray visits the clusters in index
-//   order. A cluster is entered when the slab test of its box passes
-//   against the lane's current best t (any hit: its far bound); inside,
-//   each 128-prim chunk is gated by its own box the same way, then its live
-//   rows are tested in slot order with strict <. Clusters are DFS ranges, so
-//   index order with strict < keeps the first prim in DFS order on a tie:
-//   the tie rule of the BVH walk (bvh_intersect.cu). The closest-hit kernel
-//   finishes the winner in the kernel (gid, u, v, n_g, obj, sphere flag; a
-//   sphere's normal from its hit point); the any-hit lane stops at its
-//   first hit.
+// * sweep (closest, any): the clusters in index order, for every ray. A
+//   cluster is entered when the slab test of its box passes against the
+//   lane's current best t (any hit: its far bound); inside, each 128-prim
+//   chunk is gated by its own box the same way, then its live rows are
+//   tested and the least t below the bound kept, the lowest slot on a tie
+//   (what a loop in slot order with strict < keeps). Clusters are DFS
+//   ranges, so index order with that tie rule keeps the first prim in DFS
+//   order: the tie rule of the BVH walk (bvh_intersect.cu). The
+//   closest-hit kernel finishes the winner in the kernel (gid, u, v, n_g,
+//   obj, sphere flag; a sphere's normal from its hit point); an any-hit
+//   lane stops after the chunk of its first hit.
 // * front: one thread per ray over the inflated boxes keeps, in registers,
 //   the entered cluster with the least entry distance max(t_near, 0) (ties
 //   to the lowest id, C when none) and the second least entry distance
@@ -56,22 +57,51 @@
 // versions (ops/cluster_kernels.py) repeat these steps, so kernel and plain
 // agree bit for bit.
 //
-// Bound: the rows of a 290k-prim scene are 29.7 MB (20.9 MB of them live) and
-// its boxes under 0.2 MB, all inside the H100's 50 MB L2, so no kernel here
-// is bound by HBM bytes. The sweeps and the front pass are bound by the
-// operations they execute: every ray pays C box tests (each warp reads one
-// box at a time from shared memory, a broadcast; six scalar loads and some
-// thirty operations a box), and in the sweeps a warp whose lanes enter
-// different clusters runs their row loops one after another (divergence),
-// each lane streaming its own 72-byte rows through L1. The box tables go to
-// shared memory (38.7 KB at C = 1,613; a table above SMEM_MAX bytes is
-// refused); the prim test leaves a row as soon as its t
-// cannot win, before the four u/v dots. The pick kernels read one row per
-// block at a time (a broadcast) straight from L2, one dependent round trip a
-// row, so the latency of those loads bounds them, not their operation count.
-// Packing a box into two 16-byte loads, visiting clusters front to back,
-// sorting rays by cluster for the sweeps, staging a block's rows in shared
-// memory and testing several rows per lane are later work.
+// Bound: the rows of a 290k-prim scene are 29.7 MB (20.9 MB of them live;
+// the sweeps' 64-byte copy 26.4 MB) and its boxes under 0.2 MB, all inside
+// the H100's 50 MB L2, so no kernel here is bound by HBM bytes. The sweeps
+// and the front pass are bound by the operations they execute: every ray
+// pays C box tests, from a table in shared memory (38.7 KB at C = 1,613; a
+// table above SMEM_MAX bytes is refused), one box at a time for the whole
+// warp (a broadcast), some thirty operations a box. The prim test leaves a
+// row as soon as its t cannot win, before the four u/v dots. The pick
+// kernels read one row per block at a time (a broadcast) straight from L2,
+// one dependent round trip a row, so the latency of those loads bounds
+// them, not their operation count.
+//
+// The sweep kernels (B6a, B6b) are built around what held their first port
+// (one thread per ray) at 50x its bound: (1) a warp whose lanes
+// entered different clusters or chunks ran their row loops one after
+// another, each row 18 scalar loads of a 72-byte row that straddles
+// sectors (ops/cluster_kernels.py `warp_divergence`: a warp ran ~20 row
+// iterations for every 32 row tests its lanes needed on bounce rays);
+// (2) chunk boxes read from global memory inside those branches; (3)
+// 128-thread blocks that each staged the box table, 20 warps an SM. Now:
+//   * warp-cooperative chunks: lanes still visit clusters in index order,
+//     each gated on its own bound; at each cluster and chunk the warp takes
+//     the ballot of the lanes that enter, and for each of them in turn the
+//     32 lanes split the chunk's live rows (lane k rows k, k + 32, ...), the
+//     ray coming by shuffle. B6a reduces to the least (t, slot) below the
+//     lane's best at the chunk's start, B6b ORs t < far with a warp vote.
+//     Each (ray, row) t is computed as before, and a loop in slot order
+//     with strict < ends at that same least (t, slot); B6b's result, an OR
+//     gated on a fixed far bound, holds in any order. So both stay
+//     bit-equal to the plain versions;
+//   * aligned rows: the 14 fields a test reads as one 64-byte row of four
+//     float4s (`cl_rows_v4`, scene/compile.py `cluster_v4`), coalesced
+//     across the warp; only a winner reads n_g and obj from the 18-wide
+//     rows;
+//   * a cluster's chunk boxes and count in one load for the warp (lane j
+//     the j-th word) when some lane enters it; the cluster boxes read from
+//     shared memory as three 8-byte broadcasts and tested with
+//     one-instruction NaN min/max (same comparisons, same branches);
+//   * 256-thread blocks: five fit an SM with their box tables, 40 warps.
+// What is left (PERF.md): mostly the box tests, which every lane makes
+// for every cluster, then the round trip that fetches an entered cluster's
+// chunk boxes; the rows themselves take little. Prefetching every
+// cluster's chunk boxes one cluster ahead, testing boxes two or four at a
+// time, 128- or 512-thread blocks and stopping B6b's rows at the first 32
+// that hit measured no faster (or slower) in scratch builds.
 
 #include <cuda_runtime.h>
 
@@ -80,7 +110,9 @@
 #define FAR 1e7f
 #define BIG 3e38f
 #define BLOCK 128
+#define SWEEP_BLOCK 256
 #define TILE 128
+#define FULL 0xffffffffu
 #define CHUNK 128
 // largest box table (a block may use 227 KB of shared memory); keep equal
 // to ops/cluster_kernels.py BOX_TABLE_MAX
@@ -129,14 +161,6 @@ __device__ __forceinline__ void slab(const Ray& r, const float* box,
   }
   *t_near = tn;
   *t_far = tf;
-}
-
-// The ray enters the box before t_max (cluster_pallas.py `_slab_lanes`).
-__device__ __forceinline__ bool enters(const Ray& r, const float* box,
-                                       float t_max) {
-  float tn, tf;
-  slab(r, box, &tn, &tf);
-  return (tf >= max_nan(tn, 0.0f)) && (tn < t_max);
 }
 
 // One prim row (cluster_pallas.py `_prim_chunk_test`): its hit distance, or
@@ -189,40 +213,233 @@ __device__ __forceinline__ void stage_boxes(const float* __restrict__ table,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(BLOCK) cluster_closest_kernel(
+// A prim row of the float4 pack (scene/compile.py `cluster_v4`): n|center
+// d|radius, U cu, V cv, is_sphere gid pad pad.
+struct PrimRow {
+  float4 q[4];
+};
+
+__device__ __forceinline__ PrimRow load_row(const float4* __restrict__ rows4,
+                                            int k) {
+  const float4* row = rows4 + 4 * (size_t)k;
+  return {{__ldg(row), __ldg(row + 1), __ldg(row + 2), __ldg(row + 3)}};
+}
+
+// prim_test on a row of the float4 pack, for the ray (o, d): the same
+// operations in the same order.
+__device__ __forceinline__ float prim_test4(const float* o, const float* d,
+                                            const PrimRow& row, float t_max) {
+  if (row.q[3].y < 0.0f) return FAR;             // padding slot
+  const float a[3] = {row.q[0].x, row.q[0].y, row.q[0].z};
+  const float b = row.q[0].w;
+  if (row.q[3].x > 0.5f) {
+    float c[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[k] = __fsub_rn(a[k], o[k]);
+    const float cn2 = dot3(c, c);
+    const float proj = dot3(c, d);
+    const float c2r = __fsub_rn(cn2, __fmul_rn(proj, proj));
+    const float r2 = __fmul_rn(b, b);
+    const float cut = __fsqrt_rn(max_nan(__fsub_rn(r2, c2r), 0.0f));
+    const bool outside = cn2 > __fadd_rn(r2, 1e-4f);
+    const float t_sph = __fadd_rn(proj, outside ? -cut : cut);
+    return ((c2r < r2) && (t_sph > RAY_EPS)) ? t_sph : FAR;
+  }
+  const float o_n = dot3(o, a);
+  const float d_n = dot3(d, a);
+  const bool flat = fabsf(d_n) < 1e-12f;
+  const float t = __fdiv_rn(__fsub_rn(b, o_n), flat ? 1e-12f : d_n);
+  if (flat || !(t > RAY_EPS) || !(t < t_max)) return FAR;
+  const float U[3] = {row.q[1].x, row.q[1].y, row.q[1].z};
+  const float V[3] = {row.q[2].x, row.q[2].y, row.q[2].z};
+  const float u =
+      __fsub_rn(__fadd_rn(dot3(o, U), __fmul_rn(t, dot3(d, U))), row.q[1].w);
+  const float v =
+      __fsub_rn(__fadd_rn(dot3(o, V), __fmul_rn(t, dot3(d, V))), row.q[2].w);
+  const bool ok = (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f);
+  return ok ? t : FAR;
+}
+
+// torch.minimum / torch.maximum in one instruction each (min.NaN /
+// max.NaN), for values that only feed comparisons: which NaN or which zero
+// comes out changes no comparison, so the gates take the same branches.
+__device__ __forceinline__ float min_nan1(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float max_nan1(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// The ray enters the box lo(3) hi(3) before t_max (cluster_pallas.py
+// `_slab_lanes`), as `slab` computes its distances.
+__device__ __forceinline__ bool enters6(const Ray& r, const float* box,
+                                        float t_max) {
+  float tn = 0.0f, tf = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t1 = __fmul_rn(__fsub_rn(box[a], r.o[a]), r.inv[a]);
+    const float t2 = __fmul_rn(__fsub_rn(box[3 + a], r.o[a]), r.inv[a]);
+    const float lo = min_nan1(t1, t2), hi = max_nan1(t1, t2);
+    tn = a == 0 ? lo : max_nan1(tn, lo);
+    tf = a == 0 ? hi : min_nan1(tf, hi);
+  }
+  return (tf >= max_nan1(tn, 0.0f)) && (tn < t_max);
+}
+
+// `enters6` on box c of the shared table: three 8-byte loads, one broadcast
+// each (a box is 24 B, so every box starts on an 8-byte boundary).
+__device__ __forceinline__ bool enters_smem(const Ray& r, const float* table,
+                                            int c, float t_max) {
+  const float2* b = reinterpret_cast<const float2*>(table + 6 * c);
+  const float2 b0 = b[0], b1 = b[1], b2 = b[2];
+  const float box[6] = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+  return enters6(r, box, t_max);
+}
+
+// The ray of lane src, in every lane.
+__device__ __forceinline__ void ray_of(const Ray& r, int src, float* o,
+                                       float* d) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = __shfl_sync(FULL, r.o[k], src);
+    d[k] = __shfl_sync(FULL, r.d[k], src);
+  }
+}
+
+// B6a's chunk step: lane src entered the chunk of m live rows at slot
+// base. The 32 lanes split its rows (lane k tests rows k, k + 32, ...)
+// against src's ray and src's best t at the chunk's start, then reduce to
+// the least (t, slot). That is what src's own loop in slot order with
+// strict < ends at: the least t below the start, the lowest slot on a tie;
+// every t is computed as before.
+__device__ __forceinline__ void closest_chunk(
+    const Ray& r, const float4* __restrict__ rows4, int src, int base, int m,
+    float& best, int& wid) {
+  const int lane = threadIdx.x & 31;
+  float o[3], d[3];
+  ray_of(r, src, o, d);
+  const float start = __shfl_sync(FULL, best, src);
+  float tm = start;
+  int km = CHUNK;                                // none below the start
+#pragma unroll
+  for (int j = 0; j < CHUNK / 32; ++j) {
+    const int k = lane + 32 * j;
+    if (k < m) {
+      const float t = prim_test4(o, d, load_row(rows4, base + k), start);
+      if (t < tm) {
+        tm = t;
+        km = k;
+      }
+    }
+  }
+  // the warp's least (t, slot), by two warp reductions: tm is above
+  // RAY_EPS and never NaN (it starts at src's best, which is, and only a t
+  // above RAY_EPS or FAR replaces it), so its bits order as the floats do
+  const unsigned tb = __reduce_min_sync(FULL, __float_as_uint(tm));
+  const int kb =
+      (int)__reduce_min_sync(FULL, __float_as_uint(tm) == tb ? km : CHUNK);
+  if (lane == src && kb < CHUNK) {
+    best = __uint_as_float(tb);
+    wid = base + kb;
+  }
+}
+
+// B6b's chunk step: the 32 lanes test all of src's rows (lane k rows k,
+// k + 32, ..., their loads issued together) against its ray and far bound,
+// and a warp vote ORs t < far over them. The result ORs t < far over the
+// rows of the chunks entered, all gated on the fixed far bound: no order
+// of the rows changes it, nor testing rows past the first hit.
+__device__ __forceinline__ void any_chunk(const Ray& r,
+                                          const float4* __restrict__ rows4,
+                                          int src, int base, int m, float far,
+                                          bool& hit) {
+  const int lane = threadIdx.x & 31;
+  float o[3], d[3];
+  ray_of(r, src, o, d);
+  const float f = __shfl_sync(FULL, far, src);
+  bool h = false;
+#pragma unroll
+  for (int j = 0; j < CHUNK / 32; ++j) {
+    const int k = lane + 32 * j;
+    if (k < m) h = (prim_test4(o, d, load_row(rows4, base + k), f) < f) | h;
+  }
+  if (__any_sync(FULL, h) && lane == src) hit = true;
+}
+
+// The sweep of one warp, shared by B6a and B6b. Every lane visits the
+// clusters in index order and gates each on its bound (B6a: its running
+// best t, B6b: its far bound), the box table in shared memory. When some
+// lane enters cluster c, lane j < 6 K loads float j of the cluster's chunk
+// boxes (one load for them all) and the count; the entering lanes gate
+// each chunk the same way, then the chunk step runs once for each lane
+// that entered it, lanes in ascending order, all 32 lanes together. A lane
+// takes part while `walks` and not `hit`; a warp with none stops.
+template <bool ANY>
+__device__ __forceinline__ void sweep_warp(
+    const Ray& r, const float* table, const float* __restrict__ cl_chunk,
+    const int* __restrict__ cl_count, const float4* __restrict__ rows4, int C,
+    int K, int CM, bool walks, float& bound, int& wid, bool& hit) {
+  const int lane = threadIdx.x & 31;
+  if (!__any_sync(FULL, walks)) return;
+  for (int c = 0; c < C; ++c) {
+    const unsigned em = __ballot_sync(
+        FULL, walks && !hit && enters_smem(r, table, c, bound));
+    if (!em) continue;
+    const int cnt = __ldg(cl_count + c);
+    const float cb =
+        lane < 6 * K ? __ldg(cl_chunk + (size_t)c * K * 6 + lane) : 0.0f;
+    for (int q = 0; q * CHUNK < cnt; ++q) {
+      float box[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) box[j] = __shfl_sync(FULL, cb, 6 * q + j);
+      unsigned qm = __ballot_sync(
+          FULL, ((em >> lane) & 1u) && !hit && enters6(r, box, bound));
+      const int base = c * CM + q * CHUNK;
+      const int m = min(cnt - q * CHUNK, CHUNK);
+      while (qm) {
+        const int src = __ffs(qm) - 1;
+        qm &= qm - 1;
+        if (ANY)
+          any_chunk(r, rows4, src, base, m, bound, hit);
+        else
+          closest_chunk(r, rows4, src, base, m, bound, wid);
+      }
+    }
+    if (ANY && !__any_sync(FULL, walks && !hit)) return;
+  }
+}
+
+// One lane a ray, each lane's ray loaded whatever its index (a lane past n
+// takes ray n - 1 and does nothing with it), so that all 32 lanes of a
+// warp take part in every shuffle.
+__device__ __forceinline__ int ray_index(int n) {
+  return min((int)(blockIdx.x * blockDim.x + threadIdx.x), n - 1);
+}
+
+__global__ void __launch_bounds__(SWEEP_BLOCK) cluster_closest_kernel(
     const float* __restrict__ ro, const float* __restrict__ rd,
     const float* __restrict__ far0, int n, const float* __restrict__ cl_aabb,
     const float* __restrict__ cl_chunk, const int* __restrict__ cl_count,
-    const float* __restrict__ rows, int C, int K, int CM,
-    float* __restrict__ t_out, int* __restrict__ gid_out,
+    const float* __restrict__ rows, const float4* __restrict__ rows4, int C,
+    int K, int CM, float* __restrict__ t_out, int* __restrict__ gid_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     float* __restrict__ ng_out, int* __restrict__ obj_out,
     int* __restrict__ sph_out) {
   extern __shared__ float box[];
   stage_boxes(cl_aabb, C, box);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ro, rd, i);
-  float best = __ldg(far0 + i);
+  const Ray r = load_ray(ro, rd, ray_index(n));
+  float best = __ldg(far0 + ray_index(n));
   int wid = -1;
+  bool hit = false;
   // a far bound that admits no hit (dead lanes carry -3e38): no sweep
-  const int n_cl = best > RAY_EPS ? C : 0;
-  for (int c = 0; c < n_cl; ++c) {
-    if (!enters(r, box + 6 * c, best)) continue;
-    const int cnt = __ldg(cl_count + c);
-    for (int q = 0; q * CHUNK < cnt; ++q) {
-      if (!enters(r, cl_chunk + ((size_t)c * K + q) * 6, best)) continue;
-      const int base = c * CM + q * CHUNK;
-      const int m = min(cnt - q * CHUNK, CHUNK);
-      for (int k = 0; k < m; ++k) {
-        const float t = prim_test(r, rows + (size_t)(base + k) * ROW, best);
-        if (t < best) {
-          best = t;
-          wid = base + k;
-        }
-      }
-    }
-  }
+  sweep_warp<false>(r, box, cl_chunk, cl_count, rows4, C, K, CM,
+                    i < n && best > RAY_EPS, best, wid, hit);
+  if (i >= n) return;
   // finish the winner (cluster_pallas.py `_select_winner`)
   float u = 0.0f, v = 0.0f, ng[3] = {1.0f, 0.0f, 0.0f};
   int gid = -1, obj = -1, sph = 0;
@@ -260,32 +477,22 @@ __global__ void __launch_bounds__(BLOCK) cluster_closest_kernel(
   sph_out[i] = sph;
 }
 
-__global__ void __launch_bounds__(BLOCK) cluster_any_kernel(
+__global__ void __launch_bounds__(SWEEP_BLOCK) cluster_any_kernel(
     const float* __restrict__ ro, const float* __restrict__ rd,
     const float* __restrict__ far0, int n, const float* __restrict__ cl_aabb,
     const float* __restrict__ cl_chunk, const int* __restrict__ cl_count,
-    const float* __restrict__ rows, int C, int K, int CM,
+    const float4* __restrict__ rows4, int C, int K, int CM,
     bool* __restrict__ occ) {
   extern __shared__ float box[];
   stage_boxes(cl_aabb, C, box);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ro, rd, i);
-  const float far = __ldg(far0 + i);
+  const Ray r = load_ray(ro, rd, ray_index(n));
+  float far = __ldg(far0 + ray_index(n));
+  int wid = -1;
   bool hit = false;
-  const int n_cl = far > RAY_EPS ? C : 0;
-  for (int c = 0; c < n_cl && !hit; ++c) {
-    if (!enters(r, box + 6 * c, far)) continue;
-    const int cnt = __ldg(cl_count + c);
-    for (int q = 0; q * CHUNK < cnt && !hit; ++q) {
-      if (!enters(r, cl_chunk + ((size_t)c * K + q) * 6, far)) continue;
-      const int base = c * CM + q * CHUNK;
-      const int m = min(cnt - q * CHUNK, CHUNK);
-      for (int k = 0; k < m && !hit; ++k)
-        hit = prim_test(r, rows + (size_t)(base + k) * ROW, far) < far;
-    }
-  }
-  occ[i] = hit;
+  sweep_warp<true>(r, box, cl_chunk, cl_count, rows4, C, K, CM,
+                   i < n && far > RAY_EPS, far, wid, hit);
+  if (i < n) occ[i] = hit;
 }
 
 __global__ void __launch_bounds__(BLOCK) cluster_front_kernel(
@@ -381,32 +588,40 @@ static int allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The sweep kernels take the chunk boxes of a cluster in one warp load:
+// at most 5 chunks (30 floats) a cluster.
+static bool sweep_chunks_fit(int K) { return K >= 1 && 6 * K <= 32; }
+
 extern "C" int cluster_closest_hit(
     const float* ro, const float* rd, const float* far0, int n,
     const float* cl_aabb, const float* cl_chunk, const int* cl_count,
-    const float* rows, int C, int K, int CM, float* t, int* gid, float* u,
-    float* v, float* ng, int* obj, int* sph, void* stream) {
+    const float* rows, const float* rows4, int C, int K, int CM, float* t,
+    int* gid, float* u, float* v, float* ng, int* obj, int* sph,
+    void* stream) {
+  if (!sweep_chunks_fit(K)) return (int)cudaErrorInvalidValue;
   const size_t smem = box_smem(C);
   const int err = allow_smem(cluster_closest_kernel, smem);
   if (err) return err;
-  cluster_closest_kernel<<<blocks_for(n, BLOCK), BLOCK, smem,
+  cluster_closest_kernel<<<blocks_for(n, SWEEP_BLOCK), SWEEP_BLOCK, smem,
                            (cudaStream_t)stream>>>(
-      ro, rd, far0, n, cl_aabb, cl_chunk, cl_count, rows, C, K, CM, t, gid, u,
-      v, ng, obj, sph);
+      ro, rd, far0, n, cl_aabb, cl_chunk, cl_count, rows,
+      (const float4*)rows4, C, K, CM, t, gid, u, v, ng, obj, sph);
   return (int)cudaGetLastError();
 }
 
 extern "C" int cluster_any_hit(const float* ro, const float* rd,
                                const float* far0, int n, const float* cl_aabb,
                                const float* cl_chunk, const int* cl_count,
-                               const float* rows, int C, int K, int CM,
+                               const float* rows4, int C, int K, int CM,
                                bool* occ, void* stream) {
+  if (!sweep_chunks_fit(K)) return (int)cudaErrorInvalidValue;
   const size_t smem = box_smem(C);
   const int err = allow_smem(cluster_any_kernel, smem);
   if (err) return err;
-  cluster_any_kernel<<<blocks_for(n, BLOCK), BLOCK, smem,
+  cluster_any_kernel<<<blocks_for(n, SWEEP_BLOCK), SWEEP_BLOCK, smem,
                        (cudaStream_t)stream>>>(
-      ro, rd, far0, n, cl_aabb, cl_chunk, cl_count, rows, C, K, CM, occ);
+      ro, rd, far0, n, cl_aabb, cl_chunk, cl_count, (const float4*)rows4, C,
+      K, CM, occ);
   return (int)cudaGetLastError();
 }
 
@@ -441,4 +656,31 @@ extern "C" int cluster_pick_any(const int* picks, const float* ro,
                             (cudaStream_t)stream>>>(picks, ro, rd, far0, n,
                                                     cl_count, rows, CM, occ);
   return (int)cudaGetLastError();
+}
+
+// What the compiler and the card give a sweep kernel (0: closest hit, 1:
+// any hit) for a table of C clusters: out[0] registers a thread, out[1]
+// local memory bytes a thread (spills), out[2] blocks of BLOCK threads
+// resident on one SM with the box table in shared memory, out[3] the SMs,
+// out[4] SWEEP_BLOCK.
+extern "C" int cluster_kernel_info(int which, int C, int* out) {
+  cudaFuncAttributes attr;
+  const void* fn = which == 0 ? (const void*)cluster_closest_kernel
+                              : (const void*)cluster_any_kernel;
+  int err = which == 0 ? allow_smem(cluster_closest_kernel, box_smem(C))
+                       : allow_smem(cluster_any_kernel, box_smem(C));
+  if (err) return err;
+  err = (int)cudaFuncGetAttributes(&attr, fn);
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 2, fn, SWEEP_BLOCK, box_smem(C));
+  if (err) return err;
+  err = (int)cudaDeviceGetAttribute(out + 3, cudaDevAttrMultiProcessorCount,
+                                    dev);
+  out[4] = SWEEP_BLOCK;
+  return err;
 }

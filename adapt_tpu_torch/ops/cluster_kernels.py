@@ -44,6 +44,9 @@ BIG = 3e38             # "no entry" distance of the front pass
 # largest (C, 6) box table in bytes: the kernels keep it in a block's shared
 # memory (csrc/cluster_intersect.cu SMEM_MAX)
 BOX_TABLE_MAX = 200 * 1024
+# most 128-prim chunks a cluster the sweep kernels take (one warp load of
+# 6 floats a chunk box: csrc/cluster_intersect.cu `sweep_chunks_fit`)
+SWEEP_CHUNKS = 5
 # (ray, box) or (ray, row) pairs per table of the plain versions; bounds
 # their memory
 PLAIN_LANES = 1 << 22
@@ -142,7 +145,8 @@ def _has_spheres(scene):
     return scene.sph_gid.shape[0] > 0
 
 
-def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False):
+def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False,
+                 visits=None):
     """The sweep of both sweep kernels, step for step: clusters in index
     order; a cluster is entered when its box passes the slab test against
     the lane's running best t (any hit: its far bound, and never once
@@ -153,7 +157,10 @@ def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False):
     winner (-1: none); work is None, or with stats (box_tests, prim_tests,
     whole_tests): the box tests and (ray, row) tests these rays need (an
     occluded lane's stop at its first hit) and how many of the latter go
-    past the plane distance, for the kernels' bounds."""
+    past the plane distance, for the kernels' bounds. A list `visits`
+    gets one (base, m, lanes, rows) per chunk entered: its first slot and
+    live rows, the lanes that enter it (ascending) and the rows each of
+    them tests (m, or up to its first hit), for `warp_divergence`."""
     C, CM = scene.n_clusters, scene.cluster_size
     K = scene.cl_chunk.shape[1]
     CK = CM // K
@@ -183,6 +190,7 @@ def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False):
             base = c * CM + q * CK
             m = min(counts[c] - q * CK, CK)
             rows = scene.cl_rows[base:base + m]
+            tested = torch.full_like(sub, m)
             for s, e in _pieces(sub.numel(), m):
                 ln = sub[s:e]
                 tt = _prim_tables(rows, ray_o[ln], ray_d[ln], spheres,
@@ -192,9 +200,11 @@ def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False):
                 if any_hit:
                     before = tt < far0[ln, None]
                     occ[ln] = before.any(dim=1)
-                    if stats:
+                    if stats or visits is not None:
                         slot = torch.arange(m, device=dev)
                         first = torch.where(before, slot, m - 1).amin(dim=1)
+                        tested[s:e] = first + 1
+                    if stats:
                         prim_tests += int((first + 1).sum())
                         whole_tests += int(((cand < far0[ln, None])
                                             & (slot <= first[:, None])).sum())
@@ -207,10 +217,34 @@ def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False):
                     wid[ln] = torch.where(better, (base + bi).to(torch.int32),
                                           wid[ln])
                     prim_tests += ln.numel() * m
+            if visits is not None and sub.numel():
+                visits.append((base, m, sub, tested))
             if any_hit:
                 lanes = lanes[~occ[lanes]]
     work = (box_tests, prim_tests, whole_tests) if stats else None
     return t, wid, occ, work
+
+
+def warp_divergence(visits):
+    """(row tests, warp row iterations one thread a ray, warp row
+    iterations warp-cooperative) of a sweep's `visits`, a warp being 32
+    consecutive lanes. One thread a ray (the kernels' first port): a warp
+    runs the row loop of each chunk that any of its lanes enters, as long
+    as its longest lane's. Warp-cooperative (csrc/cluster_intersect.cu):
+    the 32 lanes test all m live rows of one entering lane's chunk
+    together, ceil(m / 32) iterations a lane and chunk (the any hit too,
+    which votes once a chunk). 32 x iterations / row tests is the
+    divergence factor: 1 when every iteration does 32 row tests that the
+    lanes need, 32 when it does one."""
+    tests = thread_iters = warp_iters = 0
+    for _base, m, lanes, rows in visits:
+        tests += int(rows.sum())
+        warps, inv = torch.unique(lanes // 32, return_inverse=True)
+        longest = torch.zeros_like(warps).scatter_reduce(
+            0, inv, rows, "amax", include_self=False)
+        thread_iters += int(longest.sum())
+        warp_iters += lanes.numel() * -(-m // 32)
+    return tests, thread_iters, warp_iters
 
 
 def _sphere_uv(n_g, is_sph, u, v):
@@ -262,19 +296,24 @@ def resolve_winner(scene, wid, t, ray_o, ray_d):
     return gid, u, v, n_g, obj
 
 
-def cluster_closest_hit_plain(scene, ray_o, ray_d, far0, stats=False):
+def cluster_closest_hit_plain(scene, ray_o, ray_d, far0, stats=False,
+                              visits=None):
     """`cluster_closest_hit` in plain PyTorch (any device). With stats,
-    also (box tests, prim tests, whole prim tests) of the sweep."""
-    t, wid, _occ, work = _sweep_plain(scene, ray_o, ray_d, far0, stats=stats)
+    also (box tests, prim tests, whole prim tests) of the sweep; `visits`
+    as `_sweep_plain` fills it."""
+    t, wid, _occ, work = _sweep_plain(scene, ray_o, ray_d, far0, stats=stats,
+                                      visits=visits)
     out = (t,) + resolve_winner(scene, wid, t, ray_o, ray_d)
     return out + work if stats else out
 
 
-def cluster_any_hit_plain(scene, ray_o, ray_d, far0, stats=False):
+def cluster_any_hit_plain(scene, ray_o, ray_d, far0, stats=False,
+                          visits=None):
     """`cluster_any_hit` in plain PyTorch (any device). With stats, also
-    the sweep's three work counts."""
+    the sweep's three work counts; `visits` as `_sweep_plain` fills it."""
     _t, _wid, occ, work = _sweep_plain(scene, ray_o, ray_d, far0,
-                                       any_hit=True, stats=stats)
+                                       any_hit=True, stats=stats,
+                                       visits=visits)
     return (occ, *work) if stats else occ
 
 
@@ -386,7 +425,7 @@ def _lib():
     lib = _build.load("cluster_intersect")
     if not getattr(lib, "_typed", False):
         lib.cluster_closest_hit.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P,
-                                            _I, _I, _I] + [_P] * 8
+                                            _P, _I, _I, _I] + [_P] * 8
         lib.cluster_any_hit.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I,
                                         _I, _I, _P, _P]
         lib.cluster_front.argtypes = [_P, _P, _P, _I, _P, _I, _P, _P, _P]
@@ -394,9 +433,10 @@ def _lib():
                                              _I, _P, _P, _P]
         lib.cluster_pick_any.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _P,
                                          _P]
+        lib.cluster_kernel_info.argtypes = [_I, _I, _P]
         for fn in (lib.cluster_closest_hit, lib.cluster_any_hit,
                    lib.cluster_front, lib.cluster_pick_closest,
-                   lib.cluster_pick_any):
+                   lib.cluster_pick_any, lib.cluster_kernel_info):
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -434,8 +474,43 @@ def _operands(scene, ray_o, ray_d, far0, extra=()):
     return ray_o.contiguous(), ray_d.contiguous(), far0.contiguous(), n
 
 
+def _sweep_operands(scene, ray_o, ray_d, far0):
+    """`_operands` and what the sweep kernels add: the float4 rows
+    `cl_rows_v4` (contiguous, on a 16-byte boundary) and at most
+    SWEEP_CHUNKS chunks a cluster (the kernels load a cluster's chunk
+    boxes in one warp load)."""
+    C, CM = scene.n_clusters, scene.cluster_size
+    rows4 = scene.cl_rows_v4
+    out = _operands(scene, ray_o, ray_d, far0,
+                    (("cl_rows_v4", rows4, (C * CM, 16), torch.float32),))
+    if not rows4.is_contiguous() or rows4.data_ptr() % 16:
+        raise ValueError("cl_rows_v4 must be contiguous and start on a "
+                         "16-byte boundary")
+    if scene.cl_chunk.shape[1] > SWEEP_CHUNKS:
+        raise ValueError(f"the sweep kernels take at most {SWEEP_CHUNKS} "
+                         f"chunks a cluster, got {scene.cl_chunk.shape[1]}")
+    return out
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def kernel_info(n, C):
+    """{sweep kernel: (registers a thread, spilled bytes a thread, blocks
+    resident on one SM with a table of C clusters in shared memory, SMs,
+    threads a block, waves)} for n rays, one thread a ray. Needs the
+    card."""
+    lib = _lib()
+    out = {}
+    for which, name in ((0, "cluster_closest_hit"), (1, "cluster_any_hit")):
+        vals = (ctypes.c_int * 5)()
+        _check(lib.cluster_kernel_info(which, C, ctypes.addressof(vals)),
+               f"{name} info")
+        regs, spill, per_sm, sms, block = vals
+        out[name] = (regs, spill, per_sm, sms, block,
+                     -(-n // (per_sm * sms * block)))
+    return out
 
 
 def cluster_closest_hit(scene, ray_o, ray_d, far0):
@@ -446,7 +521,7 @@ def cluster_closest_hit(scene, ray_o, ray_d, far0):
     and spherical u, v."""
     if _is_cpu(ray_o):
         return cluster_closest_hit_plain(scene, ray_o, ray_d, far0)
-    ro, rd, far, n = _operands(scene, ray_o, ray_d, far0)
+    ro, rd, far, n = _sweep_operands(scene, ray_o, ray_d, far0)
     dev = ro.device
     t, u, v = (torch.empty(n, device=dev) for _ in range(3))
     gid, obj, sph = (torch.empty(n, dtype=torch.int32, device=dev)
@@ -458,7 +533,8 @@ def cluster_closest_hit(scene, ray_o, ray_d, far0):
         ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
         scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
         scene.cl_count.data_ptr(), scene.cl_rows.data_ptr(),
-        scene.n_clusters, scene.cl_chunk.shape[1], scene.cluster_size,
+        scene.cl_rows_v4.data_ptr(), scene.n_clusters,
+        scene.cl_chunk.shape[1], scene.cluster_size,
         t.data_ptr(), gid.data_ptr(), u.data_ptr(), v.data_ptr(),
         n_g.data_ptr(), obj.data_ptr(), sph.data_ptr(), _stream(ro))
     _check(err, "cluster_closest_hit")
@@ -472,14 +548,14 @@ def cluster_any_hit(scene, ray_o, ray_d, far0):
     """True where any prim lies strictly before far0 (all-cluster sweep)."""
     if _is_cpu(ray_o):
         return cluster_any_hit_plain(scene, ray_o, ray_d, far0)
-    ro, rd, far, n = _operands(scene, ray_o, ray_d, far0)
+    ro, rd, far, n = _sweep_operands(scene, ray_o, ray_d, far0)
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ
     err = _lib().cluster_any_hit(
         ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
         scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
-        scene.cl_count.data_ptr(), scene.cl_rows.data_ptr(),
+        scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
         scene.n_clusters, scene.cl_chunk.shape[1], scene.cluster_size,
         occ.data_ptr(), _stream(ro))
     _check(err, "cluster_any_hit")

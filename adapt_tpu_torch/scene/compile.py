@@ -12,8 +12,9 @@ native/), which the plain walk and the any-hit kernel read, the same
 tables in aligned float4 rows (`bvh_node_v4`, `bvh_prim_v4`; `v4_packs`),
 which the closest-hit kernel reads, and its cluster cut of that tree
 (`cl_*`: disjoint subtrees of at most CLUSTER_MAX prims, prim-major
-rows), which the cluster kernels sweep. Tables the port does not read
-(texture atlases, grid volumes) are not built.
+rows, and the same rows as aligned float4 rows, `cl_rows_v4`;
+`cluster_v4`), which the cluster kernels sweep. Tables the port does not
+read (texture atlases, grid volumes) are not built.
 Scenes that need them are recognised from their configuration and raise
 NotImplementedError at render (`check_supported`; grid volumes and BxDF
 mixtures already here), naming the ROADMAP item that ports them: the port
@@ -103,6 +104,7 @@ class SceneData:
     cl_front: torch.Tensor   # (C,6) f32 cl_aabb inflated (front pass)
     cl_rows: torch.Tensor    # (C*CM,18) f32 prim-major: the 14 fields of
     # bvh_prim_pack (gid -1 = padding slot), then n_g(3) and obj
+    cl_rows_v4: torch.Tensor  # (C*CM,16) f32 rows of 64 B (`cluster_v4`)
     cl_chunk: torch.Tensor   # (C,K,6) f32 lo|hi of each 128-prim chunk
     cl_count: torch.Tensor   # (C,) i32 live prims (leading slots) a cluster
     cl_slot: torch.Tensor    # (P,) i32 row of cl_rows that holds prim gid
@@ -422,6 +424,17 @@ def v4_packs(node_pack, prim_pack):
     return nodes, prims
 
 
+def cluster_v4(cl_rows):
+    """The cluster rows in aligned rows for float4 loads: (C*CM,16) f32
+    from cl_rows (C*CM,18), the 14 fields a prim test reads (n|center,
+    d|radius, U, cu, V, cv, is_sphere, gid) bit for bit, then two zeros.
+    n_g and obj, which only a winner reads, stay in cl_rows."""
+    cl_rows = np.asarray(cl_rows, np.float32)
+    rows = np.zeros((cl_rows.shape[0], 16), np.float32)
+    rows[:, :14] = cl_rows[:, :14]
+    return rows
+
+
 def _placeholder_bvh():
     """The JAX package's tables below BVH_THRESHOLD: an inverted box with
     skip 1, so an accidental walk misses and ends; one inverted cluster of
@@ -643,6 +656,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         cl_aabb=_t(cl_aabb),
         cl_front=_t(front_boxes(cl_aabb)),
         cl_rows=_t(cl_rows),
+        cl_rows_v4=_t(cluster_v4(cl_rows)),
         cl_chunk=_t(cl_chunk),
         cl_count=_t(cl_count),
         cl_slot=_t(cl_slot),

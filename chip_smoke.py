@@ -33,10 +33,14 @@ non-zero exit and no result line.
    on knot290k (the all-cluster
    sweep's closest hit and any hit, the queue-pick schedule's front pass
    and its two pick passes on the picks the schedule itself derives):
-   every output bit-equal to the plain version's, the sweep kernels also
-   against the BVH kernels on the same rays (under 1e-4 of lanes may
-   differ: the two prim tests round u and v in another order, so a ray
-   grazing an edge may take the neighbour), with times and bounds;
+   every output bit-equal to the plain version's, also the sweep kernels
+   on a tie set (`tie_rays`: rays at shared vertices and edges, where
+   neighbouring prims tie in t), the sweep kernels also against the BVH
+   kernels on the same rays (under 1e-4 of lanes may differ: the two prim
+   tests round u and v in another order, so a ray grazing an edge may take
+   the neighbour), with times (single calls and CUDA-graph device times)
+   and bounds, the sweep kernels' registers, spills, residency and waves,
+   and their divergence factor (`cluster_kernels.warp_divergence`);
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
    same for render_pass_vpt against tests/goldens/vptcbox_48.npy; 3c: for
@@ -99,6 +103,7 @@ KNOT_SPP = 3       # knot290k main-path samples per pixel (after one warm-up)
 VPT_SPP = 3        # vpt cbox main-path samples per pixel (after one warm-up)
 BDPT_SPP = 3       # BDPT cbox main-path samples per pixel (after one warm-up)
 REPS = 5           # kernel timing repetitions (median)
+TIE_RAYS = 65536   # rays of phase 2e's tie set (`tie_rays`)
 # largest share of lanes on which a cluster sweep kernel may take another
 # prim than the BVH kernel (the two round u and v in another order)
 LANES_DIFFER = 1e-4
@@ -243,6 +248,34 @@ def _close(torch, got, want, far, name):
     _require(float((ids >= 0).float().mean()) > 0.2, f"{name}: few hits")
     return max(float((a - b).abs().max()) for a, b in
                ((t, wt), (u, wu), (v, wv)))
+
+
+def tie_rays(torch, scene, n, seed):
+    """(ro, rd, dist): n rays at the vertices and edge midpoints of random
+    triangles of the scene, each from a point 0.05-1 away on either side,
+    with the distance to its target. Neighbours that share the vertex or
+    edge meet the ray at the same point, so their t tie exactly where they
+    are coplanar (the two triangles of a wall) or round alike."""
+    dev = scene.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tri = torch.nonzero(~scene.prim_is_sphere).squeeze(1)
+    pick = tri[torch.randint(0, tri.numel(), (n,), generator=g, device=dev)]
+    at = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [0.5, 0.0],
+                       [0.0, 0.5], [0.5, 0.5]], device=dev)[
+        torch.randint(0, 6, (n,), generator=g, device=dev)]
+    target = scene.pre2[pick] + at[:, :1] * scene.pre0[pick] \
+        + at[:, 1:] * scene.pre1[pick]
+    side = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, -1.0,
+                       1.0)[:, None]
+    jitter = torch.randn((n, 3), generator=g, device=dev)
+    off = scene.prim_ng[pick] * side \
+        + 0.5 * jitter / jitter.norm(dim=-1, keepdim=True)
+    off = off / off.norm(dim=-1, keepdim=True)
+    ro = target + off * (0.05 + 0.95 * torch.rand((n, 1), generator=g,
+                                                  device=dev))
+    to = target - ro
+    dist = to.norm(dim=-1)
+    return ro.contiguous(), (to / dist[:, None]).contiguous(), dist
 
 
 def knot_mesh():
@@ -504,13 +537,14 @@ def main():
                 err = max(err, float((a - b).abs().max()))
         return err
 
-    cwork, vs_bvh = {}, {}
+    cwork, vs_bvh, visits = {}, {}, {}
     for o, d, far, tag in ((kro, krd, kfar_p, "primary"),
                            (kbo, kbd, kfar_b, "bounce")):
         name = "cluster_closest_hit"
         got = CK.cluster_closest_hit(kscene, o, d, far)
+        visits[(name, tag)] = []
         *want, boxes, prims, whole = CK.cluster_closest_hit_plain(
-            kscene, o, d, far, stats=True)
+            kscene, o, d, far, stats=True, visits=visits[(name, tag)])
         errs[name] = max(errs[name], same(got, want, f"{name} ({tag} rays)"))
         _require(bool((got[0][far < 0] == -3e38).all()),
                  f"{name}: a dead lane did not come back with t = -3e38")
@@ -526,8 +560,9 @@ def main():
                            (kbo, kbd, kfar_b, "bounce")):
         name = "cluster_any_hit"
         occ = CK.cluster_any_hit(kscene, o, d, far)
+        visits[(name, tag)] = []
         want, boxes, prims, whole = CK.cluster_any_hit_plain(
-            kscene, o, d, far, stats=True)
+            kscene, o, d, far, stats=True, visits=visits[(name, tag)])
         same([occ], [want], f"{name} ({tag} rays)")
         _require(not bool(occ[far < 0].any()), "a dead lane is occluded")
         cwork[(name, tag)] = (boxes, prims, whole)
@@ -535,6 +570,32 @@ def main():
             (occ != BK.bvh_any_hit(kscene, o, d, far)).float().mean())
     _require(max(vs_bvh.values()) < LANES_DIFFER,
              f"sweep kernels differ from the BVH kernels: {vs_bvh}")
+    # the tie set: rays at shared vertices and edges, the closest hit from
+    # far = FAR, the any hit up to the target (its prims' t lie at far
+    # within rounding); then the winners whose cluster holds another live
+    # row at exactly their t (the lowest slot must win)
+    tro, trd, tdist = tie_rays(torch, kscene, TIE_RAYS, 7)
+    tfar = torch.full_like(tdist, K.FAR)
+    got = CK.cluster_closest_hit(kscene, tro, trd, tfar)
+    errs["cluster_closest_hit"] = max(errs["cluster_closest_hit"], same(
+        got, CK.cluster_closest_hit_plain(kscene, tro, trd, tfar),
+        "cluster_closest_hit (tie rays)"))
+    occ = CK.cluster_any_hit(kscene, tro, trd, tdist)
+    same([occ], [CK.cluster_any_hit_plain(kscene, tro, trd, tdist)],
+         "cluster_any_hit (tie rays)")
+    hit = torch.nonzero(got[1] >= 0).squeeze(1)
+    rows_of = kscene.cl_rows.view(NC, CM, 18)
+    n_ties = 0
+    for s, e in CK._pieces(hit.numel(), CM * 4):
+        h = hit[s:e]
+        cl = kscene.cl_slot[got[1][h].long()].long() // CM
+        tt = CK._prim_tables(rows_of[cl], tro[h, None], trd[h, None], True)
+        n_ties += int(((tt[:, 0] == got[0][h, None]).sum(dim=1) >= 2).sum())
+    _require(n_ties > 0, "the tie set holds no tie")
+    tie_line = (f"tie set ({TIE_RAYS} rays at shared vertices and edges): "
+                f"bit-equal, hit share {hit.numel() / TIE_RAYS:.4f}, "
+                f"{n_ties} winners tie with another row of their cluster, "
+                f"occluded before the target {float(occ.float().mean()):.4f}")
     for o, d, far, tag in ((kro, krd, kfar_p, "primary"),
                            (kbo, kbd, kfar_b, "bounce"),
                            (kbo, ksd, kfar_s, "shadow")):
@@ -610,24 +671,46 @@ def main():
             _time_ms(torch, lambda: CK.cluster_pick_any_plain(
                 kscene, aro, ard, afar, apk0), reps=1))}
     times.update(ctimes)
+    cdevice = {
+        "cluster_closest_hit": _graph_ms(
+            torch, lambda: CK.cluster_closest_hit(kscene, kbo, kbd, kfar_b)),
+        "cluster_any_hit": _graph_ms(
+            torch, lambda: CK.cluster_any_hit(kscene, kbo, ksd, kfar_s)),
+        "cluster_front": _graph_ms(
+            torch, lambda: CK.cluster_front(kscene, kbo, kbd, kfar_b)),
+        "cluster_pick_closest": _graph_ms(
+            torch, lambda: CK.cluster_pick_closest(kscene, pro, prd, t0_,
+                                                   w0_, pk0)),
+        "cluster_pick_any": _graph_ms(
+            torch, lambda: CK.cluster_pick_any(kscene, aro, ard, afar,
+                                               apk0))}
+    cinfo = CK.kernel_info(N, NC)
+    # divergence factor: 32 x the warp's row iterations over its lanes'
+    # row tests, one thread a ray and warp-cooperative (`warp_divergence`)
+    diverge = {}
+    for key, v in visits.items():
+        tests, thread_iters, warp_iters = CK.warp_divergence(v)
+        diverge[key] = (32 * thread_iters / max(tests, 1),
+                        32 * warp_iters / max(tests, 1))
     # bounds. Bytes: what a kernel must read once and write once. A sweep:
     # rays and far of every lane, the cluster boxes and counts, the boxes
-    # of the live chunks and the live rows (72 B each; padding slots are
-    # never read), its outputs. A pick pass: the picks, the counts and live
-    # rows of its distinct picked clusters, the rays (24 B) of the lanes in
-    # tiles that have a pick (the others are never loaded), and per lane
-    # far, wid0, t and wid (closest) or the flag (any, whose far is read
-    # in tiles with a pick only). Operations: the box tests and (ray, row)
-    # tests these rays need as the plain versions count them, a row test
-    # that stops at its plane distance charged PLANE_OPS, a whole one
-    # PRIM_OPS.
+    # of the live chunks and the live rows (64 B each in `cl_rows_v4`;
+    # padding slots are never read), the closest hit also n_g and obj of
+    # its winners (16 B a lane), its outputs. A pick pass: the picks, the
+    # counts and live rows of its distinct picked clusters, the rays (24 B)
+    # of the lanes in tiles that have a pick (the others are never loaded),
+    # and per lane far, wid0, t and wid (closest) or the flag (any, whose
+    # far is read in tiles with a pick only). Operations: the box tests and
+    # (ray, row) tests these rays need as the plain versions count them, a
+    # row test that stops at its plane distance charged PLANE_OPS, a whole
+    # one PRIM_OPS.
     def row_ops(tests, whole):
         return tests * CK.PLANE_OPS + whole * (CK.PRIM_OPS - CK.PLANE_OPS)
 
     live_chunks = int(((kscene.cl_count + 127) // 128).sum())
     sweep_tables = (NC * (24 + 4) + live_chunks * 24
-                    + int(kscene.cl_count.sum()) * 72)
-    for k, tag, out_bytes in (("cluster_closest_hit", "bounce", 36),
+                    + int(kscene.cl_count.sum()) * 64)
+    for k, tag, out_bytes in (("cluster_closest_hit", "bounce", 36 + 16),
                               ("cluster_any_hit", "shadow", 1)):
         boxes, prims, whole = cwork[(k, tag)]
         bounds[k] = _bound(N * 28 + sweep_tables + N * out_bytes,
@@ -649,10 +732,17 @@ def main():
                            row_ops(tests, whole))
     print("phase 2e cluster kernels vs plain, knot290k (%d clusters of %d "
           "slots), %d rays: every output bit-equal; " % (NC, CM, N)
-          + "; ".join(f"{k} max abs err {errs[k]:.3g}, kernel {t:.4f} ms, "
-                      f"plain {p:.4f} ms (one call), bound "
-                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
+          + "; ".join(f"{k} max abs err {errs[k]:.3g}, kernel {t:.4f} ms "
+                      f"(device {cdevice[k]:.4f}), plain {p:.4f} ms (one "
+                      f"call), bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
                       for k, (t, p) in ctimes.items())
+          + " | " + tie_line + " | " + "; ".join(
+              f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
+              f"resident per SM x {sms} SMs, {w} waves"
+              for k, (r, sp, b, sms, bs, w) in cinfo.items())
+          + " | divergence factor (one thread a ray / warp-cooperative): "
+          + ", ".join(f"{k} {tag} {a:.2f} / {b:.2f}"
+                      for (k, tag), (a, b) in diverge.items())
           + " | box tests / row tests per ray: " + ", ".join(
               f"{k} {tag} {b / N:.1f} / {r / N:.1f}"
               for (k, tag), (b, r, _w) in cwork.items())

@@ -36,6 +36,7 @@ its boxes op by op outside any jit, as the port does in numpy.
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import os
 import subprocess
 import sys
@@ -60,7 +61,7 @@ from adapt_tpu_torch.ops import bvh_kernels, cluster_kernels as ck
 from adapt_tpu_torch.ops import intersect_kernels
 from adapt_tpu_torch.ops.intersect import does_intersect, ray_intersect
 from adapt_tpu_torch.renderer import pt
-from adapt_tpu_torch.scene.compile import CLUSTER_MAX, load_scene
+from adapt_tpu_torch.scene.compile import CLUSTER_MAX, cluster_v4, load_scene
 
 from conftest import SCENE_DIR
 from test_torch_bvh import _fma_bounds, _rays, _small, _within, knot_assets
@@ -194,6 +195,171 @@ def test_small_scene_gets_placeholder_tables():
     t, gid = ck.cluster_closest_hit(scene, ro, rd, far0)[:2]
     assert (gid == -1).all() and torch.equal(t, far0)
     assert not ck.cluster_any_hit(scene, ro, rd, far0).any()
+
+
+@pytest.mark.parametrize("scene_file", ["knot2k-test.xml", "cbox.xml"])
+def test_cluster_v4_round_trip(knot, scene_file):
+    """The float4 rows hold the 14 fields of cl_rows that a prim test
+    reads, bit for bit, then two zeros (the placeholder rows of a small
+    scene too); `cluster_v4` is the one function that makes them."""
+    scene = knot[2] if scene_file == "knot2k-test.xml" else load_scene(
+        SCENE_DIR + "/cbox/", scene_file, device="cpu")[0]
+    rows, rows4 = scene.cl_rows, scene.cl_rows_v4
+    assert rows4.shape == (rows.shape[0], 16) and rows4.is_contiguous()
+    assert rows4.dtype == torch.float32
+    assert torch.equal(rows4[:, :14].view(torch.int32),
+                       rows[:, :14].view(torch.int32))
+    assert (rows4[:, 14:] == 0).all()
+    assert np.array_equal(cluster_v4(rows.numpy()), rows4.numpy())
+
+
+def test_sweep_over_rows_decoded_from_v4(knot):
+    """The plain sweeps over 18-wide rows rebuilt from the float4 rows (and
+    cl_rows' n_g, obj) equal the sweeps over cl_rows, output for output."""
+    _, _, scene, cfg = knot
+    decoded = dataclasses.replace(scene, cl_rows=torch.cat(
+        [scene.cl_rows_v4[:, :14], scene.cl_rows[:, 14:]], dim=1))
+    _arrs, tt = _batch(scene, cfg, 19, max_t_fill=3.0)
+    args = tt["ro"], tt["rd"], tt["far0"]
+    for plain in (ck.cluster_closest_hit_plain, ck.cluster_any_hit_plain):
+        want = plain(scene, *args, stats=True)
+        got = plain(decoded, *args, stats=True)
+        for a, b in zip(got, want):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def test_cluster_v4_cross_from_jax(knot):
+    """`scene_leaves` of a JAX scene and `scene_from_numpy` make the same
+    float4 rows as `load_scene`."""
+    jscene, jcfg, scene, _ = knot
+    conv, _ = scene_from_numpy(scene_leaves(jscene), dataclasses.asdict(jcfg),
+                               device="cpu")
+    got, want = conv.cl_rows_v4, scene.cl_rows_v4
+    assert got.is_contiguous() and got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_sweep_operands_refuse_bad_rows(knot):
+    """The sweep kernels' operand checks refuse float4 rows of the wrong
+    width or type, rows that do not start on a 16-byte boundary, and more
+    chunks a cluster than one warp load takes; the other cluster kernels
+    never read those rows."""
+    _, _, scene, _ = knot
+    ro = torch.zeros((4, 3))
+    args = (ro, ro, ro[:, 0])
+    rows4 = scene.cl_rows_v4
+    assert ck._sweep_operands(scene, *args)[3] == 4
+    shifted = torch.empty(rows4.numel() + 1)[1:].view(rows4.shape)
+    shifted.copy_(rows4)
+    assert shifted.data_ptr() % 16
+    bad = {"misaligned": dict(cl_rows_v4=shifted),
+           "wide": dict(cl_rows_v4=scene.cl_rows),
+           "type": dict(cl_rows_v4=rows4.double())}
+    for what, fields in bad.items():
+        with pytest.raises(ValueError, match="16-byte|want torch.float32"):
+            ck._sweep_operands(dataclasses.replace(scene, **fields), *args)
+        ck._operands(dataclasses.replace(scene, **fields), *args)
+    K = ck.SWEEP_CHUNKS + 1
+    many = types.SimpleNamespace(
+        n_clusters=1, cluster_size=128 * K, cl_aabb=torch.zeros((1, 6)),
+        cl_front=torch.zeros((1, 6)), cl_chunk=torch.zeros((1, K, 6)),
+        cl_count=torch.zeros(1, dtype=torch.int32),
+        cl_rows=torch.zeros((128 * K, 18)),
+        cl_rows_v4=torch.zeros((128 * K, 16)))
+    with pytest.raises(ValueError, match="chunks a cluster"):
+        ck._sweep_operands(many, *args)
+
+
+def _tie_rays(scene, n, seed):
+    """chip_smoke.py `tie_rays` (loaded by path: it imports no JAX)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.tie_rays(torch, scene, n, seed)
+
+
+@pytest.mark.parametrize("rays", ["seeded", "ties"])
+def test_sweep_winner_is_least_t_then_slot(knot, rays):
+    """The invariant the warp-cooperative kernel rests on: the sweep's
+    (t, wid) is the least (t, slot) over every live row with t < far0 of
+    the chunks it enters, the lowest slot on a tie in t; so a chunk's rows
+    may be tested in any split and reduced to that minimum. Held on seeded
+    rays and on rays at shared vertices and edges, where neighbours tie in
+    t exactly. The gates decide which chunks a lane enters: a row whose
+    rounded t lies just under its box's rounded entry distance may sit in a
+    chunk the sweep never enters (a share of lanes under 1e-2 here)."""
+    _, _, scene, cfg = knot
+    if rays == "seeded":
+        _arrs, tt = _batch(scene, cfg, 23)
+        ro, rd, far0 = tt["ro"], tt["rd"], tt["far0"]
+    else:
+        ro, rd, dist = _tie_rays(scene, 1024, 5)
+        far0 = torch.full_like(dist, intersect_kernels.FAR)
+    visits = []
+    t, wid, _occ, _work = ck._sweep_plain(scene, ro, rd, far0,
+                                          visits=visits)
+    N, R = ro.shape[0], scene.cl_rows.shape[0]
+    entered = torch.zeros((N, R // 128), dtype=torch.bool)
+    for base, _m, lanes, _rows in visits:
+        entered[lanes, base // 128] = True
+    live = scene.cl_rows[:, 13] >= 0
+    slot = torch.arange(R)
+    ties = gated = 0
+    for s, e in ck._pieces(N, R * 8):
+        tab = ck._prim_tables(scene.cl_rows, ro[s:e], rd[s:e], True)
+        ok = live[None] & (tab < far0[s:e, None])
+        for rows_in, check in ((entered[s:e].repeat_interleave(128, 1), True),
+                               (torch.ones_like(ok), False)):
+            cand = torch.where(ok & rows_in, tab, np.float32(3e38))
+            least = cand.amin(dim=1)
+            found = least < 3e38
+            first = torch.where(cand == least[:, None], slot, R).amin(dim=1)
+            want_t = torch.where(found, least, far0[s:e])
+            want_w = torch.where(found, first, -1).to(torch.int32)
+            if check:
+                assert torch.equal(want_t, t[s:e])
+                assert torch.equal(want_w, wid[s:e])
+                ties += int(((cand == least[:, None]).sum(dim=1) >= 2)
+                            [found].sum())
+            else:
+                gated += int((want_w != wid[s:e]).sum())
+    assert (wid >= 0).float().mean() > 0.3
+    assert gated <= 1e-2 * N
+    if rays == "ties":
+        assert ties >= 5, ties
+
+
+def test_warp_divergence_counts_a_hand_built_case(knot):
+    """`warp_divergence` on visits written by hand: a warp runs one row
+    loop per chunk any of its lanes enters, as long as its longest lane's;
+    warp-cooperative, ceil(m / 32) iterations a lane and chunk of m live
+    rows. On a real sweep its row tests are the plain version's own
+    count."""
+    visits = [
+        # 128 rows entered by lanes 0 and 1 (warp 0) and 40 (warp 1)
+        (0, 128, torch.tensor([0, 1, 40]), torch.tensor([128, 128, 128])),
+        # an any-hit chunk: lanes 3 and 5 stop after 10 and 50 rows, 70
+        # (warp 2) after 33
+        (128, 128, torch.tensor([3, 5, 70]), torch.tensor([10, 50, 33])),
+        # 40 live rows, one lane
+        (256, 40, torch.tensor([95]), torch.tensor([40]))]
+    tests, thread_iters, warp_iters = ck.warp_divergence(visits)
+    assert tests == 3 * 128 + 93 + 40
+    assert thread_iters == 2 * 128 + (50 + 33) + 40
+    assert warp_iters == 3 * 4 + 3 * 4 + 2
+    assert ck.warp_divergence([]) == (0, 0, 0)
+    _, _, scene, cfg = knot
+    _arrs, tt = _batch(scene, cfg, 29, max_t_fill=3.0)
+    args = tt["ro"], tt["rd"], tt["far0"]
+    for plain in (ck.cluster_closest_hit_plain, ck.cluster_any_hit_plain):
+        visits = []
+        *_out, _boxes, prims, _whole = plain(scene, *args, stats=True,
+                                             visits=visits)
+        tests, thread_iters, warp_iters = ck.warp_divergence(visits)
+        assert tests == prims > 0
+        assert thread_iters <= tests <= 32 * thread_iters
+        assert tests <= 32 * warp_iters
 
 
 # --------------------------- kernel by kernel ---------------------------
@@ -622,7 +788,8 @@ def test_kernels_match_plain_on_card(knot):
     """Each of the five kernels against its plain version on the card:
     same steps in the same operation order, so every output is bit-equal;
     each wrapper counts its launch. Then both schedules against the BVH
-    tier through `ray_intersect` / `does_intersect`."""
+    tier through `ray_intersect` / `does_intersect`, and the sweep kernels
+    on the tie set."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     _, _, scene, cfg = knot
@@ -663,3 +830,11 @@ def test_kernels_match_plain_on_card(knot):
             assert torch.equal(
                 does_intersect(dev, tcfg, ro, rd, alive=far > 0),
                 does_intersect(dev, cfg, ro, rd, alive=far > 0)), tier
+    # the tie set: rays at shared vertices and edges (closest hit from FAR,
+    # any hit up to the target)
+    tro, trd, tdist = _tie_rays(dev, 4096, 5)
+    tfar = torch.full_like(tdist, intersect_kernels.FAR)
+    same(ck.cluster_closest_hit(dev, tro, trd, tfar),
+         ck.cluster_closest_hit_plain(dev, tro, trd, tfar), "closest ties")
+    same([ck.cluster_any_hit(dev, tro, trd, tdist)],
+         [ck.cluster_any_hit_plain(dev, tro, trd, tdist)], "any ties")
