@@ -20,8 +20,9 @@ import numpy as np
 import torch
 
 from .scene.compile import (MediumTable, RenderConfig, SceneData,
-                            TextureTable, cluster_v4, front_boxes,
-                            prim_slots, resolve_device, v4_packs)
+                            TextureTable, cluster_tree, cluster_v4,
+                            front_boxes, prim_slots, resolve_device,
+                            v4_packs)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
 _MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
@@ -47,8 +48,8 @@ def _jax_layout_leaves(scene) -> dict:
     rows by `v4_packs`. The cluster tables: `cl_aabb` (C,8) loses its two
     padded columns, the prim-major copy `cl_rows_pm` (C*CM,24) its six
     padded fields, `cl_chunk` (C*8,K) becomes (C,K,6); the inflated boxes,
-    the float4 rows, the live counts and the prim-to-slot map are derived
-    as the port's compiler derives them."""
+    the float4 rows, the live counts, the prim-to-slot map and the tree
+    above the cut are derived as the port's compiler derives them."""
     node_v4, prim_v4 = v4_packs(scene.bvh_node_pack, scene.bvh_prim_pack)
     aabb = np.ascontiguousarray(np.asarray(scene.cl_aabb)[:, :6])
     rows = np.ascontiguousarray(np.asarray(scene.cl_rows_pm)[:, :18])
@@ -56,8 +57,11 @@ def _jax_layout_leaves(scene) -> dict:
     chunk = ch.reshape(-1, 8, ch.shape[1])[:, :6].transpose(0, 2, 1)
     count, slot = prim_slots(rows, aabb.shape[0],
                              np.asarray(scene.prim_obj).shape[0])
+    front = front_boxes(aabb)
+    tree = cluster_tree(scene.bvh_node_pack, front,
+                        rows.shape[0] // aabb.shape[0])
     return dict(bvh_node_v4=node_v4, bvh_prim_v4=prim_v4, cl_aabb=aabb,
-                cl_front=front_boxes(aabb), cl_rows=rows,
+                cl_front=front, cl_rows=rows, cl_tree=tree,
                 cl_rows_v4=cluster_v4(rows),
                 cl_chunk=np.ascontiguousarray(chunk), cl_count=count,
                 cl_slot=slot)

@@ -49,31 +49,35 @@
 // of dependent node and prim loads each), not of the average one: wider
 // nodes and treelets, which shorten those chains, are later work.
 //
-// The any-hit kernel (B5b) is still the first port: one thread per ray over
-// the (M, 9) node and (P, 14) prim rows (f32, the int fields exact below
-// 2^24), read by scalar __ldg. Ray reordering, wider nodes and treelets in
-// shared memory are later work.
+// The any-hit kernel (B5b) takes B5a's float4 rows, the next node and
+// prim row loaded beside the current ones and the one-instruction box
+// min/max, but stays one thread a ray in 128-thread blocks: its result,
+// the OR over the leaves the ray enters at its fixed far0 of "a prim's t <
+// far0", lets a lane stop at its first hit, and a dead lane (far0 <=
+// RAY_EPS: compacted-away lanes, lanes the queue-pick cleanup does not
+// take) costs one load and leaves. Persistent warps that refill idle lanes
+// from a ray counter, lane by lane or once all 32 are idle, with a
+// batch's dead rays skipped by ballot and the while-while walk, measured
+// slower on shadow rays and on the queue-pick cleanup's sparse set
+// (PERF.md): a warp of 32 consecutive rays walks the same nodes, and one
+// refilled ray by ray walks 32 paths.
 
 #include <cuda_runtime.h>
 
-#define NODE 9
-#define PRIM 14
 #define RAY_EPS 1e-4f
 #define FAR 1e7f
 #define BLOCK 128
 #define FULL 0xffffffffu
 
-// torch.minimum / torch.maximum: NaN in, NaN out
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || isnan(a)) ? a : b;
-}
+// torch.maximum: NaN in, NaN out
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
 }
 
-// The same in one instruction each (min.NaN / max.NaN, sm_80 and later),
-// for values that only feed comparisons: which NaN or which zero comes out
-// changes no comparison, so the walk takes the same branches.
+// torch.minimum / torch.maximum in one instruction each (min.NaN /
+// max.NaN, sm_80 and later), for values that only feed comparisons: which
+// NaN or which zero comes out changes no comparison, so the walk takes the
+// same branches.
 __device__ __forceinline__ float min_nan1(float a, float b) {
   float d;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
@@ -106,65 +110,6 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
   return r;
 }
 
-// The ray enters the node's box before t_max (ops/bvh.py `_slab_test`).
-__device__ __forceinline__ bool slab_test(const Ray& r,
-                                          const float* __restrict__ nd,
-                                          float t_max) {
-  float t_near = 0.0f, t_far = 0.0f;
-  for (int a = 0; a < 3; ++a) {
-    const float t1 = __fmul_rn(__fsub_rn(__ldg(nd + a), r.o[a]), r.inv[a]);
-    const float t2 =
-        __fmul_rn(__fsub_rn(__ldg(nd + 3 + a), r.o[a]), r.inv[a]);
-    const float lo = min_nan(t1, t2), hi = max_nan(t1, t2);
-    t_near = a == 0 ? lo : max_nan(t_near, lo);
-    t_far = a == 0 ? hi : min_nan(t_far, hi);
-  }
-  return (t_far >= max_nan(t_near, 0.0f)) && (t_near < t_max);
-}
-
-// One prim row (ops/bvh.py `_leaf_prim_test`): t, or FAR on a miss; u, v
-// by the triangle formula, on sphere rows too.
-__device__ __forceinline__ float prim_test(const Ray& r,
-                                           const float* __restrict__ row,
-                                           float* u_out, float* v_out) {
-  float a[3], U[3], V[3];
-  for (int k = 0; k < 3; ++k) {
-    a[k] = __ldg(row + k);
-    U[k] = __ldg(row + 4 + k);
-    V[k] = __ldg(row + 8 + k);
-  }
-  const float b = __ldg(row + 3);
-  const bool is_sph = __ldg(row + 12) > 0.5f;
-  // triangle: plane + dual basis
-  const float o_n = dot3(r.o, a);
-  const float d_n = dot3(r.d, a);
-  const bool flat = fabsf(d_n) < 1e-12f;
-  const float t_tri = __fdiv_rn(__fsub_rn(b, o_n), flat ? 1e-12f : d_n);
-  float hp[3];
-  for (int k = 0; k < 3; ++k)
-    hp[k] = __fadd_rn(r.o[k], __fmul_rn(t_tri, r.d[k]));
-  const float u = __fsub_rn(dot3(hp, U), __ldg(row + 7));
-  const float v = __fsub_rn(dot3(hp, V), __ldg(row + 11));
-  *u_out = u;
-  *v_out = v;
-  if (!is_sph) {
-    const bool ok = (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f) &&
-                    (t_tri > RAY_EPS) && !flat;
-    return ok ? t_tri : FAR;
-  }
-  // sphere: quadratic (center in a, radius in b)
-  float s2c[3];
-  for (int k = 0; k < 3; ++k) s2c[k] = __fsub_rn(a[k], r.o[k]);
-  const float cn2 = dot3(s2c, s2c);
-  const float proj = dot3(r.d, s2c);
-  const float c2r = __fsub_rn(cn2, __fmul_rn(proj, proj));
-  const float r2 = __fmul_rn(b, b);
-  const float cut = __fsqrt_rn(max_nan(__fsub_rn(r2, c2r), 0.0f));
-  const bool outside = cn2 > __fadd_rn(r2, 1e-4f);
-  const float t_sph = __fadd_rn(proj, outside ? -cut : cut);
-  return ((c2r < r2) && (t_sph > RAY_EPS)) ? t_sph : FAR;
-}
-
 // A node row of the vector pack: lo.xyz | base + cnt << 24 (int bits),
 // hi.xyz | skip (int bits). A prim row: n|center d|radius, U cu, V cv,
 // is_sphere gid pad pad.
@@ -185,7 +130,7 @@ __device__ __forceinline__ PrimRow load_prim(const float4* __restrict__ prims,
   return {{__ldg(row), __ldg(row + 1), __ldg(row + 2), __ldg(row + 3)}};
 }
 
-// slab_test on a node row of the vector pack.
+// The ray enters the node's box before t_max (ops/bvh.py `_slab_test`).
 __device__ __forceinline__ bool slab_test4(const Ray& r, const NodeRow& nd,
                                            float t_max) {
   const float lo[3] = {nd.lo.x, nd.lo.y, nd.lo.z};
@@ -202,8 +147,8 @@ __device__ __forceinline__ bool slab_test4(const Ray& r, const NodeRow& nd,
   return (t_far >= max_nan1(t_near, 0.0f)) && (t_near < t_max);
 }
 
-// prim_test on a prim row of the vector pack: the same operations in the
-// same order.
+// One prim row (ops/bvh.py `_leaf_prim_test`): t, or FAR on a miss; u, v
+// by the triangle formula, on sphere rows too.
 __device__ __forceinline__ float prim_test4(const Ray& r, const PrimRow& row,
                                             float* u_out, float* v_out) {
   const float4 p0 = row.q[0], p1 = row.q[1], p2 = row.q[2];
@@ -330,30 +275,47 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
+// B5b. A lane walks from the root, node cursor + 1 loaded beside node
+// cursor, and tests a leaf's prims with the next prim row loaded beside
+// the current one, until a hit or the end of the tree.
 __global__ void __launch_bounds__(BLOCK)
     bvh_any_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ far0, int n,
-                   const float* __restrict__ nodes, int M,
-                   const float* __restrict__ prims, bool* __restrict__ occ) {
+                   const float4* __restrict__ nodes, int M,
+                   const float4* __restrict__ prims, bool* __restrict__ occ) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Ray r = load_ray(ro, rd, i);
   const float far = __ldg(far0 + i);
   bool hit = false;
-  int cursor = far > RAY_EPS ? 0 : M;
-  while (cursor < M && !hit) {
-    const float* nd = nodes + (size_t)cursor * NODE;
-    if (!slab_test(r, nd, far)) {
-      cursor = (int)__ldg(nd + 8);
-      continue;
+  if (far > RAY_EPS) {
+    const Ray r = load_ray(ro, rd, i);
+    int cursor = 0;
+    NodeRow node = load_node(nodes, 0);
+    while (!hit) {
+      const NodeRow next = load_node(nodes, min(cursor + 1, M - 1));
+      if (!slab_test4(r, node, far)) {
+        cursor = __float_as_int(node.hi.w);
+        if (cursor >= M) break;
+        node = load_node(nodes, cursor);
+        continue;
+      }
+      ++cursor;
+      const int w = __float_as_int(node.lo.w);
+      const int cnt = w >> 24, base = w & 0xffffff;
+      PrimRow row;
+      if (cnt > 0) row = load_prim(prims, base);
+      for (int k = 0; k < cnt; ++k) {
+        const PrimRow nx = k + 1 < cnt ? load_prim(prims, base + k + 1) : row;
+        float u, v;
+        if (prim_test4(r, row, &u, &v) < far) {
+          hit = true;
+          break;
+        }
+        row = nx;
+      }
+      if (cursor >= M) break;
+      node = next;
     }
-    const int cnt = (int)__ldg(nd + 7);
-    const int base = (int)__ldg(nd + 6);
-    for (int k = 0; k < cnt && !hit; ++k) {
-      float u, v;
-      hit = prim_test(r, prims + (size_t)(base + k) * PRIM, &u, &v) < far;
-    }
-    ++cursor;
   }
   occ[i] = hit;
 }
@@ -391,7 +353,7 @@ extern "C" int bvh_any_hit(const float* ro, const float* rd,
                            const float* far0, int n, const float* nodes, int M,
                            const float* prims, bool* occ, void* stream) {
   bvh_any_kernel<<<blocks_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
-      ro, rd, far0, n, nodes, M, prims, occ);
+      ro, rd, far0, n, (const float4*)nodes, M, (const float4*)prims, occ);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,9 @@
 //   cl_front (C, 6)     the same boxes inflated a little (front pass)
 //   cl_chunk (C, K, 6)  box of each run of 128 prims inside a cluster
 //   cl_count (C,) i32   live prims of each cluster
+//   cl_tree  (T, 8)     the BVH nodes above the cut, one leaf a cluster, in
+//                       DFS order (scene/compile.py `cluster_tree`): lo(3)
+//                       skip hi(3) first-cluster, the ints as int32 bits
 //   rows     (C*CM, 18) prim-major: n|center(3) d|radius U(3) cu V(3) cv
 //                       is_sphere gid n_g(3) obj; slots past a cluster's
 //                       count are padding (gid -1) and never hit
@@ -39,10 +42,12 @@
 //   closest-hit kernel finishes the winner in the kernel (gid, u, v, n_g,
 //   obj, sphere flag; a sphere's normal from its hit point); an any-hit
 //   lane stops after the chunk of its first hit.
-// * front: one thread per ray over the inflated boxes keeps, in registers,
-//   the entered cluster with the least entry distance max(t_near, 0) (ties
-//   to the lowest id, C when none) and the second least entry distance
-//   (3e38 when fewer than two).
+// * front: one thread per ray keeps, in registers, the entered cluster
+//   (inflated boxes) with the least entry distance max(t_near, 0) (ties to
+//   the lowest id, C when none) and the second least entry distance (3e38
+//   when fewer than two), as a loop over the clusters in index order with
+//   strict < keeps them. It walks the tree above the cut instead of
+//   testing every box (below).
 // * pick (closest, any): one block per tile of TILE = 128 consecutive rays
 //   reads its own pick (cluster id, -1: nothing to do) and every thread
 //   tests its ray against that cluster's live rows in slot order: closest
@@ -60,10 +65,11 @@
 // Bound: the rows of a 290k-prim scene are 29.7 MB (20.9 MB of them live;
 // the sweeps' 64-byte copy 26.4 MB) and its boxes under 0.2 MB, all inside
 // the H100's 50 MB L2, so no kernel here is bound by HBM bytes. The sweeps
-// and the front pass are bound by the operations they execute: every ray
-// pays C box tests, from a table in shared memory (38.7 KB at C = 1,613; a
-// table above SMEM_MAX bytes is refused), one box at a time for the whole
-// warp (a broadcast), some thirty operations a box. The prim test leaves a
+// are bound by the operations they execute: every ray pays C box tests,
+// from a table in shared memory (38.7 KB at C = 1,613; a table above
+// SMEM_MAX bytes is refused), one box at a time for the whole warp (a
+// broadcast), some thirty operations a box. The front pass is bound by
+// the box tests its walk needs (PERF.md). The prim test leaves a
 // row as soon as its t cannot win, before the four u/v dots. The pick
 // kernels read one row per block at a time (a broadcast) straight from L2,
 // one dependent round trip a row, so the latency of those loads bounds
@@ -102,6 +108,26 @@
 // cluster's chunk boxes one cluster ahead, testing boxes two or four at a
 // time, 128- or 512-thread blocks and stopping B6b's rows at the first 32
 // that hit measured no faster (or slower) in scratch builds.
+//
+// The front kernel (B6c) was the flat loop: all C boxes for every ray
+// (1,613 on knot290k), each six scalar shared loads. Clusters are DFS
+// ranges of the BVH, so the nodes above the cut form a tree whose DFS
+// visits them in index order (`cl_tree`). The kernel walks it without a
+// stack, one thread a ray: a row whose box the ray misses, or enters
+// strictly after the lane's running second, is skipped with its subtree
+// (its skip); an inner row entered otherwise is followed by the next row;
+// a leaf is one cluster, with its own cl_front box, and updates (first,
+// cid, second) without branches. Exact: every step of the slab test
+// rounds monotonically and an inner box holds its clusters' boxes as the
+// slab test sees them, so a skipped cluster the ray enters has an entry
+// above the second and changes nothing (ops/cluster_kernels.py
+// `cluster_front_culled` repeats the walk step for step). The walk tests
+// some 16-21 rows a ray on knot290k's rays in place of 1,613. The tree is
+// read by __ldg of float4 rows (lanes are at different rows; 101 KB on
+// knot290k, held in L1), the next row loaded beside the current one; no
+// shared memory, so the front pass takes any cluster count. The box
+// test's min/max are one instruction each where they only feed
+// comparisons; the entry distance, an output, is max(t_near, 0) as before.
 
 #include <cuda_runtime.h>
 
@@ -109,8 +135,8 @@
 #define RAY_EPS 1e-4f
 #define FAR 1e7f
 #define BIG 3e38f
-#define BLOCK 128
 #define SWEEP_BLOCK 256
+#define FRONT_BLOCK 256
 #define TILE 128
 #define FULL 0xffffffffu
 #define CHUNK 128
@@ -118,10 +144,7 @@
 // to ops/cluster_kernels.py BOX_TABLE_MAX
 #define SMEM_MAX (200 * 1024)
 
-// torch.minimum / torch.maximum: NaN in, NaN out
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || isnan(a)) ? a : b;
-}
+// torch.maximum: NaN in, NaN out
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
 }
@@ -145,22 +168,6 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
     r.inv[a] = __fdiv_rn(1.0f, safe);
   }
   return r;
-}
-
-// Entry and exit distances of the ray through a box of 6 floats (shared or
-// global memory).
-__device__ __forceinline__ void slab(const Ray& r, const float* box,
-                                     float* t_near, float* t_far) {
-  float tn = 0.0f, tf = 0.0f;
-  for (int a = 0; a < 3; ++a) {
-    const float t1 = __fmul_rn(__fsub_rn(box[a], r.o[a]), r.inv[a]);
-    const float t2 = __fmul_rn(__fsub_rn(box[3 + a], r.o[a]), r.inv[a]);
-    const float lo = min_nan(t1, t2), hi = max_nan(t1, t2);
-    tn = a == 0 ? lo : max_nan(tn, lo);
-    tf = a == 0 ? hi : min_nan(tf, hi);
-  }
-  *t_near = tn;
-  *t_far = tf;
 }
 
 // One prim row (cluster_pallas.py `_prim_chunk_test`): its hit distance, or
@@ -274,11 +281,10 @@ __device__ __forceinline__ float max_nan1(float a, float b) {
   return d;
 }
 
-// The ray enters the box lo(3) hi(3) before t_max (cluster_pallas.py
-// `_slab_lanes`), as `slab` computes its distances.
-__device__ __forceinline__ bool enters6(const Ray& r, const float* box,
-                                        float t_max) {
-  float tn = 0.0f, tf = 0.0f;
+// Entry and exit distances of the ray through the box lo(3) hi(3)
+// (cluster_pallas.py `_slab_lanes`), min/max in one instruction each.
+__device__ __forceinline__ void slab1(const Ray& r, const float* box,
+                                      float& tn, float& tf) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float t1 = __fmul_rn(__fsub_rn(box[a], r.o[a]), r.inv[a]);
@@ -287,6 +293,13 @@ __device__ __forceinline__ bool enters6(const Ray& r, const float* box,
     tn = a == 0 ? lo : max_nan1(tn, lo);
     tf = a == 0 ? hi : min_nan1(tf, hi);
   }
+}
+
+// The ray enters the box lo(3) hi(3) before t_max.
+__device__ __forceinline__ bool enters6(const Ray& r, const float* box,
+                                        float t_max) {
+  float tn = 0.0f, tf = 0.0f;
+  slab1(r, box, tn, tf);
   return (tf >= max_nan1(tn, 0.0f)) && (tn < t_max);
 }
 
@@ -495,32 +508,57 @@ __global__ void __launch_bounds__(SWEEP_BLOCK) cluster_any_kernel(
   if (i < n) occ[i] = hit;
 }
 
-__global__ void __launch_bounds__(BLOCK) cluster_front_kernel(
+// A row of cl_tree: lo.xyz | skip, hi.xyz | first cluster (int bits).
+struct TreeRow {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ TreeRow load_tree(const float4* __restrict__ tree,
+                                             int c) {
+  return {__ldg(tree + 2 * (size_t)c), __ldg(tree + 2 * (size_t)c + 1)};
+}
+
+// B6c. Each lane walks cl_tree from row 0 until its cursor passes the last
+// row.
+__global__ void __launch_bounds__(FRONT_BLOCK) cluster_front_kernel(
     const float* __restrict__ ro, const float* __restrict__ rd,
-    const float* __restrict__ far0, int n, const float* __restrict__ cl_front,
-    int C, int* __restrict__ cid_out, float* __restrict__ nxt_out) {
-  extern __shared__ float box[];
-  stage_boxes(cl_front, C, box);
+    const float* __restrict__ far0, int n, const float4* __restrict__ tree,
+    int T, int C, int* __restrict__ cid_out, float* __restrict__ nxt_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(ro, rd, i);
   const float far = __ldg(far0 + i);
   float first = BIG, second = BIG;
   int cid = C;
-  for (int c = 0; c < C; ++c) {
-    float tn, tf;
-    slab(r, box + 6 * c, &tn, &tf);
-    tn = max_nan(-BIG, tn);
-    tf = min_nan(BIG, tf);
+  int cursor = 0;
+  TreeRow node = load_tree(tree, 0);
+  while (cursor < T) {
+    const TreeRow next = load_tree(tree, min(cursor + 1, T - 1));
+    const float box[6] = {node.lo.x, node.lo.y, node.lo.z,
+                          node.hi.x, node.hi.y, node.hi.z};
+    float tn = 0.0f, tf = 0.0f;
+    slab1(r, box, tn, tf);
+    tn = max_nan1(-BIG, tn);
+    tf = min_nan1(BIG, tf);
+    // the entry distance max(t_near, 0): +0 for either zero, NaN for NaN
     const float ent = max_nan(tn, 0.0f);
-    const float keyed = ((tf >= ent) && (tn < far)) ? ent : BIG;
-    if (keyed < first) {
-      second = first;
-      first = keyed;
-      cid = c;
-    } else if (keyed < second) {
-      second = keyed;
+    const bool enter = (tf >= ent) && (tn < far);
+    const int skip = __float_as_int(node.lo.w);
+    const bool leaf = skip == cursor + 1;
+    // a leaf: the update of the loop in index order (keyed is never NaN)
+    const float keyed = leaf && enter ? ent : BIG;
+    const bool lt1 = keyed < first;
+    second = lt1 ? first : fminf(second, keyed);
+    first = lt1 ? keyed : first;
+    cid = lt1 ? __float_as_int(node.hi.w) : cid;
+    // an inner row: into its subtree, or past it
+    const int to = !leaf && enter && ent <= second ? cursor + 1 : skip;
+    if (to == cursor + 1) {
+      node = next;
+    } else if (to < T) {
+      node = load_tree(tree, to);
     }
+    cursor = to;
   }
   cid_out[i] = cid;
   nxt_out[i] = second;
@@ -626,14 +664,13 @@ extern "C" int cluster_any_hit(const float* ro, const float* rd,
 }
 
 extern "C" int cluster_front(const float* ro, const float* rd,
-                             const float* far0, int n, const float* cl_front,
-                             int C, int* cid, float* nxt, void* stream) {
-  const size_t smem = box_smem(C);
-  const int err = allow_smem(cluster_front_kernel, smem);
-  if (err) return err;
-  cluster_front_kernel<<<blocks_for(n, BLOCK), BLOCK, smem,
-                         (cudaStream_t)stream>>>(ro, rd, far0, n, cl_front, C,
-                                                 cid, nxt);
+                             const float* far0, int n, const float* tree,
+                             int T, int C, int* cid, float* nxt,
+                             void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  cluster_front_kernel<<<blocks_for(n, FRONT_BLOCK), FRONT_BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      ro, rd, far0, n, (const float4*)tree, T, C, cid, nxt);
   return (int)cudaGetLastError();
 }
 
@@ -658,17 +695,20 @@ extern "C" int cluster_pick_any(const int* picks, const float* ro,
   return (int)cudaGetLastError();
 }
 
-// What the compiler and the card give a sweep kernel (0: closest hit, 1:
-// any hit) for a table of C clusters: out[0] registers a thread, out[1]
-// local memory bytes a thread (spills), out[2] blocks of BLOCK threads
-// resident on one SM with the box table in shared memory, out[3] the SMs,
-// out[4] SWEEP_BLOCK.
+// What the compiler and the card give a kernel (0: sweep closest hit, 1:
+// sweep any hit, 2: front) for a table of C clusters: out[0] registers a
+// thread, out[1] local memory bytes a thread (spills), out[2] blocks
+// resident on one SM (a sweep's with the box table in shared memory),
+// out[3] the SMs, out[4] threads a block.
 extern "C" int cluster_kernel_info(int which, int C, int* out) {
   cudaFuncAttributes attr;
-  const void* fn = which == 0 ? (const void*)cluster_closest_kernel
-                              : (const void*)cluster_any_kernel;
-  int err = which == 0 ? allow_smem(cluster_closest_kernel, box_smem(C))
-                       : allow_smem(cluster_any_kernel, box_smem(C));
+  const void* fn = which == 0   ? (const void*)cluster_closest_kernel
+                   : which == 1 ? (const void*)cluster_any_kernel
+                                : (const void*)cluster_front_kernel;
+  const size_t smem = which == 2 ? 0 : box_smem(C);
+  int err = which == 0   ? allow_smem(cluster_closest_kernel, smem)
+            : which == 1 ? allow_smem(cluster_any_kernel, smem)
+                         : 0;
   if (err) return err;
   err = (int)cudaFuncGetAttributes(&attr, fn);
   if (err) return err;
@@ -676,11 +716,10 @@ extern "C" int cluster_kernel_info(int which, int C, int* out) {
   cudaGetDevice(&dev);
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out + 2, fn, SWEEP_BLOCK, box_smem(C));
+  out[4] = which == 2 ? FRONT_BLOCK : SWEEP_BLOCK;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, fn,
+                                                           out[4], smem);
   if (err) return err;
-  err = (int)cudaDeviceGetAttribute(out + 3, cudaDevAttrMultiProcessorCount,
-                                    dev);
-  out[4] = SWEEP_BLOCK;
-  return err;
+  return (int)cudaDeviceGetAttribute(out + 3,
+                                     cudaDevAttrMultiProcessorCount, dev);
 }

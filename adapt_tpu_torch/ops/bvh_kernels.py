@@ -7,11 +7,11 @@ whole-scene closest hit and any hit before far, on scenes too large for
 the brute-force tier. On a CUDA tensor each wrapper launches its
 hand-written kernel (csrc/bvh_intersect.cu, built by ops/_build.py) or
 raises; on a CPU tensor it runs the plain twin, ops/bvh.py `walk`, which
-walks the same tables in the same order. The closest-hit kernel reads the
-tables' float4 rows (`bvh_node_v4`, `bvh_prim_v4`), the any-hit kernel
-and the twin the (M, 9) and (P, 14) packs. `launches` counts kernel
-launches per wrapper; `kernel_info` reads what the compiler and the card
-give each kernel.
+walks the same tables in the same order. The kernels read the tables'
+float4 rows (`bvh_node_v4`, `bvh_prim_v4`), the twin the (M, 9) and
+(P, 14) packs they are made from. `launches` counts kernel launches per
+wrapper; `kernel_info` reads what the compiler and the card give each
+kernel.
 """
 from __future__ import annotations
 
@@ -58,29 +58,27 @@ def _lib():
     return lib
 
 
-# the tables each kernel reads: (field, row width)
-CLOSEST_TABLES = (("bvh_node_v4", 8), ("bvh_prim_v4", 16))
-ANY_TABLES = (("bvh_node_pack", 9), ("bvh_prim_pack", 14))
+# the tables both kernels read: (field, row width)
+TABLES = (("bvh_node_v4", 8), ("bvh_prim_v4", 16))
 
 
-def _operands(scene, ray_o, ray_d, far0, tables):
+def _operands(scene, ray_o, ray_d, far0):
     """Device, type and shape checks of everything a kernel reads, and the
-    16-byte alignment of its tables (the closest-hit kernel loads their
-    rows as float4s); contiguous rays. The tables must already be
-    contiguous."""
+    16-byte alignment of its tables (the kernels load their rows as
+    float4s); contiguous rays. The tables must already be contiguous."""
     n = ray_o.shape[0]
-    packs = [getattr(scene, name) for name, _w in tables]
+    packs = [getattr(scene, name) for name, _w in TABLES]
     for name, x, shape in (
             ("ray_o", ray_o, (n, 3)), ("ray_d", ray_d, (n, 3)),
             ("far0", far0, (n,)),
             *((name, x, (x.shape[0], w))
-              for (name, w), x in zip(tables, packs))):
+              for (name, w), x in zip(TABLES, packs))):
         if x.device != ray_o.device or x.dtype != torch.float32 \
                 or tuple(x.shape) != shape:
             raise ValueError(f"{name}: want float32 of shape {shape} on "
                              f"{ray_o.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    for (name, _w), x in zip(tables, packs):
+    for (name, _w), x in zip(TABLES, packs):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
@@ -99,8 +97,7 @@ def bvh_closest_hit(scene, ray_o, ray_d, far0):
     (o + t d).U - cu and (o + t d).V - cv."""
     if _is_cpu(ray_o):
         return bvh_closest_hit_plain(scene, ray_o, ray_d, far0)
-    ro, rd, far, n, nodes, prims = _operands(scene, ray_o, ray_d, far0,
-                                             CLOSEST_TABLES)
+    ro, rd, far, n, nodes, prims = _operands(scene, ray_o, ray_d, far0)
     t = torch.empty(n, device=ro.device)
     prim = torch.empty(n, dtype=torch.int32, device=ro.device)
     u = torch.empty(n, device=ro.device)
@@ -122,8 +119,7 @@ def bvh_any_hit(scene, ray_o, ray_d, far0):
     """True where any prim lies strictly before far0."""
     if _is_cpu(ray_o):
         return bvh_any_hit_plain(scene, ray_o, ray_d, far0)
-    ro, rd, far, n, nodes, prims = _operands(scene, ray_o, ray_d, far0,
-                                             ANY_TABLES)
+    ro, rd, far, n, nodes, prims = _operands(scene, ray_o, ray_d, far0)
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ

@@ -8,7 +8,10 @@ Five wrappers replace five Pallas TPU kernels:
   `cluster_closest_hit`) and `_any_kernel` (via `cluster_any_hit`), the
   sweep of all clusters in index order with box gates;
 * `cluster_front`: `_front_kernel` (via `_front_candidates`), each ray's
-  front-most entered cluster and the entry distance of its second;
+  front-most entered cluster and the entry distance of its second, by a
+  walk of the tree above the cut (`cl_tree`) that skips whole ranges of
+  clusters which cannot change either (`cluster_front_culled` repeats it
+  step for step; `cluster_front_plain` tests every box);
 * `cluster_pick_closest` / `cluster_pick_any`: `_single_kernel` (via
   `_single_pass`) and `_single_any_kernel` (in `qpick_any`), each tile of
   TILE consecutive rays against the one cluster its pick names.
@@ -41,8 +44,8 @@ from .intersect_kernels import DEAD, FAR, RAY_EPS, _check, _is_cpu
 TILE = 128             # rays of one pick tile (the JAX package's LANE_B)
 QP_P = 2               # pick passes of the queue-pick schedule (its QP_P)
 BIG = 3e38             # "no entry" distance of the front pass
-# largest (C, 6) box table in bytes: the kernels keep it in a block's shared
-# memory (csrc/cluster_intersect.cu SMEM_MAX)
+# largest (C, 6) box table in bytes: the sweep kernels keep it in a block's
+# shared memory (csrc/cluster_intersect.cu SMEM_MAX)
 BOX_TABLE_MAX = 200 * 1024
 # most 128-prim chunks a cluster the sweep kernels take (one warp load of
 # 6 floats a chunk box: csrc/cluster_intersect.cu `sweep_chunks_fit`)
@@ -344,6 +347,63 @@ def cluster_front_plain(scene, ray_o, ray_d, far0):
     return torch.cat(cids), torch.cat(nxts)
 
 
+def cluster_front_culled(scene, ray_o, ray_d, far0):
+    """The front kernel's walk over `cl_tree`, step for step, in plain
+    PyTorch (any device): (cid, nxt, box_tests (N,) i32, the rows each ray
+    tests). Equal to `cluster_front_plain`, for this reason.
+
+    Every row's box test is that of `cluster_front_plain` on its box: entry
+    ent = max(clamp(t_near, -BIG), 0), entered when clamp(t_far, BIG) >= ent
+    and t_near < far0. A leaf is one cluster with its own box, and updates
+    (first, cid, second) as the loop over the clusters in index order
+    does: the entered cluster of least ent, the lowest id on a tie, and
+    the second least ent. The walk descends into an inner row only when
+    the ray enters its box with ent at or below the running second; it
+    skips the subtree when the ray misses the box or its ent is strictly
+    greater. That skips no cluster that could change a result: each step
+    of the slab test (subtract, multiply by the same inverse, min, max,
+    clamp) rounds monotonically, and an inner box holds its clusters'
+    boxes, so a cluster it holds that the ray enters has an ent at or
+    above the row's, hence above the second, which changes neither the
+    first nor the second (the second only falls as the walk goes on).
+    Rows are visited in DFS order, which is the clusters' index order."""
+    tree = scene.cl_tree
+    T, C = tree.shape[0], scene.n_clusters
+    words = tree.view(torch.int32)
+    lo, hi = tree[:, 0:3], tree[:, 4:7]
+    skip, first_id = words[:, 3].long(), words[:, 7]
+    N, dev = ray_o.shape[0], ray_o.device
+    inv = _inv_dir(ray_d)
+    cursor = torch.zeros(N, dtype=torch.long, device=dev)
+    first = torch.full((N,), BIG, device=dev)
+    second = torch.full((N,), BIG, device=dev)
+    cid = torch.full((N,), C, dtype=torch.int32, device=dev)
+    tests = torch.zeros(N, dtype=torch.int32, device=dev)
+    while True:
+        lane = torch.nonzero(cursor < T).squeeze(1)
+        if lane.numel() == 0:
+            break
+        c = cursor[lane]
+        o = ray_o[lane]
+        t1 = (lo[c] - o) * inv[lane]
+        t2 = (hi[c] - o) * inv[lane]
+        tn = torch.clamp(torch.minimum(t1, t2).amax(dim=-1), min=-BIG)
+        tf = torch.clamp(torch.maximum(t1, t2).amin(dim=-1), max=BIG)
+        ent = torch.clamp(tn, min=0.0)
+        enter = (tf >= ent) & (tn < far0[lane])
+        leaf = skip[c] == c + 1
+        keyed = torch.where(leaf & enter, ent, BIG)
+        f, s = first[lane], second[lane]
+        lt1 = keyed < f
+        second[lane] = torch.where(lt1, f, torch.where(keyed < s, keyed, s))
+        first[lane] = torch.where(lt1, keyed, f)
+        cid[lane] = torch.where(lt1, first_id[c], cid[lane])
+        descend = ~leaf & enter & (ent <= s)
+        cursor[lane] = torch.where(descend, c + 1, skip[c])
+        tests[lane] += 1
+    return cid, second, tests
+
+
 def _tiles(n):
     return -(-n // TILE)
 
@@ -428,7 +488,8 @@ def _lib():
                                             _P, _I, _I, _I] + [_P] * 8
         lib.cluster_any_hit.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I,
                                         _I, _I, _P, _P]
-        lib.cluster_front.argtypes = [_P, _P, _P, _I, _P, _I, _P, _P, _P]
+        lib.cluster_front.argtypes = [_P, _P, _P, _I, _P, _I, _I, _P, _P,
+                                      _P]
         lib.cluster_pick_closest.argtypes = [_P, _P, _P, _P, _P, _I, _P, _P,
                                              _I, _P, _P, _P]
         lib.cluster_pick_any.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _P,
@@ -449,9 +510,6 @@ def _operands(scene, ray_o, ray_d, far0, extra=()):
     n = ray_o.shape[0]
     C, CM = scene.n_clusters, scene.cluster_size
     K = scene.cl_chunk.shape[1]
-    if C * 24 > BOX_TABLE_MAX:
-        raise ValueError(f"{C} clusters: the kernels keep the box table in "
-                         f"shared memory, at most {BOX_TABLE_MAX // 24}")
     f32, i32 = torch.float32, torch.int32
     tables = (("cl_aabb", scene.cl_aabb, (C, 6), f32),
               ("cl_front", scene.cl_front, (C, 6), f32),
@@ -474,21 +532,39 @@ def _operands(scene, ray_o, ray_d, far0, extra=()):
     return ray_o.contiguous(), ray_d.contiguous(), far0.contiguous(), n
 
 
+def _aligned(name, x):
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and start on a 16-byte "
+                         "boundary")
+
+
 def _sweep_operands(scene, ray_o, ray_d, far0):
-    """`_operands` and what the sweep kernels add: the float4 rows
-    `cl_rows_v4` (contiguous, on a 16-byte boundary) and at most
-    SWEEP_CHUNKS chunks a cluster (the kernels load a cluster's chunk
-    boxes in one warp load)."""
+    """`_operands` and what the sweep kernels add: a box table that fits
+    shared memory, the float4 rows `cl_rows_v4` (contiguous, on a 16-byte
+    boundary) and at most SWEEP_CHUNKS chunks a cluster (the kernels load a
+    cluster's chunk boxes in one warp load)."""
     C, CM = scene.n_clusters, scene.cluster_size
+    if C * 24 > BOX_TABLE_MAX:
+        raise ValueError(f"{C} clusters: the sweep kernels keep the box "
+                         f"table in shared memory, at most "
+                         f"{BOX_TABLE_MAX // 24}")
     rows4 = scene.cl_rows_v4
     out = _operands(scene, ray_o, ray_d, far0,
                     (("cl_rows_v4", rows4, (C * CM, 16), torch.float32),))
-    if not rows4.is_contiguous() or rows4.data_ptr() % 16:
-        raise ValueError("cl_rows_v4 must be contiguous and start on a "
-                         "16-byte boundary")
+    _aligned("cl_rows_v4", rows4)
     if scene.cl_chunk.shape[1] > SWEEP_CHUNKS:
         raise ValueError(f"the sweep kernels take at most {SWEEP_CHUNKS} "
                          f"chunks a cluster, got {scene.cl_chunk.shape[1]}")
+    return out
+
+
+def _front_operands(scene, ray_o, ray_d, far0):
+    """`_operands` and the front kernel's tree `cl_tree` (T, 8) f32,
+    contiguous and on a 16-byte boundary (its rows are float4 loads)."""
+    tree = scene.cl_tree
+    out = _operands(scene, ray_o, ray_d, far0,
+                    (("cl_tree", tree, (tree.shape[0], 8), torch.float32),))
+    _aligned("cl_tree", tree)
     return out
 
 
@@ -497,13 +573,14 @@ def _stream(x):
 
 
 def kernel_info(n, C):
-    """{sweep kernel: (registers a thread, spilled bytes a thread, blocks
-    resident on one SM with a table of C clusters in shared memory, SMs,
-    threads a block, waves)} for n rays, one thread a ray. Needs the
-    card."""
+    """{kernel: (registers a thread, spilled bytes a thread, blocks
+    resident on one SM (the sweeps with a table of C clusters in shared
+    memory), SMs, threads a block, waves)} of the sweep kernels and the
+    front kernel for n rays, one thread a ray. Needs the card."""
     lib = _lib()
     out = {}
-    for which, name in ((0, "cluster_closest_hit"), (1, "cluster_any_hit")):
+    for which, name in ((0, "cluster_closest_hit"), (1, "cluster_any_hit"),
+                        (2, "cluster_front")):
         vals = (ctypes.c_int * 5)()
         _check(lib.cluster_kernel_info(which, C, ctypes.addressof(vals)),
                f"{name} info")
@@ -567,18 +644,19 @@ def cluster_front(scene, ray_o, ray_d, far0):
     """(cid (N,) i32, nxt (N,) f32): each ray's front-most entered cluster
     (C when it enters none before far0) and the entry distance of the
     second (BIG when fewer than two), over the inflated boxes: a lower
-    bound of every hit outside the front cluster."""
+    bound of every hit outside the front cluster. The kernel walks
+    `cl_tree` as `cluster_front_culled` does."""
     if _is_cpu(ray_o):
         return cluster_front_plain(scene, ray_o, ray_d, far0)
-    ro, rd, far, n = _operands(scene, ray_o, ray_d, far0)
+    ro, rd, far, n = _front_operands(scene, ray_o, ray_d, far0)
     cid = torch.empty(n, dtype=torch.int32, device=ro.device)
     nxt = torch.empty(n, device=ro.device)
     if n == 0:
         return cid, nxt
     err = _lib().cluster_front(
         ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-        scene.cl_front.data_ptr(), scene.n_clusters, cid.data_ptr(),
-        nxt.data_ptr(), _stream(ro))
+        scene.cl_tree.data_ptr(), scene.cl_tree.shape[0], scene.n_clusters,
+        cid.data_ptr(), nxt.data_ptr(), _stream(ro))
     _check(err, "cluster_front")
     launches["cluster_front"] += 1
     return cid, nxt

@@ -13,7 +13,9 @@ tables in aligned float4 rows (`bvh_node_v4`, `bvh_prim_v4`; `v4_packs`),
 which the closest-hit kernel reads, and its cluster cut of that tree
 (`cl_*`: disjoint subtrees of at most CLUSTER_MAX prims, prim-major
 rows, and the same rows as aligned float4 rows, `cl_rows_v4`;
-`cluster_v4`), which the cluster kernels sweep. Tables the port does not
+`cluster_v4`), which the cluster kernels sweep, with the tree of the BVH
+nodes above that cut (`cl_tree`; `cluster_tree`), which the front pass
+walks. Tables the port does not
 read (texture atlases, grid volumes) are not built.
 Scenes that need them are recognised from their configuration and raise
 NotImplementedError at render (`check_supported`; grid volumes and BxDF
@@ -108,6 +110,8 @@ class SceneData:
     cl_chunk: torch.Tensor   # (C,K,6) f32 lo|hi of each 128-prim chunk
     cl_count: torch.Tensor   # (C,) i32 live prims (leading slots) a cluster
     cl_slot: torch.Tensor    # (P,) i32 row of cl_rows that holds prim gid
+    cl_tree: torch.Tensor    # (T,8) f32 rows of 32 B: the nodes above the
+    # cut, one leaf a cluster (`cluster_tree`)
     # --- objects (O) ---
     obj_start: torch.Tensor      # (O,) first global prim id
     obj_cnt: torch.Tensor        # (O,) prim count
@@ -288,6 +292,32 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _cut_walk(node_pack, cm):
+    """The nodes the cluster cut visits, in DFS order: (node, cluster,
+    first prim, prims) each. A node whose subtree holds at most cm prims,
+    or a leaf, is the next cluster and its subtree is skipped; the walk
+    descends through the others. Prims are leaf-contiguous in DFS order,
+    so a subtree is the prim range from its first leaf prim on."""
+    M = node_pack.shape[0]
+    base = node_pack[:, 6].astype(np.int64)
+    cnt = node_pack[:, 7].astype(np.int64)
+    skip = node_pack[:, 8].astype(np.int64)
+    P = int(cnt.sum())
+    # first leaf prim at or after each node (leaf bases increase in DFS)
+    big = np.int64(1) << 60
+    nxt = np.minimum.accumulate(np.where(cnt > 0, base, big)[::-1])[::-1]
+    nxt = np.append(np.where(nxt >= big, P, nxt), P)
+    out = []
+    i = 0
+    while i < M:
+        s = int(nxt[i])
+        n = int(nxt[min(int(skip[i]), M)]) - s
+        leaf = bool(n <= cm or cnt[i] > 0)
+        out.append((i, leaf, s, n))
+        i = int(skip[i]) if leaf else i + 1
+    return out
+
+
 def _cluster_cut(node_pack, rows18, prim_aabb):
     """Cut the skip-offset tree into disjoint subtree clusters (numpy copy
     of adapt_tpu/scene/compile.py `_cluster_cut`, CM fixed at CLUSTER_MAX).
@@ -300,25 +330,9 @@ def _cluster_cut(node_pack, rows18, prim_aabb):
 
     Returns (cl_aabb (C,6), cl_rows (C*CM,18), cl_chunk (C,K,6)): the JAX
     tables' members, boxes and row values in prim-major layout."""
-    M, P = node_pack.shape[0], rows18.shape[0]
-    base = node_pack[:, 6].astype(np.int64)
-    cnt = node_pack[:, 7].astype(np.int64)
-    skip = node_pack[:, 8].astype(np.int64)
     cm, ck = CLUSTER_MAX, CLUSTER_CHUNK
-    # first leaf prim at or after each node (leaf bases increase in DFS)
-    big = np.int64(1) << 60
-    nxt = np.minimum.accumulate(np.where(cnt > 0, base, big)[::-1])[::-1]
-    nxt = np.append(np.where(nxt >= big, P, nxt), P)
-    clusters = []
-    i = 0
-    while i < M:
-        s = int(nxt[i])
-        n = int(nxt[min(int(skip[i]), M)]) - s
-        if n <= cm or cnt[i] > 0:
-            clusters.append((s, n, node_pack[i, 0:6]))
-            i = int(skip[i])
-        else:
-            i += 1
+    clusters = [(s, n, node_pack[i, 0:6])
+                for i, leaf, s, n in _cut_walk(node_pack, cm) if leaf]
     C, K = len(clusters), cm // ck
     aabb = np.zeros((C, 6), np.float32)
     rows = np.zeros((C, cm, 18), np.float32)
@@ -348,6 +362,50 @@ def front_boxes(cl_aabb):
                               hi + np.float32(1e-6) * ext], axis=1)
     real = (lo <= hi).all(axis=1, keepdims=True)
     return np.where(real, out, cl_aabb).astype(np.float32)
+
+
+def cluster_tree(node_pack, cl_front, cm):
+    """The BVH nodes above the cluster cut, one leaf a cluster: (T,8) f32
+    rows for float4 loads, in DFS order. A row is lo(3), skip as int32
+    bits, hi(3), its first cluster id as int32 bits.
+
+    The cut (`_cut_walk`) takes whole subtrees in DFS order as the
+    clusters, so the nodes it descends through form a tree whose DFS
+    visits the clusters in index order. A row's skip is the row after its subtree (a leaf's, its own
+    row + 1). A leaf holds its cluster's cl_front box bit for bit; an inner
+    node, per axis, the min and the max over both corners of its clusters'
+    cl_front boxes: the interval the slab test sees of a box whichever
+    corner is the lower (an inverted placeholder box too), so an inner box
+    holds each of its clusters' boxes as the slab test sees them."""
+    node_pack = np.asarray(node_pack, np.float32)
+    front = np.asarray(cl_front, np.float32)
+    C = front.shape[0]
+    walk = _cut_walk(node_pack, cm)
+    node = np.array([i for i, _l, _s, _n in walk], np.int64)
+    leaf = np.array([l for _i, l, _s, _n in walk], bool)
+    skip = node_pack[:, 8].astype(np.int64)
+    if int(leaf.sum()) != C:
+        raise ValueError(f"the cut of the tree gives {int(leaf.sum())} "
+                         f"clusters, the tables {C}")
+    T = node.shape[0]
+    rows = np.arange(T)
+    tskip = np.where(leaf, rows + 1, np.searchsorted(node, skip[node]))
+    first = np.cumsum(leaf) - leaf                  # leaves before the row
+    end = np.append(first, C)[tskip]
+    lo = np.minimum(front[:, 0:3], front[:, 3:6])
+    hi = np.maximum(front[:, 0:3], front[:, 3:6])
+    tree = np.zeros((T, 8), np.float32)
+    for r in range(T):
+        if leaf[r]:
+            tree[r, 0:3], tree[r, 4:7] = front[first[r], 0:3], \
+                front[first[r], 3:6]
+        else:
+            tree[r, 0:3] = lo[first[r]:end[r]].min(axis=0)
+            tree[r, 4:7] = hi[first[r]:end[r]].max(axis=0)
+    words = tree.view(np.int32)
+    words[:, 3] = tskip
+    words[:, 7] = first
+    return tree
 
 
 def prim_slots(cl_rows, C, P):
@@ -543,6 +601,9 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         node_pack, prim_pack, cl_aabb, cl_rows, cl_chunk = _placeholder_bvh()
     cl_count, cl_slot = prim_slots(cl_rows, cl_aabb.shape[0], P)
     node_v4, prim_v4 = v4_packs(node_pack, prim_pack)
+    cl_front = front_boxes(cl_aabb)
+    cl_tree = cluster_tree(node_pack, cl_front,
+                           cl_rows.shape[0] // cl_aabb.shape[0])
 
     cam_dir = configs["transform"][0]
     if cam_dir is None or np.ndim(cam_dir) != 1 or np.size(cam_dir) != 3:
@@ -654,12 +715,13 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         bvh_node_v4=_t(node_v4),
         bvh_prim_v4=_t(prim_v4),
         cl_aabb=_t(cl_aabb),
-        cl_front=_t(front_boxes(cl_aabb)),
+        cl_front=_t(cl_front),
         cl_rows=_t(cl_rows),
         cl_rows_v4=_t(cluster_v4(cl_rows)),
         cl_chunk=_t(cl_chunk),
         cl_count=_t(cl_count),
         cl_slot=_t(cl_slot),
+        cl_tree=_t(cl_tree),
         obj_start=_t(obj_start),
         obj_cnt=_t(obj_cnt),
         obj_is_sphere=_t(obj_is_sphere),

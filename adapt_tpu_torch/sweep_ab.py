@@ -78,27 +78,24 @@ def baseline_kernels(path):
     return closest, any_hit
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("baseline", help="an earlier csrc/cluster_intersect.cu")
-    ap.add_argument("--spp", type=int, default=3)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("sweep_ab: torch.cuda.is_available() is false")
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
-    from . import rng
-    from .ops import cluster_kernels as CK, intersect_kernels as K
-    from .renderer import pt
-    from .renderer.base import camera_rays
-    from .scene import compile as C
-
-    card = subprocess.run(
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    kernels = {"current": (CK.cluster_closest_hit, CK.cluster_any_hit),
-               "baseline": baseline_kernels(args.baseline)}
+
+
+def knot_rays():
+    """(scene, cfg, rays) on the card: knot290k and its 262,144 primary
+    rays, the bounce rays from their hits in seeded random directions (15%
+    dead lanes) and the shadow rays to the point light, as
+    {name: (ro, rd, far)} for "primary", "bounce" and "shadow"."""
+    import chip_smoke as cs
+    from . import rng
+    from .ops import cluster_kernels as CK, intersect_kernels as K
+    from .renderer.base import camera_rays
+    from .scene import compile as C
     cs.knot_mesh()
     scene, cfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "cbox"),
                                  "knot290k.xml")
@@ -118,6 +115,29 @@ def main(argv=None):
     dist = to_l.norm(dim=-1)
     sd = to_l / dist[:, None]
     far_s = torch.where(alive, dist - K.RAY_EPS, K.DEAD)
+    return scene, cfg, {"primary": (ro, rd, far_p), "bounce": (bo, bd, far_b),
+                        "shadow": (bo, sd, far_s)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("baseline", help="an earlier csrc/cluster_intersect.cu")
+    ap.add_argument("--spp", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_ab: torch.cuda.is_available() is false")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from .ops import cluster_kernels as CK, intersect_kernels as K
+    from .renderer import pt
+
+    card = card_name()
+    kernels = {"current": (CK.cluster_closest_hit, CK.cluster_any_hit),
+               "baseline": baseline_kernels(args.baseline)}
+    scene, cfg, rays = knot_rays()
+    bo, bd, far_b = rays["bounce"]
+    _bo, sd, far_s = rays["shadow"]
+    N = bo.shape[0]
     tro, trd, tdist = cs.tie_rays(torch, scene, cs.TIE_RAYS, 7)
     tfar = torch.full_like(tdist, K.FAR)
     for o, d, far, tag in ((bo, bd, far_b, "bounce"),

@@ -17,14 +17,18 @@ non-zero exit and no result line.
    the point light). Hit ids and occlusion exactly equal, t within rtol
    2e-6, u/v within rtol 2e-5 atol 2e-6 (same operation order: 0
    expected; the BVH closest hit bit-equal); times by CUDA events, median
-   of 5 single calls, and each kernel's bound; 2b also gives the BVH
-   kernels' device times (a CUDA graph of 10 calls, no host time), their
-   registers, spills, blocks resident per SM and waves;
+   of 5 single calls, device times (a CUDA graph of 10 calls, no host
+   time) and each kernel's bound; 2b also holds the BVH any hit on the
+   queue-pick cleanup's own residual set of the shadow rays and on the
+   adversarial set (`adversarial_rays`), with device times on shadow,
+   bounce and residual rays, and gives both BVH kernels' registers,
+   spills, blocks resident per SM and waves;
    2c: the media-walk kernel on the vpt cbox (NEE shadow rays from the
    primary hits to area-light samples at K = 2; bounce rays with 15% dead
    lanes at K = 2 and, every triangle an interface, at K = 7): every
    output exactly equal to the twin's, with the null-hit, overflow and
-   blocker shares; 2d: the film-splat kernel on four 512^2 streams of
+   blocker shares and the device time; 2d: the film-splat kernel on four
+   512^2 streams of
    1,572,864 updates (the t=1 stream of one BDPT cbox pass at 6 bounces, a
    uniform one with 10% dropped, one whose first 1024-pixel tile holds
    70,000 updates, and the uniform one with 200,000 of its updates moved
@@ -35,12 +39,16 @@ non-zero exit and no result line.
    and its two pick passes on the picks the schedule itself derives):
    every output bit-equal to the plain version's, also the sweep kernels
    on a tie set (`tie_rays`: rays at shared vertices and edges, where
-   neighbouring prims tie in t), the sweep kernels also against the BVH
+   neighbouring prims tie in t), the front pass also on the tie set and
+   the adversarial set, with the walk's box tests a ray (its plain twin
+   `cluster_front_culled`, bit-equal too) beside the flat loop's, the
+   sweep kernels also against the BVH
    kernels on the same rays (under 1e-4 of lanes may differ: the two prim
    tests round u and v in another order, so a ray grazing an edge may take
    the neighbour), with times (single calls and CUDA-graph device times)
-   and bounds, the sweep kernels' registers, spills, residency and waves,
-   and their divergence factor (`cluster_kernels.warp_divergence`);
+   and bounds, the sweep and front kernels' registers, spills, residency
+   and waves, and the sweeps' divergence factor
+   (`cluster_kernels.warp_divergence`);
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
    same for render_pass_vpt against tests/goldens/vptcbox_48.npy; 3c: for
@@ -278,6 +286,62 @@ def tie_rays(torch, scene, n, seed):
     return ro.contiguous(), (to / dist[:, None]).contiguous(), dist
 
 
+def adversarial_rays(torch, scene, n, seed):
+    """(ro, rd, far): n rays that probe the slab test's corners, in equal
+    parts: origins inside cluster boxes (random points, and box centres)
+    in random directions; axis-parallel directions (one to three zero
+    components, so inv = +-1e9) from random points of the scene's box;
+    origins on a cluster box's face with the direction in that face's
+    plane (the face's slab difference is exactly 0). Far: 10% dead
+    (-3e38), 10% in [0, RAY_EPS], 10% short (under 0.5), the rest 1e7; and
+    one lane in 64 with a NaN in its origin or its direction."""
+    dev = scene.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    box = scene.cl_aabb[torch.randint(0, scene.n_clusters, (n,), generator=g,
+                                      device=dev)]
+    lo, hi = box[:, 0:3], box[:, 3:6]
+    inside = lo + rand(n, 3) * (hi - lo)
+    inside[: n // 8] = 0.5 * (lo + hi)[: n // 8]
+    rd = torch.randn((n, 3), generator=g, device=dev)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    part = torch.arange(n, device=dev) % 3
+    # axis-parallel: keep one axis, or two, or all three of a random
+    # direction's components, the others exactly 0
+    s_lo, s_hi = scene.cl_aabb[:, 0:3].amin(0), scene.cl_aabb[:, 3:6].amax(0)
+    ro_ax = s_lo + rand(n, 3) * (s_hi - s_lo)
+    keep = rand(n, 3) < 0.4
+    keep[torch.arange(n, device=dev), torch.randint(
+        0, 3, (n,), generator=g, device=dev)] = True
+    d_ax = torch.where(keep, rd, 0.0)
+    d_ax = d_ax / d_ax.norm(dim=-1, keepdim=True)
+    # on a face: one coordinate set to the box's lo or hi, that component
+    # of the direction 0
+    axis = torch.randint(0, 3, (n,), generator=g, device=dev)
+    on = torch.nn.functional.one_hot(axis, 3).bool()
+    face = torch.where(rand(n, 1) < 0.5, lo, hi)
+    ro_f = torch.where(on, face, inside)
+    d_f = torch.where(on, 0.0, rd)
+    d_f = d_f / d_f.norm(dim=-1, keepdim=True)
+    ro = torch.where((part == 0)[:, None], inside,
+                     torch.where((part == 1)[:, None], ro_ax, ro_f))
+    rd = torch.where((part == 0)[:, None], rd,
+                     torch.where((part == 1)[:, None], d_ax, d_f))
+    u = rand(n)
+    far = torch.where(u < 0.1, -3e38, torch.where(
+        u < 0.2, 1e-4 * rand(n), torch.where(u < 0.3, 0.5 * rand(n), 1e7)))
+    nan = torch.arange(n, device=dev) % 64 == 63
+    which = torch.where(rand(n) < 0.5, 0, 1)
+    ro = torch.where((nan & (which == 0))[:, None]
+                     & (torch.arange(3, device=dev) == 1), float("nan"), ro)
+    rd = torch.where((nan & (which == 1))[:, None]
+                     & (torch.arange(3, device=dev) == 2), float("nan"), rd)
+    return ro.contiguous(), rd.contiguous(), far.contiguous()
+
+
 def knot_mesh():
     """Write knot290k.xml's one procedural mesh if it is missing, with
     scripts/gen_procedural.py `ensure` (numpy only: the script's
@@ -298,6 +362,7 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
     from adapt_tpu_torch import native, rng
+    from adapt_tpu_torch.front_any_ab import residual_rays
     from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
     from adapt_tpu_torch.ops import cluster_kernels as CK
     from adapt_tpu_torch.ops import emitter_ops, intersect_kernels as K
@@ -424,10 +489,15 @@ def main():
         "tri_closest_hit": _bound(N * 28 + T * 64 + N * 32,
                                   N * T * TRI_PAIR_OPS),
         "tri_any_hit": _bound(N * 28 + T * 48 + N, any_pairs * TRI_PAIR_OPS)}
+    device = {
+        "tri_closest_hit": _graph_ms(
+            torch, lambda: K.tri_closest_hit(scene, bo, bd, far_b)),
+        "tri_any_hit": _graph_ms(
+            torch, lambda: K.tri_any_hit(scene, so, sd, far_s))}
     print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
-                      f"{t:.4f} ms, twin {p:.4f} ms, bound "
-                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                      f"{t:.4f} ms (device {device[k]:.4f}), twin {p:.4f} "
+                      f"ms, bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
                       for k, (t, p) in times.items()) + f" [{card}]",
           flush=True)
 
@@ -456,14 +526,23 @@ def main():
                  f"bvh_closest_hit ({tag} rays): not bit-equal to the twin")
         work[("bvh_closest_hit", tag)] = (int(want[4].sum()),
                                           int(want[5].sum()))
-    for o, d, far, tag in ((kbo, ksd, kfar_s, "shadow"),
-                           (kbo, kbd, kfar_b, "bounce")):
+    # the any hit also on queue-pick's cleanup of these shadow rays (the
+    # residual lanes of the schedule's own picks, the others dead)
+    NC = kscene.n_clusters
+    aro, ard, afar = adversarial_rays(torch, kscene, N, 11)
+    any_sets = {"shadow": (kbo, ksd, kfar_s), "bounce": (kbo, kbd, kfar_b),
+                "qpick residual": residual_rays(kscene, kbo, ksd, kfar_s),
+                "adversarial": (aro, ard, afar)}
+    for tag, (o, d, far) in any_sets.items():
         occ = BK.bvh_any_hit(kscene, o, d, far)
         want = bvh.walk(kscene, o, d, far, any_hit=True, stats=True)
         _require(torch.equal(occ, want[1] >= 0),
                  f"bvh_any_hit ({tag} rays): occlusion differs from the twin")
-        _require(not bool(occ[far < 0].any()), "a dead lane is occluded")
+        _require(not bool(occ[~(far > K.RAY_EPS)].any()),
+                 "a dead lane is occluded")
         work[("bvh_any_hit", tag)] = (int(want[4].sum()), int(want[5].sum()))
+    live_share = {tag: float((far > K.RAY_EPS).float().mean())
+                  for tag, (_o, _d, far) in any_sets.items()}
     _require(0 < int(BK.bvh_any_hit(kscene, kbo, ksd, kfar_s).sum())
              < int(kalive.sum()), "shadow rays all or none occluded")
     ktimes = {
@@ -491,27 +570,29 @@ def main():
     # resident thread takes), the any hit one thread a ray
     kinfo = BK.kernel_info(N)
     kdevice = {
-        "bvh_closest_hit": (
-            _graph_ms(torch, lambda: BK.bvh_closest_hit(kscene, kbo, kbd,
-                                                        kfar_b)),
-            _graph_ms(torch, lambda: BK.bvh_closest_hit(kscene, kro, krd,
-                                                        kfar_p))),
-        "bvh_any_hit": (
-            _graph_ms(torch, lambda: BK.bvh_any_hit(kscene, kbo, ksd,
-                                                    kfar_s)),
-            _graph_ms(torch, lambda: BK.bvh_any_hit(kscene, kbo, kbd,
-                                                    kfar_b)))}
+        "bvh_closest_hit": {"bounce": (kbo, kbd, kfar_b),
+                            "primary": (kro, krd, kfar_p)},
+        "bvh_any_hit": {tag: any_sets[tag] for tag in (
+            "shadow", "bounce", "qpick residual")}}
+    fns = {"bvh_closest_hit": BK.bvh_closest_hit,
+           "bvh_any_hit": BK.bvh_any_hit}
+    for k, rays in kdevice.items():
+        for tag, (o, d, far) in rays.items():
+            rays[tag] = _graph_ms(torch, lambda: fns[k](kscene, o, d, far))
+    device.update({k: v[next(iter(v))] for k, v in kdevice.items()})
     print("phase 2b BVH kernels vs twin, knot290k, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
-                      f"{t:.4f} ms (device {kdevice[k][0]:.4f}; "
-                      + ("primary rays" if k == "bvh_closest_hit"
-                         else "bounce rays")
-                      + f" {kdevice[k][1]:.4f}), twin {p:.4f} ms (one "
-                      f"call), bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                      f"{t:.4f} ms (device " + ", ".join(
+                          f"{tag} rays {ms:.4f}"
+                          for tag, ms in kdevice[k].items())
+                      + f"), twin {p:.4f} ms (one call), bound "
+                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
                       for k, (t, p) in ktimes.items())
           + " | node visits / prim tests per ray: " + ", ".join(
               f"{k} {tag} {v / N:.2f} / {s / N:.2f}"
               for (k, tag), (v, s) in work.items())
+          + " | live lanes of the any hit's sets: " + ", ".join(
+              f"{tag} {sh:.4f}" for tag, sh in live_share.items())
           + " | " + "; ".join(
               f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
               f"resident per SM x {sms} SMs, "
@@ -521,7 +602,7 @@ def main():
           + f" [{card}]", flush=True)
 
     # ---- 2e. cluster kernels against their plain versions, knot290k ----
-    NC, CM = kscene.n_clusters, kscene.cluster_size
+    CM = kscene.cluster_size
     _require(kscene.cl_rows.shape == (NC * CM, 18) and CM == 256
              and int(kscene.cl_count.sum()) == kscene.n_prims,
              "knot290k cluster tables")
@@ -596,15 +677,25 @@ def main():
                 f"bit-equal, hit share {hit.numel() / TIE_RAYS:.4f}, "
                 f"{n_ties} winners tie with another row of their cluster, "
                 f"occluded before the target {float(occ.float().mean()):.4f}")
-    for o, d, far, tag in ((kro, krd, kfar_p, "primary"),
-                           (kbo, kbd, kfar_b, "bounce"),
-                           (kbo, ksd, kfar_s, "shadow")):
+    # the front pass: the kernel and the plain walk over cl_tree
+    # (`cluster_front_culled`) against the flat plain version, and the box
+    # tests a ray each makes
+    front_sets = {"primary": (kro, krd, kfar_p), "bounce": (kbo, kbd, kfar_b),
+                  "shadow": (kbo, ksd, kfar_s), "tie": (tro, trd, tfar),
+                  "adversarial": (aro, ard, afar)}
+    front_tests = {}
+    for tag, (o, d, far) in front_sets.items():
         got = CK.cluster_front(kscene, o, d, far)
+        want = CK.cluster_front_plain(kscene, o, d, far)
         errs["cluster_front"] = max(errs["cluster_front"], same(
-            got, CK.cluster_front_plain(kscene, o, d, far),
-            f"cluster_front ({tag} rays)"))
+            got, want, f"cluster_front ({tag} rays)"))
+        *walked, tests = CK.cluster_front_culled(kscene, o, d, far)
+        same(walked, want, f"cluster_front_culled ({tag} rays)")
         _require(bool((got[0][far < 0] == NC).all()),
                  "cluster_front: a dead lane enters a cluster")
+        front_tests[tag] = (int(tests.sum()), int(tests.max()),
+                            float((got[0] < NC).float().mean()),
+                            float((got[1] < CK.BIG).float().mean()))
     # the pick passes on the picks the schedule derives: bounce rays for
     # the closest hit, shadow rays for the any hit, both in sorted order
     _perm, pro, prd, pfar, pcid, pnxt = CK._front_sort(kscene, kbo, kbd,
@@ -678,12 +769,15 @@ def main():
             torch, lambda: CK.cluster_any_hit(kscene, kbo, ksd, kfar_s)),
         "cluster_front": _graph_ms(
             torch, lambda: CK.cluster_front(kscene, kbo, kbd, kfar_b)),
+        "cluster_front primary": _graph_ms(
+            torch, lambda: CK.cluster_front(kscene, kro, krd, kfar_p)),
         "cluster_pick_closest": _graph_ms(
             torch, lambda: CK.cluster_pick_closest(kscene, pro, prd, t0_,
                                                    w0_, pk0)),
         "cluster_pick_any": _graph_ms(
             torch, lambda: CK.cluster_pick_any(kscene, aro, ard, afar,
                                                apk0))}
+    device.update({k: cdevice[k] for k in ctimes})
     cinfo = CK.kernel_info(N, NC)
     # divergence factor: 32 x the warp's row iterations over its lanes'
     # row tests, one thread a ray and warp-cooperative (`warp_divergence`)
@@ -715,9 +809,14 @@ def main():
         boxes, prims, whole = cwork[(k, tag)]
         bounds[k] = _bound(N * 28 + sweep_tables + N * out_bytes,
                            boxes * CK.BOX_OPS + row_ops(prims, whole))
-    bounds["cluster_front"] = _bound(
-        N * 28 + NC * 24 + N * 8,
-        int((kfar_b > K.RAY_EPS).sum()) * NC * CK.BOX_OPS)
+    # the front pass: the rows of cl_tree its walk tests on these rays
+    # (`cluster_front_culled`), beside the flat count (every box for every
+    # lane that can enter one)
+    NT = kscene.cl_tree.shape[0]
+    bounds["cluster_front"] = _bound(N * 28 + NT * 32 + N * 8,
+                                     front_tests["bounce"][0] * CK.BOX_OPS)
+    flat_bound = _bound(N * 28 + NC * 24 + N * 8,
+                        int((kfar_b > K.RAY_EPS).sum()) * NC * CK.BOX_OPS)
     pick_bytes = {}
     for k, pk, tests, whole, lane_b, active_b in (
             ("cluster_pick_closest", pk0, pick_tests, pick_whole, 16, 24),
@@ -736,6 +835,14 @@ def main():
                       f"(device {cdevice[k]:.4f}), plain {p:.4f} ms (one "
                       f"call), bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
                       for k, (t, p) in ctimes.items())
+          + f" | front pass ({NT} rows of cl_tree), box tests a ray, flat "
+          f"{NC} / culled walk (most one ray; entering share, second "
+          "share): " + ", ".join(
+              f"{tag} {b / N:.2f} ({mx}; {e:.4f}, {sc:.4f})"
+              for tag, (b, mx, e, sc) in front_tests.items())
+          + f", walk bit-equal; device on primary rays "
+          f"{cdevice['cluster_front primary']:.4f} ms; bound of the flat "
+          f"loop {flat_bound[0]:.4f} ms ({flat_bound[1]})"
           + " | " + tie_line + " | " + "; ".join(
               f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
               f"resident per SM x {sms} SMs, {w} waves"
@@ -824,14 +931,18 @@ def main():
     bounds["tri_track_hits"] = _bound(
         N * 28 + VT * 65 + N * (2 * 12 + 13), walking * VT * TRI_PAIR_OPS)
     tt, tp = times["tri_track_hits"]
+    device["tri_track_hits"] = _graph_ms(
+        torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s, 2,
+                                        null_f))
     print(f"phase 2c media-walk kernel vs twin, vpt cbox, {N} rays, "
           f"{VT} triangles ({int(null_f.sum())} null): every output equal, "
           f"max abs err {errs['tri_track_hits']:.3g}; "
           + "; ".join(f"{tag} K={k}: null-hit share {a:.4f}, overflow share "
                       f"{o:.5f}, blocked share {b:.4f}"
                       for tag, k, a, o, b in shares)
-          + f" (shares of live lanes) | shadow K=2: kernel {tt:.4f} ms, twin "
-          f"{tp:.4f} ms, bound {bounds['tri_track_hits'][0]:.4f} ms "
+          + f" (shares of live lanes) | shadow K=2: kernel {tt:.4f} ms "
+          f"(device {device['tri_track_hits']:.4f}), twin {tp:.4f} ms, "
+          f"bound {bounds['tri_track_hits'][0]:.4f} ms "
           f"({bounds['tri_track_hits'][1]}) [{card}]", flush=True)
 
     # ---- 2d. film-splat kernel against its plain version, 512^2 ----
@@ -911,8 +1022,9 @@ def main():
     # the JSON line takes the uniform stream: the main path's shapes with
     # every pixel at work (the main path's own t=1 stream keeps nothing on
     # cbox, see phase 7)
-    _tag, _nk, sk, sp, sb, sl, _mx, _kb, _lb = splat_rows[1]
+    _tag, _nk, sk, sp, sb, sl, _mx, kb, _lb = splat_rows[1]
     times["splat_sorted_accumulate"] = (sk, sp, sl)
+    device["splat_sorted_accumulate"] = kb
     bounds["splat_sorted_accumulate"] = sb
     print(f"phase 2d film-splat kernel vs plain, {P} pixels, {M} updates: "
           "bit-equal on every stream; " + "; ".join(
@@ -1238,7 +1350,8 @@ def main():
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1],
+         "ms": times[k][0], "device_ms": device[k],
+         "plain_ms": times[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": times[k][2] if len(times[k]) > 2 else None}
         for k, (src, rep) in KERNELS.items()]}))

@@ -25,6 +25,7 @@ port's tests call it first): see its docstring.
 import contextlib
 import dataclasses
 import fcntl
+import functools
 import importlib.util
 import io
 import os
@@ -295,15 +296,17 @@ def test_v4_packs_cross_from_jax(knot):
             name
 
 
-def test_operands_refuse_bad_packs(knot):
+def test_operands_refuse_bad_packs(knot, monkeypatch):
     """The kernels' operand checks refuse a pack of the wrong shape or
-    type, and one that does not start on a 16-byte boundary."""
+    type, and one that does not start on a 16-byte boundary: both
+    wrappers, closest hit and any hit, read the float4 packs."""
     _, _, scene, _ = knot
     ro = torch.zeros((4, 3))
     args = (ro, ro, ro[:, 0])
     nodes = scene.bvh_node_v4
     BK = bvh_kernels
-    assert BK._operands(scene, *args, BK.CLOSEST_TABLES)[4] is nodes
+    assert [name for name, _w in BK.TABLES] == ["bvh_node_v4", "bvh_prim_v4"]
+    assert BK._operands(scene, *args)[4] is nodes
     shifted = torch.empty(nodes.numel() + 1)[1:].view(nodes.shape)
     shifted.copy_(nodes)
     assert shifted.data_ptr() % 16
@@ -311,16 +314,74 @@ def test_operands_refuse_bad_packs(knot):
            "wide": dict(bvh_prim_v4=scene.bvh_prim_pack),
            "narrow": dict(bvh_node_v4=scene.bvh_node_pack),
            "type": dict(bvh_node_v4=nodes.double())}
+    # as a wrapper sees a CUDA tensor: the checks come before any launch
+    monkeypatch.setattr(BK, "_is_cpu", lambda x: False)
     for what, fields in bad.items():
-        with pytest.raises(ValueError, match="16-byte|want float32"):
-            BK._operands(dataclasses.replace(scene, **fields), *args,
-                         BK.CLOSEST_TABLES)
-    # the any-hit kernel's tables are the (M,9) and (P,14) packs
-    BK._operands(dataclasses.replace(scene, **bad["misaligned"]), *args,
-                 BK.ANY_TABLES)
-    with pytest.raises(ValueError, match="want float32"):
-        BK._operands(dataclasses.replace(scene, bvh_node_pack=nodes), *args,
-                     BK.ANY_TABLES)
+        for wrapper in (BK.bvh_closest_hit, BK.bvh_any_hit):
+            with pytest.raises(ValueError, match="16-byte|want float32"):
+                wrapper(dataclasses.replace(scene, **fields), *args)
+
+
+@functools.lru_cache(maxsize=1)
+def _smoke():
+    """chip_smoke.py, loaded by path (it imports no JAX)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _or_over_entered_leaves(scene, ro, rd, far0):
+    """Per ray, whether a prim of some leaf the ray enters at its fixed
+    far0 lies strictly before far0, computed without a walk: every node's
+    slab test at far0, a node entered when it and all its ancestors pass
+    (the ancestors of node i are the j < i with i < skip[j]), every
+    (ray, prim) pair tested whole."""
+    nodes, prims = scene.bvh_node_pack, scene.bvh_prim_pack
+    M, P, N = nodes.shape[0], prims.shape[0], ro.shape[0]
+    idx = torch.arange(M)
+    skip = nodes[:, 8].long()
+    anc = (idx[None, :] > idx[:, None]) & (idx[None, :] < skip[:, None])
+    inv = 1.0 / torch.where(torch.abs(rd) < 1e-9, 1e-9, rd)
+    ok = bvh._slab_test(ro[:, None], inv[:, None], nodes[None, :, 0:3],
+                        nodes[None, :, 3:6], far0[:, None])       # (N, M)
+    entered = ok & ((~ok).float() @ anc.float() == 0)
+    t = bvh._leaf_prim_test(prims.repeat(N, 1), ro.repeat_interleave(P, 0),
+                            rd.repeat_interleave(P, 0))[0].view(N, P)
+    before = t < far0[:, None]
+    base, cnt = nodes[:, 6].long(), nodes[:, 7].long()
+    leaf_hit = torch.zeros((N, M), dtype=torch.bool)
+    for k in range(bvh.LEAF_MAX):
+        leaf_hit |= (k < cnt) & before[:, (base + k).clamp(max=P - 1)]
+    return (entered & leaf_hit).any(dim=1)
+
+
+@pytest.mark.parametrize("rays", ["seeded", "adversarial"])
+def test_any_hit_is_the_or_over_entered_leaves(knot, rays):
+    """What the any-hit kernel rests on: `walk(any_hit=True)`, which stops
+    at the first leaf with a hit, equals the OR over every leaf the ray
+    enters at its fixed far0 of "a prim's t < far0", which depends on no
+    visit order; so lanes may retire at their first hit and rays may be
+    taken in any order. Seeded primary, bounce and shadow rays with dead
+    lanes, and chip_smoke.py's adversarial set (origins in boxes,
+    axis-parallel rays, far under RAY_EPS, NaN lanes)."""
+    _, _, scene, cfg = knot
+    if rays == "seeded":
+        ro, rd, alive, max_t = _rays(scene, cfg, 13)
+        pick = np.random.default_rng(13).choice(ro.shape[0], 384,
+                                                replace=False)
+        ro, rd, alive, max_t = (torch.from_numpy(x[pick])
+                                for x in (ro, rd, alive, max_t))
+        far0 = intersect_kernels.far_bound(ro, max_t, alive)
+    else:
+        ro, rd, far0 = _smoke().adversarial_rays(torch, scene, 384, 17)
+    occ = bvh.walk(scene, ro, rd, far0, any_hit=True)[1] >= 0
+    want = _or_over_entered_leaves(scene, ro, rd, far0)
+    assert torch.equal(occ, want)
+    assert 0 < int(occ.sum()) < ro.shape[0]
+    assert torch.equal(bvh_kernels.bvh_any_hit(scene, ro, rd, far0), occ)
 
 
 @pytest.mark.parametrize("seed", [3, 7])
@@ -552,5 +613,13 @@ def test_kernels_match_twin_on_card(knot):
             bvh_kernels.bvh_any_hit_plain(dev, *args).cpu().numpy())
     assert bvh_kernels.launches == {
         k: n + len(seeds) for k, n in before.items()}
+    # the any hit where most lanes are dead, and on the adversarial set
+    sparse = torch.where(torch.arange(far.shape[0], device="cuda") % 3 == 0,
+                         far, intersect_kernels.DEAD)
+    for args in ((*args[:2], sparse),
+                 _smoke().adversarial_rays(torch, dev, 4096, 11)):
+        np.testing.assert_array_equal(
+            bvh_kernels.bvh_any_hit(dev, *args).cpu().numpy(),
+            bvh_kernels.bvh_any_hit_plain(dev, *args).cpu().numpy())
     info = bvh_kernels.kernel_info(ro.shape[0])
     assert all(v[0] > 0 and v[2] > 0 for v in info.values()), info

@@ -36,7 +36,6 @@ its boxes op by op outside any jit, as the port does in numpy.
 import contextlib
 import dataclasses
 import functools
-import importlib.util
 import os
 import subprocess
 import sys
@@ -64,7 +63,8 @@ from adapt_tpu_torch.renderer import pt
 from adapt_tpu_torch.scene.compile import CLUSTER_MAX, cluster_v4, load_scene
 
 from conftest import SCENE_DIR
-from test_torch_bvh import _fma_bounds, _rays, _small, _within, knot_assets
+from test_torch_bvh import (_fma_bounds, _rays, _small, _smoke, _within,
+                            knot_assets)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 DEAD = np.float32(-3e38)
@@ -175,7 +175,7 @@ def test_tables_cross_from_jax(knot):
     fields = dataclasses.asdict(jcfg)
     conv, _ = scene_from_numpy(scene_leaves(jscene), fields, device="cpu")
     for name in ("cl_aabb", "cl_front", "cl_rows", "cl_chunk", "cl_count",
-                 "cl_slot"):
+                 "cl_slot", "cl_tree"):
         got, want = getattr(conv, name), getattr(scene, name)
         assert got.dtype == want.dtype and got.is_contiguous(), name
         np.testing.assert_array_equal(got.numpy(), want.numpy(),
@@ -271,12 +271,8 @@ def test_sweep_operands_refuse_bad_rows(knot):
 
 
 def _tie_rays(scene, n, seed):
-    """chip_smoke.py `tie_rays` (loaded by path: it imports no JAX)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke.tie_rays(torch, scene, n, seed)
+    """chip_smoke.py `tie_rays`."""
+    return _smoke().tie_rays(torch, scene, n, seed)
 
 
 @pytest.mark.parametrize("rays", ["seeded", "ties"])
@@ -360,6 +356,115 @@ def test_warp_divergence_counts_a_hand_built_case(knot):
         assert tests == prims > 0
         assert thread_iters <= tests <= 32 * thread_iters
         assert tests <= 32 * warp_iters
+
+
+# ----------------------- the front pass's tree walk -----------------------
+
+@pytest.mark.parametrize("scene_file", ["knot2k-test.xml", "cbox.xml"])
+def test_cluster_tree_holds_its_clusters(knot, scene_file):
+    """`cl_tree`: rows in DFS order whose leaves are the clusters 0..C-1 in
+    index order, each with its cl_front box bit for bit; an inner row's
+    subtree (the rows up to its skip) holds the clusters from its first
+    id on, and its box holds each of their boxes as the slab test sees
+    them (per axis the lower and the higher corner, exact float
+    compares), the placeholder cluster of a small scene too."""
+    scene = knot[2] if scene_file == "knot2k-test.xml" else load_scene(
+        SCENE_DIR + "/cbox/", scene_file, device="cpu")[0]
+    tree, front = scene.cl_tree, scene.cl_front.numpy()
+    C = scene.n_clusters
+    assert tree.dtype == torch.float32 and tree.is_contiguous()
+    T = tree.shape[0]
+    assert tree.shape == (T, 8) and T == 2 * C - 1     # a binary tree
+    words = tree.view(torch.int32).numpy()
+    rows, skip, first = tree.numpy(), words[:, 3], words[:, 7]
+    leaf = skip == np.arange(T) + 1
+    np.testing.assert_array_equal(first[leaf], np.arange(C))
+    assert (skip > np.arange(T)).all() and (skip <= T).all()
+    np.testing.assert_array_equal(
+        tree.numpy()[leaf].view(np.int32)[:, [0, 1, 2, 4, 5, 6]],
+        front.view(np.int32))
+    lo = np.minimum(front[:, 0:3], front[:, 3:6])
+    hi = np.maximum(front[:, 0:3], front[:, 3:6])
+    for r in np.nonzero(~leaf)[0]:
+        held = first[r:skip[r]][leaf[r:skip[r]]]
+        assert held.size and held[0] == first[r]
+        np.testing.assert_array_equal(held, np.arange(held[0],
+                                                      held[-1] + 1))
+        assert (rows[r, 0:3] <= lo[held]).all()
+        assert (rows[r, 4:7] >= hi[held]).all()
+        assert (rows[r, 0:3] == lo[held].min(0)).all()
+        assert (rows[r, 4:7] == hi[held].max(0)).all()
+    # the root holds every cluster
+    assert leaf[0] == (C == 1) and (C == 1 or skip[0] == T)
+
+
+def _front_rays(scene, cfg, rays):
+    """(ro, rd, far0): seeded primary, bounce and shadow rays (15% dead
+    lanes), `tie_rays`, or chip_smoke.py `adversarial_rays` (origins inside
+    cluster boxes and in their faces, axis-parallel rays, far dead, under
+    RAY_EPS or short, NaN lanes)."""
+    if rays == "seeded":
+        _arrs, tt = _batch(scene, cfg, 29, max_t_fill=2.0)
+        return tt["ro"], tt["rd"], tt["far0"]
+    if rays == "ties":
+        ro, rd, dist = _tie_rays(scene, 1024, 5)
+        return ro, rd, torch.full_like(dist, intersect_kernels.FAR)
+    return _smoke().adversarial_rays(torch, scene, 1024, 11)
+
+
+@pytest.mark.parametrize("rays", ["seeded", "ties", "adversarial"])
+def test_front_culled_walk_equals_plain(knot, rays):
+    """The front kernel's walk over `cl_tree`, step for step
+    (`cluster_front_culled`), gives the flat loop's (cid, nxt) exactly, and
+    so the JAX package's `_front_candidates` in interpret mode, on every
+    ray set; each ray tests between one row and all of them."""
+    jscene, _, scene, cfg = knot
+    ro, rd, far0 = _front_rays(scene, cfg, rays)
+    cid, nxt, tests = ck.cluster_front_culled(scene, ro, rd, far0)
+    want = ck.cluster_front_plain(scene, ro, rd, far0)
+    assert cid.dtype == torch.int32 and torch.equal(cid, want[0])
+    assert torch.equal(nxt, want[1])
+    assert (tests >= 1).all() and (tests <= scene.cl_tree.shape[0]).all()
+    C = scene.n_clusters
+    assert (cid[far0 < 0] == C).all() and (cid < C).any()
+    with jax_schedule():
+        jcid, jnxt = cp._front_candidates(
+            jscene, *(jnp.asarray(x.numpy()) for x in (ro, rd, far0)))
+    np.testing.assert_array_equal(cid.numpy(), np.asarray(jcid))
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+    if rays == "adversarial":
+        nan = torch.isnan(ro).any(1) | torch.isnan(rd).any(1)
+        assert nan.any() and (cid[nan] == C).all()
+        assert ((far0 > 0) & (far0 <= intersect_kernels.RAY_EPS)).any()
+        assert (rd == 0).any()
+
+
+def test_front_operands_refuse_bad_tree(knot):
+    """The front kernel reads `cl_tree` as float4 rows: a tree of the wrong
+    width or type, or one that does not start on a 16-byte boundary, is
+    refused; it reads no box table in shared memory, so it takes more
+    clusters than the sweep kernels do."""
+    _, _, scene, _ = knot
+    ro = torch.zeros((4, 3))
+    args = (ro, ro, ro[:, 0])
+    tree = scene.cl_tree
+    assert ck._front_operands(scene, *args)[3] == 4
+    shifted = torch.empty(tree.numel() + 1)[1:].view(tree.shape)
+    shifted.copy_(tree)
+    assert shifted.data_ptr() % 16
+    for fields in (dict(cl_tree=shifted), dict(cl_tree=tree[:, :6]),
+                   dict(cl_tree=tree.double())):
+        with pytest.raises(ValueError, match="16-byte|want torch.float32"):
+            ck._front_operands(dataclasses.replace(scene, **fields), *args)
+    big = ck.BOX_TABLE_MAX // 24 + 1
+    many = dataclasses.replace(
+        scene, cl_aabb=torch.zeros((big, 6)), cl_front=torch.zeros((big, 6)),
+        cl_chunk=torch.zeros((big, 2, 6)),
+        cl_count=torch.zeros(big, dtype=torch.int32),
+        cl_rows=torch.zeros((big * 256, 18)))
+    assert ck._front_operands(many, *args)[3] == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        ck._sweep_operands(many, *args)
 
 
 # --------------------------- kernel by kernel ---------------------------
@@ -709,14 +814,15 @@ def test_wrappers_refuse_other_devices(knot):
 
 
 def test_wrappers_refuse_a_box_table_beyond_shared_memory():
-    """The kernels keep the (C, 6) box table in a block's shared memory:
-    more clusters than fit there are refused, not read another way."""
+    """The sweep kernels keep the (C, 6) box table in a block's shared
+    memory: more clusters than fit there are refused, not read another
+    way."""
     ro = torch.zeros((4, 3))
     fits = ck.BOX_TABLE_MAX // 24
     big = types.SimpleNamespace(n_clusters=fits + 1, cluster_size=256,
                                 cl_chunk=torch.zeros((1, 2, 6)))
     with pytest.raises(ValueError, match="shared memory"):
-        ck._operands(big, ro, ro, ro[:, 0])
+        ck._sweep_operands(big, ro, ro, ro[:, 0])
 
 
 def test_empty_batch(knot):
@@ -773,7 +879,8 @@ def test_render_pass_matches_jax(tier, flags, w):
 def test_cluster_modules_import_no_jax():
     code = ("import sys; import adapt_tpu_torch.ops.cluster_kernels, "
             "adapt_tpu_torch.ops.intersect, adapt_tpu_torch.scene.compile, "
-            "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt; "
+            "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt, "
+            "adapt_tpu_torch.sweep_ab, adapt_tpu_torch.front_any_ab; "
             "bad = [m for m in sys.modules if m in ('jax', 'adapt_tpu') "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")
@@ -838,3 +945,14 @@ def test_kernels_match_plain_on_card(knot):
          ck.cluster_closest_hit_plain(dev, tro, trd, tfar), "closest ties")
     same([ck.cluster_any_hit(dev, tro, trd, tdist)],
          [ck.cluster_any_hit_plain(dev, tro, trd, tdist)], "any ties")
+    # the front kernel's walk on the tie and adversarial sets, against the
+    # flat plain version and the plain walk
+    for what, (o, d, far) in (
+            ("ties", (tro, trd, tfar)),
+            ("adversarial", _smoke().adversarial_rays(torch, dev, 4096, 11))):
+        want = ck.cluster_front_plain(dev, o, d, far)
+        same(ck.cluster_front(dev, o, d, far), want, f"front {what}")
+        same(ck.cluster_front_culled(dev, o, d, far)[:2], want,
+             f"front walk {what}")
+    info = ck.kernel_info(4096, scene.n_clusters)
+    assert all(v[0] > 0 and v[2] > 0 for v in info.values()), info
