@@ -49,10 +49,12 @@
 //   strict < keeps them. It walks the tree above the cut instead of
 //   testing every box (below).
 // * pick (closest, any): one block per tile of TILE = 128 consecutive rays
-//   reads its own pick (cluster id, -1: nothing to do) and every thread
-//   tests its ray against that cluster's live rows in slot order: closest
-//   starts from t = far, wid = wid0 and keeps strict improvements, wid =
-//   cluster * CM + slot; any ORs t < far.
+//   reads its own pick (cluster id, -1: nothing to do) and tests each ray
+//   against that cluster's live rows in slot order: closest starts from
+//   t = far, wid = wid0 and keeps strict improvements, wid = cluster * CM
+//   + slot; any ORs t < far. The rows are staged in shared memory first,
+//   as the TPU kernels DMA them into VMEM, and each ray's rows are split
+//   over four threads (below).
 //
 // Exactness: the prim test has the operation order of the TPU kernels'
 // `_prim_chunk_test`: every dot is (x0*y0 + x1*y1) + x2*y2 and
@@ -71,9 +73,8 @@
 // broadcast), some thirty operations a box. The front pass is bound by
 // the box tests its walk needs (PERF.md). The prim test leaves a
 // row as soon as its t cannot win, before the four u/v dots. The pick
-// kernels read one row per block at a time (a broadcast) straight from L2,
-// one dependent round trip a row, so the latency of those loads bounds
-// them, not their operation count.
+// kernels are bound by the chains of row tests of their longest tiles
+// (below).
 //
 // The sweep kernels (B6a, B6b) are built around what held their first port
 // (one thread per ray) at 50x its bound: (1) a warp whose lanes
@@ -128,6 +129,45 @@
 // shared memory, so the front pass takes any cluster count. The box
 // test's min/max are one instruction each where they only feed
 // comparisons; the entry distance, an output, is max(t_near, 0) as before.
+//
+// The pick kernels (B6d, B6e) first read the picked cluster's 72-byte rows
+// one at a time straight from L2, in three dependent steps a row (the
+// padding slot, the plane, then U and V), behind an early return that kept
+// the next row's loads from starting: some 180 chained load latencies a
+// tile, for each of the tile's 128 threads alike. Now:
+//   * thread 0 of a block with a pick stages the cluster's live rows of
+//     the float4 pack (`cl_rows_v4`, 64 B a row, at most PICK_ROWS = 256
+//     in 16 KB of dynamic shared memory) with one TMA bulk copy
+//     (cp.async.bulk ... mbarrier::complete_tx) for each stage of
+//     PICK_STAGE rows, each stage completing its own mbarrier (one arrival
+//     that announces the bytes, then the copy's bytes). A thread waits on
+//     a stage's barrier before it tests that stage's rows; no stage is
+//     reused, so nothing is released and a thread may stop waiting at any
+//     point: an any-hit thread stops at its first hit and a warp whose
+//     lanes have all hit leaves the loop. The block must not retire with a
+//     copy still writing its shared memory, so the any-hit kernel's
+//     thread 0 waits on every stage before the block ends (every
+//     closest-hit thread waits on all of them anyway). The copies need
+//     16-byte aligned addresses and sizes: rows are 64 B and the wrapper
+//     checks the pack's start;
+//   * a row is four broadcast 16-byte shared loads (every thread of the
+//     block reads the same row), two rows an iteration unrolled;
+//   * PICK_SPLIT = 4 threads a ray (512 a block for the 128-ray tile):
+//     thread (ray r, part q) tests rows q, q + 4, ... in slot order with
+//     strict <, and part 0 takes the least (t, slot) of the parts that
+//     improved on far (B6e: ORs them). A loop in slot order with strict <
+//     ends at the least t below far, the lowest slot on a tie, so each
+//     part ends at that minimum over its rows and the least of the parts'
+//     is the whole loop's: bit-equal to the plain versions. A pass lasts
+//     as long as its longest tiles: most tiles pick a small cluster (the
+//     room's walls: some 14 row tests a ray on knot290k's bounce rays),
+//     a few a cluster of 256 rows, and with one thread a ray each of
+//     their threads ran those rows as one dependent chain, so a pass with
+//     7% of its tiles active took as long as one with 79% (PERF.md);
+//   * the prim test is prim_test4, the sweeps' own. What bounds the
+//     kernels now is still the longest tiles' chains, 64 rows a thread,
+//     some 41 SASS instructions a row that stops at its plane distance
+//     (the IEEE divide a reciprocal, five FFMA and a slow-path check).
 
 #include <cuda_runtime.h>
 
@@ -140,6 +180,14 @@
 #define TILE 128
 #define FULL 0xffffffffu
 #define CHUNK 128
+// the pick kernels stage at most PICK_ROWS rows of 64 B (16 KB) a block,
+// in bulk copies of PICK_STAGE rows, one mbarrier each, and split a tile's
+// rows over PICK_SPLIT threads a ray; keep PICK_ROWS and PICK_SPLIT equal
+// to ops/cluster_kernels.py's
+#define PICK_ROWS 256
+#define PICK_STAGE 32
+#define PICK_STAGES (PICK_ROWS / PICK_STAGE)
+#define PICK_SPLIT 4
 // largest box table (a block may use 227 KB of shared memory); keep equal
 // to ops/cluster_kernels.py BOX_TABLE_MAX
 #define SMEM_MAX (200 * 1024)
@@ -170,48 +218,6 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
   return r;
 }
 
-// One prim row (cluster_pallas.py `_prim_chunk_test`): its hit distance, or
-// FAR on a miss. A row whose t cannot lie in (RAY_EPS, t_max) leaves early:
-// the caller accepts only t < t_max, so the result is the same.
-__device__ __forceinline__ float prim_test(const Ray& r,
-                                           const float* __restrict__ row,
-                                           float t_max) {
-  if (__ldg(row + 13) < 0.0f) return FAR;        // padding slot
-  float a[3];
-  for (int k = 0; k < 3; ++k) a[k] = __ldg(row + k);
-  const float b = __ldg(row + 3);
-  if (__ldg(row + 12) > 0.5f) {
-    // sphere: quadratic (center in a, radius in b)
-    float c[3];
-    for (int k = 0; k < 3; ++k) c[k] = __fsub_rn(a[k], r.o[k]);
-    const float cn2 = dot3(c, c);
-    const float proj = dot3(c, r.d);
-    const float c2r = __fsub_rn(cn2, __fmul_rn(proj, proj));
-    const float r2 = __fmul_rn(b, b);
-    const float cut = __fsqrt_rn(max_nan(__fsub_rn(r2, c2r), 0.0f));
-    const bool outside = cn2 > __fadd_rn(r2, 1e-4f);
-    const float t_sph = __fadd_rn(proj, outside ? -cut : cut);
-    return ((c2r < r2) && (t_sph > RAY_EPS)) ? t_sph : FAR;
-  }
-  // triangle: plane, then the dual basis
-  const float o_n = dot3(r.o, a);
-  const float d_n = dot3(r.d, a);
-  const bool flat = fabsf(d_n) < 1e-12f;
-  const float t = __fdiv_rn(__fsub_rn(b, o_n), flat ? 1e-12f : d_n);
-  if (flat || !(t > RAY_EPS) || !(t < t_max)) return FAR;
-  float U[3], V[3];
-  for (int k = 0; k < 3; ++k) {
-    U[k] = __ldg(row + 4 + k);
-    V[k] = __ldg(row + 8 + k);
-  }
-  const float u = __fsub_rn(
-      __fadd_rn(dot3(r.o, U), __fmul_rn(t, dot3(r.d, U))), __ldg(row + 7));
-  const float v = __fsub_rn(
-      __fadd_rn(dot3(r.o, V), __fmul_rn(t, dot3(r.d, V))), __ldg(row + 11));
-  const bool ok = (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f);
-  return ok ? t : FAR;
-}
-
 // The block's copy of a (C, 6) box table in shared memory.
 __device__ __forceinline__ void stage_boxes(const float* __restrict__ table,
                                             int C, float* s_box) {
@@ -232,8 +238,12 @@ __device__ __forceinline__ PrimRow load_row(const float4* __restrict__ rows4,
   return {{__ldg(row), __ldg(row + 1), __ldg(row + 2), __ldg(row + 3)}};
 }
 
-// prim_test on a row of the float4 pack, for the ray (o, d): the same
-// operations in the same order.
+// One prim row of the float4 pack (cluster_pallas.py `_prim_chunk_test`)
+// for the ray (o, d): its hit distance, or FAR on a miss. A row whose t
+// cannot lie in (RAY_EPS, t_max) leaves early: the caller accepts only
+// t < t_max, so the result is the same. A sphere row holds its center in
+// n and its radius in d (a quadratic); a triangle's is a plane test, then
+// the dual basis.
 __device__ __forceinline__ float prim_test4(const float* o, const float* d,
                                             const PrimRow& row, float t_max) {
   if (row.q[3].y < 0.0f) return FAR;             // padding slot
@@ -564,51 +574,172 @@ __global__ void __launch_bounds__(FRONT_BLOCK) cluster_front_kernel(
   nxt_out[i] = second;
 }
 
-__global__ void __launch_bounds__(TILE) cluster_pick_closest_kernel(
-    const int* __restrict__ picks, const float* __restrict__ ro,
-    const float* __restrict__ rd, const float* __restrict__ far0,
-    const int* __restrict__ wid0, int n, const int* __restrict__ cl_count,
-    const float* __restrict__ rows, int CM, float* __restrict__ t_out,
-    int* __restrict__ wid_out) {
-  const int i = blockIdx.x * TILE + threadIdx.x;
-  if (i >= n) return;
-  const int pick = __ldg(picks + blockIdx.x);
-  float best = __ldg(far0 + i);
-  int wid = __ldg(wid0 + i);
-  if (pick >= 0) {
-    const Ray r = load_ray(ro, rd, i);
-    const int cnt = __ldg(cl_count + pick);
-    const int base = pick * CM;
-    for (int k = 0; k < cnt; ++k) {
-      const float t = prim_test(r, rows + (size_t)(base + k) * ROW, best);
-      if (t < best) {
-        best = t;
-        wid = base + k;
-      }
-    }
-  }
-  t_out[i] = best;
-  wid_out[i] = wid;
+// The address of p in the block's shared memory, as PTX takes it.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(TILE) cluster_pick_any_kernel(
+// Thread 0 of a block with a pick: rows4 rows first .. first + cnt - 1
+// (cnt <= PICK_ROWS) into s_rows, stage s (rows s * PICK_STAGE ..) by one
+// bulk copy that completes bar[s]: one arrival that announces its bytes,
+// then the copy's bytes. Every address and size is a multiple of 16 B.
+__device__ __forceinline__ void stage_rows(const float4* __restrict__ rows4,
+                                           int first, int cnt,
+                                           float4* s_rows,
+                                           unsigned long long* bar) {
+  const int stages = (cnt + PICK_STAGE - 1) / PICK_STAGE;
+  for (int s = 0; s < stages; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                     smem_addr(bar + s))
+                 : "memory");
+  // the barriers' initialisation, seen by the copies (the async proxy)
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  for (int s = 0; s < stages; ++s) {
+    const unsigned bytes = 64u * min(PICK_STAGE, cnt - s * PICK_STAGE);
+    const unsigned b = smem_addr(bar + s);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                     "r"(b),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(s_rows + 4 * s * PICK_STAGE)),
+        "l"(rows4 + 4 * ((size_t)first + s * PICK_STAGE)), "r"(bytes),
+        "r"(b)
+        : "memory");
+  }
+}
+
+// Until the stage's copy has landed (each barrier completes its phase 0
+// once).
+__device__ __forceinline__ void wait_stage(const unsigned long long* bar) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Row k of the staged cluster: four 16-byte loads, each a broadcast (every
+// thread of the block reads the same row).
+__device__ __forceinline__ PrimRow smem_row(const float4* s_rows, int k) {
+  const float4* row = s_rows + 4 * k;
+  return {{row[0], row[1], row[2], row[3]}};
+}
+
+// One lane's ray, loaded whatever its index: a lane past n takes ray
+// n - 1 and writes nothing.
+__device__ __forceinline__ void pick_ray(const float* __restrict__ ro,
+                                         const float* __restrict__ rd, int j,
+                                         float* o, float* d) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    o[a] = __ldg(ro + (size_t)j * 3 + a);
+    d[a] = __ldg(rd + (size_t)j * 3 + a);
+  }
+}
+
+// B6d. A block with a pick stages its rows; thread (ray r, part q) of
+// PICK_SPLIT parts tests rows q, q + PICK_SPLIT, ... in slot order against
+// ray r, waiting on each stage's barrier, then part 0 takes the least
+// (t, slot) of the parts that improved on far.
+__global__ void __launch_bounds__(TILE * PICK_SPLIT)
+    cluster_pick_closest_kernel(
+        const int* __restrict__ picks, const float* __restrict__ ro,
+        const float* __restrict__ rd, const float* __restrict__ far0,
+        const int* __restrict__ wid0, int n, const int* __restrict__ cl_count,
+        const float4* __restrict__ rows4, int CM, float* __restrict__ t_out,
+        int* __restrict__ wid_out) {
+  extern __shared__ float4 s_rows[];
+  __shared__ __align__(8) unsigned long long bar[PICK_STAGES];
+  __shared__ float s_t[TILE * PICK_SPLIT];
+  __shared__ int s_w[TILE * PICK_SPLIT];
+  const int r = threadIdx.x % TILE, part = threadIdx.x / TILE;
+  const int i = blockIdx.x * TILE + r;
+  const int j = min(i, n - 1);
+  const int pick = __ldg(picks + blockIdx.x);        // the same in the block
+  const float far = __ldg(far0 + j);
+  float best = far;
+  int wid = __ldg(wid0 + j);
+  if (pick >= 0) {
+    const int cnt = __ldg(cl_count + pick);
+    const int base = pick * CM;
+    if (threadIdx.x == 0) stage_rows(rows4, base, cnt, s_rows, bar);
+    __syncthreads();                                 // barriers initialised
+    float o[3], d[3];
+    pick_ray(ro, rd, j, o, d);
+    for (int s = 0; s * PICK_STAGE < cnt; ++s) {
+      wait_stage(bar + s);
+      const int end = min(cnt, (s + 1) * PICK_STAGE);
+#pragma unroll 2
+      for (int k = s * PICK_STAGE + part; k < end; k += PICK_SPLIT) {
+        const float t = prim_test4(o, d, smem_row(s_rows, k), best);
+        if (t < best) {
+          best = t;
+          wid = base + k;
+        }
+      }
+    }
+    s_t[threadIdx.x] = best;
+    s_w[threadIdx.x] = wid;
+    __syncthreads();
+    if (part == 0)
+      for (int q = 1; q < PICK_SPLIT; ++q) {
+        // a part that improved has tq < far: on a tie in t the lower slot
+        const float tq = s_t[r + q * TILE];
+        const int wq = s_w[r + q * TILE];
+        if (tq < best || (tq == best && tq < far && wq < wid)) {
+          best = tq;
+          wid = wq;
+        }
+      }
+  }
+  if (i < n && part == 0) {
+    t_out[i] = best;
+    wid_out[i] = wid;
+  }
+}
+
+// B6e. As B6d, each thread stopping at its first hit (a warp leaves the
+// row loop when all its lanes have), part 0 ORing the parts; thread 0
+// then waits for every stage, so that no copy outlives the block.
+__global__ void __launch_bounds__(TILE * PICK_SPLIT) cluster_pick_any_kernel(
     const int* __restrict__ picks, const float* __restrict__ ro,
     const float* __restrict__ rd, const float* __restrict__ far0, int n,
-    const int* __restrict__ cl_count, const float* __restrict__ rows, int CM,
-    bool* __restrict__ occ) {
-  const int i = blockIdx.x * TILE + threadIdx.x;
-  if (i >= n) return;
+    const int* __restrict__ cl_count, const float4* __restrict__ rows4,
+    int CM, bool* __restrict__ occ) {
+  extern __shared__ float4 s_rows[];
+  __shared__ __align__(8) unsigned long long bar[PICK_STAGES];
+  __shared__ bool s_hit[TILE * PICK_SPLIT];
+  const int r = threadIdx.x % TILE, part = threadIdx.x / TILE;
+  const int i = blockIdx.x * TILE + r;
+  const int j = min(i, n - 1);
   const int pick = __ldg(picks + blockIdx.x);
   bool hit = false;
   if (pick >= 0) {
-    const Ray r = load_ray(ro, rd, i);
-    const float far = __ldg(far0 + i);
     const int cnt = __ldg(cl_count + pick);
-    const int base = pick * CM;
-    for (int k = 0; k < cnt && !hit; ++k)
-      hit = prim_test(r, rows + (size_t)(base + k) * ROW, far) < far;
+    if (threadIdx.x == 0) stage_rows(rows4, pick * CM, cnt, s_rows, bar);
+    __syncthreads();
+    float o[3], d[3];
+    pick_ray(ro, rd, j, o, d);
+    const float far = __ldg(far0 + j);
+    for (int s = 0; s * PICK_STAGE < cnt && !hit; ++s) {
+      wait_stage(bar + s);
+      const int end = min(cnt, (s + 1) * PICK_STAGE);
+#pragma unroll 2
+      for (int k = s * PICK_STAGE + part; k < end && !hit; k += PICK_SPLIT)
+        hit = prim_test4(o, d, smem_row(s_rows, k), far) < far;
+    }
+    s_hit[threadIdx.x] = hit;
+    __syncthreads();
+    if (part == 0)
+      for (int q = 1; q < PICK_SPLIT; ++q) hit |= s_hit[r + q * TILE];
+    if (threadIdx.x == 0)
+      for (int s = 0; s * PICK_STAGE < cnt; ++s) wait_stage(bar + s);
   }
-  occ[i] = hit;
+  if (i < n && part == 0) occ[i] = hit;
 }
 
 static int blocks_for(int n, int per) { return (n + per - 1) / per; }
@@ -674,38 +805,59 @@ extern "C" int cluster_front(const float* ro, const float* rd,
   return (int)cudaGetLastError();
 }
 
+// A pick block's dynamic shared memory: CM rows of 64 B, at most
+// PICK_ROWS; the pack must start on a 16-byte boundary (bulk copies).
+static bool pick_fits(int CM, const float* rows4) {
+  return CM >= 1 && CM <= PICK_ROWS && (size_t)rows4 % 16 == 0;
+}
+
+static size_t pick_smem(int CM) { return (size_t)CM * 64; }
+
 extern "C" int cluster_pick_closest(const int* picks, const float* ro,
                                     const float* rd, const float* far0,
                                     const int* wid0, int n,
-                                    const int* cl_count, const float* rows,
+                                    const int* cl_count, const float* rows4,
                                     int CM, float* t, int* wid, void* stream) {
-  cluster_pick_closest_kernel<<<blocks_for(n, TILE), TILE, 0,
+  if (!pick_fits(CM, rows4)) return (int)cudaErrorInvalidValue;
+  cluster_pick_closest_kernel<<<blocks_for(n, TILE), TILE * PICK_SPLIT,
+                                pick_smem(CM),
                                 (cudaStream_t)stream>>>(
-      picks, ro, rd, far0, wid0, n, cl_count, rows, CM, t, wid);
+      picks, ro, rd, far0, wid0, n, cl_count, (const float4*)rows4, CM, t,
+      wid);
   return (int)cudaGetLastError();
 }
 
 extern "C" int cluster_pick_any(const int* picks, const float* ro,
                                 const float* rd, const float* far0, int n,
-                                const int* cl_count, const float* rows, int CM,
-                                bool* occ, void* stream) {
-  cluster_pick_any_kernel<<<blocks_for(n, TILE), TILE, 0,
-                            (cudaStream_t)stream>>>(picks, ro, rd, far0, n,
-                                                    cl_count, rows, CM, occ);
+                                const int* cl_count, const float* rows4,
+                                int CM, bool* occ, void* stream) {
+  if (!pick_fits(CM, rows4)) return (int)cudaErrorInvalidValue;
+  cluster_pick_any_kernel<<<blocks_for(n, TILE), TILE * PICK_SPLIT,
+                            pick_smem(CM),
+                            (cudaStream_t)stream>>>(
+      picks, ro, rd, far0, n, cl_count, (const float4*)rows4, CM, occ);
   return (int)cudaGetLastError();
 }
 
 // What the compiler and the card give a kernel (0: sweep closest hit, 1:
-// sweep any hit, 2: front) for a table of C clusters: out[0] registers a
-// thread, out[1] local memory bytes a thread (spills), out[2] blocks
-// resident on one SM (a sweep's with the box table in shared memory),
+// sweep any hit, 2: front, 3: pick closest hit, 4: pick any hit) for a
+// table of C clusters of CM slots: out[0] registers a thread, out[1] local
+// memory bytes a thread (spills), out[2] blocks resident on one SM (a
+// sweep's with the box table in shared memory, a pick's with its CM rows),
 // out[3] the SMs, out[4] threads a block.
-extern "C" int cluster_kernel_info(int which, int C, int* out) {
+extern "C" int cluster_kernel_info(int which, int C, int CM, int* out) {
   cudaFuncAttributes attr;
-  const void* fn = which == 0   ? (const void*)cluster_closest_kernel
-                   : which == 1 ? (const void*)cluster_any_kernel
-                                : (const void*)cluster_front_kernel;
-  const size_t smem = which == 2 ? 0 : box_smem(C);
+  const void* fns[] = {(const void*)cluster_closest_kernel,
+                       (const void*)cluster_any_kernel,
+                       (const void*)cluster_front_kernel,
+                       (const void*)cluster_pick_closest_kernel,
+                       (const void*)cluster_pick_any_kernel};
+  if (which < 0 || which > 4 || (which >= 3 && (CM < 1 || CM > PICK_ROWS)))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = fns[which];
+  const size_t smem = which <= 1 ? box_smem(C)
+                      : which == 2 ? 0
+                                   : pick_smem(CM);
   int err = which == 0   ? allow_smem(cluster_closest_kernel, smem)
             : which == 1 ? allow_smem(cluster_any_kernel, smem)
                          : 0;
@@ -716,7 +868,9 @@ extern "C" int cluster_kernel_info(int which, int C, int* out) {
   cudaGetDevice(&dev);
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[4] = which == 2 ? FRONT_BLOCK : SWEEP_BLOCK;
+  out[4] = which <= 1   ? SWEEP_BLOCK
+           : which == 2 ? FRONT_BLOCK
+                        : TILE * PICK_SPLIT;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, fn,
                                                            out[4], smem);
   if (err) return err;

@@ -14,7 +14,8 @@ Five wrappers replace five Pallas TPU kernels:
   step for step; `cluster_front_plain` tests every box);
 * `cluster_pick_closest` / `cluster_pick_any`: `_single_kernel` (via
   `_single_pass`) and `_single_any_kernel` (in `qpick_any`), each tile of
-  TILE consecutive rays against the one cluster its pick names.
+  TILE consecutive rays against the one cluster its pick names, whose rows
+  (at most PICK_ROWS) the kernel stages in shared memory by TMA.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (csrc/cluster_intersect.cu, built by ops/_build.py) or raises; on a CPU
@@ -50,6 +51,12 @@ BOX_TABLE_MAX = 200 * 1024
 # most 128-prim chunks a cluster the sweep kernels take (one warp load of
 # 6 floats a chunk box: csrc/cluster_intersect.cu `sweep_chunks_fit`)
 SWEEP_CHUNKS = 5
+# most slots a cluster the pick kernels take: they stage a cluster's rows
+# of `cl_rows_v4` (64 B each) in a block's shared memory; and the threads
+# a ray they split those rows over (csrc/cluster_intersect.cu PICK_ROWS,
+# PICK_SPLIT)
+PICK_ROWS = 256
+PICK_SPLIT = 4
 # (ray, box) or (ray, row) pairs per table of the plain versions; bounds
 # their memory
 PLAIN_LANES = 1 << 22
@@ -494,7 +501,7 @@ def _lib():
                                              _I, _P, _P, _P]
         lib.cluster_pick_any.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _P,
                                          _P]
-        lib.cluster_kernel_info.argtypes = [_I, _I, _P]
+        lib.cluster_kernel_info.argtypes = [_I, _I, _I, _P]
         for fn in (lib.cluster_closest_hit, lib.cluster_any_hit,
                    lib.cluster_front, lib.cluster_pick_closest,
                    lib.cluster_pick_any, lib.cluster_kernel_info):
@@ -558,6 +565,25 @@ def _sweep_operands(scene, ray_o, ray_d, far0):
     return out
 
 
+def _pick_operands(scene, ray_o, ray_d, far0, extra):
+    """`_operands` (with a pick kernel's further inputs `extra`) and what
+    the pick kernels add: the float4 rows `cl_rows_v4` (contiguous, on a
+    16-byte boundary: the kernels copy them into shared memory by TMA
+    bulk copies) and clusters of at most PICK_ROWS slots, whose rows fit
+    the staged buffer."""
+    C, CM = scene.n_clusters, scene.cluster_size
+    rows4 = scene.cl_rows_v4
+    out = _operands(scene, ray_o, ray_d, far0,
+                    (("cl_rows_v4", rows4, (C * CM, 16), torch.float32),)
+                    + tuple(extra))
+    _aligned("cl_rows_v4", rows4)
+    if CM > PICK_ROWS:
+        raise ValueError(f"clusters of {CM} slots: the pick kernels stage "
+                         f"at most {PICK_ROWS} rows of 64 B in shared "
+                         "memory")
+    return out
+
+
 def _front_operands(scene, ray_o, ray_d, far0):
     """`_operands` and the front kernel's tree `cl_tree` (T, 8) f32,
     contiguous and on a 16-byte boundary (its rows are float4 loads)."""
@@ -572,21 +598,24 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def kernel_info(n, C):
+def kernel_info(n, C, CM):
     """{kernel: (registers a thread, spilled bytes a thread, blocks
     resident on one SM (the sweeps with a table of C clusters in shared
-    memory), SMs, threads a block, waves)} of the sweep kernels and the
-    front kernel for n rays, one thread a ray. Needs the card."""
+    memory, the pick kernels with a cluster's CM rows), SMs, threads a
+    block, waves)} of the five cluster kernels for n rays: one thread a
+    ray, PICK_SPLIT for the pick kernels. Needs the card."""
     lib = _lib()
     out = {}
     for which, name in ((0, "cluster_closest_hit"), (1, "cluster_any_hit"),
-                        (2, "cluster_front")):
+                        (2, "cluster_front"), (3, "cluster_pick_closest"),
+                        (4, "cluster_pick_any")):
         vals = (ctypes.c_int * 5)()
-        _check(lib.cluster_kernel_info(which, C, ctypes.addressof(vals)),
+        _check(lib.cluster_kernel_info(which, C, CM, ctypes.addressof(vals)),
                f"{name} info")
         regs, spill, per_sm, sms, block = vals
+        rays = block // PICK_SPLIT if which >= 3 else block
         out[name] = (regs, spill, per_sm, sms, block,
-                     -(-n // (per_sm * sms * block)))
+                     -(-n // (per_sm * sms * rays)))
     return out
 
 
@@ -671,7 +700,7 @@ def cluster_pick_closest(scene, ray_o, ray_d, far0, wid0, picks):
         return cluster_pick_closest_plain(scene, ray_o, ray_d, far0, wid0,
                                           picks)
     n = ray_o.shape[0]
-    ro, rd, far, n = _operands(
+    ro, rd, far, n = _pick_operands(
         scene, ray_o, ray_d, far0,
         (("wid0", wid0, (n,), torch.int32),
          ("picks", picks, (_tiles(n),), torch.int32)))
@@ -683,7 +712,7 @@ def cluster_pick_closest(scene, ray_o, ray_d, far0, wid0, picks):
     err = _lib().cluster_pick_closest(
         picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
         far.data_ptr(), wid0.data_ptr(), n,
-        scene.cl_count.data_ptr(), scene.cl_rows.data_ptr(),
+        scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
         scene.cluster_size, t.data_ptr(), wid.data_ptr(), _stream(ro))
     _check(err, "cluster_pick_closest")
     launches["cluster_pick_closest"] += 1
@@ -696,7 +725,7 @@ def cluster_pick_any(scene, ray_o, ray_d, far0, picks):
     if _is_cpu(ray_o):
         return cluster_pick_any_plain(scene, ray_o, ray_d, far0, picks)
     n = ray_o.shape[0]
-    ro, rd, far, n = _operands(
+    ro, rd, far, n = _pick_operands(
         scene, ray_o, ray_d, far0,
         (("picks", picks, (_tiles(n),), torch.int32),))
     picks = picks.contiguous()
@@ -706,7 +735,7 @@ def cluster_pick_any(scene, ray_o, ray_d, far0, picks):
     err = _lib().cluster_pick_any(
         picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
         far.data_ptr(), n, scene.cl_count.data_ptr(),
-        scene.cl_rows.data_ptr(), scene.cluster_size, occ.data_ptr(),
+        scene.cl_rows_v4.data_ptr(), scene.cluster_size, occ.data_ptr(),
         _stream(ro))
     _check(err, "cluster_pick_any")
     launches["cluster_pick_any"] += 1

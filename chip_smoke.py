@@ -39,15 +39,20 @@ non-zero exit and no result line.
    and its two pick passes on the picks the schedule itself derives):
    every output bit-equal to the plain version's, also the sweep kernels
    on a tie set (`tie_rays`: rays at shared vertices and edges, where
-   neighbouring prims tie in t), the front pass also on the tie set and
+   neighbouring prims tie in t), the pick passes also on the tie set and
+   the adversarial set (each with its own front pass, sort and picks) and
+   on a forced set (every tile picks the cluster of most live rows, its
+   rays aimed at that cluster's vertices and edges, N - 37 rays: every
+   staged copy and a partial last tile), the front pass also on the tie
+   set and
    the adversarial set, with the walk's box tests a ray (its plain twin
    `cluster_front_culled`, bit-equal too) beside the flat loop's, the
    sweep kernels also against the BVH
    kernels on the same rays (under 1e-4 of lanes may differ: the two prim
    tests round u and v in another order, so a ray grazing an edge may take
    the neighbour), with times (single calls and CUDA-graph device times)
-   and bounds, the sweep and front kernels' registers, spills, residency
-   and waves, and the sweeps' divergence factor
+   and bounds, the five kernels' registers, spills, residency and waves,
+   and the sweeps' divergence factor
    (`cluster_kernels.warp_divergence`);
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
@@ -258,15 +263,17 @@ def _close(torch, got, want, far, name):
                ((t, wt), (u, wu), (v, wv)))
 
 
-def tie_rays(torch, scene, n, seed):
+def tie_rays(torch, scene, n, seed, prims=None):
     """(ro, rd, dist): n rays at the vertices and edge midpoints of random
-    triangles of the scene, each from a point 0.05-1 away on either side,
-    with the distance to its target. Neighbours that share the vertex or
-    edge meet the ray at the same point, so their t tie exactly where they
-    are coplanar (the two triangles of a wall) or round alike."""
+    triangles of the scene (of `prims`, triangle ids, when given), each
+    from a point 0.05-1 away on either side, with the distance to its
+    target. Neighbours that share the vertex or edge meet the ray at the
+    same point, so their t tie exactly where they are coplanar (the two
+    triangles of a wall) or round alike."""
     dev = scene.device
     g = torch.Generator(device=dev).manual_seed(seed)
-    tri = torch.nonzero(~scene.prim_is_sphere).squeeze(1)
+    tri = (torch.nonzero(~scene.prim_is_sphere).squeeze(1) if prims is None
+           else prims)
     pick = tri[torch.randint(0, tri.numel(), (n,), generator=g, device=dev)]
     at = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [0.5, 0.0],
                        [0.0, 0.5], [0.5, 0.5]], device=dev)[
@@ -733,6 +740,62 @@ def main():
         a_occ |= occ
     _require(bool(a_occ.any()) and not bool(a_occ[afar < 0].any()),
              "cluster_pick_any: no lane or a dead lane occluded")
+    # the pick passes on harder sets: the tie set and the adversarial set
+    # (dead, NaN and short lanes inside active tiles), each with its own
+    # front pass, sort and picks, both passes; and a forced set, where every
+    # tile picks the cluster of most live rows and its N - 37 rays (a
+    # partial last tile) aim at that cluster's vertices and edges, so hits
+    # come from every staged copy
+    big = int(torch.argmax(kscene.cl_count))
+    big_rows = kscene.cl_rows[big * CM: big * CM + int(kscene.cl_count[big])]
+    big_tri = big_rows[:, 13].long()
+    fro, frd, fdist = tie_rays(torch, kscene, N - 37, 13,
+                               big_tri[~kscene.prim_is_sphere[big_tri]])
+    forced = torch.full((CK._tiles(N - 37),), big, dtype=torch.int32,
+                        device=dev)
+    pick_sets = {"tie": ((tro, trd, tfar), (tro, trd, tdist), None),
+                 "adversarial": (any_sets["adversarial"],
+                                 any_sets["adversarial"], None),
+                 "forced": ((fro, frd, torch.full_like(fdist, K.FAR)),
+                            (fro, frd, fdist), [forced])}
+
+    def sorted_picks(o, d, far, fixed):
+        """The rays in the schedule's order with its picks (the rays as
+        they are and `fixed` when given)."""
+        if fixed is not None:
+            return o, d, far, fixed
+        _perm, o, d, far, cid, _nxt = CK._front_sort(kscene, o, d, far)
+        return o, d, far, CK.tile_picks(cid, NC, CK.QP_P)[0]
+
+    def active(picks_):
+        return float((torch.cat(picks_) >= 0).float().mean())
+
+    pick_lines = []
+    for tag, (closest_in, any_in_, fixed) in pick_sets.items():
+        o, d, far, picks_ = sorted_picks(*closest_in, fixed)
+        t_, wid_ = far, torch.full(far.shape, -1, dtype=torch.int32,
+                                   device=dev)
+        for p, pk in enumerate(picks_):
+            got = CK.cluster_pick_closest(kscene, o, d, t_, wid_, pk)
+            errs["cluster_pick_closest"] = max(
+                errs["cluster_pick_closest"],
+                same(got, CK.cluster_pick_closest_plain(kscene, o, d, t_,
+                                                        wid_, pk),
+                     f"cluster_pick_closest ({tag} rays, pass {p})"))
+            t_, wid_ = got
+        line = (f"{tag} closest {active(picks_):.4f} of tiles active, hit "
+                f"{float((wid_ >= 0).float().mean()):.4f}")
+        o, d, far, picks_ = sorted_picks(*any_in_, fixed)
+        occ_ = torch.zeros(far.shape, dtype=torch.bool, device=dev)
+        for p, pk in enumerate(picks_):
+            got = CK.cluster_pick_any(kscene, o, d, far, pk)
+            same([got], [CK.cluster_pick_any_plain(kscene, o, d, far, pk)],
+                 f"cluster_pick_any ({tag} rays, pass {p})")
+            occ_ |= got
+        _require(not bool(occ_[~(far > K.RAY_EPS)].any()),
+                 f"cluster_pick_any ({tag} rays): a dead lane occluded")
+        pick_lines.append(f"{line}, any {active(picks_):.4f} active, "
+                          f"occluded {float(occ_.float().mean()):.4f}")
     t0_, w0_, pk0, pick_tests, pick_whole = pick_in[0]
     apk0, any_tests, any_whole = any_in[0]
     ctimes = {
@@ -778,7 +841,7 @@ def main():
             torch, lambda: CK.cluster_pick_any(kscene, aro, ard, afar,
                                                apk0))}
     device.update({k: cdevice[k] for k in ctimes})
-    cinfo = CK.kernel_info(N, NC)
+    cinfo = CK.kernel_info(N, NC, CM)
     # divergence factor: 32 x the warp's row iterations over its lanes'
     # row tests, one thread a ray and warp-cooperative (`warp_divergence`)
     diverge = {}
@@ -791,7 +854,8 @@ def main():
     # of the live chunks and the live rows (64 B each in `cl_rows_v4`;
     # padding slots are never read), the closest hit also n_g and obj of
     # its winners (16 B a lane), its outputs. A pick pass: the picks, the
-    # counts and live rows of its distinct picked clusters, the rays (24 B)
+    # counts and live rows (64 B each in `cl_rows_v4`) of its distinct
+    # picked clusters, the rays (24 B)
     # of the lanes in tiles that have a pick (the others are never loaded),
     # and per lane far, wid0, t and wid (closest) or the flag (any, whose
     # far is read in tiles with a pick only). Operations: the box tests and
@@ -824,7 +888,7 @@ def main():
         tiles = torch.nonzero(pk >= 0).squeeze(1)
         active = int(torch.clamp(N - tiles * CK.TILE, max=CK.TILE).sum())
         picked = torch.unique(pk[pk >= 0]).long()
-        rows_b = 72 * int(kscene.cl_count[picked].sum())
+        rows_b = 64 * int(kscene.cl_count[picked].sum())
         pick_bytes[k] = (picked.numel(), rows_b, active)
         bounds[k] = _bound(pk.numel() * 4 + picked.numel() * 4 + rows_b
                            + active * active_b + N * lane_b,
@@ -864,7 +928,10 @@ def main():
           + " | bounce rays entering a "
           f"cluster {pick_shares[0]:.4f}, covered by {CK.QP_P} picks "
           f"{pick_shares[1]:.4f}, hit in a pick pass {pick_hits:.4f}, left to "
-          f"the cleanup {pick_shares[2]:.4f} | "
+          f"the cleanup {pick_shares[2]:.4f} | pick passes on harder sets, "
+          f"bit-equal, closest / any (forced: cluster {big}, "
+          f"{int(kscene.cl_count[big])} live rows, {N - 37} rays): "
+          + "; ".join(pick_lines) + " | "
           "share of lanes differing from the BVH kernels: " + ", ".join(
               f"{k} {tag} {v:.3g}" for (k, tag), v in vs_bvh.items())
           + f" | BVH kernels on the same rays: closest "

@@ -228,6 +228,24 @@ def test_sweep_over_rows_decoded_from_v4(knot):
             assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
 
 
+def test_pick_over_rows_decoded_from_v4(knot):
+    """The plain pick passes over 18-wide rows rebuilt from the float4
+    rows (and cl_rows' n_g, obj) equal the passes over cl_rows, output for
+    output: the pack carries every field the pick kernels read."""
+    _, _, scene, cfg = knot
+    decoded = dataclasses.replace(scene, cl_rows=torch.cat(
+        [scene.cl_rows_v4[:, :14], scene.cl_rows[:, 14:]], dim=1))
+    for seed in (5, "forced"):
+        ro, rd, far, wid0, pick = _pick_inputs(scene, cfg, seed)
+        for plain, args in (
+                (ck.cluster_pick_closest_plain, (ro, rd, far, wid0, pick)),
+                (ck.cluster_pick_any_plain, (ro, rd, far, pick))):
+            want = plain(scene, *args, stats=True)
+            got = plain(decoded, *args, stats=True)
+            for a, b in zip(got, want):
+                assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
 def test_cluster_v4_cross_from_jax(knot):
     """`scene_leaves` of a JAX scene and `scene_from_numpy` make the same
     float4 rows as `load_scene`."""
@@ -270,9 +288,44 @@ def test_sweep_operands_refuse_bad_rows(knot):
         ck._sweep_operands(many, *args)
 
 
-def _tie_rays(scene, n, seed):
+def test_pick_operands_refuse_bad_rows(knot):
+    """The pick kernels copy a cluster's float4 rows into shared memory by
+    TMA bulk copies: a pack of the wrong shape or type, one that does not
+    start on a 16-byte boundary, a view that is not contiguous and
+    clusters of more slots than the staged buffer holds are refused."""
+    _, _, scene, _ = knot
+    ro = torch.zeros((4, 3))
+    args = (ro, ro, ro[:, 0], ())
+    rows4 = scene.cl_rows_v4
+    assert ck._pick_operands(scene, *args)[3] == 4
+    shifted = torch.empty(rows4.numel() + 1)[1:].view(rows4.shape)
+    shifted.copy_(rows4)
+    assert shifted.data_ptr() % 16
+    strided = torch.empty((rows4.shape[0], 32))[:, :16]
+    strided.copy_(rows4)
+    assert strided.data_ptr() % 16 == 0 and not strided.is_contiguous()
+    bad = {"misaligned": (dict(cl_rows_v4=shifted), "16-byte"),
+           "strided": (dict(cl_rows_v4=strided), "contiguous"),
+           "wide": (dict(cl_rows_v4=scene.cl_rows), "want torch.float32"),
+           "short": (dict(cl_rows_v4=rows4[:-16]), "want torch.float32"),
+           "type": (dict(cl_rows_v4=rows4.double()), "want torch.float32")}
+    for what, (fields, match) in bad.items():
+        with pytest.raises(ValueError, match=match):
+            ck._pick_operands(dataclasses.replace(scene, **fields), *args)
+        ck._operands(dataclasses.replace(scene, **fields), *args[:3])
+    CM = 2 * ck.PICK_ROWS
+    wide = types.SimpleNamespace(
+        n_clusters=1, cluster_size=CM, cl_aabb=torch.zeros((1, 6)),
+        cl_front=torch.zeros((1, 6)), cl_chunk=torch.zeros((1, CM // 128, 6)),
+        cl_count=torch.zeros(1, dtype=torch.int32),
+        cl_rows=torch.zeros((CM, 18)), cl_rows_v4=torch.zeros((CM, 16)))
+    with pytest.raises(ValueError, match="stage at most"):
+        ck._pick_operands(wide, *args)
+
+
+def _tie_rays(scene, n, seed, prims=None):
     """chip_smoke.py `tie_rays`."""
-    return _smoke().tie_rays(torch, scene, n, seed)
+    return _smoke().tie_rays(torch, scene, n, seed, prims)
 
 
 @pytest.mark.parametrize("rays", ["seeded", "ties"])
@@ -488,16 +541,67 @@ def test_front_matches_jax(knot, seed):
     assert (nxt.numpy() < 3e38).mean() > 0.1         # a second cluster
 
 
+def _forced_inputs(scene):
+    """963 rays (a partial last tile) at random inner points of the
+    triangles of the cluster of most live rows (barycentric coordinates
+    at least 0.1, so no edge is grazed), from 0.05-1 away on either side;
+    every tile picks that cluster, so hits come from all its rows. Far:
+    10% dead, 45% half way to the target, the rest FAR; wid0 as
+    `_pick_inputs` makes it."""
+    g = np.random.default_rng(31)
+    n, CM = 963, scene.cluster_size
+    big = int(torch.argmax(scene.cl_count))
+    gid = scene.cl_rows[big * CM: big * CM + int(scene.cl_count[big]),
+                        13].long().numpy()
+    tri = gid[~scene.prim_is_sphere.numpy()[gid]]
+    prim = tri[g.integers(0, tri.size, n)]
+    a, b = g.uniform(0.1, 0.8, (2, n))
+    fold = a + b > 0.9
+    a, b = np.where(fold, 0.9 - b, a), np.where(fold, 0.9 - a, b)
+    target = scene.pre2.numpy()[prim] + a[:, None] * scene.pre0.numpy()[
+        prim] + b[:, None] * scene.pre1.numpy()[prim]
+    jitter = g.normal(size=(n, 3))
+    off = scene.prim_ng.numpy()[prim] * np.where(
+        g.uniform(size=(n, 1)) < 0.5, -1.0, 1.0) \
+        + 0.5 * jitter / np.linalg.norm(jitter, axis=1, keepdims=True)
+    off /= np.linalg.norm(off, axis=1, keepdims=True)
+    ro = (target + off * g.uniform(0.05, 1.0, (n, 1))).astype(np.float32)
+    to = target - ro
+    dist = np.linalg.norm(to, axis=1)
+    rd = (to / dist[:, None]).astype(np.float32)
+    u = g.uniform(size=n)
+    far = np.where(u < 0.1, DEAD, np.where(
+        u < 0.55, 0.5 * dist, intersect_kernels.FAR)).astype(np.float32)
+    wid0 = np.where(g.uniform(size=n) < 0.5, -1,
+                    g.integers(0, scene.cl_rows.shape[0], n)).astype(np.int32)
+    pick = torch.full((-(-n // ck.TILE),), big, dtype=torch.int32)
+    assert n % ck.TILE and scene.cl_count[big] > 7 * 32
+    return (torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(far),
+            torch.from_numpy(wid0), pick)
+
+
 def _pick_inputs(scene, cfg, seed):
     """Rays sorted as the schedule sorts them, with picks, far and wid0
     fixed by the test: each tile's first or second distinct front cluster
     (some tiles -1), far tightened on a third of the lanes, wid0 a
-    mixture of -1 and earlier slots."""
-    arrs, tt = _batch(scene, cfg, seed, max_t_fill=0.0)
-    perm, ro, rd, far, cid, _nxt = ck._front_sort(scene, tt["ro"], tt["rd"],
-                                                  tt["far0"])
+    mixture of -1 and earlier slots. `seed` "ties": 1,000 rays at shared
+    vertices and edges (`_tie_rays`), far the distance to the target on
+    45% of the lanes (before the sort), FAR on 45%, 10% dead; "forced":
+    `_forced_inputs`."""
+    if seed == "forced":
+        return _forced_inputs(scene)
+    if seed == "ties":
+        ro, rd, dist = _tie_rays(scene, 1000, 5)
+        g = np.random.default_rng(31)
+        u = torch.from_numpy(g.uniform(size=dist.shape[0]))
+        far = torch.where(u < 0.1, torch.tensor(DEAD), torch.where(
+            u < 0.55, dist, torch.tensor(intersect_kernels.FAR)))
+    else:
+        _arrs, tt = _batch(scene, cfg, seed, max_t_fill=0.0)
+        ro, rd, far = tt["ro"], tt["rd"], tt["far0"]
+        g = np.random.default_rng(seed)
+    perm, ro, rd, far, cid, _nxt = ck._front_sort(scene, ro, rd, far)
     picks, _cov = ck.tile_picks(cid, scene.n_clusters, 2)
-    g = np.random.default_rng(seed)
     nt = picks[0].shape[0]
     pick = torch.where(torch.from_numpy(g.uniform(size=nt) < 0.5),
                        picks[0], picks[1])
@@ -513,14 +617,66 @@ def _pick_inputs(scene, cfg, seed):
     return ro.contiguous(), rd.contiguous(), far, wid0, pick
 
 
+def _rounding_decides(scene, ro, rd, far, pick, lane, slots, ties):
+    """Whether rounding decides lane `lane`'s outcome over `slots` (rows
+    of its picked cluster; others are ignored), so that the JAX package,
+    whose XLA contracts a*b + c into FMAs, may take another: a triangle
+    row whose hit point lies within `_fma_bounds`' u and v bounds of an
+    edge (u, v or 1 - u - v) with t in reach, one whose t lies within
+    its t bound of far, or two hit rows whose t lie within their bounds
+    of each other (a tie, when `ties`: a closest hit's winner). Computed
+    in float64 from the rows."""
+    CM = scene.cluster_size
+    c = int(pick[lane // ck.TILE])
+    slots = [s for s in slots if s >= 0 and s // CM == c]
+    r = scene.cl_rows.numpy()[slots].astype(np.float64)
+    r = r[r[:, 12] < 0.5]                            # triangles
+    if r.shape[0] == 0:
+        return False
+    o = np.repeat(ro[lane:lane + 1].astype(np.float64), r.shape[0], 0)
+    d = np.repeat(rd[lane:lane + 1].astype(np.float64), r.shape[0], 0)
+    t = (r[:, 3] - (o * r[:, 0:3]).sum(1)) / (d * r[:, 0:3]).sum(1)
+    h = o + t[:, None] * d
+    u = (h * r[:, 4:7]).sum(1) - r[:, 7]
+    v = (h * r[:, 8:11]).sum(1) - r[:, 11]
+    e_t, e_u, e_v = _fma_bounds(scene, o.astype(np.float32),
+                                d.astype(np.float32),
+                                r[:, 13].astype(np.int64), t)
+    e_t = e_t + 2e-6 * np.abs(t)
+    f = float(far[lane])
+    edge = np.minimum(np.minimum(u, v), 1.0 - u - v)
+    reach = (t > 1e-4 - e_t) & (t < f + e_t)
+    inside = edge >= -(e_u + e_v)
+    grazed = reach & (np.abs(edge) <= e_u + e_v)
+    at_far = inside & (np.abs(t - f) <= e_t)
+    hit = reach & inside
+    tie = ties and (hit[:, None] & hit[None] & (np.abs(t[:, None] - t[None])
+                                                <= e_t[:, None] + e_t[None])
+                    & ~np.eye(t.size, dtype=bool)).any()
+    return bool(grazed.any() or at_far.any() or tie)
+
+
+def _differ_by_rounding(scene, ro, rd, far, pick, differ, slots, ties):
+    """On tie rays: every lane where the JAX package's result differs
+    (`differ`) is one whose outcome rounding decides over `slots(lane)`
+    (`_rounding_decides`), and they are few."""
+    lanes = np.nonzero(differ)[0]
+    assert differ.mean() < 0.1, differ.mean()
+    for lane in lanes:
+        assert _rounding_decides(scene, ro.numpy(), rd.numpy(), far.numpy(),
+                                 pick.numpy(), lane, slots(lane), ties), lane
+
+
 def _blocked(ro, rd, far):
     """The JAX package's ray blocks (padded to LANE_B lanes)."""
     return cp._ray_blocks(jnp.asarray(ro.numpy()), jnp.asarray(rd.numpy()),
                           jnp.asarray(far.numpy()))
 
 
-@pytest.mark.parametrize("seed", [5, 9])
+@pytest.mark.parametrize("seed", [5, 9, "forced", "ties"])
 def test_pick_closest_matches_jax(knot, seed):
+    """B6d against `_single_pass`, on seeded rays, on forced picks of the
+    largest cluster with a partial last tile, and on tie rays."""
     jscene, _, scene, cfg = knot
     ro, rd, far, wid0, pick = _pick_inputs(scene, cfg, seed)
     n = ro.shape[0]
@@ -533,12 +689,32 @@ def test_pick_closest_matches_jax(knot, seed):
                                    jnp.asarray(pick.numpy()).reshape(1, -1))
     t, wid, tests, whole = ck.cluster_pick_closest_plain(
         scene, ro, rd, far, wid0, pick, stats=True)
-    np.testing.assert_array_equal(wid.numpy(), np.asarray(jwid)[:n, 0])
+    jw = np.asarray(jwid)[:n, 0]
+    differ = wid.numpy() != jw
+    if seed == "ties":
+        # rays at shared vertices and edges: where XLA's FMAs round a
+        # winner's t, u or v otherwise, it may take the neighbour
+        _differ_by_rounding(scene, ro, rd, far, pick, differ,
+                            lambda lane: [wid.numpy()[lane], jw[lane]], True)
+        # and the tie rule itself: a winner of the pass is the lowest slot
+        # of its cluster whose t equals its own
+        CM = scene.cluster_size
+        won = torch.nonzero(wid != wid0).squeeze(1)
+        c = pick[won // ck.TILE].long()
+        tt = ck._prim_tables(scene.cl_rows.view(-1, CM, 18)[c],
+                             ro[won, None], rd[won, None], True)[:, 0]
+        at = tt == t[won, None]
+        assert torch.equal(c * CM + torch.where(at, torch.arange(CM), CM)
+                           .amin(dim=1), wid[won].long())
+        assert int((at.sum(dim=1) >= 2).sum()) >= 2
+    else:
+        np.testing.assert_array_equal(wid.numpy(), jw)
     gid = np.where(wid.numpy() >= 0, scene.cl_rows.numpy()[
         np.maximum(wid.numpy(), 0), 13].astype(np.int64), -1)
-    _t_close(scene, ro.numpy(), rd.numpy(), np.where(
-        wid.numpy() != wid0.numpy(), gid, -1), t.numpy(),
-        np.asarray(jt)[:n, 0])
+    keep = ~differ
+    _t_close(scene, ro.numpy()[keep], rd.numpy()[keep], np.where(
+        wid.numpy() != wid0.numpy(), gid, -1)[keep], t.numpy()[keep],
+        np.asarray(jt)[:n, 0][keep])
     moved = wid.numpy() != wid0.numpy()
     assert moved.mean() > 0.1                        # real improvements
     assert (t.numpy()[~moved] == far.numpy()[~moved]).all()
@@ -552,9 +728,10 @@ def test_pick_closest_matches_jax(knot, seed):
     assert moved.sum() <= whole < tests
 
 
-@pytest.mark.parametrize("seed", [5, 9])
+@pytest.mark.parametrize("seed", [5, 9, "forced", "ties"])
 def test_pick_any_matches_jax(knot, seed):
-    """B6e against the call `qpick_any` makes for one pick pass."""
+    """B6e against the call `qpick_any` makes for one pick pass, on the
+    inputs of `test_pick_closest_matches_jax`."""
     jscene, _, scene, cfg = knot
     ro, rd, far, _wid0, pick = _pick_inputs(scene, cfg, seed)
     n = ro.shape[0]
@@ -580,7 +757,17 @@ def test_pick_any_matches_jax(knot, seed):
     occ, tests, whole = ck.cluster_pick_any_plain(scene, ro, rd, far, pick,
                                                   stats=True)
     assert int(occ.sum()) <= whole < tests           # a hit is a whole test
-    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc)[:n, 0])
+    jo = np.asarray(jocc)[:n, 0]
+    if seed == "ties":
+        CM, count = scene.cluster_size, scene.cl_count.numpy()
+
+        def rows(lane):
+            c = int(pick[lane // ck.TILE])
+            return list(range(c * CM, c * CM + count[c]))
+        _differ_by_rounding(scene, ro, rd, far, pick, occ.numpy() != jo,
+                            rows, False)
+    else:
+        np.testing.assert_array_equal(occ.numpy(), jo)
     assert 0.02 < occ.numpy().mean() < 0.98
     assert not occ.numpy()[far.numpy() < 0].any()
 
@@ -880,7 +1067,8 @@ def test_cluster_modules_import_no_jax():
     code = ("import sys; import adapt_tpu_torch.ops.cluster_kernels, "
             "adapt_tpu_torch.ops.intersect, adapt_tpu_torch.scene.compile, "
             "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt, "
-            "adapt_tpu_torch.sweep_ab, adapt_tpu_torch.front_any_ab; "
+            "adapt_tpu_torch.sweep_ab, adapt_tpu_torch.front_any_ab, "
+            "adapt_tpu_torch.pick_ab; "
             "bad = [m for m in sys.modules if m in ('jax', 'adapt_tpu') "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")
@@ -895,8 +1083,8 @@ def test_kernels_match_plain_on_card(knot):
     """Each of the five kernels against its plain version on the card:
     same steps in the same operation order, so every output is bit-equal;
     each wrapper counts its launch. Then both schedules against the BVH
-    tier through `ray_intersect` / `does_intersect`, and the sweep kernels
-    on the tie set."""
+    tier through `ray_intersect` / `does_intersect`, the sweep and pick
+    kernels on the tie set, the pick kernels on forced picks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     _, _, scene, cfg = knot
@@ -945,6 +1133,17 @@ def test_kernels_match_plain_on_card(knot):
          ck.cluster_closest_hit_plain(dev, tro, trd, tfar), "closest ties")
     same([ck.cluster_any_hit(dev, tro, trd, tdist)],
          [ck.cluster_any_hit_plain(dev, tro, trd, tdist)], "any ties")
+    # the pick kernels on tie rays and on forced picks of the largest
+    # cluster (a partial last tile)
+    for what in ("ties", "forced"):
+        pro, prd, pfar, wid0, pick = (
+            x.cuda() for x in _pick_inputs(scene, cfg, what))
+        same(ck.cluster_pick_closest(dev, pro, prd, pfar, wid0, pick),
+             ck.cluster_pick_closest_plain(dev, pro, prd, pfar, wid0, pick),
+             f"pick closest {what}")
+        same([ck.cluster_pick_any(dev, pro, prd, pfar, pick)],
+             [ck.cluster_pick_any_plain(dev, pro, prd, pfar, pick)],
+             f"pick any {what}")
     # the front kernel's walk on the tie and adversarial sets, against the
     # flat plain version and the plain walk
     for what, (o, d, far) in (
@@ -954,5 +1153,5 @@ def test_kernels_match_plain_on_card(knot):
         same(ck.cluster_front(dev, o, d, far), want, f"front {what}")
         same(ck.cluster_front_culled(dev, o, d, far)[:2], want,
              f"front walk {what}")
-    info = ck.kernel_info(4096, scene.n_clusters)
+    info = ck.kernel_info(4096, scene.n_clusters, scene.cluster_size)
     assert all(v[0] > 0 and v[2] > 0 for v in info.values()), info
