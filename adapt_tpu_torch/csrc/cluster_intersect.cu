@@ -133,8 +133,8 @@
 // The pick kernels (B6d, B6e) first read the picked cluster's 72-byte rows
 // one at a time straight from L2, in three dependent steps a row (the
 // padding slot, the plane, then U and V), behind an early return that kept
-// the next row's loads from starting: some 180 chained load latencies a
-// tile, for each of the tile's 128 threads alike. Now:
+// the next row's loads from starting: a chain of load latencies for every
+// row of the cluster, for each of the tile's 128 threads alike. Now:
 //   * thread 0 of a block with a pick stages the cluster's live rows of
 //     the float4 pack (`cl_rows_v4`, 64 B a row, at most PICK_ROWS = 256
 //     in 16 KB of dynamic shared memory) with one TMA bulk copy
@@ -150,8 +150,10 @@
 //     closest-hit thread waits on all of them anyway). The copies need
 //     16-byte aligned addresses and sizes: rows are 64 B and the wrapper
 //     checks the pack's start;
-//   * a row is four broadcast 16-byte shared loads (every thread of the
-//     block reads the same row), two rows an iteration unrolled;
+//   * a row is read from shared memory by broadcast loads (every thread
+//     of the block reads the same row; the compiler loads the flags and
+//     the plane first, U and V only behind the plane test), two rows an
+//     iteration unrolled;
 //   * PICK_SPLIT = 4 threads a ray (512 a block for the 128-ray tile):
 //     thread (ray r, part q) tests rows q, q + 4, ... in slot order with
 //     strict <, and part 0 takes the least (t, slot) of the parts that
@@ -166,7 +168,7 @@
 //     7% of its tiles active took as long as one with 79% (PERF.md);
 //   * the prim test is prim_test4, the sweeps' own. What bounds the
 //     kernels now is still the longest tiles' chains, 64 rows a thread,
-//     some 41 SASS instructions a row that stops at its plane distance
+//     some 40 SASS instructions a row that stops at its plane distance
 //     (the IEEE divide a reciprocal, five FFMA and a slow-path check).
 
 #include <cuda_runtime.h>
@@ -629,18 +631,6 @@ __device__ __forceinline__ PrimRow smem_row(const float4* s_rows, int k) {
   return {{row[0], row[1], row[2], row[3]}};
 }
 
-// One lane's ray, loaded whatever its index: a lane past n takes ray
-// n - 1 and writes nothing.
-__device__ __forceinline__ void pick_ray(const float* __restrict__ ro,
-                                         const float* __restrict__ rd, int j,
-                                         float* o, float* d) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    o[a] = __ldg(ro + (size_t)j * 3 + a);
-    d[a] = __ldg(rd + (size_t)j * 3 + a);
-  }
-}
-
 // B6d. A block with a pick stages its rows; thread (ray r, part q) of
 // PICK_SPLIT parts tests rows q, q + PICK_SPLIT, ... in slot order against
 // ray r, waiting on each stage's barrier, then part 0 takes the least
@@ -658,7 +648,7 @@ __global__ void __launch_bounds__(TILE * PICK_SPLIT)
   __shared__ int s_w[TILE * PICK_SPLIT];
   const int r = threadIdx.x % TILE, part = threadIdx.x / TILE;
   const int i = blockIdx.x * TILE + r;
-  const int j = min(i, n - 1);
+  const int j = min(i, n - 1);       // a lane past n: ray n - 1, no output
   const int pick = __ldg(picks + blockIdx.x);        // the same in the block
   const float far = __ldg(far0 + j);
   float best = far;
@@ -668,14 +658,13 @@ __global__ void __launch_bounds__(TILE * PICK_SPLIT)
     const int base = pick * CM;
     if (threadIdx.x == 0) stage_rows(rows4, base, cnt, s_rows, bar);
     __syncthreads();                                 // barriers initialised
-    float o[3], d[3];
-    pick_ray(ro, rd, j, o, d);
+    const Ray ray = load_ray(ro, rd, j);
     for (int s = 0; s * PICK_STAGE < cnt; ++s) {
       wait_stage(bar + s);
       const int end = min(cnt, (s + 1) * PICK_STAGE);
 #pragma unroll 2
       for (int k = s * PICK_STAGE + part; k < end; k += PICK_SPLIT) {
-        const float t = prim_test4(o, d, smem_row(s_rows, k), best);
+        const float t = prim_test4(ray.o, ray.d, smem_row(s_rows, k), best);
         if (t < best) {
           best = t;
           wid = base + k;
@@ -722,15 +711,14 @@ __global__ void __launch_bounds__(TILE * PICK_SPLIT) cluster_pick_any_kernel(
     const int cnt = __ldg(cl_count + pick);
     if (threadIdx.x == 0) stage_rows(rows4, pick * CM, cnt, s_rows, bar);
     __syncthreads();
-    float o[3], d[3];
-    pick_ray(ro, rd, j, o, d);
+    const Ray ray = load_ray(ro, rd, j);
     const float far = __ldg(far0 + j);
     for (int s = 0; s * PICK_STAGE < cnt && !hit; ++s) {
       wait_stage(bar + s);
       const int end = min(cnt, (s + 1) * PICK_STAGE);
 #pragma unroll 2
       for (int k = s * PICK_STAGE + part; k < end && !hit; k += PICK_SPLIT)
-        hit = prim_test4(o, d, smem_row(s_rows, k), far) < far;
+        hit = prim_test4(ray.o, ray.d, smem_row(s_rows, k), far) < far;
     }
     s_hit[threadIdx.x] = hit;
     __syncthreads();

@@ -545,20 +545,28 @@ def _aligned(name, x):
                          "boundary")
 
 
-def _sweep_operands(scene, ray_o, ray_d, far0):
-    """`_operands` and what the sweep kernels add: a box table that fits
-    shared memory, the float4 rows `cl_rows_v4` (contiguous, on a 16-byte
-    boundary) and at most SWEEP_CHUNKS chunks a cluster (the kernels load a
-    cluster's chunk boxes in one warp load)."""
+def _rows4_operands(scene, ray_o, ray_d, far0, extra=()):
+    """`_operands` (with a kernel's further inputs `extra`) and the float4
+    rows `cl_rows_v4`, contiguous and on a 16-byte boundary."""
     C, CM = scene.n_clusters, scene.cluster_size
+    rows4 = scene.cl_rows_v4
+    out = _operands(scene, ray_o, ray_d, far0,
+                    (("cl_rows_v4", rows4, (C * CM, 16), torch.float32),)
+                    + tuple(extra))
+    _aligned("cl_rows_v4", rows4)
+    return out
+
+
+def _sweep_operands(scene, ray_o, ray_d, far0):
+    """`_rows4_operands` and what the sweep kernels add: a box table that
+    fits shared memory and at most SWEEP_CHUNKS chunks a cluster (the
+    kernels load a cluster's chunk boxes in one warp load)."""
+    C = scene.n_clusters
     if C * 24 > BOX_TABLE_MAX:
         raise ValueError(f"{C} clusters: the sweep kernels keep the box "
                          f"table in shared memory, at most "
                          f"{BOX_TABLE_MAX // 24}")
-    rows4 = scene.cl_rows_v4
-    out = _operands(scene, ray_o, ray_d, far0,
-                    (("cl_rows_v4", rows4, (C * CM, 16), torch.float32),))
-    _aligned("cl_rows_v4", rows4)
+    out = _rows4_operands(scene, ray_o, ray_d, far0)
     if scene.cl_chunk.shape[1] > SWEEP_CHUNKS:
         raise ValueError(f"the sweep kernels take at most {SWEEP_CHUNKS} "
                          f"chunks a cluster, got {scene.cl_chunk.shape[1]}")
@@ -566,17 +574,11 @@ def _sweep_operands(scene, ray_o, ray_d, far0):
 
 
 def _pick_operands(scene, ray_o, ray_d, far0, extra):
-    """`_operands` (with a pick kernel's further inputs `extra`) and what
-    the pick kernels add: the float4 rows `cl_rows_v4` (contiguous, on a
-    16-byte boundary: the kernels copy them into shared memory by TMA
-    bulk copies) and clusters of at most PICK_ROWS slots, whose rows fit
-    the staged buffer."""
-    C, CM = scene.n_clusters, scene.cluster_size
-    rows4 = scene.cl_rows_v4
-    out = _operands(scene, ray_o, ray_d, far0,
-                    (("cl_rows_v4", rows4, (C * CM, 16), torch.float32),)
-                    + tuple(extra))
-    _aligned("cl_rows_v4", rows4)
+    """`_rows4_operands` (the kernels copy the rows into shared memory by
+    TMA bulk copies, which take 16-byte aligned addresses) and clusters
+    of at most PICK_ROWS slots, whose rows fit the staged buffer."""
+    CM = scene.cluster_size
+    out = _rows4_operands(scene, ray_o, ray_d, far0, extra)
     if CM > PICK_ROWS:
         raise ValueError(f"clusters of {CM} slots: the pick kernels stage "
                          f"at most {PICK_ROWS} rows of 64 B in shared "

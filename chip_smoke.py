@@ -44,11 +44,10 @@ non-zero exit and no result line.
    on a forced set (every tile picks the cluster of most live rows, its
    rays aimed at that cluster's vertices and edges, N - 37 rays: every
    staged copy and a partial last tile), the front pass also on the tie
-   set and
-   the adversarial set, with the walk's box tests a ray (its plain twin
-   `cluster_front_culled`, bit-equal too) beside the flat loop's, the
-   sweep kernels also against the BVH
-   kernels on the same rays (under 1e-4 of lanes may differ: the two prim
+   set and the adversarial set, with the walk's box tests a ray (its
+   plain twin `cluster_front_culled`, bit-equal too) beside the flat
+   loop's, the sweep kernels also against the BVH kernels on the same
+   rays (under 1e-4 of lanes may differ: the two prim
    tests round u and v in another order, so a ray grazing an edge may take
    the neighbour), with times (single calls and CUDA-graph device times)
    and bounds, the five kernels' registers, spills, residency and waves,
@@ -767,7 +766,7 @@ def main():
         _perm, o, d, far, cid, _nxt = CK._front_sort(kscene, o, d, far)
         return o, d, far, CK.tile_picks(cid, NC, CK.QP_P)[0]
 
-    def active(picks_):
+    def active_share(picks_):
         return float((torch.cat(picks_) >= 0).float().mean())
 
     pick_lines = []
@@ -783,8 +782,8 @@ def main():
                                                         wid_, pk),
                      f"cluster_pick_closest ({tag} rays, pass {p})"))
             t_, wid_ = got
-        line = (f"{tag} closest {active(picks_):.4f} of tiles active, hit "
-                f"{float((wid_ >= 0).float().mean()):.4f}")
+        line = (f"{tag} closest {active_share(picks_):.4f} of tiles "
+                f"active, hit {float((wid_ >= 0).float().mean()):.4f}")
         o, d, far, picks_ = sorted_picks(*any_in_, fixed)
         occ_ = torch.zeros(far.shape, dtype=torch.bool, device=dev)
         for p, pk in enumerate(picks_):
@@ -794,7 +793,7 @@ def main():
             occ_ |= got
         _require(not bool(occ_[~(far > K.RAY_EPS)].any()),
                  f"cluster_pick_any ({tag} rays): a dead lane occluded")
-        pick_lines.append(f"{line}, any {active(picks_):.4f} active, "
+        pick_lines.append(f"{line}, any {active_share(picks_):.4f} active, "
                           f"occluded {float(occ_.float().mean()):.4f}")
     t0_, w0_, pk0, pick_tests, pick_whole = pick_in[0]
     apk0, any_tests, any_whole = any_in[0]
@@ -855,8 +854,8 @@ def main():
     # padding slots are never read), the closest hit also n_g and obj of
     # its winners (16 B a lane), its outputs. A pick pass: the picks, the
     # counts and live rows (64 B each in `cl_rows_v4`) of its distinct
-    # picked clusters, the rays (24 B)
-    # of the lanes in tiles that have a pick (the others are never loaded),
+    # picked clusters, the rays (24 B) of the lanes in tiles that have a
+    # pick (the others are never loaded),
     # and per lane far, wid0, t and wid (closest) or the flag (any, whose
     # far is read in tiles with a pick only). Operations: the box tests and
     # (ray, row) tests these rays need as the plain versions count them, a

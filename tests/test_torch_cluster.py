@@ -309,7 +309,7 @@ def test_pick_operands_refuse_bad_rows(knot):
            "wide": (dict(cl_rows_v4=scene.cl_rows), "want torch.float32"),
            "short": (dict(cl_rows_v4=rows4[:-16]), "want torch.float32"),
            "type": (dict(cl_rows_v4=rows4.double()), "want torch.float32")}
-    for what, (fields, match) in bad.items():
+    for fields, match in bad.values():
         with pytest.raises(ValueError, match=match):
             ck._pick_operands(dataclasses.replace(scene, **fields), *args)
         ck._operands(dataclasses.replace(scene, **fields), *args[:3])
@@ -323,9 +323,9 @@ def test_pick_operands_refuse_bad_rows(knot):
         ck._pick_operands(wide, *args)
 
 
-def _tie_rays(scene, n, seed, prims=None):
+def _tie_rays(scene, n, seed):
     """chip_smoke.py `tie_rays`."""
-    return _smoke().tie_rays(torch, scene, n, seed, prims)
+    return _smoke().tie_rays(torch, scene, n, seed)
 
 
 @pytest.mark.parametrize("rays", ["seeded", "ties"])
