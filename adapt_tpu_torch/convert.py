@@ -19,10 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .scene.compile import (MediumTable, RenderConfig, SceneData,
-                            TextureTable, cluster_tree, cluster_v4,
-                            front_boxes, prim_slots, resolve_device,
-                            v4_packs)
+from .scene.compile import (TRI_SOURCES, MediumTable, RenderConfig,
+                            SceneData, TextureTable, cluster_tree,
+                            cluster_v4, front_boxes, prim_slots,
+                            resolve_device, tri_tables, v4_packs)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
 _MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
@@ -44,8 +44,9 @@ def _resolve(obj, dotted):
 
 
 def _jax_layout_leaves(scene) -> dict:
-    """The port's own tables from a JAX SceneData's. The BVH packs' float4
-    rows by `v4_packs`. The cluster tables: `cl_aabb` (C,8) loses its two
+    """The port's own tables from a JAX SceneData's. The brute-force
+    kernels' triangle tables by `tri_tables`. The BVH packs' float4 rows
+    by `v4_packs`. The cluster tables: `cl_aabb` (C,8) loses its two
     padded columns, the prim-major copy `cl_rows_pm` (C*CM,24) its six
     padded fields, `cl_chunk` (C*8,K) becomes (C,K,6); the inflated boxes,
     the float4 rows, the live counts, the prim-to-slot map and the tree
@@ -60,7 +61,10 @@ def _jax_layout_leaves(scene) -> dict:
     front = front_boxes(aabb)
     tree = cluster_tree(scene.bvh_node_pack, front,
                         rows.shape[0] // aabb.shape[0])
-    return dict(bvh_node_v4=node_v4, bvh_prim_v4=prim_v4, cl_aabb=aabb,
+    tri = tri_tables(**{n: torch.tensor(np.asarray(_resolve(scene, n)))
+                        for n in TRI_SOURCES})
+    return dict(**{k: v.numpy() for k, v in tri.items()},
+                bvh_node_v4=node_v4, bvh_prim_v4=prim_v4, cl_aabb=aabb,
                 cl_front=front, cl_rows=rows, cl_tree=tree,
                 cl_rows_v4=cluster_v4(rows),
                 cl_chunk=np.ascontiguousarray(chunk), cl_count=count,

@@ -18,17 +18,36 @@
 // hit (u ~ 0, u + v ~ 1) would change a whole path, so results must agree
 // bit for bit with the twins.
 //
-// Design: one thread per ray; the block stages the triangle table through
-// shared memory in tiles of TILE rows (12 floats a row), so any T is correct.
-// The closest-hit kernel keeps a running minimum with strict <, so the first
-// row wins a tie (argmin semantics of the Pallas kernel); the winner's
-// normal and object id are read from device memory once, after the sweep.
-// The any-hit kernel exits once every ray of the block is occluded.
+// The table: the scene's `tri_geo` (T, 12) f32, made once per scene
+// (scene/compile.py `tri_tables`), rows n d | U cu | V cv, read as three
+// float4s; the winner's normal (`tri_ng`) and object id (`tri_obj`) are read
+// from device memory once, after the sweep.
 //
-// Bound: at the slice's T = 34 the sweep is ~40 flops per (ray, triangle)
-// pair from shared memory plus 40 bytes per ray of device memory traffic,
-// so it is issue-bound, not memory-bound. Making it fast (wider tiles of
-// rays per thread, a BVH for larger T) is later work.
+// What bounds them: the pair tests' issue rate. A test from shared memory is
+// ~55-60 SASS instructions under -fmad=false (six 3-term dots, the IEEE
+// divide's ~10, u, v, the compares) against 12 bytes of rays a test at most,
+// so the card's f32 rate, not its memory, is the bound, and work skipped
+// is time saved. Both redesigned kernels (B1 closest hit, B3 media walk) do
+// the plane half of a test first: o.n, dir.n and the sign of d - o.n decide
+// whether t can lie in (RAY_EPS, bound) at all, where bound is the running
+// best (B1, B3's blocker) or the walk's cut; only a row that passes
+// computes t, and only then u and v. Skipped work never reaches an output,
+// and what does goes through the same operations in the same order, so the
+// results stay bit-equal.
+//
+// Closest hit (tri_closest_kernel): each thread takes TRI_RAYS rays (256
+// threads a block, one tile of rows staged in shared memory for all of
+// them, so a row is read once for TRI_RAYS rays and their divides overlap);
+// a lane whose far bound is at or below RAY_EPS (dead lanes carry -3e38)
+// cannot hit and skips the sweep, and a block with no live lane stages
+// nothing. The Pallas kernel's argmin has one more case: an invalid row
+// competes at FAR (1e7), so with far0 > FAR a ray with no valid row before
+// FAR comes back as a "hit" at t = FAR on the first row whose t is FAR,
+// with that row's own u and v. Such rays (found after the sweep) take the
+// whole test again, row by row, as the parent kernel ran it.
+//
+// Any hit (tri_any_kernel): one thread a ray, the whole test a row, exits
+// once every ray of the block is occluded.
 //
 // The media-walk kernel (tri_track_kernel) is documented where it starts.
 
@@ -36,6 +55,16 @@
 
 #define TILE 256
 #define ROW 12  // n(3) d U(3) cu V(3) cv
+#ifndef TRI_RAYS
+#define TRI_RAYS 2  // rays a thread of the closest-hit kernel
+#endif
+#ifndef NULL_CAP
+#define NULL_CAP 32  // null rows the media walk keeps in registers
+#endif
+
+constexpr float kEps = 1e-4f;   // RAY_EPS
+constexpr float kFar = 1e7f;    // FAR
+constexpr float kChainSep = 5e-5f;  // CHAIN_SEP = 0.5 * RAY_EPS
 
 __device__ __forceinline__ float dot3(float a0, float a1, float a2,
                                       const float* b) {
@@ -43,7 +72,12 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2,
                    __fmul_rn(a2, b[2]));
 }
 
-// The test of one (ray, triangle) pair; returns valid, writes t/u/v.
+__device__ __forceinline__ float dot3v(const float* a, float4 b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a[0], b.x), __fmul_rn(a[1], b.y)),
+                   __fmul_rn(a[2], b.z));
+}
+
+// The whole test of one (ray, triangle) pair; returns valid, writes t/u/v.
 __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
                                          const float* g, float* t_out,
                                          float* u_out, float* v_out) {
@@ -65,6 +99,46 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
          (t > 1e-4f) && !flat;
 }
 
+// The plane half of the test: true when the row is not flat and its t lies
+// in (RAY_EPS, bound), bound > RAY_EPS; then writes t, rounded as in
+// tri_test. Two rejections skip the divide and are exact:
+//   * d - o.n and dir.n of opposite signs (or d - o.n zero, or either NaN)
+//     give t <= 0 or NaN;
+//   * |d - o.n| >= (bound * |dir.n|) * 1.000001, each product rounded,
+//     means |d - o.n| / |dir.n| > bound (the factor outweighs both
+//     roundings; |dir.n| >= 1e-12 and bound > 1e-4 keep the products
+//     normal), so the rounded quotient is >= bound.
+__device__ __forceinline__ bool plane_before(const float* ro, const float* rd,
+                                             float4 nd, float bound,
+                                             float* t_out) {
+  const float num = __fsub_rn(nd.w, dot3v(ro, nd));
+  const float d_n = dot3v(rd, nd);
+  const bool ahead = (num > 0.0f && d_n > 0.0f) || (num < 0.0f && d_n < 0.0f);
+  if (!ahead || fabsf(d_n) < 1e-12f ||
+      fabsf(num) >= __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f))
+    return false;
+  const float t = __fdiv_rn(num, d_n);
+  *t_out = t;
+  return t > kEps && t < bound;
+}
+
+// The other half: u and v at t, and whether they lie in the triangle. u
+// outside [0, 1] fails u >= 0 or u + v <= 1 (u + v rounds to at least u
+// when v >= 0), so v is computed only for u inside it.
+__device__ __forceinline__ bool inside(const float* ro, const float* rd,
+                                       float4 U, const float4* V, float t,
+                                       float* u_out, float* v_out) {
+  const float u =
+      __fsub_rn(__fadd_rn(dot3v(ro, U), __fmul_rn(t, dot3v(rd, U))), U.w);
+  if (!(u >= 0.0f && u <= 1.0f)) return false;
+  const float4 w = *V;
+  const float v =
+      __fsub_rn(__fadd_rn(dot3v(ro, w), __fmul_rn(t, dot3v(rd, w))), w.w);
+  *u_out = u;
+  *v_out = v;
+  return (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f);
+}
+
 __device__ __forceinline__ void stage_tile(float* s_geo, const float* geo,
                                            int base, int T) {
   __syncthreads();
@@ -75,10 +149,62 @@ __device__ __forceinline__ void stage_tile(float* s_geo, const float* geo,
   __syncthreads();
 }
 
+__device__ __forceinline__ void stage_tile4(float4* s_geo,
+                                            const float4* geo4, int base,
+                                            int T) {
+  __syncthreads();
+  const int m = min(TILE, T - base) * 3;
+  for (int k = threadIdx.x; k < m; k += blockDim.x)
+    s_geo[k] = geo4[(size_t)base * 3 + k];
+  __syncthreads();
+}
+
+// The walking rays of a block, packed: the block's rays first + r * TILE
+// + threadIdx.x (r < R, below n) whose far bound exceeds RAY_EPS go to
+// s_idx in ray order; each other ray is handed to dead(i, far) by the
+// thread that read it. Returns their count, the same in every thread.
+template <int R, typename Dead>
+__device__ __forceinline__ int pack_walkers(const float* far_all, int n,
+                                            int first, int* s_idx,
+                                            int* s_cnt, Dead dead) {
+  constexpr int W = TILE / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned mask[R];
+  bool walk[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = first + r * TILE + threadIdx.x;
+    const float f = i < n ? far_all[i] : -3e38f;
+    walk[r] = f > kEps;
+    if (i < n && !walk[r]) dead(i, f);
+    mask[r] = __ballot_sync(0xffffffffu, walk[r]);
+    if (lane == 0) s_cnt[r * W + warp] = __popc(mask[r]);
+  }
+  __syncthreads();
+  int total = 0;
+  int off[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) off[r] = 0;
+  for (int k = 0; k < R * W; ++k) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (k < r * W + warp) off[r] += s_cnt[k];
+    total += s_cnt[k];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (walk[r])
+      s_idx[off[r] + __popc(mask[r] & ((1u << lane) - 1u))] =
+          first + r * TILE + threadIdx.x;
+  __syncthreads();
+  return total;
+}
+
+template <int R>
 __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
                                    const float* __restrict__ rd_all,
                                    const float* __restrict__ far_all, int n,
-                                   const float* __restrict__ geo,
+                                   const float4* __restrict__ geo4,
                                    const float* __restrict__ ng_tab,
                                    const int* __restrict__ obj_tab, int T,
                                    float* __restrict__ t_out,
@@ -87,46 +213,113 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
                                    float* __restrict__ v_out,
                                    float* __restrict__ ng_out,
                                    int* __restrict__ obj_out) {
-  __shared__ float s_geo[TILE * ROW];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  float ro[3] = {0.0f, 0.0f, 0.0f}, rd[3] = {0.0f, 0.0f, 1.0f};
-  if (live) {
+  __shared__ float4 s_geo[TILE * 3];
+  __shared__ int s_idx[TILE * R];
+  __shared__ int s_cnt[TILE / 32 * R];
+  auto miss = [&](int i, float far) {
+    t_out[i] = far;
+    row_out[i] = -1;
+    u_out[i] = v_out[i] = 0.0f;
+    ng_out[(size_t)i * 3 + 0] = 1.0f;
+    ng_out[(size_t)i * 3 + 1] = 0.0f;
+    ng_out[(size_t)i * 3 + 2] = 0.0f;
+    obj_out[i] = -1;
+  };
+  // dead lanes (far <= RAY_EPS) are a miss already; the walking rays are
+  // packed, thread x taking packed rays x * R + r, so warps past the last
+  // of them issue nothing
+  const int walkers = pack_walkers<R>(far_all, n, blockIdx.x * (TILE * R),
+                                      s_idx, s_cnt, miss);
+  if (walkers == 0) return;
+  float ro[R][3], rd[R][3], far[R], best_t[R], best_u[R], best_v[R];
+  int ray[R], best_i[R];
+  bool has[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int slot = threadIdx.x * R + r;
+    has[r] = slot < walkers;
+    ray[r] = has[r] ? s_idx[slot] : 0;
     for (int c = 0; c < 3; ++c) {
-      ro[c] = ro_all[(size_t)i * 3 + c];
-      rd[c] = rd_all[(size_t)i * 3 + c];
+      ro[r][c] = has[r] ? ro_all[(size_t)ray[r] * 3 + c] : 0.0f;
+      rd[r][c] = has[r] ? rd_all[(size_t)ray[r] * 3 + c] : 1.0f;
     }
+    far[r] = has[r] ? far_all[ray[r]] : 0.0f;
+    // strict < from min(FAR, far): the first row reaching the least valid
+    // t wins (a hit at or beyond far is a miss all the same)
+    best_t[r] = fminf(kFar, far[r]);
+    best_u[r] = best_v[r] = 0.0f;
+    best_i[r] = -1;
   }
-  // invalid rows count as FAR (1e7); the first row reaching the minimum wins
-  float best_t = __int_as_float(0x7f800000);  // +inf
-  float best_u = 0.0f, best_v = 0.0f;
-  int best_i = 0;
   for (int base = 0; base < T; base += TILE) {
-    stage_tile(s_geo, geo, base, T);
+    stage_tile4(s_geo, geo4, base, T);
     const int m = min(TILE, T - base);
     for (int j = 0; j < m; ++j) {
-      float t, u, v;
-      const bool ok = tri_test(ro, rd, s_geo + j * ROW, &t, &u, &v);
-      const float tm = ok ? t : 1e7f;
-      if (tm < best_t) {
-        best_t = tm;
-        best_u = u;
-        best_v = v;
-        best_i = base + j;
+      const float4 nd = s_geo[3 * j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float t, u, v;
+        if (has[r] && plane_before(ro[r], rd[r], nd, best_t[r], &t) &&
+            inside(ro[r], rd[r], s_geo[3 * j + 1], s_geo + 3 * j + 2, t, &u,
+                   &v)) {
+          best_t[r] = t;
+          best_u[r] = u;
+          best_v[r] = v;
+          best_i[r] = base + j;
+        }
       }
     }
   }
-  if (!live) return;
-  const float far = far_all[i];
-  const bool hit = best_t < far;
-  t_out[i] = hit ? best_t : far;
-  row_out[i] = hit ? best_i : -1;
-  u_out[i] = hit ? best_u : 0.0f;
-  v_out[i] = hit ? best_v : 0.0f;
-  ng_out[(size_t)i * 3 + 0] = hit ? ng_tab[(size_t)best_i * 3 + 0] : 1.0f;
-  ng_out[(size_t)i * 3 + 1] = hit ? ng_tab[(size_t)best_i * 3 + 1] : 0.0f;
-  ng_out[(size_t)i * 3 + 2] = hit ? ng_tab[(size_t)best_i * 3 + 2] : 0.0f;
-  obj_out[i] = hit ? obj_tab[best_i] : -1;
+  // no valid row before FAR and far > FAR: the argmin over (valid ? t :
+  // FAR) from +inf, the whole test a row, for these rays only
+  bool redo[R];
+  bool any_redo = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    redo[r] = has[r] && best_i[r] < 0 && far[r] > kFar;
+    any_redo |= redo[r];
+  }
+  if (__syncthreads_or(any_redo)) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (redo[r]) best_t[r] = __int_as_float(0x7f800000);  // +inf
+    for (int base = 0; base < T; base += TILE) {
+      stage_tile4(s_geo, geo4, base, T);
+      const int m = min(TILE, T - base);
+      for (int j = 0; j < m; ++j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (!redo[r]) continue;
+          float t, u, v;
+          const bool ok = tri_test(ro[r], rd[r],
+                                   (const float*)(s_geo + 3 * j), &t, &u, &v);
+          const float tm = ok ? t : kFar;
+          if (tm < best_t[r]) {
+            best_t[r] = tm;
+            best_u[r] = u;
+            best_v[r] = v;
+            best_i[r] = base + j;
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!has[r]) continue;
+    const int i = ray[r], bi = best_i[r];
+    if (bi < 0 || !(best_t[r] < far[r])) {
+      miss(i, far[r]);
+      continue;
+    }
+    t_out[i] = best_t[r];
+    row_out[i] = bi;
+    u_out[i] = best_u[r];
+    v_out[i] = best_v[r];
+    ng_out[(size_t)i * 3 + 0] = ng_tab[(size_t)bi * 3 + 0];
+    ng_out[(size_t)i * 3 + 1] = ng_tab[(size_t)bi * 3 + 1];
+    ng_out[(size_t)i * 3 + 2] = ng_tab[(size_t)bi * 3 + 2];
+    obj_out[i] = obj_tab[bi];
+  }
 }
 
 __global__ void tri_any_kernel(const float* __restrict__ ro_all,
@@ -175,36 +368,31 @@ __global__ void tri_any_kernel(const float* __restrict__ ro_all,
 // plus 0.0 (the Pallas kernel's one-hot sum turns -0.0 into +0.0).
 //
 // The TPU kernel computes the (T, 2048) hit tables once and runs K + 1
-// min-reductions over them. Here one thread per ray runs K + 2 sweeps over
-// the table, staged in shared memory (kept resident when T <= TILE, as on
-// every scene of the brute-force tier): one over the non-null rows for the
-// blocker, K chained sweeps over the null rows, one over the null rows for
-// overflow. Each sweep recomputes the hit math, which gives the same bits
-// and keeps no per-row state in registers. The null flags are a per-row
-// table rather than a list of null rows, so the wrapper needs no host round
-// trip to count them. Lanes whose far bound is at or below RAY_EPS (dead
-// lanes carry -3e38) cannot hit anything and skip the sweeps.
+// min-reductions over them. Here one thread takes one ray. The block stages
+// the whole table in shared memory once, reordered by the scene's row lists
+// (`tri_solid_rows`, then `tri_null_rows`, each ascending, so "ties to the
+// lowest row" is "ties to the lowest slot"; with all_null the rows in
+// order, every one null); the wrapper refuses more than TILE rows, which
+// the brute-force tier never has. Then:
+//   * the blocker pass, one over the non-null rows, the plane first, u and
+//     v only for a row that would beat the running blocker;
+//   * the null pass, one over the null rows, the plane first against the
+//     cut min(t_blk, far): each row's t where it is a valid hit before the
+//     cut, else FAR, kept in registers (a fully unrolled array of NULL_CAP,
+//     indexed at compile time only, so nothing goes to local memory);
+//   * the K chained selections and the overflow test compare those stored
+//     values only: no hit math is done twice.
+// A scene with more than NULL_CAP null rows takes the re-sweeping loop
+// instead, in the same kernel: K + 1 sweeps over the null rows from shared
+// memory, plane first against min(cut, running best). NULL_CAP = 32 covers
+// every main path (vpt cbox: 12 null rows of 36; BDPT cbox: none); the
+// all-null extraction of a 34- or 36-row scene takes the loop. Lanes whose
+// far bound is at or below RAY_EPS cannot hit anything and skip the passes.
 //
-// Bound: at the vpt cbox's T = 36 (12 null rows) a ray takes 24 + 3 * 12
-// pair tests (~47 operations each) from shared memory and moves 28 bytes in
-// and 13 + 12 K bytes out, so it is issue-bound like the closest hit.
-
-constexpr float kFar = 1e7f;
-constexpr float kChainSep = 5e-5f;  // 0.5 * RAY_EPS
-
-__device__ __forceinline__ void stage_rows(float* s_geo, bool* s_null,
-                                           const float* geo,
-                                           const bool* null_tab, int base,
-                                           int T) {
-  __syncthreads();
-  for (int k = threadIdx.x; k < TILE * ROW; k += blockDim.x) {
-    const int r = base + k / ROW;
-    s_geo[k] = r < T ? geo[(size_t)base * ROW + k] : 0.0f;
-  }
-  for (int k = threadIdx.x; k < TILE; k += blockDim.x)
-    s_null[k] = base + k < T ? null_tab[base + k] : false;
-  __syncthreads();
-}
+// Bound: the pair tests' issue rate, as above. At the vpt cbox's T = 36
+// (12 null rows) a walking ray now starts 36 tests, each skipping u and v
+// where the plane rejects the row, where the parent kernel ran 24 + 3 * 12
+// whole tests.
 
 __device__ __forceinline__ float normal_dot(const float* rd,
                                             const float* ng_tab, int row) {
@@ -214,119 +402,203 @@ __device__ __forceinline__ float normal_dot(const float* rd,
 
 __global__ void tri_track_kernel(
     const float* __restrict__ ro_all, const float* __restrict__ rd_all,
-    const float* __restrict__ far_all, int n, const float* __restrict__ geo,
-    const float* __restrict__ ng_tab, const int* __restrict__ obj_tab,
-    const bool* __restrict__ null_tab, int T, int K,
+    const float* __restrict__ far_all, int n,
+    const float4* __restrict__ geo4, const float* __restrict__ ng_tab,
+    const int* __restrict__ obj_tab, const int* __restrict__ solid_rows,
+    int n_solid, const int* __restrict__ null_rows, int n_null, int K,
     float* __restrict__ t_null, int* __restrict__ obj_null,
     float* __restrict__ dn_null, float* __restrict__ tb_out,
     int* __restrict__ ob_out, float* __restrict__ db_out,
     bool* __restrict__ ov_out) {
-  __shared__ float s_geo[TILE * ROW];
-  __shared__ bool s_null[TILE];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  float ro[3] = {0.0f, 0.0f, 0.0f}, rd[3] = {0.0f, 0.0f, 1.0f};
-  float far = -3e38f;
-  if (live) {
-    for (int c = 0; c < 3; ++c) {
-      ro[c] = ro_all[(size_t)i * 3 + c];
-      rd[c] = rd_all[(size_t)i * 3 + c];
-    }
-    far = far_all[i];
+  __shared__ float4 s_geo[TILE * 3];
+  __shared__ int s_row[TILE];
+  __shared__ int s_idx[TILE];
+  __shared__ int s_cnt[TILE / 32];
+  // slot q < n_solid: row solid_rows[q]; slot n_solid + j: null_rows[j] (row
+  // j when null_rows is null: every row null)
+  const int m = n_solid + n_null;
+  for (int k = threadIdx.x; k < m * 3; k += blockDim.x) {
+    const int q = k / 3;
+    const int row = q < n_solid ? solid_rows[q]
+                    : null_rows ? null_rows[q - n_solid]
+                                : q - n_solid;
+    s_geo[k] = geo4[(size_t)row * 3 + k % 3];
+    if (k % 3 == 0) s_row[q] = row;
   }
-  const bool walk = far > 1e-4f;
-  const bool resident = T <= TILE;  // one tile, staged once for all sweeps
+  const float4* s_null = s_geo + 3 * n_solid;
+  // dead lanes (far <= RAY_EPS) have no hits and no overflow; the walking
+  // rays are packed, so warps past the last of them issue nothing
+  const int walkers = pack_walkers<1>(
+      far_all, n, blockIdx.x * TILE, s_idx, s_cnt, [&](int i, float) {
+        for (int k = 0; k < K; ++k) {
+          const size_t o = (size_t)k * n + i;
+          t_null[o] = kFar;
+          obj_null[o] = -1;
+          dn_null[o] = 0.0f;
+        }
+        tb_out[i] = kFar;
+        ob_out[i] = -1;
+        db_out[i] = 0.0f;
+        ov_out[i] = false;
+      });
+  if (threadIdx.x >= walkers) return;
+  const int i = s_idx[threadIdx.x];
+  float ro[3], rd[3];
+  for (int c = 0; c < 3; ++c) {
+    ro[c] = ro_all[(size_t)i * 3 + c];
+    rd[c] = rd_all[(size_t)i * 3 + c];
+  }
+  const float far = far_all[i];
 
-  // closest blocker: strict < from FAR, so the lowest row wins a tie and
-  // rows at FAR (invalid) never win
-  float t_blk = kFar;
-  int i_blk = -1;
-  for (int base = 0; base < T; base += TILE) {
-    stage_rows(s_geo, s_null, geo, null_tab, base, T);
-    const int m = walk ? min(TILE, T - base) : 0;
-    for (int j = 0; j < m; ++j) {
-      if (s_null[j]) continue;
-      float t, u, v;
-      const float tm =
-          tri_test(ro, rd, s_geo + j * ROW, &t, &u, &v) ? t : kFar;
-      if (tm < t_blk) {
-        t_blk = tm;
-        i_blk = base + j;
-      }
+  // closest blocker: strict < from min(FAR, far), so the lowest row wins a
+  // tie and rows at FAR (invalid) never win; a blocker at or beyond far is
+  // reported as none and leaves the cut at far all the same
+  float t_blk = fminf(kFar, far);
+  int q_blk = -1;
+  for (int q = 0; q < n_solid; ++q) {
+    float t, u, v;
+    if (plane_before(ro, rd, s_geo[3 * q], t_blk, &t) &&
+        inside(ro, rd, s_geo[3 * q + 1], s_geo + 3 * q + 2, t, &u, &v)) {
+      t_blk = t;
+      q_blk = q;
     }
   }
   const float t_cut = fminf(t_blk, far);
 
-  // K chained null slots, then (k == K) the overflow sweep
+  auto write_slot = [&](int k, float best, int j) {
+    const bool hit = j >= 0 && best < far;
+    const int row = hit ? s_row[n_solid + j] : 0;
+    const size_t o = (size_t)k * n + i;
+    t_null[o] = hit ? best : kFar;
+    obj_null[o] = hit ? obj_tab[row] : -1;
+    dn_null[o] = hit ? normal_dot(rd, ng_tab, row) : 0.0f;
+  };
+
   float prev = 0.0f;
   bool overflow = false;
-  for (int k = 0; k <= K; ++k) {
-    float best = kFar;
-    int bi = -1;
-    for (int base = 0; base < T; base += TILE) {
-      if (!resident) stage_rows(s_geo, s_null, geo, null_tab, base, T);
-      const int m = walk ? min(TILE, T - base) : 0;
-      for (int j = 0; j < m; ++j) {
-        if (!s_null[j]) continue;
-        float t, u, v;
-        const float tm =
-            tri_test(ro, rd, s_geo + j * ROW, &t, &u, &v) ? t : kFar;
-        if (tm < t_cut && tm > prev && tm < best) {
-          best = tm;
-          bi = base + j;
+  if (n_null <= NULL_CAP) {
+    // each null row's hit t before the cut, else FAR
+    float th[NULL_CAP];
+#pragma unroll
+    for (int j = 0; j < NULL_CAP; ++j) {
+      th[j] = kFar;
+      float t, u, v;
+      if (j < n_null &&
+          plane_before(ro, rd, s_null[3 * j], t_cut, &t) &&
+          inside(ro, rd, s_null[3 * j + 1], s_null + 3 * j + 2, t, &u, &v))
+        th[j] = t;
+    }
+    for (int k = 0; k < K; ++k) {
+      float best = kFar;
+      int bj = -1;
+#pragma unroll
+      for (int j = 0; j < NULL_CAP; ++j) {
+        if (j >= n_null) break;
+        if (th[j] > prev && th[j] < best) {
+          best = th[j];
+          bj = j;
         }
       }
+      write_slot(k, best, bj);
+      prev = __fadd_rn(best, kChainSep);
     }
-    if (k == K) {
-      overflow = bi >= 0;
-      break;
+#pragma unroll
+    for (int j = 0; j < NULL_CAP; ++j) {
+      if (j >= n_null) break;
+      overflow |= th[j] > prev && th[j] < kFar;
     }
-    if (live) {
-      const bool hit = bi >= 0 && best < far;
-      const size_t o = (size_t)k * n + i;
-      t_null[o] = hit ? best : kFar;
-      obj_null[o] = hit ? obj_tab[bi] : -1;
-      dn_null[o] = hit ? normal_dot(rd, ng_tab, bi) : 0.0f;
+  } else {
+    // K chained sweeps, then (k == K) the overflow sweep
+    for (int k = 0; k <= K; ++k) {
+      float best = kFar;
+      int bj = -1;
+      for (int j = 0; j < n_null; ++j) {
+        float t, u, v;
+        if (plane_before(ro, rd, s_null[3 * j], fminf(t_cut, best), &t) &&
+            t > prev &&
+            inside(ro, rd, s_null[3 * j + 1], s_null + 3 * j + 2, t, &u,
+                   &v)) {
+          best = t;
+          bj = j;
+        }
+      }
+      if (k == K) {
+        overflow = bj >= 0;
+        break;
+      }
+      write_slot(k, best, bj);
+      prev = __fadd_rn(best, kChainSep);
     }
-    prev = __fadd_rn(best, kChainSep);
   }
-  if (!live) return;
-  const bool hit_b = i_blk >= 0 && t_blk < far;
+  const bool hit_b = q_blk >= 0;
+  const int row_b = hit_b ? s_row[q_blk] : 0;
   tb_out[i] = hit_b ? t_blk : kFar;
-  ob_out[i] = hit_b ? obj_tab[i_blk] : -1;
-  db_out[i] = hit_b ? normal_dot(rd, ng_tab, i_blk) : 0.0f;
+  ob_out[i] = hit_b ? obj_tab[row_b] : -1;
+  db_out[i] = hit_b ? normal_dot(rd, ng_tab, row_b) : 0.0f;
   ov_out[i] = overflow;
 }
 
-static int blocks_for(int n) { return (n + TILE - 1) / TILE; }
+static int blocks_for(int n, int rays) {
+  return (n + TILE * rays - 1) / (TILE * rays);
+}
 
 extern "C" int tri_closest_hit(const float* ro, const float* rd,
                                const float* far, int n, const float* geo,
                                const float* ng, const int* obj, int T,
                                float* t, int* row, float* u, float* v,
                                float* ng_out, int* obj_out, void* stream) {
-  tri_closest_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
-      ro, rd, far, n, geo, ng, obj, T, t, row, u, v, ng_out, obj_out);
+  tri_closest_kernel<TRI_RAYS>
+      <<<blocks_for(n, TRI_RAYS), TILE, 0, (cudaStream_t)stream>>>(
+          ro, rd, far, n, (const float4*)geo, ng, obj, T, t, row, u, v,
+          ng_out, obj_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tri_any_hit(const float* ro, const float* rd, const float* far,
                            int n, const float* geo, int T, bool* occ,
                            void* stream) {
-  tri_any_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
+  tri_any_kernel<<<blocks_for(n, 1), TILE, 0, (cudaStream_t)stream>>>(
       ro, rd, far, n, geo, T, occ);
   return (int)cudaGetLastError();
 }
 
+// null_rows == nullptr: every row is null (n_solid must be 0)
 extern "C" int tri_track_hits(const float* ro, const float* rd,
                               const float* far, int n, const float* geo,
                               const float* ng, const int* obj,
-                              const bool* null_tab, int T, int K,
+                              const int* solid_rows, int n_solid,
+                              const int* null_rows, int n_null, int K,
                               float* t_null, int* obj_null, float* dn_null,
                               float* tb, int* ob, float* db, bool* ov,
                               void* stream) {
-  tri_track_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
-      ro, rd, far, n, geo, ng, obj, null_tab, T, K, t_null, obj_null, dn_null,
-      tb, ob, db, ov);
+  if (n_solid + n_null > TILE) return (int)cudaErrorInvalidValue;
+  tri_track_kernel<<<blocks_for(n, 1), TILE, 0, (cudaStream_t)stream>>>(
+      ro, rd, far, n, (const float4*)geo, ng, obj, solid_rows, n_solid,
+      null_rows, n_null, K, t_null, obj_null, dn_null, tb, ob, db, ov);
   return (int)cudaGetLastError();
+}
+
+// which: 0 closest hit, 1 any hit, 2 media walk. out: registers a thread,
+// local (spilled) bytes a thread, blocks of TILE resident on one SM, SMs,
+// TILE, rays a thread, NULL_CAP.
+extern "C" int tri_kernel_info(int which, int* out) {
+  cudaFuncAttributes attr;
+  const void* fn = which == 0   ? (const void*)tri_closest_kernel<TRI_RAYS>
+                   : which == 1 ? (const void*)tri_any_kernel
+                                : (const void*)tri_track_kernel;
+  int err = (int)cudaFuncGetAttributes(&attr, fn);
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, fn, TILE,
+                                                           0);
+  if (err) return err;
+  err = (int)cudaDeviceGetAttribute(out + 3, cudaDevAttrMultiProcessorCount,
+                                    dev);
+  out[4] = TILE;
+  out[5] = which == 0 ? TRI_RAYS : 1;
+  out[6] = NULL_CAP;
+  return err;
 }

@@ -236,12 +236,9 @@ def ray_track_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=2,
         raise ValueError("ray_track_hits serves the brute-force tier of a "
                          "scene with triangles")
     far0 = kernels.far_bound(ray_o, max_t, alive)
-    T = scene.tri_n.shape[0]
     S = scene.sph_center.shape[0]
-    tri_null = torch.ones(T, dtype=torch.bool, device=ray_o.device) \
-        if all_null else _is_null_obj(scene, scene.tri_obj)
     tn_, on_, dn_, tb, ob, db, ovf = kernels.tri_track_hits(
-        scene, ray_o, ray_d, far0, K, tri_null)
+        scene, ray_o, ray_d, far0, K, all_null)
     if S == 0:
         return tn_, on_, dn_, tb, ob, db, ovf
 

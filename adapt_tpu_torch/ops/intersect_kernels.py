@@ -8,7 +8,11 @@ Pallas TPU kernels adapt_tpu/ops/intersect_pallas.py `_tri_kernel` (via
 hand-written kernel (csrc/tri_intersect.cu, built by ops/_build.py) or
 raises; on a CPU tensor it runs the plain PyTorch twin beside it, which
 computes the same (N, T) tables in ray chunks with the same operation
-order. `launches` counts kernel launches per wrapper.
+order. The wrappers read the scene's triangle tables, made once per scene
+(`SceneData.tri_geo`, `tri_ng`, `tri_obj` and the media walk's row lists,
+scene/compile.py `tri_tables`): a call checks its operands, allocates its
+outputs and launches one kernel. The twins keep building their table with
+`tri_table`. `launches` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ DEAD = -3e38           # far0 of a dead lane: no hit can lie before it
 CHAIN_SEP = 0.5 * RAY_EPS
 # elements per (rays, triangles) table of the twins; bounds their memory
 TWIN_LANES = 1 << 22
+# triangles the media-walk kernel keeps in shared memory (its TILE; the
+# brute-force tier has at most 256, ops/intersect.py `_bvh_tier`)
+TRACK_ROWS = 256
 
 launches = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0}
 
@@ -186,46 +193,101 @@ def tri_track_hits_plain(scene, ray_o, ray_d, far0, K, null_flags):
 _P = ctypes.c_void_p
 
 
-def _lib():
-    from . import _build
-    lib = _build.load("tri_intersect")
+_I = ctypes.c_int
+
+
+def typed(lib):
+    """`lib` (a build of csrc/tri_intersect.cu) with its entry points'
+    argument types set."""
     if not getattr(lib, "_typed", False):
-        lib.tri_closest_hit.argtypes = [_P, _P, _P, ctypes.c_int, _P, _P, _P,
-                                        ctypes.c_int, _P, _P, _P, _P, _P, _P,
-                                        _P]
-        lib.tri_any_hit.argtypes = [_P, _P, _P, ctypes.c_int, _P,
-                                    ctypes.c_int, _P, _P]
-        lib.tri_track_hits.argtypes = [_P, _P, _P, ctypes.c_int, _P, _P, _P,
-                                       _P, ctypes.c_int, ctypes.c_int, _P, _P,
-                                       _P, _P, _P, _P, _P, _P]
-        for fn in (lib.tri_closest_hit, lib.tri_any_hit, lib.tri_track_hits):
-            fn.restype = ctypes.c_int
+        lib.tri_closest_hit.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _P,
+                                        _P, _P, _P, _P, _P, _P]
+        lib.tri_any_hit.argtypes = [_P, _P, _P, _I, _P, _I, _P, _P]
+        lib.tri_track_hits.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                       _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                                       _P, _P]
+        lib.tri_kernel_info.argtypes = [_I, _P]
+        for fn in (lib.tri_closest_hit, lib.tri_any_hit, lib.tri_track_hits,
+                   lib.tri_kernel_info):
+            fn.restype = _I
         lib._typed = True
     return lib
 
 
-def _operands(scene, ray_o, ray_d, far0):
-    """Device, type and shape checks of everything the kernel reads;
-    contiguous rays and the triangle table. Temporaries may be freed
-    before the kernel runs: PyTorch's caching allocator hands their memory
-    out again only to work queued after it on the same stream."""
-    n = ray_o.shape[0]
-    geo, ng, obj = tri_table(scene)
-    T = geo.shape[0]
-    for name, x, shape, dtype in (
-            ("ray_o", ray_o, (n, 3), torch.float32),
-            ("ray_d", ray_d, (n, 3), torch.float32),
-            ("far0", far0, (n,), torch.float32),
-            ("triangle table", geo, (T, 12), torch.float32),
-            ("triangle normals", ng, (T, 3), torch.float32),
-            ("triangle objects", obj, (T,), torch.int32)):
+def _lib():
+    from . import _build
+    return typed(_build.load("tri_intersect"))
+
+
+def kernel_info(n):
+    """{kernel: (registers a thread, spilled bytes a thread, blocks of 256
+    threads resident on one SM, SMs, 256, rays a thread, waves)} for n
+    rays, and the media walk's null-row cap (NULL_CAP: above it the walk
+    re-sweeps). Needs the card."""
+    lib = _lib()
+    out, cap = {}, None
+    for which, name in enumerate(launches):
+        vals = (ctypes.c_int * 7)()
+        _check(lib.tri_kernel_info(which, ctypes.addressof(vals)),
+               f"{name} info")
+        regs, spill, per_sm, sms, block, rays, cap = vals
+        out[name] = (regs, spill, per_sm, sms, block, rays,
+                     -(-n // (per_sm * sms * block * rays)))
+    return out, cap
+
+
+def _checked(ray_o, *specs):
+    """Raise unless each (name, tensor, shape, dtype) lies on ray_o's
+    device with that type and shape; tables must be contiguous too (a copy
+    would be a launch a call)."""
+    for name, x, shape, dtype in specs:
         if x.device != ray_o.device or x.dtype != dtype \
                 or tuple(x.shape) != shape:
             raise ValueError(f"{name}: want {dtype} of shape {shape} on "
                              f"{ray_o.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
+        if name.startswith("scene.") and not x.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous table")
+
+
+def _operands(scene, ray_o, ray_d, far0):
+    """Device, type and shape checks of everything the kernel reads;
+    contiguous rays and the scene's own triangle tables (made once per
+    scene, `scene/compile.py::tri_tables`): a call builds nothing."""
+    n = ray_o.shape[0]
+    T = scene.tri_geo.shape[0]
+    _checked(ray_o,
+             ("ray_o", ray_o, (n, 3), torch.float32),
+             ("ray_d", ray_d, (n, 3), torch.float32),
+             ("far0", far0, (n,), torch.float32),
+             ("scene.tri_geo", scene.tri_geo, (T, 12), torch.float32),
+             ("scene.tri_ng", scene.tri_ng, (T, 3), torch.float32),
+             ("scene.tri_obj", scene.tri_obj, (T,), torch.int32))
+    if scene.tri_geo.data_ptr() % 16:
+        raise ValueError("scene.tri_geo: want 16-byte aligned rows (the "
+                         "kernels read them as float4)")
     return (ray_o.contiguous(), ray_d.contiguous(), far0.contiguous(), n,
-            geo, ng, obj)
+            scene.tri_geo, scene.tri_ng, scene.tri_obj)
+
+
+def _track_operands(scene, ray_o, ray_d, far0, all_null):
+    """`_operands`, and the media walk's row lists: (pointer to the
+    non-null rows or None, their count, pointer to the null rows or None);
+    with all_null no non-null row and None for the null rows (every row
+    in order). Raises beyond TRACK_ROWS triangles."""
+    ops = _operands(scene, ray_o, ray_d, far0)
+    T = scene.tri_geo.shape[0]
+    if T > TRACK_ROWS:
+        raise ValueError(f"tri_track_hits: {T} triangles, the kernel keeps "
+                         f"at most {TRACK_ROWS} in shared memory (the "
+                         "brute-force tier's most)")
+    solid, nulls = scene.tri_solid_rows, scene.tri_null_rows
+    Ts = solid.shape[0]
+    _checked(ray_o, ("scene.tri_solid_rows", solid, (Ts,), torch.int32),
+             ("scene.tri_null_rows", nulls, (T - Ts,), torch.int32))
+    if all_null:
+        return ops, (None, 0, None)
+    return ops, (solid.data_ptr(), Ts, nulls.data_ptr())
 
 
 def _check(err, fn):
@@ -285,14 +347,22 @@ def tri_any_hit(scene, ray_o, ray_d, far0):
     return occ
 
 
-def tri_track_hits(scene, ray_o, ray_d, far0, K, null_flags):
+def null_flags(scene, all_null=False):
+    """(T,) bool null flag of each triangle row that `tri_track_hits`
+    uses: the scene's own (`scene.tri_null`), or every row with
+    all_null."""
+    return torch.ones_like(scene.tri_null) if all_null else scene.tri_null
+
+
+def tri_track_hits(scene, ray_o, ray_d, far0, K, all_null=False):
     """Everything a media walk needs along each ray, in one pass: the
     closest blocking (non-null) hit, the first K null interfaces in front
     of it, and whether more null interfaces lie there.
 
-    null_flags: (T,) bool per triangle row (True = null medium boundary).
-    Returns (t_null (K,N), obj_null (K,N), dn_null (K,N), t_blk (N,),
-    obj_blk (N,), dn_blk (N,), overflow (N,) bool), as
+    The null rows are the scene's (`scene.tri_null`), or every row with
+    all_null (then nothing blocks). Returns (t_null (K,N), obj_null (K,N),
+    dn_null (K,N), t_blk (N,), obj_blk (N,), dn_blk (N,), overflow (N,)
+    bool), as
     adapt_tpu/ops/intersect_pallas.py `tri_track_hits` does:
     * the blocker is the closest valid hit on a non-null row before far0;
       on a miss t_blk = FAR (not far0), obj_blk = -1, dn_blk = 0;
@@ -308,13 +378,11 @@ def tri_track_hits(scene, ray_o, ray_d, far0, K, null_flags):
     if K < 1:
         raise ValueError(f"K must be at least 1, got {K}")
     if _is_cpu(ray_o):
-        return tri_track_hits_plain(scene, ray_o, ray_d, far0, K, null_flags)
-    ro, rd, far, n, geo, ng, obj = _operands(scene, ray_o, ray_d, far0)
+        return tri_track_hits_plain(scene, ray_o, ray_d, far0, K,
+                                    null_flags(scene, all_null))
+    (ro, rd, far, n, geo, ng, obj), (solid_p, n_solid, null_p) = \
+        _track_operands(scene, ray_o, ray_d, far0, all_null)
     T = geo.shape[0]
-    null = null_flags.to(torch.bool).contiguous()
-    if null.device != ro.device or tuple(null.shape) != (T,):
-        raise ValueError(f"null_flags: want shape ({T},) on {ro.device}, got "
-                         f"{tuple(null.shape)} on {null.device}")
     t_k = torch.empty((K, n), device=ro.device)
     o_k = torch.empty((K, n), dtype=torch.int32, device=ro.device)
     d_k = torch.empty((K, n), device=ro.device)
@@ -327,9 +395,9 @@ def tri_track_hits(scene, ray_o, ray_d, far0, K, null_flags):
     stream = torch.cuda.current_stream(ro.device).cuda_stream
     err = _lib().tri_track_hits(
         ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
-        ng.data_ptr(), obj.data_ptr(), null.data_ptr(), T, K,
-        t_k.data_ptr(), o_k.data_ptr(), d_k.data_ptr(), tb.data_ptr(),
-        ob.data_ptr(), db.data_ptr(), ov.data_ptr(), stream)
+        ng.data_ptr(), obj.data_ptr(), solid_p, n_solid, null_p,
+        T - n_solid, K, t_k.data_ptr(), o_k.data_ptr(), d_k.data_ptr(),
+        tb.data_ptr(), ob.data_ptr(), db.data_ptr(), ov.data_ptr(), stream)
     _check(err, "tri_track_hits")
     launches["tri_track_hits"] += 1
     return t_k, o_k, d_k, tb, ob, db, ov

@@ -81,6 +81,13 @@ class SceneData:
     tri_V: torch.Tensor      # (T,3)
     tri_cu: torch.Tensor     # (T,) dot(U, p0)
     tri_cv: torch.Tensor     # (T,)
+    # --- the brute-force kernels' triangle tables, made once per scene
+    # (`tri_tables`; ops/intersect_kernels.py reads them) ---
+    tri_geo: torch.Tensor    # (T,12) f32 rows n d U cu V cv
+    tri_ng: torch.Tensor     # (T,3) f32 prim_ng of each row
+    tri_null: torch.Tensor   # (T,) bool: the row's object is a null BSDF
+    tri_solid_rows: torch.Tensor  # (T-Tn,) i32 the other rows, ascending
+    tri_null_rows: torch.Tensor   # (Tn,) i32 the null rows, ascending
     # --- spheres (S) ---
     sph_gid: torch.Tensor    # (S,) i32
     sph_center: torch.Tensor  # (S,3)
@@ -278,6 +285,40 @@ def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
         nope("textures", 9)
     if cfg.volume_kind:
         nope("grid volumes", 14)
+
+
+# the leaves `tri_tables` reads
+TRI_SOURCES = ("tri_n", "tri_d", "tri_U", "tri_cu", "tri_V", "tri_cv",
+               "tri_gid", "tri_obj", "prim_ng", "mat_is_bsdf", "mat_type")
+
+
+def tri_tables(tri_n, tri_d, tri_U, tri_cu, tri_V, tri_cv, tri_gid,
+               tri_obj, prim_ng, mat_is_bsdf, mat_type) -> dict:
+    """The brute-force kernels' per-scene tables from the triangle, normal
+    and material leaves (CPU tensors): `tri_geo` (T,12) f32, each row n d
+    U cu V cv, so three 16-byte loads; `tri_ng`, the OBJ loader's
+    geometric normal of each row (it differs from the plane normal n by ~1
+    ULP), as the Pallas kernels' table holds it; `tri_null`, the null-BSDF
+    flag of each row's object (a medium boundary, bsdf.py:238-240); and
+    the rows split by that flag, each list ascending, so a sweep over
+    either keeps "ties to the lowest row"."""
+    geo = torch.cat([tri_n, tri_d[:, None], tri_U, tri_cu[:, None], tri_V,
+                     tri_cv[:, None]], dim=1).contiguous()
+    idx = tri_obj.clamp(min=0)
+    null = (tri_obj >= 0) & mat_is_bsdf[idx] & (mat_type[idx] < 0)
+    rows = torch.arange(tri_obj.shape[0], dtype=torch.int32)
+    return dict(tri_geo=geo, tri_ng=prim_ng[tri_gid].contiguous(),
+                tri_null=null, tri_solid_rows=rows[~null].contiguous(),
+                tri_null_rows=rows[null].contiguous())
+
+
+def replace_triangles(scene: "SceneData", **fields) -> "SceneData":
+    """Copy of the scene with the given leaves replaced (triangle rows,
+    materials) and its triangle tables made anew from them."""
+    scene = dataclasses.replace(scene, **fields)
+    tabs = tri_tables(**{n: getattr(scene, n).cpu() for n in TRI_SOURCES})
+    return dataclasses.replace(
+        scene, **{k: v.to(scene.device) for k, v in tabs.items()})
 
 
 def resolve_device(device) -> torch.device:
@@ -691,7 +732,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         tex[tag] = TextureTable(mode=_t(mode),
                                 present=bool((mode > -255).any()))
 
-    scene = SceneData(
+    tri = dict(
         tri_gid=_t(tri_ids, np.int32),
         tri_obj=_t(prim_obj[tri_ids]),
         tri_n=_t(n_unit, np.float32),
@@ -700,10 +741,15 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         tri_V=_t(V, np.float32),
         tri_cu=_t(prim_cu[tri_ids]),
         tri_cv=_t(prim_cv[tri_ids]),
+        prim_ng=_t(array_info["n_g"], np.float32),
+        mat_type=_t([m.type_id for m in mats], np.int32),
+        mat_is_bsdf=_t([m.is_bsdf for m in mats], bool))
+    scene = SceneData(
+        **tri,
+        **tri_tables(**{n: tri[n] for n in TRI_SOURCES}),
         sph_gid=_t(sph_ids, np.int32),
         sph_center=_t(prims[sph_ids, 0].reshape(-1, 3), np.float32),
         sph_radius=_t(prims[sph_ids, 1, 0], np.float32),
-        prim_ng=_t(array_info["n_g"], np.float32),
         prim_vn=_t(array_info["n_s"], np.float32),
         pre0=_t(pre0, np.float32),
         pre1=_t(pre1, np.float32),
@@ -728,8 +774,6 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         obj_emitter=_t([obj.emitter_ref_id for obj in objects], np.int32),
         obj_aabb_min=_t(aabbs[:, 0]),
         obj_aabb_max=_t(aabbs[:, 1]),
-        mat_type=_t([m.type_id for m in mats], np.int32),
-        mat_is_bsdf=_t([m.is_bsdf for m in mats], bool),
         mat_is_delta=_t([m.is_delta for m in mats], bool),
         mat_kd=mat_rows("k_d"),
         mat_ks=mat_rows("k_s"),

@@ -128,8 +128,19 @@ PIXELS_DIFFER = 1e-4
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 # operations of one (ray, triangle) test of csrc/tri_intersect.cu: six
-# 3-term dots (5 each), the flat test, t, u, v and the five compares
+# 3-term dots (5 each), the flat test, t, u, v and the five compares; of
+# them the plane half (two dots, d - o.n, the flat test, the divide and the
+# two compares of t) that B1 and B3 run on every row before u, and u
+# before v (15 each: two dots, three operations, two compares)
 TRI_PAIR_OPS = 47
+TRI_PLANE_OPS = 17
+
+
+def _split_ops(planes, us, vs):
+    """Operations of csrc/tri_intersect.cu's split test: the plane half
+    (TRI_PLANE_OPS), u and v the rest in two equal parts."""
+    return planes * TRI_PLANE_OPS + (us + vs) * (TRI_PAIR_OPS
+                                                 - TRI_PLANE_OPS) / 2
 KERNELS = {
     "tri_closest_hit": ("adapt_tpu_torch/csrc/tri_intersect.cu",
                         "adapt_tpu/ops/intersect_pallas.py:58"),
@@ -348,6 +359,151 @@ def adversarial_rays(torch, scene, n, seed):
     return ro.contiguous(), rd.contiguous(), far.contiguous()
 
 
+def cbox_rays(torch, scene, cfg, g):
+    """Phase 2a's ray sets on cbox, {name: (ro, rd, far)}: "primary", the
+    camera rays (far FAR); "bounce", from points 0.1-12 along them in
+    seeded random directions, 15% dead lanes; "shadow", from the primary
+    hits to the point light (the bounce set's dead lanes dead)."""
+    from adapt_tpu_torch import rng
+    from adapt_tpu_torch.ops import intersect_kernels as K
+    from adapt_tpu_torch.renderer.base import camera_rays
+    dev = scene.device
+    ro, rd = camera_rays(scene, cfg, rng.split(rng.PRNGKey(0))[1], 1)
+    ro = ro.contiguous()
+    N = ro.shape[0]
+    t_j = 0.1 + 11.9 * torch.rand((N, 1), generator=g, device=dev)
+    bo = ro + rd * t_j
+    bd = torch.randn((N, 3), generator=g, device=dev)
+    bd = bd / bd.norm(dim=-1, keepdim=True)
+    alive = torch.rand(N, generator=g, device=dev) > 0.15
+    far_b = torch.where(alive, K.FAR, K.DEAD)
+    far_p = torch.full((N,), K.FAR, device=dev)
+    hit_t = K.tri_closest_hit_plain(scene, ro, rd, far_p)[0]
+    so = ro + torch.where(hit_t < K.FAR, hit_t, 0.0)[:, None] * rd
+    to_l = scene.emit_pos[0] - so
+    dist = to_l.norm(dim=-1)
+    sd = to_l / dist[:, None]
+    far_s = torch.where(alive, dist - K.RAY_EPS, K.DEAD)
+    return {"primary": (ro, rd, far_p), "bounce": (bo, bd, far_b),
+            "shadow": (so, sd, far_s)}
+
+
+def vpt_rays(torch, scene, cfg, g):
+    """Phase 2c's ray sets on the vpt cbox, {name: (ro, rd, far)} from the
+    primary hits: "shadow", NEE rays to area-light samples; "bounce",
+    seeded random directions, 15% dead lanes."""
+    from adapt_tpu_torch import rng
+    from adapt_tpu_torch.ops import emitter_ops, intersect_kernels as K
+    from adapt_tpu_torch.renderer.base import camera_rays
+    dev = scene.device
+    vro, vrd = camera_rays(scene, cfg, rng.split(rng.PRNGKey(2))[1], 1)
+    vro = vro.contiguous()
+    N = vro.shape[0]
+    far_p = torch.full((N,), K.FAR, device=dev)
+    v_t = K.tri_closest_hit_plain(scene, vro, vrd, far_p)[0]
+    v_hit = v_t < K.FAR
+    v_p = vro + torch.where(v_hit, v_t, 0.0)[:, None] * vrd
+    e_pos = emitter_ops.sample_hit(
+        scene, cfg, torch.zeros(N, dtype=torch.int32, device=dev), v_p,
+        torch.rand((N, 3), generator=g, device=dev))[0]
+    v_to = e_pos - v_p
+    v_dist = v_to.norm(dim=-1)
+    v_sd = v_to / v_dist[:, None]
+    v_far_s = K.far_bound(v_p, v_dist, v_hit)
+    v_bd = torch.randn((N, 3), generator=g, device=dev)
+    v_bd = v_bd / v_bd.norm(dim=-1, keepdim=True)
+    v_far_b = torch.where(
+        v_hit & (torch.rand(N, generator=g, device=dev) > 0.15), K.FAR,
+        K.DEAD)
+    return {"shadow": (v_p, v_sd, v_far_s), "bounce": (v_p, v_bd, v_far_b)}
+
+
+def _plane_tables(torch, K, scene, ro, rd):
+    """(t, u, valid, ahead) of every (ray, triangle) pair from the plain
+    version's tables: ahead where the row's plane is not flat and t >
+    RAY_EPS (the plane half of the test passes)."""
+    geo = scene.tri_geo
+    t, u, _v, valid = K._hit_tables(geo, ro, rd)
+    d_n = (rd[:, 0:1] * geo[:, 0] + rd[:, 1:2] * geo[:, 1]) \
+        + rd[:, 2:3] * geo[:, 2]
+    return t, u, valid, (t > K.RAY_EPS) & (d_n.abs() >= 1e-12)
+
+
+def _halves(walk, ahead, bound, t, u):
+    """(plane tests, u tests, v tests) of csrc/tri_intersect.cu's split
+    test: a walking lane tests every row's plane; it computes u where the
+    plane gives RAY_EPS < t < bound, and v where u lies in [0, 1]."""
+    uh = walk[:, None] & ahead & (t < bound)
+    return (int(walk.sum()) * t.shape[1], uh,
+            int((uh & (u >= 0.0) & (u <= 1.0)).sum()))
+
+
+def closest_work(torch, K, scene, ro, rd, far):
+    """The closest-hit kernel's work on these rays: (plane tests, u tests,
+    v tests, share of (warp, row) steps in which no lane of a warp does
+    the u half). A lane walks where far > RAY_EPS; its bound is its running
+    best, strict in row order, from min(FAR, far); a warp slot is 32
+    consecutive rays."""
+    t, u, valid, ahead = _plane_tables(torch, K, scene, ro, rd)
+    tm = torch.where(valid, t, K.FAR)
+    run = torch.cummin(tm, dim=1).values.clamp(max=K.FAR)
+    before = torch.cat([torch.full_like(run[:, :1], K.FAR), run[:, :-1]], 1)
+    planes, uh, vs = _halves(far > K.RAY_EPS, ahead,
+                             torch.minimum(before, far[:, None]), t, u)
+    n = ro.shape[0] // 32 * 32
+    idle = 1.0 - float(uh[:n].view(n // 32, 32, -1).any(dim=1).float()
+                       .mean())
+    return planes, int(uh.sum()), vs, idle
+
+
+def track_work(torch, K, scene, ro, rd, far, all_null=False):
+    """The media-walk kernel's work on these rays below its null-row cap:
+    (plane tests, u tests, v tests). A walking lane's (far > RAY_EPS)
+    bound is, on a non-null row, its running blocker from min(FAR, far),
+    on a null row the cut min(blocker, far)."""
+    t, u, valid, ahead = _plane_tables(torch, K, scene, ro, rd)
+    null = K.null_flags(scene, all_null)
+    tm = torch.where(valid & ~null, t, K.FAR)
+    run = torch.cummin(tm, dim=1).values.clamp(max=K.FAR)
+    before = torch.cat([torch.full_like(run[:, :1], K.FAR), run[:, :-1]], 1)
+    cut = torch.minimum(run[:, -1], far)[:, None]
+    bound = torch.where(null, cut, torch.minimum(before, far[:, None]))
+    planes, uh, vs = _halves(far > K.RAY_EPS, ahead, bound, t, u)
+    return planes, int(uh.sum()), vs
+
+
+def null_layers(torch, C, scene, dup, eps):
+    """The scene with copies of its null rows appended: exact duplicates
+    (the same t) of the first `dup` of them, then copies of the first
+    `eps` moved RAY_EPS along their normal (an eps-layered interface), the
+    triangle tables made anew."""
+    from adapt_tpu_torch.ops.intersect_kernels import RAY_EPS
+    rows = scene.tri_null_rows.long()
+    fields = {}
+    for name in ("tri_gid", "tri_obj", "tri_n", "tri_d", "tri_U", "tri_cu",
+                 "tri_V", "tri_cv"):
+        x = getattr(scene, name)
+        shifted = x[rows[:eps]] + RAY_EPS if name == "tri_d" \
+            else x[rows[:eps]]
+        fields[name] = torch.cat([x, x[rows[:dup]], shifted]).contiguous()
+    return C.replace_triangles(scene, **fields)
+
+
+def kernels_in(torch, fn):
+    """The names of the CUDA kernels one call of fn launches (after a
+    warm-up call), by torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def knot_mesh():
     """Write knot290k.xml's one procedural mesh if it is missing, with
     scripts/gen_procedural.py `ensure` (numpy only: the script's
@@ -371,9 +527,9 @@ def main():
     from adapt_tpu_torch.front_any_ab import residual_rays
     from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
     from adapt_tpu_torch.ops import cluster_kernels as CK
-    from adapt_tpu_torch.ops import emitter_ops, intersect_kernels as K
+    from adapt_tpu_torch.ops import intersect_kernels as K
     from adapt_tpu_torch.ops import splat as S
-    from adapt_tpu_torch.ops.intersect import DEAD, _is_null_obj
+    from adapt_tpu_torch.ops.intersect import DEAD
     from adapt_tpu_torch.parsers.xml_parser import scene_parsing
     from adapt_tpu_torch.renderer import bdpt as B, pt, vpt
     from adapt_tpu_torch.renderer.base import camera_rays
@@ -439,32 +595,40 @@ def main():
     # ---- 2a. brute-force kernels against their twins, cbox 512^2 ----
     scene, cfg0, _ = C.load_scene(cbox_dir, "cbox.xml")
     cfg = dataclasses.replace(cfg0, max_bounce=8)        # bench.py:35
-    ro, rd = camera_rays(scene, cfg, rng.split(rng.PRNGKey(0))[1], 1)
-    ro = ro.contiguous()
-    N = ro.shape[0]
     g = torch.Generator(device=dev).manual_seed(0)
-    t_j = 0.1 + 11.9 * torch.rand((N, 1), generator=g, device=dev)
-    bo = ro + rd * t_j
-    bd = torch.randn((N, 3), generator=g, device=dev)
-    bd = bd / bd.norm(dim=-1, keepdim=True)
-    alive = torch.rand(N, generator=g, device=dev) > 0.15
-    far_b = torch.where(alive, K.FAR, DEAD)
-    far_p = torch.full((N,), K.FAR, device=dev)
-    hit_t = K.tri_closest_hit_plain(scene, ro, rd, far_p)[0]
-    so = ro + torch.where(hit_t < K.FAR, hit_t, 0.0)[:, None] * rd
-    to_l = scene.emit_pos[0] - so
-    dist = to_l.norm(dim=-1)
-    sd = to_l / dist[:, None]
-    far_s = torch.where(alive, dist - K.RAY_EPS, DEAD)
-
+    rays = cbox_rays(torch, scene, cfg, g)
+    (ro, rd, far_p), (bo, bd, far_b), (so, sd, far_s) = (
+        rays["primary"], rays["bounce"], rays["shadow"])
+    N = ro.shape[0]
+    tro, trd, _tdist = tie_rays(torch, scene, N, 3)
+    # B1 bit-equal also where rays tie at shared vertices and edges, where
+    # every lane is dead, and with far0 = 2e7 > FAR (a ray with no valid
+    # row then "hits" the first row whose t is FAR, with that row's u, v)
+    b1_sets = {"primary": (ro, rd, far_p), "bounce": (bo, bd, far_b),
+               "tie": (tro, trd, torch.full_like(far_p, K.FAR)),
+               "all dead": (bo, bd, torch.full_like(far_b, DEAD)),
+               "far0 2e7": (bo, bd, torch.where(far_b > 0, 2e7, DEAD))}
     errs = {k: 0.0 for k in KERNELS}
-    for o, d, far in ((ro, rd, far_p), (bo, bd, far_b)):
+    b1_work, b1_seen = {}, {}
+    for tag, (o, d, far) in b1_sets.items():
         got = K.tri_closest_hit(scene, o, d, far)
         want = K.tri_closest_hit_plain(scene, o, d, far)
-        _require(torch.equal(got[5], want[5]) and torch.equal(got[4], want[4]),
-                 "closest-hit objects / normals differ from the twin")
-        errs["tri_closest_hit"] = max(errs["tri_closest_hit"], _close(
-            torch, got, want, far, "tri_closest_hit"))
+        _require(all(a.dtype == b.dtype and torch.equal(a, b)
+                     for a, b in zip(got, want)),
+                 f"tri_closest_hit ({tag} rays): not bit-equal to the twin")
+        if tag in ("primary", "bounce"):
+            errs["tri_closest_hit"] = max(errs["tri_closest_hit"], _close(
+                torch, got, want, far, "tri_closest_hit"))
+        b1_work[tag] = closest_work(torch, K, scene, o, d, far)
+        b1_seen[tag] = (float((got[1] >= 0).float().mean()),
+                        int(((got[1] >= 0) & (got[0] == K.FAR)).sum()))
+    tie_t, _u, tie_valid, _ahead = _plane_tables(torch, K, scene, tro, trd)
+    tm = torch.where(tie_valid, tie_t, K.FAR)
+    tie_n = int(((tm == tm.amin(1, keepdim=True)) & tie_valid).sum(1)
+                .ge(2).sum())
+    _require(tie_n > 0, "no tie-set ray ties in t")
+    _require(b1_seen["all dead"][0] == 0.0, "an all-dead lane hit")
+    _require(b1_seen["far0 2e7"][1] > 0, "no far0 2e7 ray took the FAR row")
     n_occ = 0
     for o, d, far in ((so, sd, far_s), (bo, bd, far_b)):
         occ = K.tri_any_hit(scene, o, d, far)
@@ -473,6 +637,12 @@ def main():
         _require(not bool(occ[far < 0].any()), "a dead lane is occluded")
         n_occ += int(occ.sum())
     _require(n_occ > 0, "no shadow ray was occluded")
+    # one call, one kernel: the wrappers read the scene's tables
+    one_call = {
+        "tri_closest_hit": kernels_in(
+            torch, lambda: K.tri_closest_hit(scene, bo, bd, far_b)),
+        "tri_any_hit": kernels_in(
+            torch, lambda: K.tri_any_hit(scene, so, sd, far_s))}
     times = {
         "tri_closest_hit": (
             _time_ms(torch, lambda: K.tri_closest_hit(scene, bo, bd, far_b)),
@@ -483,29 +653,50 @@ def main():
             _time_ms(torch, lambda: K.tri_any_hit_plain(scene, so, sd,
                                                         far_s)))}
     # bounds: rays, far and the tables read once, outputs written once;
-    # the closest hit tests every pair, the any hit each ray's rows up to
-    # its first occluder (what these rays need)
+    # the closest hit's operations are the plane half of every live pair
+    # and the u/v half where the row can win (`closest_work`), the any
+    # hit's each ray's rows up to its first occluder (what these rays need)
     T = scene.tri_n.shape[0]
-    geo_t, _u, _v, valid = K._hit_tables(K.tri_table(scene)[0], so, sd)
+    geo_t, _u, _v, valid = K._hit_tables(scene.tri_geo, so, sd)
     first = torch.where(valid & (geo_t < far_s[:, None]),
                         torch.arange(T, device=dev), T).amin(dim=1)
     any_pairs = int(torch.where(far_s < 0, 0,
                                 torch.clamp(first + 1, max=T)).sum())
     bounds = {
         "tri_closest_hit": _bound(N * 28 + T * 64 + N * 32,
-                                  N * T * TRI_PAIR_OPS),
+                                  _split_ops(*b1_work["bounce"][:3])),
         "tri_any_hit": _bound(N * 28 + T * 48 + N, any_pairs * TRI_PAIR_OPS)}
     device = {
         "tri_closest_hit": _graph_ms(
             torch, lambda: K.tri_closest_hit(scene, bo, bd, far_b)),
         "tri_any_hit": _graph_ms(
             torch, lambda: K.tri_any_hit(scene, so, sd, far_s))}
+    b1_primary_dev = _graph_ms(
+        torch, lambda: K.tri_closest_hit(scene, ro, rd, far_p))
+    tinfo, null_cap = K.kernel_info(N)
+    for k, names in one_call.items():
+        _require(len(names) == 1 and k.split("_")[1] in names[0],
+                 f"{k}: one call launched {names}")
     print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
-                      f"{t:.4f} ms (device {device[k]:.4f}), twin {p:.4f} "
-                      f"ms, bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
-                      for k, (t, p) in times.items()) + f" [{card}]",
-          flush=True)
+                      f"{t:.4f} ms (device, kernel only {device[k]:.4f}), "
+                      f"twin {p:.4f} ms, bound {bounds[k][0]:.4f} ms "
+                      f"({bounds[k][1]})"
+                      for k, (t, p) in times.items())
+          + f" | B1 device on primary rays {b1_primary_dev:.4f} ms | B1 "
+          "bit-equal on every set (hit share, FAR-row hits; plane, u and v "
+          "tests a ray, share of (warp, row) steps with no lane on the u "
+          "half): " + ", ".join(
+              f"{tag} {h:.4f}, {fr}; {p / N:.2f}, {u / N:.2f}, {v / N:.2f}, "
+              f"{idle:.4f}" for tag, ((h, fr), (p, u, v, idle)) in
+              ((t_, (b1_seen[t_], b1_work[t_])) for t_ in b1_sets))
+          + f"; {tie_n} tie-set rays tie in t | one call launches "
+          + ", ".join(f"{k} {names}" for k, names in one_call.items())
+          + " | " + "; ".join(
+              f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
+              f"resident per SM x {sms} SMs, {ra} rays a thread, {w} waves"
+              for k, (r, sp, b, sms, bs, ra, w) in tinfo.items()
+              if k != "tri_track_hits") + f" [{card}]", flush=True)
 
     # ---- 2b. BVH kernels against their twin, knot290k 512^2 ----
     kro, krd = camera_rays(kscene, kcfg, rng.split(rng.PRNGKey(1))[1], 1)
@@ -942,31 +1133,37 @@ def main():
                                    "cbox.xml")
     _require(vcfg.max_bounce == 16 and (vcfg.w, vcfg.h) == (512, 512)
              and vcfg.n_null_objs == 1, "vpt cbox settings")
-    vro, vrd = camera_rays(vscene, vcfg, rng.split(rng.PRNGKey(2))[1], 1)
-    vro = vro.contiguous()
-    v_t = K.tri_closest_hit_plain(vscene, vro, vrd, far_p)[0]
-    v_hit = v_t < K.FAR
-    v_p = vro + torch.where(v_hit, v_t, 0.0)[:, None] * vrd
-    e_pos = emitter_ops.sample_hit(
-        vscene, vcfg, torch.zeros(N, dtype=torch.int32, device=dev), v_p,
-        torch.rand((N, 3), generator=g, device=dev))[0]
-    v_to = e_pos - v_p
-    v_dist = v_to.norm(dim=-1)
-    v_sd = v_to / v_dist[:, None]
-    v_far_s = K.far_bound(v_p, v_dist, v_hit)
-    v_bd = torch.randn((N, 3), generator=g, device=dev)
-    v_bd = v_bd / v_bd.norm(dim=-1, keepdim=True)
-    v_far_b = torch.where(
-        v_hit & (torch.rand(N, generator=g, device=dev) > 0.15), K.FAR, DEAD)
-    null_f = _is_null_obj(vscene, vscene.tri_obj)
-    all_f = torch.ones_like(null_f)
-    track_sets = (("shadow", v_sd, v_far_s, 2, null_f),
-                  ("bounce", v_bd, v_far_b, 2, null_f),
-                  ("bounce all-null", v_bd, v_far_b, 7, all_f))
+    vrays = vpt_rays(torch, vscene, vcfg, g)
+    (v_p, v_sd, v_far_s), (_vp, v_bd, v_far_b) = (vrays["shadow"],
+                                                  vrays["bounce"])
+    # the null rows' own layers: 12 null rows and 12 exact duplicates (the
+    # same t) and 8 (at the cap) or 12 (above it) copies RAY_EPS behind,
+    # with rays aimed at the null triangles' vertices and edges
+    VN = vscene.tri_null_rows.shape[0]
+    dup = min(VN, null_cap - VN)
+    at_cap = null_layers(torch, C, vscene, dup, null_cap - VN - dup)
+    above = null_layers(torch, C, vscene, VN, VN)
+    _require(at_cap.tri_null_rows.shape[0] == null_cap
+             and above.tri_null_rows.shape[0] > null_cap,
+             "null layers at and above the cap")
+    nro, nrd, _nd = tie_rays(torch, vscene, N, 5,
+                             prims=vscene.tri_gid[vscene.tri_null_rows])
+    n_far = torch.full_like(v_far_b, K.FAR)
+    track_sets = (("shadow", vscene, v_p, v_sd, v_far_s, 2, False),
+                  ("bounce", vscene, v_p, v_bd, v_far_b, 2, False),
+                  ("bounce all-null", vscene, v_p, v_bd, v_far_b, 7, True),
+                  ("layers at cap, aimed", at_cap, nro, nrd, n_far, 3, False),
+                  ("layers at cap, bounce", at_cap, v_p, v_bd, v_far_b, 2,
+                   False),
+                  ("layers above cap, aimed", above, nro, nrd, n_far, 3,
+                   False),
+                  ("layers above cap, bounce", above, v_p, v_bd, v_far_b, 2,
+                   False))
     shares = []
-    for tag, d, far, k, nf in track_sets:
-        got = K.tri_track_hits(vscene, v_p, d, far, k, nf)
-        want = K.tri_track_hits_plain(vscene, v_p, d, far, k, nf)
+    for tag, sc, o, d, far, k, all_null in track_sets:
+        got = K.tri_track_hits(sc, o, d, far, k, all_null)
+        want = K.tri_track_hits_plain(sc, o, d, far, k,
+                                      K.null_flags(sc, all_null))
         for name, a, b in zip(("t_null", "obj_null", "dn_null", "t_blk",
                                "obj_blk", "dn_blk", "overflow"), got, want):
             _require(a.dtype == b.dtype and torch.equal(a, b),
@@ -979,37 +1176,57 @@ def main():
                           | got[6][~live].any()),
                  f"tri_track_hits ({tag}): a dead lane has hits")
         nl = max(int(live.sum()), 1)
-        shares.append((tag, k, float(((got[0][0] < K.FAR) & live).sum()) / nl,
+        n_null = int(K.null_flags(sc, all_null).sum())
+        shares.append((tag, k, n_null,
+                       "registers" if n_null <= null_cap else "re-sweep",
+                       float(((got[0][0] < K.FAR) & live).sum()) / nl,
+                       float(((got[0][1] < K.FAR) & live).sum()) / nl,
                        float((got[6] & live).sum()) / nl,
                        float(((got[3] < K.FAR) & live).sum()) / nl))
-    _require(all(sh[2] > 0 for sh in shares), "no null interface was hit")
-    _require(shares[1][4] > 0, "no bounce ray was blocked")
+    _require(all(sh[4] > 0 for sh in shares), "no null interface was hit")
+    _require(shares[1][7] > 0, "no bounce ray was blocked")
+    _require({sh[3] for sh in shares} == {"registers", "re-sweep"},
+             "both branches of the null pass ran")
+    one_call["tri_track_hits"] = kernels_in(
+        torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s, 2))
+    _require(len(one_call["tri_track_hits"]) == 1
+             and "track" in one_call["tri_track_hits"][0],
+             f"tri_track_hits: one call launched "
+             f"{one_call['tri_track_hits']}")
     times["tri_track_hits"] = (
         _time_ms(torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s,
-                                                 2, null_f)),
-        _time_ms(torch, lambda: K.tri_track_hits_plain(vscene, v_p, v_sd,
-                                                       v_far_s, 2, null_f)))
-    # bound: rays and far read once, the table (12 + 3 floats, obj, flag
-    # per row) read once, 3 K + 4 outputs written once; operations: every
-    # (ray, triangle) test that a lane able to hit needs, once
+                                                 2)),
+        _time_ms(torch, lambda: K.tri_track_hits_plain(
+            vscene, v_p, v_sd, v_far_s, 2, vscene.tri_null)))
+    # bound: rays and far read once, the table (12 + 3 floats, obj and a
+    # row id per row) read once, 3 K + 4 outputs written once; operations:
+    # the plane half of every (walking ray, triangle) pair and the u/v half
+    # where the row can block or lies before the cut (`track_work`)
     VT = vscene.tri_n.shape[0]
-    walking = int((v_far_s > K.RAY_EPS).sum())
+    b3_work = track_work(torch, K, vscene, v_p, v_sd, v_far_s)
     bounds["tri_track_hits"] = _bound(
-        N * 28 + VT * 65 + N * (2 * 12 + 13), walking * VT * TRI_PAIR_OPS)
+        N * 28 + VT * 68 + N * (2 * 12 + 13), _split_ops(*b3_work))
+    walking = max(1, int((v_far_s > K.RAY_EPS).sum()))
     tt, tp = times["tri_track_hits"]
     device["tri_track_hits"] = _graph_ms(
-        torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s, 2,
-                                        null_f))
+        torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s, 2))
+    r, sp, b, sms, bs, _ra, w = tinfo["tri_track_hits"]
     print(f"phase 2c media-walk kernel vs twin, vpt cbox, {N} rays, "
-          f"{VT} triangles ({int(null_f.sum())} null): every output equal, "
-          f"max abs err {errs['tri_track_hits']:.3g}; "
-          + "; ".join(f"{tag} K={k}: null-hit share {a:.4f}, overflow share "
-                      f"{o:.5f}, blocked share {b:.4f}"
-                      for tag, k, a, o, b in shares)
+          f"{VT} triangles ({VN} null), null-row cap {null_cap}: every "
+          f"output equal, max abs err {errs['tri_track_hits']:.3g}; "
+          + "; ".join(f"{tag} K={k} ({nn} null rows, {br}): null-hit share "
+                      f"{a:.4f}, second {a2:.4f}, overflow share {o:.5f}, "
+                      f"blocked share {bl:.4f}"
+                      for tag, k, nn, br, a, a2, o, bl in shares)
           + f" (shares of live lanes) | shadow K=2: kernel {tt:.4f} ms "
-          f"(device {device['tri_track_hits']:.4f}), twin {tp:.4f} ms, "
-          f"bound {bounds['tri_track_hits'][0]:.4f} ms "
-          f"({bounds['tri_track_hits'][1]}) [{card}]", flush=True)
+          f"(device, kernel only {device['tri_track_hits']:.4f}), twin "
+          f"{tp:.4f} ms, bound {bounds['tri_track_hits'][0]:.4f} ms "
+          f"({bounds['tri_track_hits'][1]}); plane, u and v tests a walking"
+          " ray " + ", ".join(f"{x / walking:.2f}" for x in b3_work)
+          + " | one call "
+          f"launches {one_call['tri_track_hits']} | {r} registers, {sp} B "
+          f"spilled, {b} blocks of {bs} resident per SM x {sms} SMs, {w} "
+          f"waves [{card}]", flush=True)
 
     # ---- 2d. film-splat kernel against its plain version, 512^2 ----
     bcfg = dataclasses.replace(cfg0, max_bounce=6)  # scripts/bench_all.py:74-78
@@ -1162,7 +1379,8 @@ def main():
                  B.splat_sorted_accumulate)
         K.tri_closest_hit = K.tri_closest_hit_plain
         K.tri_any_hit = K.tri_any_hit_plain
-        K.tri_track_hits = K.tri_track_hits_plain
+        K.tri_track_hits = lambda s, o, d, f, k, all_null=False: \
+            K.tri_track_hits_plain(s, o, d, f, k, K.null_flags(s, all_null))
         BK.bvh_closest_hit = BK.bvh_closest_hit_plain
         BK.bvh_any_hit = BK.bvh_any_hit_plain
         B.splat_sorted_accumulate = S.splat_sorted_accumulate_plain

@@ -231,20 +231,30 @@ def test_kernels_match_twins_on_card(cbox):
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     _, _, scene, cfg = cbox
     ro, rd = _rays(scene, cfg, 21)
-    far = _far(ro.shape[0], 21)
+    n = ro.shape[0]
+    far = _far(n, 21)
     dev = scene.to("cuda")
     args = [torch.from_numpy(x).cuda() for x in (ro, rd, far)]
     before = dict(intersect_kernels.launches)
-    got = intersect_kernels.tri_closest_hit(dev, *args)
-    want = intersect_kernels.tri_closest_hit_plain(dev, *args)
-    # both round every operation once: bit-equal
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    # the seeded rays, all lanes dead, far0 = 2e7 > FAR (a ray with no
+    # valid row takes row 0 at t = FAR), and rays at shared vertices and
+    # edges (chip_smoke.py `tie_rays`) with an odd count
+    from test_torch_bvh import _smoke
+    tro, trd, _ = _smoke().tie_rays(torch, dev, 1001, 4)
+    sets = [args, [args[0], args[1], torch.full_like(args[2], -3e38)],
+            [args[0], args[1], torch.where(args[2] > 0, 2e7, -3e38)],
+            [tro, trd, torch.full((1001,), 1e7, device="cuda")]]
+    for ray_set in sets:
+        got = intersect_kernels.tri_closest_hit(dev, *ray_set)
+        want = intersect_kernels.tri_closest_hit_plain(dev, *ray_set)
+        # both round every operation once: bit-equal
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
     occ = intersect_kernels.tri_any_hit(dev, *args)
     np.testing.assert_array_equal(
         occ.cpu().numpy(),
         intersect_kernels.tri_any_hit_plain(dev, *args).cpu().numpy())
     assert intersect_kernels.launches["tri_closest_hit"] \
-        == before["tri_closest_hit"] + 1
+        == before["tri_closest_hit"] + len(sets)
     assert intersect_kernels.launches["tri_any_hit"] \
         == before["tri_any_hit"] + 1

@@ -160,10 +160,11 @@ def test_track_hits_contract():
     null_obj, o, d = _down_rays(s)
     ro, rd = torch.from_numpy(o), torch.from_numpy(d)
     flags = _is_null_obj(s, s.tri_obj)
+    assert torch.equal(s.tri_null, flags)
     n = o.shape[0]
 
     def run(far, K):
-        return intersect_kernels.tri_track_hits(s, ro, rd, far, K, flags)
+        return intersect_kernels.tri_track_hits(s, ro, rd, far, K)
 
     # K = 3: top (entering, dn < 0), bottom (leaving), one empty slot; the
     # floor blocks at t = 3
@@ -298,11 +299,10 @@ def test_track_khit_eps_layered_nulls(tmp_path):
 def test_track_hits_refuses_other_tiers_and_devices():
     _, _, s, c = _scenes("vpt", "cbox.xml")
     ro = torch.zeros((4, 3), device="meta")
-    flags = torch.zeros(s.tri_n.shape[0], dtype=torch.bool)
     with pytest.raises(ValueError, match="no kernel"):
-        intersect_kernels.tri_track_hits(s, ro, ro, ro[:, 0], 2, flags)
+        intersect_kernels.tri_track_hits(s, ro, ro, ro[:, 0], 2)
     with pytest.raises(ValueError, match="K must be"):
-        intersect_kernels.tri_track_hits(s, ro, ro, ro[:, 0], 0, flags)
+        intersect_kernels.tri_track_hits(s, ro, ro, ro[:, 0], 0)
     with pytest.raises(ValueError, match="brute-force"):
         ray_track_hits(dataclasses.replace(s, tri_n=s.tri_n[:0]), c,
                        torch.zeros((4, 3)), torch.ones((4, 3)), None)
@@ -319,12 +319,21 @@ def test_track_kernel_matches_twin_on_card():
     dev = s.to("cuda")
     args = [torch.from_numpy(x).cuda() for x in (o, d, far)]
     before = intersect_kernels.launches["tri_track_hits"]
-    for K, flags in ((2, _is_null_obj(dev, dev.tri_obj)),
-                     (7, torch.ones(s.tri_n.shape[0], dtype=torch.bool,
-                                    device="cuda"))):
-        got = intersect_kernels.tri_track_hits(dev, *args, K, flags)
-        want = intersect_kernels.tri_track_hits_plain(dev, *args, K, flags)
+    # the scene's null rows, every row null (above the kernel's null-row
+    # cap), and the null rows layered at and above the cap: exact
+    # duplicates and copies RAY_EPS behind (chip_smoke.py `null_layers`)
+    from test_torch_bvh import _smoke
+    from adapt_tpu_torch.scene import compile as C
+    smoke = _smoke()
+    cases = [(dev, 2, False), (dev, 7, True),
+             (smoke.null_layers(torch, C, dev, 12, 8), 3, False),
+             (smoke.null_layers(torch, C, dev, 12, 12), 3, False)]
+    for scene, K, all_null in cases:
+        got = intersect_kernels.tri_track_hits(scene, *args, K, all_null)
+        want = intersect_kernels.tri_track_hits_plain(
+            scene, *args, K, intersect_kernels.null_flags(scene, all_null))
         for name, a, b in zip(NAMES, got, want):
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(),
                                           err_msg=name)
-    assert intersect_kernels.launches["tri_track_hits"] == before + 2
+    assert intersect_kernels.launches["tri_track_hits"] \
+        == before + len(cases)
