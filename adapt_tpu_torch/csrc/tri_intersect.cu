@@ -99,44 +99,45 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
          (t > 1e-4f) && !flat;
 }
 
-// The plane half of the test: true when the row is not flat and its t lies
-// in (RAY_EPS, bound), bound > RAY_EPS; then writes t, rounded as in
-// tri_test. Two rejections skip the divide and are exact:
+// One row against each lane's ray, for a whole warp at once (every lane of
+// the warp calls it with the same row): true where the row is a valid hit
+// with lo < t < bound (lo >= RAY_EPS, bound > RAY_EPS), and then t, u, v as
+// tri_test rounds them. The plane half comes first and each later half
+// runs only when some lane of the warp still needs it (warp votes, so the
+// halves are straight-line code and a warp whose lanes all reject skips
+// them). Two rejections skip the divide and are exact:
 //   * d - o.n and dir.n of opposite signs (or d - o.n zero, or either NaN)
 //     give t <= 0 or NaN;
 //   * |d - o.n| >= (bound * |dir.n|) * 1.000001, each product rounded,
 //     means |d - o.n| / |dir.n| > bound (the factor outweighs both
 //     roundings; |dir.n| >= 1e-12 and bound > 1e-4 keep the products
 //     normal), so the rounded quotient is >= bound.
-__device__ __forceinline__ bool plane_before(const float* ro, const float* rd,
-                                             float4 nd, float bound,
-                                             float* t_out) {
+// A lane with want false takes part in the votes and gets false.
+__device__ __forceinline__ bool row_hit(bool want, const float* ro,
+                                        const float* rd, const float4* g,
+                                        float lo, float bound, float* t_out,
+                                        float* u_out, float* v_out) {
+  const float4 nd = g[0];
   const float num = __fsub_rn(nd.w, dot3v(ro, nd));
   const float d_n = dot3v(rd, nd);
-  const bool ahead = (num > 0.0f && d_n > 0.0f) || (num < 0.0f && d_n < 0.0f);
-  if (!ahead || fabsf(d_n) < 1e-12f ||
-      fabsf(num) >= __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f))
-    return false;
-  const float t = __fdiv_rn(num, d_n);
-  *t_out = t;
-  return t > kEps && t < bound;
-}
-
-// The other half: u and v at t, and whether they lie in the triangle. u
-// outside [0, 1] fails u >= 0 or u + v <= 1 (u + v rounds to at least u
-// when v >= 0), so v is computed only for u inside it.
-__device__ __forceinline__ bool inside(const float* ro, const float* rd,
-                                       float4 U, const float4* V, float t,
-                                       float* u_out, float* v_out) {
+  bool c = want &&
+           ((num > 0.0f && d_n > 0.0f) || (num < 0.0f && d_n < 0.0f)) &&
+           fabsf(d_n) >= 1e-12f &&
+           fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f);
+  if (!__any_sync(0xffffffffu, c)) return false;
+  // lanes that reject divide 1 by 1 (no slow path for them)
+  const float t = __fdiv_rn(c ? num : 1.0f, c ? d_n : 1.0f);
+  c = c && t > lo && t < bound;
+  if (!__any_sync(0xffffffffu, c)) return false;
+  const float4 U = g[1], V = g[2];
   const float u =
       __fsub_rn(__fadd_rn(dot3v(ro, U), __fmul_rn(t, dot3v(rd, U))), U.w);
-  if (!(u >= 0.0f && u <= 1.0f)) return false;
-  const float4 w = *V;
   const float v =
-      __fsub_rn(__fadd_rn(dot3v(ro, w), __fmul_rn(t, dot3v(rd, w))), w.w);
+      __fsub_rn(__fadd_rn(dot3v(ro, V), __fmul_rn(t, dot3v(rd, V))), V.w);
+  *t_out = t;
   *u_out = u;
   *v_out = v;
-  return (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f);
+  return c && (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f);
 }
 
 __device__ __forceinline__ void stage_tile(float* s_geo, const float* geo,
@@ -250,17 +251,17 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
     best_u[r] = best_v[r] = 0.0f;
     best_i[r] = -1;
   }
+  // a warp with no packed ray stages rows with the block and tests none
+  const bool warp_has = __any_sync(0xffffffffu, has[0]);
   for (int base = 0; base < T; base += TILE) {
     stage_tile4(s_geo, geo4, base, T);
-    const int m = min(TILE, T - base);
+    const int m = warp_has ? min(TILE, T - base) : 0;
     for (int j = 0; j < m; ++j) {
-      const float4 nd = s_geo[3 * j];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float t, u, v;
-        if (has[r] && plane_before(ro[r], rd[r], nd, best_t[r], &t) &&
-            inside(ro[r], rd[r], s_geo[3 * j + 1], s_geo + 3 * j + 2, t, &u,
-                   &v)) {
+        if (row_hit(has[r], ro[r], rd[r], s_geo + 3 * j, kEps, best_t[r], &t,
+                    &u, &v)) {
           best_t[r] = t;
           best_u[r] = u;
           best_v[r] = v;
@@ -441,14 +442,17 @@ __global__ void tri_track_kernel(
         db_out[i] = 0.0f;
         ov_out[i] = false;
       });
-  if (threadIdx.x >= walkers) return;
-  const int i = s_idx[threadIdx.x];
+  // a warp past the last packed ray is done; in the last one the lanes
+  // without a ray vote with the others and write nothing
+  if ((threadIdx.x & ~31) >= walkers) return;
+  const bool has = threadIdx.x < walkers;
+  const int i = has ? s_idx[threadIdx.x] : 0;
   float ro[3], rd[3];
   for (int c = 0; c < 3; ++c) {
-    ro[c] = ro_all[(size_t)i * 3 + c];
-    rd[c] = rd_all[(size_t)i * 3 + c];
+    ro[c] = has ? ro_all[(size_t)i * 3 + c] : 0.0f;
+    rd[c] = has ? rd_all[(size_t)i * 3 + c] : 1.0f;
   }
-  const float far = far_all[i];
+  const float far = has ? far_all[i] : 1.0f;
 
   // closest blocker: strict < from min(FAR, far), so the lowest row wins a
   // tie and rows at FAR (invalid) never win; a blocker at or beyond far is
@@ -457,8 +461,7 @@ __global__ void tri_track_kernel(
   int q_blk = -1;
   for (int q = 0; q < n_solid; ++q) {
     float t, u, v;
-    if (plane_before(ro, rd, s_geo[3 * q], t_blk, &t) &&
-        inside(ro, rd, s_geo[3 * q + 1], s_geo + 3 * q + 2, t, &u, &v)) {
+    if (row_hit(has, ro, rd, s_geo + 3 * q, kEps, t_blk, &t, &u, &v)) {
       t_blk = t;
       q_blk = q;
     }
@@ -466,6 +469,7 @@ __global__ void tri_track_kernel(
   const float t_cut = fminf(t_blk, far);
 
   auto write_slot = [&](int k, float best, int j) {
+    if (!has) return;
     const bool hit = j >= 0 && best < far;
     const int row = hit ? s_row[n_solid + j] : 0;
     const size_t o = (size_t)k * n + i;
@@ -484,8 +488,7 @@ __global__ void tri_track_kernel(
       th[j] = kFar;
       float t, u, v;
       if (j < n_null &&
-          plane_before(ro, rd, s_null[3 * j], t_cut, &t) &&
-          inside(ro, rd, s_null[3 * j + 1], s_null + 3 * j + 2, t, &u, &v))
+          row_hit(has, ro, rd, s_null + 3 * j, kEps, t_cut, &t, &u, &v))
         th[j] = t;
     }
     for (int k = 0; k < K; ++k) {
@@ -512,12 +515,11 @@ __global__ void tri_track_kernel(
     for (int k = 0; k <= K; ++k) {
       float best = kFar;
       int bj = -1;
+      const float lo = fmaxf(kEps, prev);
       for (int j = 0; j < n_null; ++j) {
         float t, u, v;
-        if (plane_before(ro, rd, s_null[3 * j], fminf(t_cut, best), &t) &&
-            t > prev &&
-            inside(ro, rd, s_null[3 * j + 1], s_null + 3 * j + 2, t, &u,
-                   &v)) {
+        if (row_hit(has, ro, rd, s_null + 3 * j, lo, fminf(t_cut, best), &t,
+                    &u, &v)) {
           best = t;
           bj = j;
         }
@@ -530,6 +532,7 @@ __global__ void tri_track_kernel(
       prev = __fadd_rn(best, kChainSep);
     }
   }
+  if (!has) return;
   const bool hit_b = q_blk >= 0;
   const int row_b = hit_b ? s_row[q_blk] : 0;
   tb_out[i] = hit_b ? t_blk : kFar;
