@@ -56,10 +56,10 @@
 #define TILE 256
 #define ROW 12  // n(3) d U(3) cu V(3) cv
 #ifndef TRI_RAYS
-#define TRI_RAYS 2  // rays a thread of the closest-hit kernel
+#define TRI_RAYS 1  // rays a thread of the closest-hit kernel
 #endif
 #ifndef NULL_CAP
-#define NULL_CAP 32  // null rows the media walk keeps in registers
+#define NULL_CAP 16  // null rows the media walk keeps in registers
 #endif
 
 constexpr float kEps = 1e-4f;   // RAY_EPS
@@ -103,11 +103,12 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
 // the warp calls it with the same row): true where the row is a valid hit
 // with lo < t < bound (lo >= RAY_EPS, bound > RAY_EPS), and then t, u, v as
 // tri_test rounds them. The plane half comes first and each later half
-// runs only when some lane of the warp still needs it (warp votes, so the
-// halves are straight-line code and a warp whose lanes all reject skips
-// them). Two rejections skip the divide and are exact:
-//   * d - o.n and dir.n of opposite signs (or d - o.n zero, or either NaN)
-//     give t <= 0 or NaN;
+// runs only when some lane of the warp still needs it: warp votes, and
+// conditions combined without short-circuits, so each half is
+// straight-line code and a warp whose lanes all reject skips the rest.
+// Two rejections skip the divide and are exact:
+//   * (d - o.n) * dir.n <= 0 (or NaN) gives t <= 0 or NaN; where the
+//     product underflows to 0, |d - o.n| < 2^-149 / 1e-12 and t < RAY_EPS;
 //   * |d - o.n| >= (bound * |dir.n|) * 1.000001, each product rounded,
 //     means |d - o.n| / |dir.n| > bound (the factor outweighs both
 //     roundings; |dir.n| >= 1e-12 and bound > 1e-4 keep the products
@@ -120,14 +121,12 @@ __device__ __forceinline__ bool row_hit(bool want, const float* ro,
   const float4 nd = g[0];
   const float num = __fsub_rn(nd.w, dot3v(ro, nd));
   const float d_n = dot3v(rd, nd);
-  bool c = want &&
-           ((num > 0.0f && d_n > 0.0f) || (num < 0.0f && d_n < 0.0f)) &&
-           fabsf(d_n) >= 1e-12f &&
-           fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f);
+  bool c = want & (__fmul_rn(num, d_n) > 0.0f) & (fabsf(d_n) >= 1e-12f) &
+           (fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f));
   if (!__any_sync(0xffffffffu, c)) return false;
   // lanes that reject divide 1 by 1 (no slow path for them)
   const float t = __fdiv_rn(c ? num : 1.0f, c ? d_n : 1.0f);
-  c = c && t > lo && t < bound;
+  c = c & (t > lo) & (t < bound);
   if (!__any_sync(0xffffffffu, c)) return false;
   const float4 U = g[1], V = g[2];
   const float u =
@@ -137,7 +136,7 @@ __device__ __forceinline__ bool row_hit(bool want, const float* ro,
   *t_out = t;
   *u_out = u;
   *v_out = v;
-  return c && (u >= 0.0f) && (v >= 0.0f) && (__fadd_rn(u, v) <= 1.0f);
+  return c & (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f);
 }
 
 __device__ __forceinline__ void stage_tile(float* s_geo, const float* geo,

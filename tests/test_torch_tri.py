@@ -21,6 +21,8 @@ inputs, against the JAX package.
   all-null case passes a flag, not a table.
 """
 import dataclasses
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,8 +42,11 @@ from test_torch_track import _assert_track_close
 
 TRI_FIELDS = ("tri_gid", "tri_obj", "tri_n", "tri_d", "tri_U", "tri_cu",
               "tri_V", "tri_cv")
-# the media-walk kernel's null-row cap (csrc/tri_intersect.cu NULL_CAP)
-NULL_CAP = 32
+# the media-walk kernel's null-row cap, as its source sets it
+NULL_CAP = int(re.search(
+    r"#define NULL_CAP (\d+)",
+    (pathlib.Path(K.__file__).parents[1] / "csrc" / "tri_intersect.cu")
+    .read_text()).group(1))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -195,15 +200,19 @@ def test_closest_twin_matches_pallas(case):
         assert far_row.sum() > 10 and (row[::9] == -1).all()
 
 
-@pytest.mark.parametrize("case", [(12, 8, 3), (12, 12, 3), (12, 0, 2)],
-                         ids=["at-cap", "above-cap", "duplicates"])
+@pytest.mark.parametrize("case", ["at-cap", "above-cap", "eps-layered"])
 def test_track_twin_matches_pallas_on_layered_nulls(case):
-    dup, eps, K_ = case
+    """The vpt cbox's 12 null rows with copies: at the cap (duplicates,
+    then eps-layered copies up to NULL_CAP rows), above it (12 duplicates
+    and 12 eps-layered copies) and eps-layered copies alone."""
+    dup, eps, K_ = {"at-cap": (min(12, NULL_CAP - 12),
+                               max(0, NULL_CAP - 24), 3),
+                    "above-cap": (12, 12, 3), "eps-layered": (0, 12, 2)}[case]
     js0, s0 = _scenes("vpt")
     js, s = _layered(js0, s0, s0.tri_null_rows.numpy(), dup, eps)
     n_null = s.tri_null_rows.shape[0]
     assert n_null == 12 + dup + eps
-    assert (n_null <= NULL_CAP) == (eps < 12)
+    assert (n_null <= NULL_CAP) == (case == "at-cap")
     ro, rd = _aimed_rays(s, s.tri_null_rows.numpy(), 400, 19 + eps)
     far = np.random.default_rng(eps).uniform(0.5, 9.0, 400) \
         .astype(np.float32)
