@@ -61,6 +61,12 @@
 #ifndef NULL_CAP
 #define NULL_CAP 16  // null rows the media walk keeps in registers
 #endif
+#ifndef CLOSEST_FILTER
+#define CLOSEST_FILTER false  // the closest hit votes on its divides
+#endif
+#ifndef TRACK_FILTER
+#define TRACK_FILTER true  // the media walk votes on its divides
+#endif
 
 constexpr float kEps = 1e-4f;   // RAY_EPS
 constexpr float kFar = 1e7f;    // FAR
@@ -113,7 +119,11 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
 //     means |d - o.n| / |dir.n| > bound (the factor outweighs both
 //     roundings; |dir.n| >= 1e-12 and bound > 1e-4 keep the products
 //     normal), so the rounded quotient is >= bound.
-// A lane with want false takes part in the votes and gets false.
+// With FILTER false the divide is not voted on: every lane divides, as the
+// parent kernel did (denominator 1e-12 on a flat row), and only u and v
+// wait for a vote. A lane with want false takes part in the votes and gets
+// false.
+template <bool FILTER>
 __device__ __forceinline__ bool row_hit(bool want, const float* ro,
                                         const float* rd, const float4* g,
                                         float lo, float bound, float* t_out,
@@ -121,11 +131,17 @@ __device__ __forceinline__ bool row_hit(bool want, const float* ro,
   const float4 nd = g[0];
   const float num = __fsub_rn(nd.w, dot3v(ro, nd));
   const float d_n = dot3v(rd, nd);
-  bool c = want & (__fmul_rn(num, d_n) > 0.0f) & (fabsf(d_n) >= 1e-12f) &
-           (fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f));
-  if (!__any_sync(0xffffffffu, c)) return false;
-  // lanes that reject divide 1 by 1 (no slow path for them)
-  const float t = __fdiv_rn(c ? num : 1.0f, c ? d_n : 1.0f);
+  bool c = want & (fabsf(d_n) >= 1e-12f);
+  float t;
+  if (FILTER) {
+    c = c & (__fmul_rn(num, d_n) > 0.0f) &
+        (fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f));
+    if (!__any_sync(0xffffffffu, c)) return false;
+    // lanes that reject divide 1 by 1 (no slow path for them)
+    t = __fdiv_rn(c ? num : 1.0f, c ? d_n : 1.0f);
+  } else {
+    t = __fdiv_rn(num, fabsf(d_n) < 1e-12f ? 1e-12f : d_n);
+  }
   c = c & (t > lo) & (t < bound);
   if (!__any_sync(0xffffffffu, c)) return false;
   const float4 U = g[1], V = g[2];
@@ -259,8 +275,8 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float t, u, v;
-        if (row_hit(has[r], ro[r], rd[r], s_geo + 3 * j, kEps, best_t[r], &t,
-                    &u, &v)) {
+        if (row_hit<CLOSEST_FILTER>(has[r], ro[r], rd[r], s_geo + 3 * j, kEps,
+                                    best_t[r], &t, &u, &v)) {
           best_t[r] = t;
           best_u[r] = u;
           best_v[r] = v;
@@ -460,7 +476,7 @@ __global__ void tri_track_kernel(
   int q_blk = -1;
   for (int q = 0; q < n_solid; ++q) {
     float t, u, v;
-    if (row_hit(has, ro, rd, s_geo + 3 * q, kEps, t_blk, &t, &u, &v)) {
+    if (row_hit<TRACK_FILTER>(has, ro, rd, s_geo + 3 * q, kEps, t_blk, &t, &u, &v)) {
       t_blk = t;
       q_blk = q;
     }
@@ -487,7 +503,8 @@ __global__ void tri_track_kernel(
       th[j] = kFar;
       float t, u, v;
       if (j < n_null &&
-          row_hit(has, ro, rd, s_null + 3 * j, kEps, t_cut, &t, &u, &v))
+          row_hit<TRACK_FILTER>(has, ro, rd, s_null + 3 * j, kEps, t_cut, &t, &u,
+                        &v))
         th[j] = t;
     }
     for (int k = 0; k < K; ++k) {
@@ -517,8 +534,8 @@ __global__ void tri_track_kernel(
       const float lo = fmaxf(kEps, prev);
       for (int j = 0; j < n_null; ++j) {
         float t, u, v;
-        if (row_hit(has, ro, rd, s_null + 3 * j, lo, fminf(t_cut, best), &t,
-                    &u, &v)) {
+        if (row_hit<TRACK_FILTER>(has, ro, rd, s_null + 3 * j, lo, fminf(t_cut, best),
+                          &t, &u, &v)) {
           best = t;
           bj = j;
         }
