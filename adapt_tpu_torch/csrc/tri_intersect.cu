@@ -64,6 +64,9 @@
 #ifndef CLOSEST_FILTER
 #define CLOSEST_FILTER false  // the closest hit votes on its divides
 #endif
+#ifndef CLOSEST_VOTE
+#define CLOSEST_VOTE true  // the closest hit votes on u and v
+#endif
 #ifndef TRACK_FILTER
 #define TRACK_FILTER true  // the media walk votes on its divides
 #endif
@@ -123,7 +126,7 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
 // parent kernel did (denominator 1e-12 on a flat row), and only u and v
 // wait for a vote. A lane with want false takes part in the votes and gets
 // false.
-template <bool FILTER>
+template <bool FILTER, bool VOTE = true>
 __device__ __forceinline__ bool row_hit(bool want, const float* ro,
                                         const float* rd, const float4* g,
                                         float lo, float bound, float* t_out,
@@ -143,7 +146,7 @@ __device__ __forceinline__ bool row_hit(bool want, const float* ro,
     t = __fdiv_rn(num, fabsf(d_n) < 1e-12f ? 1e-12f : d_n);
   }
   c = c & (t > lo) & (t < bound);
-  if (!__any_sync(0xffffffffu, c)) return false;
+  if (VOTE && !__any_sync(0xffffffffu, c)) return false;
   const float4 U = g[1], V = g[2];
   const float u =
       __fsub_rn(__fadd_rn(dot3v(ro, U), __fmul_rn(t, dot3v(rd, U))), U.w);
@@ -275,8 +278,9 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float t, u, v;
-        if (row_hit<CLOSEST_FILTER>(has[r], ro[r], rd[r], s_geo + 3 * j, kEps,
-                                    best_t[r], &t, &u, &v)) {
+        if (row_hit<CLOSEST_FILTER, CLOSEST_VOTE>(
+                has[r], ro[r], rd[r], s_geo + 3 * j, kEps, best_t[r], &t, &u,
+                &v)) {
           best_t[r] = t;
           best_u[r] = u;
           best_v[r] = v;
