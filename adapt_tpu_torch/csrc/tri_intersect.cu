@@ -65,7 +65,7 @@
 #define CLOSEST_FILTER false  // the closest hit votes on its divides
 #endif
 #ifndef CLOSEST_VOTE
-#define CLOSEST_VOTE true  // the closest hit votes on u and v
+#define CLOSEST_VOTE false  // the closest hit votes on u and v
 #endif
 #ifndef TRACK_FILTER
 #define TRACK_FILTER true  // the media walk votes on its divides
@@ -220,7 +220,11 @@ __device__ __forceinline__ int pack_walkers(const float* far_all, int n,
 }
 
 template <int R>
-__global__ void tri_closest_kernel(const float* __restrict__ ro_all,
+__global__ void
+#ifdef CLOSEST_BLOCKS
+__launch_bounds__(TILE, CLOSEST_BLOCKS)
+#endif
+tri_closest_kernel(const float* __restrict__ ro_all,
                                    const float* __restrict__ rd_all,
                                    const float* __restrict__ far_all, int n,
                                    const float4* __restrict__ geo4,
