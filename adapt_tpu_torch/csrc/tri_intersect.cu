@@ -62,10 +62,16 @@
 #define NULL_CAP 16  // null rows the media walk keeps in registers
 #endif
 #ifndef CLOSEST_FILTER
-#define CLOSEST_FILTER false  // the closest hit votes on its divides
+#define CLOSEST_FILTER true  // the closest hit votes on its divides
 #endif
 #ifndef CLOSEST_VOTE
-#define CLOSEST_VOTE false  // the closest hit votes on u and v
+#define CLOSEST_VOTE true  // the closest hit votes on u and v
+#endif
+#ifndef CLOSEST_SORT
+#define CLOSEST_SORT true  // the closest hit groups a block's rays by octant
+#endif
+#ifndef TRACK_SORT
+#define TRACK_SORT true  // the media walk groups a block's rays by octant
 #endif
 #ifndef TRACK_FILTER
 #define TRACK_FILTER true  // the media walk votes on its divides
@@ -180,43 +186,56 @@ __device__ __forceinline__ void stage_tile4(float4* s_geo,
 
 // The walking rays of a block, packed: the block's rays first + r * TILE
 // + threadIdx.x (r < R, below n) whose far bound exceeds RAY_EPS go to
-// s_idx in ray order; each other ray is handed to dead(i, far) by the
-// thread that read it. Returns their count, the same in every thread.
-template <int R, typename Dead>
+// s_idx, grouped by key_of(i) in [0, NB) (the direction's octant), in ray
+// order inside a group; each other ray is handed to dead(i, far) by the
+// thread that read it. s_cnt holds NB * R * TILE / 32 ints. Returns the
+// count of packed rays, the same in every thread.
+template <int R, int NB, typename Key, typename Dead>
 __device__ __forceinline__ int pack_walkers(const float* far_all, int n,
                                             int first, int* s_idx,
-                                            int* s_cnt, Dead dead) {
+                                            int* s_cnt, Key key_of,
+                                            Dead dead) {
   constexpr int W = TILE / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned mask[R];
-  bool walk[R];
+  int key[R], rank[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = first + r * TILE + threadIdx.x;
     const float f = i < n ? far_all[i] : -3e38f;
-    walk[r] = f > kEps;
-    if (i < n && !walk[r]) dead(i, f);
-    mask[r] = __ballot_sync(0xffffffffu, walk[r]);
-    if (lane == 0) s_cnt[r * W + warp] = __popc(mask[r]);
+    const bool walk = f > kEps;
+    if (i < n && !walk) dead(i, f);
+    key[r] = walk ? key_of(i) : -1;
+    rank[r] = 0;
+    for (int b = 0; b < NB; ++b) {
+      const unsigned m = __ballot_sync(0xffffffffu, key[r] == b);
+      if (key[r] == b) rank[r] = __popc(m & ((1u << lane) - 1u));
+      if (lane == 0) s_cnt[(b * R + r) * W + warp] = __popc(m);
+    }
   }
   __syncthreads();
   int total = 0;
   int off[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) off[r] = 0;
-  for (int k = 0; k < R * W; ++k) {
+  for (int k = 0; k < NB * R * W; ++k) {
+    const int c = s_cnt[k];
+    total += c;
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if (k < r * W + warp) off[r] += s_cnt[k];
-    total += s_cnt[k];
+      if (k < (key[r] * R + r) * W + warp) off[r] += c;
   }
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    if (walk[r])
-      s_idx[off[r] + __popc(mask[r] & ((1u << lane) - 1u))] =
-          first + r * TILE + threadIdx.x;
+    if (key[r] >= 0)
+      s_idx[off[r] + rank[r]] = first + r * TILE + threadIdx.x;
   __syncthreads();
   return total;
+}
+
+// The octant of ray i's direction (NaN components count as positive).
+__device__ __forceinline__ int octant(const float* rd_all, int i) {
+  const float* d = rd_all + (size_t)i * 3;
+  return (d[0] < 0.0f) | (d[1] < 0.0f) << 1 | (d[2] < 0.0f) << 2;
 }
 
 template <int R>
@@ -237,8 +256,9 @@ tri_closest_kernel(const float* __restrict__ ro_all,
                                    float* __restrict__ ng_out,
                                    int* __restrict__ obj_out) {
   __shared__ float4 s_geo[TILE * 3];
+  constexpr int NB = CLOSEST_SORT ? 8 : 1;
   __shared__ int s_idx[TILE * R];
-  __shared__ int s_cnt[TILE / 32 * R];
+  __shared__ int s_cnt[NB * R * (TILE / 32)];
   auto miss = [&](int i, float far) {
     t_out[i] = far;
     row_out[i] = -1;
@@ -251,8 +271,9 @@ tri_closest_kernel(const float* __restrict__ ro_all,
   // dead lanes (far <= RAY_EPS) are a miss already; the walking rays are
   // packed, thread x taking packed rays x * R + r, so warps past the last
   // of them issue nothing
-  const int walkers = pack_walkers<R>(far_all, n, blockIdx.x * (TILE * R),
-                                      s_idx, s_cnt, miss);
+  const int walkers = pack_walkers<R, NB>(
+      far_all, n, blockIdx.x * (TILE * R), s_idx, s_cnt,
+      [&](int i) { return NB > 1 ? octant(rd_all, i) : 0; }, miss);
   if (walkers == 0) return;
   float ro[R][3], rd[R][3], far[R], best_t[R], best_u[R], best_v[R];
   int ray[R], best_i[R];
@@ -436,8 +457,9 @@ __global__ void tri_track_kernel(
     bool* __restrict__ ov_out) {
   __shared__ float4 s_geo[TILE * 3];
   __shared__ int s_row[TILE];
+  constexpr int NB = TRACK_SORT ? 8 : 1;
   __shared__ int s_idx[TILE];
-  __shared__ int s_cnt[TILE / 32];
+  __shared__ int s_cnt[NB * (TILE / 32)];
   // slot q < n_solid: row solid_rows[q]; slot n_solid + j: null_rows[j] (row
   // j when null_rows is null: every row null)
   const int m = n_solid + n_null;
@@ -452,8 +474,10 @@ __global__ void tri_track_kernel(
   const float4* s_null = s_geo + 3 * n_solid;
   // dead lanes (far <= RAY_EPS) have no hits and no overflow; the walking
   // rays are packed, so warps past the last of them issue nothing
-  const int walkers = pack_walkers<1>(
-      far_all, n, blockIdx.x * TILE, s_idx, s_cnt, [&](int i, float) {
+  const int walkers = pack_walkers<1, NB>(
+      far_all, n, blockIdx.x * TILE, s_idx, s_cnt,
+      [&](int i) { return NB > 1 ? octant(rd_all, i) : 0; },
+      [&](int i, float) {
         for (int k = 0; k < K; ++k) {
           const size_t o = (size_t)k * n + i;
           t_null[o] = kFar;
