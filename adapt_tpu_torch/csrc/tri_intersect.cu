@@ -61,21 +61,6 @@
 #ifndef NULL_CAP
 #define NULL_CAP 16  // null rows the media walk keeps in registers
 #endif
-#ifndef CLOSEST_FILTER
-#define CLOSEST_FILTER true  // the closest hit votes on its divides
-#endif
-#ifndef CLOSEST_VOTE
-#define CLOSEST_VOTE true  // the closest hit votes on u and v
-#endif
-#ifndef CLOSEST_SORT
-#define CLOSEST_SORT true  // the closest hit groups a block's rays by octant
-#endif
-#ifndef TRACK_SORT
-#define TRACK_SORT true  // the media walk groups a block's rays by octant
-#endif
-#ifndef TRACK_FILTER
-#define TRACK_FILTER true  // the media walk votes on its divides
-#endif
 
 constexpr float kEps = 1e-4f;   // RAY_EPS
 constexpr float kFar = 1e7f;    // FAR
@@ -128,11 +113,13 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
 //     means |d - o.n| / |dir.n| > bound (the factor outweighs both
 //     roundings; |dir.n| >= 1e-12 and bound > 1e-4 keep the products
 //     normal), so the rounded quotient is >= bound.
-// With FILTER false the divide is not voted on: every lane divides, as the
-// parent kernel did (denominator 1e-12 on a flat row), and only u and v
-// wait for a vote. A lane with want false takes part in the votes and gets
-// false.
-template <bool FILTER, bool VOTE = true>
+// Unvoted (VOTED false), the same test runs as straight-line code on
+// every row, as the parent kernel ran it (denominator 1e-12 on a flat row):
+// where a warp's rays are incoherent every half is needed by some lane on
+// almost every row, and the votes only cost issue and the overlap of the
+// divide with the u and v dots. A lane with want false takes part in the
+// votes and gets false.
+template <bool VOTED>
 __device__ __forceinline__ bool row_hit(bool want, const float* ro,
                                         const float* rd, const float4* g,
                                         float lo, float bound, float* t_out,
@@ -142,7 +129,7 @@ __device__ __forceinline__ bool row_hit(bool want, const float* ro,
   const float d_n = dot3v(rd, nd);
   bool c = want & (fabsf(d_n) >= 1e-12f);
   float t;
-  if (FILTER) {
+  if (VOTED) {
     c = c & (__fmul_rn(num, d_n) > 0.0f) &
         (fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f));
     if (!__any_sync(0xffffffffu, c)) return false;
@@ -152,7 +139,7 @@ __device__ __forceinline__ bool row_hit(bool want, const float* ro,
     t = __fdiv_rn(num, fabsf(d_n) < 1e-12f ? 1e-12f : d_n);
   }
   c = c & (t > lo) & (t < bound);
-  if (VOTE && !__any_sync(0xffffffffu, c)) return false;
+  if (VOTED && !__any_sync(0xffffffffu, c)) return false;
   const float4 U = g[1], V = g[2];
   const float u =
       __fsub_rn(__fadd_rn(dot3v(ro, U), __fmul_rn(t, dot3v(rd, U))), U.w);
@@ -186,64 +173,48 @@ __device__ __forceinline__ void stage_tile4(float4* s_geo,
 
 // The walking rays of a block, packed: the block's rays first + r * TILE
 // + threadIdx.x (r < R, below n) whose far bound exceeds RAY_EPS go to
-// s_idx, grouped by key_of(i) in [0, NB) (the direction's octant), in ray
-// order inside a group; each other ray is handed to dead(i, far) by the
-// thread that read it. s_cnt holds NB * R * TILE / 32 ints. Returns the
-// count of packed rays, the same in every thread.
-template <int R, int NB, typename Key, typename Dead>
+// s_idx in ray order; each other ray is handed to dead(i, far) by the
+// thread that read it. s_cnt holds R * TILE / 32 ints. Returns the count
+// of packed rays, the same in every thread.
+template <int R, typename Dead>
 __device__ __forceinline__ int pack_walkers(const float* far_all, int n,
                                             int first, int* s_idx,
-                                            int* s_cnt, Key key_of,
-                                            Dead dead) {
+                                            int* s_cnt, Dead dead) {
   constexpr int W = TILE / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int key[R], rank[R];
+  unsigned mask[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = first + r * TILE + threadIdx.x;
     const float f = i < n ? far_all[i] : -3e38f;
     const bool walk = f > kEps;
     if (i < n && !walk) dead(i, f);
-    key[r] = walk ? key_of(i) : -1;
-    rank[r] = 0;
-    for (int b = 0; b < NB; ++b) {
-      const unsigned m = __ballot_sync(0xffffffffu, key[r] == b);
-      if (key[r] == b) rank[r] = __popc(m & ((1u << lane) - 1u));
-      if (lane == 0) s_cnt[(b * R + r) * W + warp] = __popc(m);
-    }
+    mask[r] = __ballot_sync(0xffffffffu, walk);
+    if (lane == 0) s_cnt[r * W + warp] = __popc(mask[r]);
   }
   __syncthreads();
   int total = 0;
   int off[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) off[r] = 0;
-  for (int k = 0; k < NB * R * W; ++k) {
+  for (int k = 0; k < R * W; ++k) {
     const int c = s_cnt[k];
     total += c;
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if (k < (key[r] * R + r) * W + warp) off[r] += c;
+      if (k < r * W + warp) off[r] += c;
   }
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    if (key[r] >= 0)
-      s_idx[off[r] + rank[r]] = first + r * TILE + threadIdx.x;
+    if ((mask[r] >> lane) & 1u)
+      s_idx[off[r] + __popc(mask[r] & ((1u << lane) - 1u))] =
+          first + r * TILE + threadIdx.x;
   __syncthreads();
   return total;
 }
 
-// The octant of ray i's direction (NaN components count as positive).
-__device__ __forceinline__ int octant(const float* rd_all, int i) {
-  const float* d = rd_all + (size_t)i * 3;
-  return (d[0] < 0.0f) | (d[1] < 0.0f) << 1 | (d[2] < 0.0f) << 2;
-}
-
 template <int R>
-__global__ void
-#ifdef CLOSEST_BLOCKS
-__launch_bounds__(TILE, CLOSEST_BLOCKS)
-#endif
-tri_closest_kernel(const float* __restrict__ ro_all,
+__global__ void tri_closest_kernel(const float* __restrict__ ro_all,
                                    const float* __restrict__ rd_all,
                                    const float* __restrict__ far_all, int n,
                                    const float4* __restrict__ geo4,
@@ -256,9 +227,8 @@ tri_closest_kernel(const float* __restrict__ ro_all,
                                    float* __restrict__ ng_out,
                                    int* __restrict__ obj_out) {
   __shared__ float4 s_geo[TILE * 3];
-  constexpr int NB = CLOSEST_SORT ? 8 : 1;
   __shared__ int s_idx[TILE * R];
-  __shared__ int s_cnt[NB * R * (TILE / 32)];
+  __shared__ int s_cnt[R * (TILE / 32)];
   auto miss = [&](int i, float far) {
     t_out[i] = far;
     row_out[i] = -1;
@@ -271,23 +241,25 @@ tri_closest_kernel(const float* __restrict__ ro_all,
   // dead lanes (far <= RAY_EPS) are a miss already; the walking rays are
   // packed, thread x taking packed rays x * R + r, so warps past the last
   // of them issue nothing
-  const int walkers = pack_walkers<R, NB>(
-      far_all, n, blockIdx.x * (TILE * R), s_idx, s_cnt,
-      [&](int i) { return NB > 1 ? octant(rd_all, i) : 0; }, miss);
+  const int walkers = pack_walkers<R>(far_all, n, blockIdx.x * (TILE * R),
+                                      s_idx, s_cnt, miss);
   if (walkers == 0) return;
   float ro[R][3], rd[R][3], far[R], best_t[R], best_u[R], best_v[R];
   int ray[R], best_i[R];
   bool has[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    // a slot past the last packed ray tests that ray again and keeps
+    // nothing: a made-up ray could send its warp down the divide's slow
+    // path on some row
     const int slot = threadIdx.x * R + r;
     has[r] = slot < walkers;
-    ray[r] = has[r] ? s_idx[slot] : 0;
+    ray[r] = s_idx[has[r] ? slot : walkers - 1];
     for (int c = 0; c < 3; ++c) {
-      ro[r][c] = has[r] ? ro_all[(size_t)ray[r] * 3 + c] : 0.0f;
-      rd[r][c] = has[r] ? rd_all[(size_t)ray[r] * 3 + c] : 1.0f;
+      ro[r][c] = ro_all[(size_t)ray[r] * 3 + c];
+      rd[r][c] = rd_all[(size_t)ray[r] * 3 + c];
     }
-    far[r] = has[r] ? far_all[ray[r]] : 0.0f;
+    far[r] = far_all[ray[r]];
     // strict < from min(FAR, far): the first row reaching the least valid
     // t wins (a hit at or beyond far is a miss all the same)
     best_t[r] = fminf(kFar, far[r]);
@@ -303,9 +275,8 @@ tri_closest_kernel(const float* __restrict__ ro_all,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float t, u, v;
-        if (row_hit<CLOSEST_FILTER, CLOSEST_VOTE>(
-                has[r], ro[r], rd[r], s_geo + 3 * j, kEps, best_t[r], &t, &u,
-                &v)) {
+        if (row_hit<false>(has[r], ro[r], rd[r], s_geo + 3 * j, kEps,
+                           best_t[r], &t, &u, &v)) {
           best_t[r] = t;
           best_u[r] = u;
           best_v[r] = v;
@@ -457,9 +428,8 @@ __global__ void tri_track_kernel(
     bool* __restrict__ ov_out) {
   __shared__ float4 s_geo[TILE * 3];
   __shared__ int s_row[TILE];
-  constexpr int NB = TRACK_SORT ? 8 : 1;
   __shared__ int s_idx[TILE];
-  __shared__ int s_cnt[NB * (TILE / 32)];
+  __shared__ int s_cnt[TILE / 32];
   // slot q < n_solid: row solid_rows[q]; slot n_solid + j: null_rows[j] (row
   // j when null_rows is null: every row null)
   const int m = n_solid + n_null;
@@ -474,10 +444,8 @@ __global__ void tri_track_kernel(
   const float4* s_null = s_geo + 3 * n_solid;
   // dead lanes (far <= RAY_EPS) have no hits and no overflow; the walking
   // rays are packed, so warps past the last of them issue nothing
-  const int walkers = pack_walkers<1, NB>(
-      far_all, n, blockIdx.x * TILE, s_idx, s_cnt,
-      [&](int i) { return NB > 1 ? octant(rd_all, i) : 0; },
-      [&](int i, float) {
+  const int walkers = pack_walkers<1>(
+      far_all, n, blockIdx.x * TILE, s_idx, s_cnt, [&](int i, float) {
         for (int k = 0; k < K; ++k) {
           const size_t o = (size_t)k * n + i;
           t_null[o] = kFar;
@@ -492,14 +460,16 @@ __global__ void tri_track_kernel(
   // a warp past the last packed ray is done; in the last one the lanes
   // without a ray vote with the others and write nothing
   if ((threadIdx.x & ~31) >= walkers) return;
+  // (a lane past the last packed ray tests that ray again and keeps
+  // nothing, as in the closest hit)
   const bool has = threadIdx.x < walkers;
-  const int i = has ? s_idx[threadIdx.x] : 0;
+  const int i = s_idx[has ? threadIdx.x : walkers - 1];
   float ro[3], rd[3];
   for (int c = 0; c < 3; ++c) {
-    ro[c] = has ? ro_all[(size_t)i * 3 + c] : 0.0f;
-    rd[c] = has ? rd_all[(size_t)i * 3 + c] : 1.0f;
+    ro[c] = ro_all[(size_t)i * 3 + c];
+    rd[c] = rd_all[(size_t)i * 3 + c];
   }
-  const float far = has ? far_all[i] : 1.0f;
+  const float far = far_all[i];
 
   // closest blocker: strict < from min(FAR, far), so the lowest row wins a
   // tie and rows at FAR (invalid) never win; a blocker at or beyond far is
@@ -508,7 +478,7 @@ __global__ void tri_track_kernel(
   int q_blk = -1;
   for (int q = 0; q < n_solid; ++q) {
     float t, u, v;
-    if (row_hit<TRACK_FILTER>(has, ro, rd, s_geo + 3 * q, kEps, t_blk, &t, &u, &v)) {
+    if (row_hit<true>(has, ro, rd, s_geo + 3 * q, kEps, t_blk, &t, &u, &v)) {
       t_blk = t;
       q_blk = q;
     }
@@ -535,7 +505,7 @@ __global__ void tri_track_kernel(
       th[j] = kFar;
       float t, u, v;
       if (j < n_null &&
-          row_hit<TRACK_FILTER>(has, ro, rd, s_null + 3 * j, kEps, t_cut, &t, &u,
+          row_hit<true>(has, ro, rd, s_null + 3 * j, kEps, t_cut, &t, &u,
                         &v))
         th[j] = t;
     }
@@ -566,7 +536,7 @@ __global__ void tri_track_kernel(
       const float lo = fmaxf(kEps, prev);
       for (int j = 0; j < n_null; ++j) {
         float t, u, v;
-        if (row_hit<TRACK_FILTER>(has, ro, rd, s_null + 3 * j, lo, fminf(t_cut, best),
+        if (row_hit<true>(has, ro, rd, s_null + 3 * j, lo, fminf(t_cut, best),
                           &t, &u, &v)) {
           best = t;
           bj = j;

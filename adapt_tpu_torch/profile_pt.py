@@ -14,7 +14,8 @@ calls of `--spp` samples (host clock around work that ends in a
 synchronize), then traces one more under torch.profiler with one range per
 stage of the bounce loop (for BDPT: the two walks, and each connection
 case; under `--tier qpick`, PT's front pass and sort, tile picks, unsort
-and winner read-out). `--tier` names the kernels of the big-scene tier
+and winner read-out), and one around each brute-force kernel's wrapper
+(B1, B2, B3: its host time a call). `--tier` names the kernels of the big-scene tier
 (`RenderConfig.big_tier`: bvh, sweep or qpick). Prints one line per range, the kernels that take the most device
 time and the port's own kernels, and a JSON summary (also written to
 `--out` when given). Needs one CUDA device.
@@ -32,6 +33,7 @@ import torch
 
 from . import rng
 from .ops import bxdf_ops, cluster_kernels, emitter_ops, medium_ops
+from .ops import intersect_kernels
 from .ops.intersect import BIG_TIERS
 from .renderer import bdpt, compact, pt, vpt
 from .scene.compile import load_scene
@@ -41,6 +43,12 @@ _SHADING = (
     (bxdf_ops, "surface_eval", "surface_eval"),
     (bxdf_ops, "surface_pdf", "surface_pdf"),
     (bxdf_ops, "gather_mat", "gather_mat"),
+)
+# the brute-force kernels' wrappers, timed on their own (host ms a call)
+_WRAPPERS = (
+    (intersect_kernels, "tri_closest_hit", "B1 wrapper"),
+    (intersect_kernels, "tri_any_hit", "B2 wrapper"),
+    (intersect_kernels, "tri_track_hits", "B3 wrapper"),
 )
 # (module, attribute, range name): the stages a pass spends time in, per
 # renderer; ranges may nest (track_ray holds ray_track_hits)
@@ -54,7 +62,7 @@ RANGES = {
            (cluster_kernels, "resolve_winner", "resolve_winner"),
            *_SHADING,
            (pt, "camera_rays", "camera_rays"),
-           (compact, "run_compacted", "bounce loop")),
+           (compact, "run_compacted", "bounce loop"), *_WRAPPERS),
     "vpt": ((rng, "lane_uniform", "rng.lane_uniform"),
             (vpt, "ray_intersect", "ray_intersect"),
             (vpt, "track_ray", "track_ray"),
@@ -65,7 +73,7 @@ RANGES = {
             (emitter_ops, "sample_hit", "sample_hit"),
             *_SHADING,
             (vpt, "camera_rays", "camera_rays"),
-            (compact, "run_compacted", "iteration loop")),
+            (compact, "run_compacted", "iteration loop"), *_WRAPPERS),
     # "{case}": one range per connection case (s0, t1, s1, gen)
     "bdpt": ((rng, "uniform", "rng.uniform"),
              (bdpt, "generate_eye_path", "eye walk"),
@@ -81,7 +89,7 @@ RANGES = {
              (medium_ops, "phase_sample", "phase_sample"),
              (emitter_ops, "sample_hit", "sample_hit"),
              *_SHADING,
-             (bdpt, "splat_sorted_accumulate", "film splat")),
+             (bdpt, "splat_sorted_accumulate", "film splat"), *_WRAPPERS),
 }
 CASES = ("s0", "t1", "s1", "gen")
 TOP = 8               # kernels listed by device time
@@ -161,11 +169,12 @@ def main(argv=None):
     for name in _names(ranges):
         hits = [e for e in events if e.name == name and e.device_type != cuda]
         if hits:      # device ms: the kernels launched inside the range
+            host = sum(e.cpu_time_total for e in hits) / 1e3
             rows.append({
                 "range": name, "calls": len(hits) / spp,
                 "device_ms": sum(e.device_time_total for e in hits) / 1e3
                 / spp,
-                "host_ms": sum(e.cpu_time_total for e in hits) / 1e3 / spp})
+                "host_ms": host / spp, "host_ms_per_call": host / len(hits)})
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) \
@@ -193,7 +202,8 @@ def main(argv=None):
           f"{out['schedule']}")
     for row in rows:
         print(f"  {row['range']:<20} calls {row['calls']:>6.1f}  device "
-              f"{row['device_ms']:9.3f} ms  host {row['host_ms']:9.3f} ms")
+              f"{row['device_ms']:9.3f} ms  host {row['host_ms']:9.3f} ms "
+              f"({row['host_ms_per_call']:.4f} a call)")
     for name, ms in top + sorted(own.items()):
         print(f"  kernel {name[:60]:<60} {ms:9.3f} ms/spp")
     print(json.dumps(out))

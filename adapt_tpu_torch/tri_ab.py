@@ -15,14 +15,16 @@ builds the current source once more with `-DNAME=VALUE` (TRI_RAYS, the
 closest hit's rays a thread; NULL_CAP, the media walk's null-row cap),
 called through the current wrappers.
 
-On chip_smoke.py's sets (`cbox_rays`: cbox 512^2 primary and bounce rays;
-`vpt_rays`: the vpt cbox's shadow rays at K = 2), every build is held
+On chip_smoke.py's sets (`cbox_rays`: cbox 512^2 primary and bounce rays,
+and the bounce rays with 50% and 80% of their lanes dead; `vpt_rays`: the
+vpt cbox's shadow rays at K = 2, and with 50% dead), every build is held
 bit-equal to the plain versions, then timed in turns baseline, current,
 current, baseline (the variants after each current turn): single calls
 and kernel-only device times (chip_smoke.py `_time_ms`, `_graph_ms`: a CUDA
 graph of 10 calls reading the scene's prebuilt tables); the baseline also
 with the table build its wrappers did on every call (`tri_table`, and the
-null flags by `_is_null_obj`), inside the call as they were; and ms/spp of
+null flags by `_is_null_obj`), inside the call as they were (on the sets
+with no extra dead lanes); and ms/spp of
 PT on cbox (512^2, 8 bounces) and of VPT on the vpt cbox (its own settings)
 with each build in place, the baseline with its per-call table build.
 `--baseline-only` times the baseline alone (no current build is loaded).
@@ -231,6 +233,14 @@ def main(argv=None):
     vrays = cs.vpt_rays(torch, vscene, vcfg, g)
     N = rays["primary"][0].shape[0]
     b1_sets = {"primary": rays["primary"], "bounce": rays["bounce"]}
+    # sparse wavefronts, as late bounces leave them: the bounce rays with
+    # half and four fifths of their lanes dead, scattered
+    gd = torch.Generator(device=dev).manual_seed(1)
+    bo, bd, _bfar = rays["bounce"]
+    for share in (50, 80):
+        b1_sets[f"bounce {share}% dead"] = (bo, bd, torch.where(
+            torch.rand(N, generator=gd, device=dev) < share / 100, K.DEAD,
+            K.FAR))
     # every build bit-equal to the plain versions, on its own tables
     for tag, (o, d, far) in b1_sets.items():
         want = K.tri_closest_hit_plain(scene, o, d, far)
@@ -244,7 +254,10 @@ def main(argv=None):
                             "plain version")
     vo, vd, vfar = vrays["shadow"]
     vbo, vbd, vbfar = vrays["bounce"]
+    vfar50 = torch.where(torch.rand(N, generator=gd, device=dev) < 0.5,
+                         K.DEAD, vfar)
     for o, d, far, k, all_null in ((vo, vd, vfar, 2, False),
+                                   (vo, vd, vfar50, 2, False),
                                    (vbo, vbd, vbfar, 7, True)):
         want = K.tri_track_hits_plain(vscene, o, d, far, k,
                                       K.null_flags(vscene, all_null))
@@ -274,10 +287,12 @@ def main(argv=None):
                                   fns["closest"](scene, o, d, far, **kw))
         calls["B3 shadow"] = (lambda **kw: fns["track"](
             vscene, vo, vd, vfar, 2, False, **kw))
+        calls["B3 shadow 50% dead"] = (lambda **kw: fns["track"](
+            vscene, vo, vd, vfar50, 2, False, **kw))
         for key, call in calls.items():
             row[f"{key} ms"] = cs._time_ms(torch, call)
             row[f"{key} device_ms"] = cs._graph_ms(torch, call)
-            if name == "baseline":
+            if name == "baseline" and "dead" not in key:
                 row[f"{key} ms, table build"] = cs._time_ms(
                     torch, lambda: call(build=True))
                 row[f"{key} device_ms, table build"] = cs._graph_ms(
