@@ -23,28 +23,33 @@
 // float4s; the winner's normal (`tri_ng`) and object id (`tri_obj`) are read
 // from device memory once, after the sweep.
 //
-// What bounds them: the pair tests' issue rate. A test from shared memory is
-// ~55-60 SASS instructions under -fmad=false (six 3-term dots, the IEEE
-// divide's ~10, u, v, the compares) against 12 bytes of rays a test at most,
-// so the card's f32 rate, not its memory, is the bound, and work skipped
-// is time saved. Both redesigned kernels (B1 closest hit, B3 media walk) do
-// the plane half of a test first: o.n, dir.n and the sign of d - o.n decide
-// whether t can lie in (RAY_EPS, bound) at all, where bound is the running
-// best (B1, B3's blocker) or the walk's cut; only a row that passes
-// computes t, and only then u and v. Skipped work never reaches an output,
-// and what does goes through the same operations in the same order, so the
-// results stay bit-equal.
+// What bounds them: issuing the pair tests. A whole test is some 72 SASS
+// instructions under -fmad=false (six 3-term dots, the IEEE divide's ~10,
+// u, v, the compares; the parent kernel's loop was 74 a row) against 12
+// bytes of rays a test at most, so the card's f32 issue rate, not its
+// memory, is the limit (NVIDIA H100 80GB HBM3, 700 W: ~0.1 ns a ray over
+// the cbox's 34 rows, about 80% of the issue peak). Work that no lane of a
+// warp needs is time saved; work that one lane needs costs the warp all
+// the same.
 //
-// Closest hit (tri_closest_kernel): each thread takes TRI_RAYS rays (256
-// threads a block, one tile of rows staged in shared memory for all of
-// them, so a row is read once for TRI_RAYS rays and their divides overlap);
-// a lane whose far bound is at or below RAY_EPS (dead lanes carry -3e38)
-// cannot hit and skips the sweep, and a block with no live lane stages
-// nothing. The Pallas kernel's argmin has one more case: an invalid row
-// competes at FAR (1e7), so with far0 > FAR a ray with no valid row before
-// FAR comes back as a "hit" at t = FAR on the first row whose t is FAR,
-// with that row's own u and v. Such rays (found after the sweep) take the
-// whole test again, row by row, as the parent kernel ran it.
+// Closest hit (tri_closest_kernel): one ray a thread (TRI_RAYS; two or
+// four measured slower: more registers, fewer blocks), 256 threads a
+// block, the table staged in shared memory in tiles of 256 rows (any T).
+// Each block first packs its walking rays (far > RAY_EPS; dead lanes carry
+// -3e38 and are written as a miss at once) into its first warps, so the
+// warps past them issue nothing; a spare lane of the last packed warp
+// tests that warp's last ray again and keeps nothing (a made-up ray could
+// send its warp down the divide's slow path on some row). The running best
+// starts at min(FAR, far). The test itself is the parent's straight-line
+// code: splitting it (plane first, a warp vote, u and v only where some
+// lane needs them) saved issue on coherent primary rays but cost more than
+// it saved on incoherent bounce rays, where a warp of 32 needs u on every
+// row, and the divide no longer overlapped the u and v dots. The Pallas
+// kernel's argmin has one more case: an invalid row competes at FAR (1e7),
+// so with far0 > FAR a ray with no valid row before FAR comes back as a
+// "hit" at t = FAR on the first row whose t is FAR, with that row's own u
+// and v. Such rays (found after the sweep) take the whole test again, row
+// by row, as the parent kernel ran it.
 //
 // Any hit (tri_any_kernel): one thread a ray, the whole test a row, exits
 // once every ray of the block is occluded.
@@ -102,10 +107,10 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
 // One row against each lane's ray, for a whole warp at once (every lane of
 // the warp calls it with the same row): true where the row is a valid hit
 // with lo < t < bound (lo >= RAY_EPS, bound > RAY_EPS), and then t, u, v as
-// tri_test rounds them. The plane half comes first and each later half
-// runs only when some lane of the warp still needs it: warp votes, and
-// conditions combined without short-circuits, so each half is
-// straight-line code and a warp whose lanes all reject skips the rest.
+// tri_test rounds them. Voted (VOTED true), the plane half comes first and
+// each later half runs only when some lane of the warp still needs it:
+// warp votes, and conditions combined without short-circuits, so each half
+// is straight-line code and a warp whose lanes all reject skips the rest.
 // Two rejections skip the divide and are exact:
 //   * (d - o.n) * dir.n <= 0 (or NaN) gives t <= 0 or NaN; where the
 //     product underflows to 0, |d - o.n| < 2^-149 / 1e-12 and t < RAY_EPS;
@@ -383,15 +388,18 @@ __global__ void tri_any_kernel(const float* __restrict__ ro_all,
 // dn = dot(n_g, d) of the chosen row, summed as (a0*b0 + a1*b1) + a2*b2,
 // plus 0.0 (the Pallas kernel's one-hot sum turns -0.0 into +0.0).
 //
-// The TPU kernel computes the (T, 2048) hit tables once and runs K + 1
-// min-reductions over them. Here one thread takes one ray. The block stages
+// What bounds it: issuing the pair tests, as above. The TPU kernel computes
+// the (T, 2048) hit tables once and runs K + 1 min-reductions over them.
+// Here one thread takes one ray. The block stages
 // the whole table in shared memory once, reordered by the scene's row lists
 // (`tri_solid_rows`, then `tri_null_rows`, each ascending, so "ties to the
 // lowest row" is "ties to the lowest slot"; with all_null the rows in
 // order, every one null); the wrapper refuses more than TILE rows, which
 // the brute-force tier never has. Then:
 //   * the blocker pass, one over the non-null rows, the plane first, u and
-//     v only for a row that would beat the running blocker;
+//     v only for a row that would beat the running blocker, which starts
+//     at min(FAR, far) (a blocker at or beyond far is reported as none and
+//     leaves the cut at far all the same);
 //   * the null pass, one over the null rows, the plane first against the
 //     cut min(t_blk, far): each row's t where it is a valid hit before the
 //     cut, else FAR, kept in registers (a fully unrolled array of NULL_CAP,
@@ -400,15 +408,17 @@ __global__ void tri_any_kernel(const float* __restrict__ ro_all,
 //     values only: no hit math is done twice.
 // A scene with more than NULL_CAP null rows takes the re-sweeping loop
 // instead, in the same kernel: K + 1 sweeps over the null rows from shared
-// memory, plane first against min(cut, running best). NULL_CAP = 32 covers
-// every main path (vpt cbox: 12 null rows of 36; BDPT cbox: none); the
-// all-null extraction of a 34- or 36-row scene takes the loop. Lanes whose
-// far bound is at or below RAY_EPS cannot hit anything and skip the passes.
+// memory, against min(cut, running best). NULL_CAP = 16 covers every main
+// path (vpt cbox: 12 null rows of 36; BDPT cbox: none) in 56 registers (32
+// took 67-70 and ran slower); the all-null extraction of a 34- or 36-row
+// scene takes the loop. The walking rays are packed as in the closest hit.
 //
-// Bound: the pair tests' issue rate, as above. At the vpt cbox's T = 36
-// (12 null rows) a walking ray now starts 36 tests, each skipping u and v
-// where the plane rejects the row, where the parent kernel ran 24 + 3 * 12
-// whole tests.
+// Here the split test pays: a shadow ray's bound is the light's distance,
+// so most rows' planes lie beyond it, and a warp whose lanes all reject a
+// row skips its divide and its u and v (row_hit, voted: the sign of t and
+// |d - o.n| >= bound |dir.n| (1 + 1e-6) reject before the divide). At the
+// vpt cbox's T = 36 (12 null rows) a walking ray starts 36 tests where the
+// parent kernel ran 24 + 3 * 12 whole ones.
 
 __device__ __forceinline__ float normal_dot(const float* rd,
                                             const float* ng_tab, int row) {

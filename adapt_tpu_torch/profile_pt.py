@@ -180,7 +180,8 @@ def main(argv=None):
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3 / spp
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
-    own = {k: v for k, v in by_name.items() if k.startswith(OWN_KERNELS)}
+    own = {k: v for k, v in by_name.items()
+           if k.removeprefix("void ").startswith(OWN_KERNELS)}
     out = {"scene": args.file, "w": cfg.w, "h": cfg.h,
            "max_bounce": cfg.max_bounce, "spp": spp, "card": card,
            "renderer": args.renderer, "tier": args.tier,

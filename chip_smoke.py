@@ -11,7 +11,9 @@ non-zero exit and no result line.
    procedural mesh (scripts/gen_procedural.py `ensure`) and the knot290k
    scene's set-up time (parse, BVH build, upload);
 2. kernels: each hand-written CUDA kernel against its plain PyTorch twin
-   at 512^2 shapes (262,144 rays a batch): the brute-force pair on cbox,
+   at 512^2 shapes (262,144 rays a batch): the brute-force pair on cbox
+   (the closest hit also on a tie set, an all-dead set and far0 = 2e7,
+   bit-equal; one call of each brute-force wrapper launches one kernel),
    the BVH pair on knot290k (primary rays; bounce rays from the primary
    hits in seeded random directions with 15% dead lanes; shadow rays to
    the point light). Hit ids and occlusion exactly equal, t within rtol
@@ -25,9 +27,12 @@ non-zero exit and no result line.
    spills, blocks resident per SM and waves;
    2c: the media-walk kernel on the vpt cbox (NEE shadow rays from the
    primary hits to area-light samples at K = 2; bounce rays with 15% dead
-   lanes at K = 2 and, every triangle an interface, at K = 7): every
-   output exactly equal to the twin's, with the null-hit, overflow and
-   blocker shares and the device time; 2d: the film-splat kernel on four
+   lanes at K = 2 and, every triangle an interface, at K = 7; and the
+   scene with its null rows copied, exact duplicates and copies RAY_EPS
+   behind, at and above the kernel's null-row cap, with rays aimed at the
+   null triangles): every output exactly equal to the twin's, with each
+   set's branch, the null-hit, overflow and blocker shares and the device
+   time; 2d: the film-splat kernel on four
    512^2 streams of
    1,572,864 updates (the t=1 stream of one BDPT cbox pass at 6 bounces, a
    uniform one with 10% dropped, one whose first 1024-pixel tile holds
@@ -141,6 +146,8 @@ def _split_ops(planes, us, vs):
     (TRI_PLANE_OPS), u and v the rest in two equal parts."""
     return planes * TRI_PLANE_OPS + (us + vs) * (TRI_PAIR_OPS
                                                  - TRI_PLANE_OPS) / 2
+
+
 KERNELS = {
     "tri_closest_hit": ("adapt_tpu_torch/csrc/tri_intersect.cu",
                         "adapt_tpu/ops/intersect_pallas.py:58"),
@@ -439,11 +446,11 @@ def _halves(walk, ahead, bound, t, u):
 
 
 def closest_work(torch, K, scene, ro, rd, far):
-    """The closest-hit kernel's work on these rays: (plane tests, u tests,
-    v tests, share of (warp, row) steps in which no lane of a warp does
-    the u half). A lane walks where far > RAY_EPS; its bound is its running
-    best, strict in row order, from min(FAR, far); a warp slot is 32
-    consecutive rays."""
+    """The work these rays need of a closest hit that splits the test:
+    (plane tests, u tests, v tests, share of (warp, row) steps in which no
+    lane of a warp of 32 consecutive rays needs the u half, the skips a
+    warp vote could take). A lane walks where far > RAY_EPS; its bound is
+    its running best, strict in row order, from min(FAR, far)."""
     t, u, valid, ahead = _plane_tables(torch, K, scene, ro, rd)
     tm = torch.where(valid, t, K.FAR)
     run = torch.cummin(tm, dim=1).values.clamp(max=K.FAR)
@@ -457,8 +464,8 @@ def closest_work(torch, K, scene, ro, rd, far):
 
 
 def track_work(torch, K, scene, ro, rd, far, all_null=False):
-    """The media-walk kernel's work on these rays below its null-row cap:
-    (plane tests, u tests, v tests). A walking lane's (far > RAY_EPS)
+    """The media-walk kernel's split tests on these rays below its null-row
+    cap: (plane tests, u tests, v tests). A walking lane's (far > RAY_EPS)
     bound is, on a non-null row, its running blocker from min(FAR, far),
     on a null row the cut min(blocker, far)."""
     t, u, valid, ahead = _plane_tables(torch, K, scene, ro, rd)
