@@ -32,24 +32,27 @@
 // warp needs is time saved; work that one lane needs costs the warp all
 // the same.
 //
-// Closest hit (tri_closest_kernel): one ray a thread (TRI_RAYS; two or
-// four measured slower: more registers, fewer blocks), 256 threads a
-// block, the table staged in shared memory in tiles of 256 rows (any T).
-// Each block first packs its walking rays (far > RAY_EPS; dead lanes carry
-// -3e38 and are written as a miss at once) into its first warps, so the
-// warps past them issue nothing; a spare lane of the last packed warp
-// tests that warp's last ray again and keeps nothing (a made-up ray could
-// send its warp down the divide's slow path on some row). The running best
-// starts at min(FAR, far). The test itself is the parent's straight-line
-// code: splitting it (plane first, a warp vote, u and v only where some
-// lane needs them) saved issue on coherent primary rays but cost more than
-// it saved on incoherent bounce rays, where a warp of 32 needs u on every
-// row, and the divide no longer overlapped the u and v dots. The Pallas
-// kernel's argmin has one more case: an invalid row competes at FAR (1e7),
-// so with far0 > FAR a ray with no valid row before FAR comes back as a
-// "hit" at t = FAR on the first row whose t is FAR, with that row's own u
-// and v. Such rays (found after the sweep) take the whole test again, row
-// by row, as the parent kernel ran it.
+// Closest hit (tri_closest_kernel): 256 threads a block, the table staged
+// in shared memory in tiles of 256 rows (any T). Each block first packs
+// its walking rays (far > RAY_EPS; dead lanes carry -3e38 and are written
+// as a miss at once) into its first threads, so the warps past them issue
+// nothing; with 128 walkers or fewer, S = 2, 4 or 8 consecutive threads
+// take a ray, each every S-th row, and the least (t, row) of the parts is
+// the first row reaching the least t, so a sparse wavefront keeps the
+// block's warps busy (two or four rays a thread measured slower: more
+// registers, fewer blocks). A spare lane tests the last packed ray again
+// and keeps nothing (a made-up ray could send its warp down the divide's
+// slow path on some row). The running best starts at min(FAR, far). The
+// test itself is the parent's straight-line code: splitting it (plane
+// first, a warp vote, u and v only where some lane needs them) saved issue
+// on coherent primary rays but cost more than it saved on incoherent
+// bounce rays, where a warp of 32 needs u on every row, and the divide no
+// longer overlapped the u and v dots. The Pallas kernel's argmin has one
+// more case: an invalid row competes at FAR (1e7), so with far0 > FAR a
+// ray with no valid row before FAR comes back as a "hit" at t = FAR on the
+// first row whose t is FAR, with that row's own u and v. Such rays (found
+// after the sweep) take the whole test again, row by row, by their first
+// thread, as the parent kernel ran it.
 //
 // Any hit (tri_any_kernel): one thread a ray, the whole test a row, exits
 // once every ray of the block is occluded.
@@ -60,9 +63,6 @@
 
 #define TILE 256
 #define ROW 12  // n(3) d U(3) cu V(3) cv
-#ifndef TRI_RAYS
-#define TRI_RAYS 1  // rays a thread of the closest-hit kernel
-#endif
 #ifndef NULL_CAP
 #define NULL_CAP 16  // null rows the media walk keeps in registers
 #endif
@@ -176,49 +176,33 @@ __device__ __forceinline__ void stage_tile4(float4* s_geo,
   __syncthreads();
 }
 
-// The walking rays of a block, packed: the block's rays first + r * TILE
-// + threadIdx.x (r < R, below n) whose far bound exceeds RAY_EPS go to
-// s_idx in ray order; each other ray is handed to dead(i, far) by the
-// thread that read it. s_cnt holds R * TILE / 32 ints. Returns the count
-// of packed rays, the same in every thread.
-template <int R, typename Dead>
+// The walking rays of a block, packed: the block's rays first +
+// threadIdx.x (below n) whose far bound exceeds RAY_EPS go to s_idx in ray
+// order; each other ray is handed to dead(i, far) by the thread that read
+// it. s_cnt holds TILE / 32 ints. Returns the count of packed rays, the
+// same in every thread.
+template <typename Dead>
 __device__ __forceinline__ int pack_walkers(const float* far_all, int n,
                                             int first, int* s_idx,
                                             int* s_cnt, Dead dead) {
-  constexpr int W = TILE / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned mask[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = first + r * TILE + threadIdx.x;
-    const float f = i < n ? far_all[i] : -3e38f;
-    const bool walk = f > kEps;
-    if (i < n && !walk) dead(i, f);
-    mask[r] = __ballot_sync(0xffffffffu, walk);
-    if (lane == 0) s_cnt[r * W + warp] = __popc(mask[r]);
-  }
+  const int i = first + threadIdx.x;
+  const float f = i < n ? far_all[i] : -3e38f;
+  const bool walk = f > kEps;
+  if (i < n && !walk) dead(i, f);
+  const unsigned mask = __ballot_sync(0xffffffffu, walk);
+  if (lane == 0) s_cnt[warp] = __popc(mask);
   __syncthreads();
-  int total = 0;
-  int off[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) off[r] = 0;
-  for (int k = 0; k < R * W; ++k) {
-    const int c = s_cnt[k];
-    total += c;
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (k < r * W + warp) off[r] += c;
+  int total = 0, off = 0;
+  for (int k = 0; k < TILE / 32; ++k) {
+    off += k < warp ? s_cnt[k] : 0;
+    total += s_cnt[k];
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    if ((mask[r] >> lane) & 1u)
-      s_idx[off[r] + __popc(mask[r] & ((1u << lane) - 1u))] =
-          first + r * TILE + threadIdx.x;
+  if (walk) s_idx[off + __popc(mask & ((1u << lane) - 1u))] = i;
   __syncthreads();
   return total;
 }
 
-template <int R>
 __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
                                    const float* __restrict__ rd_all,
                                    const float* __restrict__ far_all, int n,
@@ -232,8 +216,8 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
                                    float* __restrict__ ng_out,
                                    int* __restrict__ obj_out) {
   __shared__ float4 s_geo[TILE * 3];
-  __shared__ int s_idx[TILE * R];
-  __shared__ int s_cnt[R * (TILE / 32)];
+  __shared__ int s_idx[TILE];
+  __shared__ int s_cnt[TILE / 32];
   auto miss = [&](int i, float far) {
     t_out[i] = far;
     row_out[i] = -1;
@@ -244,103 +228,99 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
     obj_out[i] = -1;
   };
   // dead lanes (far <= RAY_EPS) are a miss already; the walking rays are
-  // packed, thread x taking packed rays x * R + r, so warps past the last
-  // of them issue nothing
-  const int walkers = pack_walkers<R>(far_all, n, blockIdx.x * (TILE * R),
-                                      s_idx, s_cnt, miss);
+  // packed, so warps past the last of them issue nothing
+  const int walkers =
+      pack_walkers(far_all, n, blockIdx.x * TILE, s_idx, s_cnt, miss);
   if (walkers == 0) return;
-  float ro[R][3], rd[R][3], far[R], best_t[R], best_u[R], best_v[R];
-  int ray[R], best_i[R];
-  bool has[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    // a slot past the last packed ray tests that ray again and keeps
-    // nothing: a made-up ray could send its warp down the divide's slow
-    // path on some row
-    const int slot = threadIdx.x * R + r;
-    has[r] = slot < walkers;
-    ray[r] = s_idx[has[r] ? slot : walkers - 1];
-    for (int c = 0; c < 3; ++c) {
-      ro[r][c] = ro_all[(size_t)ray[r] * 3 + c];
-      rd[r][c] = rd_all[(size_t)ray[r] * 3 + c];
-    }
-    far[r] = far_all[ray[r]];
-    // strict < from min(FAR, far): the first row reaching the least valid
-    // t wins (a hit at or beyond far is a miss all the same)
-    best_t[r] = fminf(kFar, far[r]);
-    best_u[r] = best_v[r] = 0.0f;
-    best_i[r] = -1;
+  // few walkers: S consecutive threads a ray (a power of two up to 8),
+  // each taking every S-th row, so the block keeps its warps busy
+  const int S = walkers > TILE / 2   ? 1
+                : walkers > TILE / 4 ? 2
+                : walkers > TILE / 8 ? 4
+                                     : 8;
+  const int slot = threadIdx.x / S, part = threadIdx.x % S;
+  // a slot past the last packed ray tests that ray again and keeps
+  // nothing: a made-up ray could send its warp down the divide's slow
+  // path on some row
+  const bool has = slot < walkers;
+  const int i = s_idx[has ? slot : walkers - 1];
+  float ro[3], rd[3];
+  for (int c = 0; c < 3; ++c) {
+    ro[c] = ro_all[(size_t)i * 3 + c];
+    rd[c] = rd_all[(size_t)i * 3 + c];
   }
+  const float far = far_all[i];
+  // strict < from min(FAR, far): the first row reaching the least valid t
+  // wins (a hit at or beyond far is a miss all the same)
+  float best_t = fminf(kFar, far), best_u = 0.0f, best_v = 0.0f;
+  int best_i = -1;
   // a warp with no packed ray stages rows with the block and tests none
-  const bool warp_has = __any_sync(0xffffffffu, has[0]);
+  const bool warp_has = __any_sync(0xffffffffu, has);
   for (int base = 0; base < T; base += TILE) {
     stage_tile4(s_geo, geo4, base, T);
     const int m = warp_has ? min(TILE, T - base) : 0;
-    for (int j = 0; j < m; ++j) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float t, u, v;
-        if (row_hit<false>(has[r], ro[r], rd[r], s_geo + 3 * j, kEps,
-                           best_t[r], &t, &u, &v)) {
-          best_t[r] = t;
-          best_u[r] = u;
-          best_v[r] = v;
-          best_i[r] = base + j;
-        }
+    for (int j = part; j < m; j += S) {
+      float t, u, v;
+      if (row_hit<false>(has, ro, rd, s_geo + 3 * j, kEps, best_t, &t, &u,
+                         &v)) {
+        best_t = t;
+        best_u = u;
+        best_v = v;
+        best_i = base + j;
       }
+    }
+  }
+  // the least (t, row) of the ray's parts: the first row reaching the
+  // least t; a part that found nothing holds the start bound and row -1,
+  // which every hit beats
+  for (int o = 1; o < S; o <<= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, best_t, o);
+    const int i2 = __shfl_xor_sync(0xffffffffu, best_i, o);
+    const float u2 = __shfl_xor_sync(0xffffffffu, best_u, o);
+    const float v2 = __shfl_xor_sync(0xffffffffu, best_v, o);
+    if (i2 >= 0 &&
+        (best_i < 0 || t2 < best_t || (t2 == best_t && i2 < best_i))) {
+      best_t = t2;
+      best_i = i2;
+      best_u = u2;
+      best_v = v2;
     }
   }
   // no valid row before FAR and far > FAR: the argmin over (valid ? t :
-  // FAR) from +inf, the whole test a row, for these rays only
-  bool redo[R];
-  bool any_redo = false;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    redo[r] = has[r] && best_i[r] < 0 && far[r] > kFar;
-    any_redo |= redo[r];
-  }
-  if (__syncthreads_or(any_redo)) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (redo[r]) best_t[r] = __int_as_float(0x7f800000);  // +inf
+  // FAR) from +inf, the whole test a row, by the ray's first thread
+  const bool redo = has && part == 0 && best_i < 0 && far > kFar;
+  if (__syncthreads_or(redo)) {
+    if (redo) best_t = __int_as_float(0x7f800000);  // +inf
     for (int base = 0; base < T; base += TILE) {
       stage_tile4(s_geo, geo4, base, T);
-      const int m = min(TILE, T - base);
+      const int m = redo ? min(TILE, T - base) : 0;
       for (int j = 0; j < m; ++j) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (!redo[r]) continue;
-          float t, u, v;
-          const bool ok = tri_test(ro[r], rd[r],
-                                   (const float*)(s_geo + 3 * j), &t, &u, &v);
-          const float tm = ok ? t : kFar;
-          if (tm < best_t[r]) {
-            best_t[r] = tm;
-            best_u[r] = u;
-            best_v[r] = v;
-            best_i[r] = base + j;
-          }
+        float t, u, v;
+        const bool ok =
+            tri_test(ro, rd, (const float*)(s_geo + 3 * j), &t, &u, &v);
+        const float tm = ok ? t : kFar;
+        if (tm < best_t) {
+          best_t = tm;
+          best_u = u;
+          best_v = v;
+          best_i = base + j;
         }
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (!has[r]) continue;
-    const int i = ray[r], bi = best_i[r];
-    if (bi < 0 || !(best_t[r] < far[r])) {
-      miss(i, far[r]);
-      continue;
-    }
-    t_out[i] = best_t[r];
-    row_out[i] = bi;
-    u_out[i] = best_u[r];
-    v_out[i] = best_v[r];
-    ng_out[(size_t)i * 3 + 0] = ng_tab[(size_t)bi * 3 + 0];
-    ng_out[(size_t)i * 3 + 1] = ng_tab[(size_t)bi * 3 + 1];
-    ng_out[(size_t)i * 3 + 2] = ng_tab[(size_t)bi * 3 + 2];
-    obj_out[i] = obj_tab[bi];
+  if (!has || part != 0) return;
+  if (best_i < 0 || !(best_t < far)) {
+    miss(i, far);
+    return;
   }
+  t_out[i] = best_t;
+  row_out[i] = best_i;
+  u_out[i] = best_u;
+  v_out[i] = best_v;
+  ng_out[(size_t)i * 3 + 0] = ng_tab[(size_t)best_i * 3 + 0];
+  ng_out[(size_t)i * 3 + 1] = ng_tab[(size_t)best_i * 3 + 1];
+  ng_out[(size_t)i * 3 + 2] = ng_tab[(size_t)best_i * 3 + 2];
+  obj_out[i] = obj_tab[best_i];
 }
 
 __global__ void tri_any_kernel(const float* __restrict__ ro_all,
@@ -454,7 +434,7 @@ __global__ void tri_track_kernel(
   const float4* s_null = s_geo + 3 * n_solid;
   // dead lanes (far <= RAY_EPS) have no hits and no overflow; the walking
   // rays are packed, so warps past the last of them issue nothing
-  const int walkers = pack_walkers<1>(
+  const int walkers = pack_walkers(
       far_all, n, blockIdx.x * TILE, s_idx, s_cnt, [&](int i, float) {
         for (int k = 0; k < K; ++k) {
           const size_t o = (size_t)k * n + i;
@@ -569,26 +549,23 @@ __global__ void tri_track_kernel(
   ov_out[i] = overflow;
 }
 
-static int blocks_for(int n, int rays) {
-  return (n + TILE * rays - 1) / (TILE * rays);
-}
+static int blocks_for(int n) { return (n + TILE - 1) / TILE; }
 
 extern "C" int tri_closest_hit(const float* ro, const float* rd,
                                const float* far, int n, const float* geo,
                                const float* ng, const int* obj, int T,
                                float* t, int* row, float* u, float* v,
                                float* ng_out, int* obj_out, void* stream) {
-  tri_closest_kernel<TRI_RAYS>
-      <<<blocks_for(n, TRI_RAYS), TILE, 0, (cudaStream_t)stream>>>(
-          ro, rd, far, n, (const float4*)geo, ng, obj, T, t, row, u, v,
-          ng_out, obj_out);
+  tri_closest_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
+      ro, rd, far, n, (const float4*)geo, ng, obj, T, t, row, u, v, ng_out,
+      obj_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tri_any_hit(const float* ro, const float* rd, const float* far,
                            int n, const float* geo, int T, bool* occ,
                            void* stream) {
-  tri_any_kernel<<<blocks_for(n, 1), TILE, 0, (cudaStream_t)stream>>>(
+  tri_any_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
       ro, rd, far, n, geo, T, occ);
   return (int)cudaGetLastError();
 }
@@ -603,7 +580,7 @@ extern "C" int tri_track_hits(const float* ro, const float* rd,
                               float* tb, int* ob, float* db, bool* ov,
                               void* stream) {
   if (n_solid + n_null > TILE) return (int)cudaErrorInvalidValue;
-  tri_track_kernel<<<blocks_for(n, 1), TILE, 0, (cudaStream_t)stream>>>(
+  tri_track_kernel<<<blocks_for(n), TILE, 0, (cudaStream_t)stream>>>(
       ro, rd, far, n, (const float4*)geo, ng, obj, solid_rows, n_solid,
       null_rows, n_null, K, t_null, obj_null, dn_null, tb, ob, db, ov);
   return (int)cudaGetLastError();
@@ -611,10 +588,10 @@ extern "C" int tri_track_hits(const float* ro, const float* rd,
 
 // which: 0 closest hit, 1 any hit, 2 media walk. out: registers a thread,
 // local (spilled) bytes a thread, blocks of TILE resident on one SM, SMs,
-// TILE, rays a thread, NULL_CAP.
+// TILE, NULL_CAP.
 extern "C" int tri_kernel_info(int which, int* out) {
   cudaFuncAttributes attr;
-  const void* fn = which == 0   ? (const void*)tri_closest_kernel<TRI_RAYS>
+  const void* fn = which == 0   ? (const void*)tri_closest_kernel
                    : which == 1 ? (const void*)tri_any_kernel
                                 : (const void*)tri_track_kernel;
   int err = (int)cudaFuncGetAttributes(&attr, fn);
@@ -629,7 +606,6 @@ extern "C" int tri_kernel_info(int which, int* out) {
   err = (int)cudaDeviceGetAttribute(out + 3, cudaDevAttrMultiProcessorCount,
                                     dev);
   out[4] = TILE;
-  out[5] = which == 0 ? TRI_RAYS : 1;
-  out[6] = NULL_CAP;
+  out[5] = NULL_CAP;
   return err;
 }

@@ -221,18 +221,18 @@ def _lib():
 
 def kernel_info(n):
     """{kernel: (registers a thread, spilled bytes a thread, blocks of 256
-    threads resident on one SM, SMs, 256, rays a thread, waves)} for n
-    rays, and the media walk's null-row cap (NULL_CAP: above it the walk
-    re-sweeps). Needs the card."""
+    threads resident on one SM, SMs, 256, waves)} for n rays, and the
+    media walk's null-row cap (NULL_CAP: above it the walk re-sweeps).
+    Needs the card."""
     lib = _lib()
     out, cap = {}, None
     for which, name in enumerate(launches):
-        vals = (ctypes.c_int * 7)()
+        vals = (ctypes.c_int * 6)()
         _check(lib.tri_kernel_info(which, ctypes.addressof(vals)),
                f"{name} info")
-        regs, spill, per_sm, sms, block, rays, cap = vals
-        out[name] = (regs, spill, per_sm, sms, block, rays,
-                     -(-n // (per_sm * sms * block * rays)))
+        regs, spill, per_sm, sms, block, cap = vals
+        out[name] = (regs, spill, per_sm, sms, block,
+                     -(-n // (per_sm * sms * block)))
     return out, cap
 
 

@@ -11,8 +11,8 @@ dn_blk, overflow, stream)`, and whose closest hit takes the current
 arguments, e.g. that of commit 88b64af (`git show
 88b64af:adapt_tpu_torch/csrc/tri_intersect.cu > build/base.cu`). It is
 built beside the current source with the same flags; each `--define`
-builds the current source once more with `-DNAME=VALUE` (TRI_RAYS, the
-closest hit's rays a thread; NULL_CAP, the media walk's null-row cap),
+builds the current source once more with `-DNAME=VALUE` (NULL_CAP, the
+media walk's null-row cap),
 called through the current wrappers.
 
 On chip_smoke.py's sets (`cbox_rays`: cbox 512^2 primary and bounce rays,

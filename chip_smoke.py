@@ -12,8 +12,9 @@ non-zero exit and no result line.
    scene's set-up time (parse, BVH build, upload);
 2. kernels: each hand-written CUDA kernel against its plain PyTorch twin
    at 512^2 shapes (262,144 rays a batch): the brute-force pair on cbox
-   (the closest hit also on a tie set, an all-dead set and far0 = 2e7,
-   bit-equal; one call of each brute-force wrapper launches one kernel),
+   (the closest hit also on a tie set, an all-dead set, far0 = 2e7 and
+   sets four fifths dead, bit-equal; one call of each brute-force
+   wrapper launches one kernel),
    the BVH pair on knot290k (primary rays; bounce rays from the primary
    hits in seeded random directions with 15% dead lanes; shadow rays to
    the point light). Hit ids and occlusion exactly equal, t within rtol
@@ -611,10 +612,17 @@ def main():
     # B1 bit-equal also where rays tie at shared vertices and edges, where
     # every lane is dead, and with far0 = 2e7 > FAR (a ray with no valid
     # row then "hits" the first row whose t is FAR, with that row's u, v)
+    # and with four fifths of the lanes dead, where the kernel splits a
+    # ray's rows over several threads
+    sparse = torch.rand(N, generator=torch.Generator(device=dev)
+                        .manual_seed(4), device=dev) < 0.8
     b1_sets = {"primary": (ro, rd, far_p), "bounce": (bo, bd, far_b),
                "tie": (tro, trd, torch.full_like(far_p, K.FAR)),
                "all dead": (bo, bd, torch.full_like(far_b, DEAD)),
-               "far0 2e7": (bo, bd, torch.where(far_b > 0, 2e7, DEAD))}
+               "far0 2e7": (bo, bd, torch.where(far_b > 0, 2e7, DEAD)),
+               "tie 80% dead": (tro, trd, torch.where(sparse, DEAD, K.FAR)),
+               "far0 2e7 80% dead": (bo, bd, torch.where(sparse, DEAD,
+                                                         2e7))}
     errs = {k: 0.0 for k in KERNELS}
     b1_work, b1_seen = {}, {}
     for tag, (o, d, far) in b1_sets.items():
@@ -689,13 +697,16 @@ def main():
     b1_primary_dev = _graph_ms(
         torch, lambda: K.tri_closest_hit(scene, ro, rd, far_p))
     tinfo, null_cap = K.kernel_info(N)
+    b1_sparse_dev = _graph_ms(torch, lambda: K.tri_closest_hit(
+        scene, bo, bd, torch.where(sparse, DEAD, K.FAR)))
     print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
                       f"{t:.4f} ms (device, kernel only {device[k]:.4f}), "
                       f"twin {p:.4f} ms, bound {bounds[k][0]:.4f} ms "
                       f"({bounds[k][1]})"
                       for k, (t, p) in times.items())
-          + f" | B1 device on primary rays {b1_primary_dev:.4f} ms | B1 "
+          + f" | B1 device on primary rays {b1_primary_dev:.4f} ms, on bounce"
+          f" rays four fifths dead {b1_sparse_dev:.4f} ms | B1 "
           "bit-equal on every set (hit share, FAR-row hits; plane, u and v "
           "tests a ray, share of (warp, row) steps with no lane on the u "
           "half): " + ", ".join(
@@ -707,8 +718,8 @@ def main():
                       for k, names in one_call.items())
           + " | " + "; ".join(
               f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
-              f"resident per SM x {sms} SMs, {ra} rays a thread, {w} waves"
-              for k, (r, sp, b, sms, bs, ra, w) in tinfo.items()
+              f"resident per SM x {sms} SMs, {w} waves"
+              for k, (r, sp, b, sms, bs, w) in tinfo.items()
               if k != "tri_track_hits") + f" [{card}]", flush=True)
 
     # ---- 2b. BVH kernels against their twin, knot290k 512^2 ----
@@ -1215,7 +1226,7 @@ def main():
     tt, tp = times["tri_track_hits"]
     device["tri_track_hits"] = _graph_ms(
         torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s, 2))
-    r, sp, b, sms, bs, _ra, w = tinfo["tri_track_hits"]
+    r, sp, b, sms, bs, w = tinfo["tri_track_hits"]
     print(f"phase 2c media-walk kernel vs twin, vpt cbox, {N} rays, "
           f"{VT} triangles ({VN} null), null-row cap {null_cap}: every "
           f"output equal, max abs err {errs['tri_track_hits']:.3g}; "

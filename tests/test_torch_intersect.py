@@ -237,13 +237,16 @@ def test_kernels_match_twins_on_card(cbox):
     args = [torch.from_numpy(x).cuda() for x in (ro, rd, far)]
     before = dict(intersect_kernels.launches)
     # the seeded rays, all lanes dead, far0 = 2e7 > FAR (a ray with no
-    # valid row takes row 0 at t = FAR), and rays at shared vertices and
-    # edges (chip_smoke.py `tie_rays`) with an odd count
+    # valid row takes row 0 at t = FAR), rays at shared vertices and edges
+    # (chip_smoke.py `tie_rays`) with an odd count, and four fifths dead
     from test_torch_bvh import _smoke
     tro, trd, _ = _smoke().tie_rays(torch, dev, 1001, 4)
+    sparse = torch.from_numpy(np.arange(n) % 5 != 0).cuda()
     sets = [args, [args[0], args[1], torch.full_like(args[2], -3e38)],
             [args[0], args[1], torch.where(args[2] > 0, 2e7, -3e38)],
-            [tro, trd, torch.full((1001,), 1e7, device="cuda")]]
+            [tro, trd, torch.full((1001,), 1e7, device="cuda")],
+            # four fifths dead: the kernel splits a ray's rows
+            [args[0], args[1], torch.where(sparse, -3e38, 2e7)]]
     for ray_set in sets:
         got = intersect_kernels.tri_closest_hit(dev, *ray_set)
         want = intersect_kernels.tri_closest_hit_plain(dev, *ray_set)
