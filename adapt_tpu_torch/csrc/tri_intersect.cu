@@ -203,6 +203,30 @@ __device__ __forceinline__ int pack_walkers(const float* far_all, int n,
   return total;
 }
 
+// Rows part, part + S, ... of the table against one ray, tile by tile
+// (every thread of the block stages), updating the running best with
+// strict < in row order.
+template <int S>
+__device__ __forceinline__ void closest_sweep(
+    bool has, const float* ro, const float* rd, int part, bool warp_has,
+    float4* s_geo, const float4* geo4, int T, float& best_t, float& best_u,
+    float& best_v, int& best_i) {
+  for (int base = 0; base < T; base += TILE) {
+    stage_tile4(s_geo, geo4, base, T);
+    const int m = warp_has ? min(TILE, T - base) : 0;
+    for (int j = part; j < m; j += S) {
+      float t, u, v;
+      if (row_hit<false>(has, ro, rd, s_geo + 3 * j, kEps, best_t, &t, &u,
+                         &v)) {
+        best_t = t;
+        best_u = u;
+        best_v = v;
+        best_i = base + j;
+      }
+    }
+  }
+}
+
 __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
                                    const float* __restrict__ rd_all,
                                    const float* __restrict__ far_all, int n,
@@ -256,19 +280,22 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
   int best_i = -1;
   // a warp with no packed ray stages rows with the block and tests none
   const bool warp_has = __any_sync(0xffffffffu, has);
-  for (int base = 0; base < T; base += TILE) {
-    stage_tile4(s_geo, geo4, base, T);
-    const int m = warp_has ? min(TILE, T - base) : 0;
-    for (int j = part; j < m; j += S) {
-      float t, u, v;
-      if (row_hit<false>(has, ro, rd, s_geo + 3 * j, kEps, best_t, &t, &u,
-                         &v)) {
-        best_t = t;
-        best_u = u;
-        best_v = v;
-        best_i = base + j;
-      }
-    }
+  switch (S) {  // the same in the whole block; a fixed stride unrolls
+    case 1:
+      closest_sweep<1>(has, ro, rd, 0, warp_has, s_geo, geo4, T, best_t,
+                       best_u, best_v, best_i);
+      break;
+    case 2:
+      closest_sweep<2>(has, ro, rd, part, warp_has, s_geo, geo4, T, best_t,
+                       best_u, best_v, best_i);
+      break;
+    case 4:
+      closest_sweep<4>(has, ro, rd, part, warp_has, s_geo, geo4, T, best_t,
+                       best_u, best_v, best_i);
+      break;
+    default:
+      closest_sweep<8>(has, ro, rd, part, warp_has, s_geo, geo4, T, best_t,
+                       best_u, best_v, best_i);
   }
   // the least (t, row) of the ray's parts: the first row reaching the
   // least t; a part that found nothing holds the start bound and row -1,
