@@ -616,11 +616,12 @@ def main():
     # ray's rows over several threads
     sparse = torch.rand(N, generator=torch.Generator(device=dev)
                         .manual_seed(4), device=dev) < 0.8
+    far_sparse = torch.where(sparse, DEAD, K.FAR)
     b1_sets = {"primary": (ro, rd, far_p), "bounce": (bo, bd, far_b),
                "tie": (tro, trd, torch.full_like(far_p, K.FAR)),
                "all dead": (bo, bd, torch.full_like(far_b, DEAD)),
                "far0 2e7": (bo, bd, torch.where(far_b > 0, 2e7, DEAD)),
-               "tie 80% dead": (tro, trd, torch.where(sparse, DEAD, K.FAR)),
+               "tie 80% dead": (tro, trd, far_sparse),
                "far0 2e7 80% dead": (bo, bd, torch.where(sparse, DEAD,
                                                          2e7))}
     errs = {k: 0.0 for k in KERNELS}
@@ -697,8 +698,8 @@ def main():
     b1_primary_dev = _graph_ms(
         torch, lambda: K.tri_closest_hit(scene, ro, rd, far_p))
     tinfo, null_cap = K.kernel_info(N)
-    b1_sparse_dev = _graph_ms(torch, lambda: K.tri_closest_hit(
-        scene, bo, bd, torch.where(sparse, DEAD, K.FAR)))
+    b1_sparse_dev = _graph_ms(
+        torch, lambda: K.tri_closest_hit(scene, bo, bd, far_sparse))
     print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
                       f"{t:.4f} ms (device, kernel only {device[k]:.4f}), "
