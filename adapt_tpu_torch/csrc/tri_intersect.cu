@@ -42,17 +42,16 @@
 // block's warps busy (two or four rays a thread measured slower: more
 // registers, fewer blocks). A spare lane tests the last packed ray again
 // and keeps nothing (a made-up ray could send its warp down the divide's
-// slow path on some row). The running best starts at min(FAR, far). The
-// test itself is the parent's straight-line code: splitting it (plane
-// first, a warp vote, u and v only where some lane needs them) saved issue
-// on coherent primary rays but cost more than it saved on incoherent
-// bounce rays, where a warp of 32 needs u on every row, and the divide no
-// longer overlapped the u and v dots. The Pallas kernel's argmin has one
-// more case: an invalid row competes at FAR (1e7), so with far0 > FAR a
-// ray with no valid row before FAR comes back as a "hit" at t = FAR on the
-// first row whose t is FAR, with that row's own u and v. Such rays (found
-// after the sweep) take the whole test again, row by row, by their first
-// thread, as the parent kernel ran it.
+// slow path on some row). The test itself is the parent's straight-line
+// tri_test: splitting it (plane first, a warp vote, u and v only where
+// some lane needs them) saved issue on coherent primary rays but cost more
+// than it saved on incoherent bounce rays, where a warp of 32 needs u on
+// every row, and the divide no longer overlapped the u and v dots. The
+// argmin is the Pallas kernel's: from +inf, an invalid row competing at
+// FAR (1e7), strict < in row order; hit = best t < far is decided after
+// the sweep. So with far0 > FAR a ray with no valid row before FAR comes
+// back as a "hit" at t = FAR on the first row whose t is FAR, with that
+// row's own u and v.
 //
 // Any hit (tri_any_kernel): one thread a ray, the whole test a row, exits
 // once every ray of the block is occluded.
@@ -63,13 +62,11 @@
 
 #define TILE 256
 #define ROW 12  // n(3) d U(3) cu V(3) cv
-#ifndef NULL_CAP
-#define NULL_CAP 16  // null rows the media walk keeps in registers
-#endif
 
 constexpr float kEps = 1e-4f;   // RAY_EPS
 constexpr float kFar = 1e7f;    // FAR
 constexpr float kChainSep = 5e-5f;  // CHAIN_SEP = 0.5 * RAY_EPS
+constexpr int kNullCap = 16;  // null rows the media walk keeps in registers
 
 __device__ __forceinline__ float dot3(float a0, float a1, float a2,
                                       const float* b) {
@@ -107,10 +104,10 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
 // One row against each lane's ray, for a whole warp at once (every lane of
 // the warp calls it with the same row): true where the row is a valid hit
 // with lo < t < bound (lo >= RAY_EPS, bound > RAY_EPS), and then t, u, v as
-// tri_test rounds them. Voted (VOTED true), the plane half comes first and
-// each later half runs only when some lane of the warp still needs it:
-// warp votes, and conditions combined without short-circuits, so each half
-// is straight-line code and a warp whose lanes all reject skips the rest.
+// tri_test rounds them. The plane half comes first and each later half
+// runs only when some lane of the warp still needs it: warp votes, and
+// conditions combined without short-circuits, so each half is
+// straight-line code and a warp whose lanes all reject skips the rest.
 // Two rejections skip the divide and are exact:
 //   * (d - o.n) * dir.n <= 0 (or NaN) gives t <= 0 or NaN; where the
 //     product underflows to 0, |d - o.n| < 2^-149 / 1e-12 and t < RAY_EPS;
@@ -118,13 +115,7 @@ __device__ __forceinline__ bool tri_test(const float* ro, const float* rd,
 //     means |d - o.n| / |dir.n| > bound (the factor outweighs both
 //     roundings; |dir.n| >= 1e-12 and bound > 1e-4 keep the products
 //     normal), so the rounded quotient is >= bound.
-// Unvoted (VOTED false), the same test runs as straight-line code on
-// every row, as the parent kernel ran it (denominator 1e-12 on a flat row):
-// where a warp's rays are incoherent every half is needed by some lane on
-// almost every row, and the votes only cost issue and the overlap of the
-// divide with the u and v dots. A lane with want false takes part in the
-// votes and gets false.
-template <bool VOTED>
+// A lane with want false takes part in the votes and gets false.
 __device__ __forceinline__ bool row_hit(bool want, const float* ro,
                                         const float* rd, const float4* g,
                                         float lo, float bound, float* t_out,
@@ -132,19 +123,13 @@ __device__ __forceinline__ bool row_hit(bool want, const float* ro,
   const float4 nd = g[0];
   const float num = __fsub_rn(nd.w, dot3v(ro, nd));
   const float d_n = dot3v(rd, nd);
-  bool c = want & (fabsf(d_n) >= 1e-12f);
-  float t;
-  if (VOTED) {
-    c = c & (__fmul_rn(num, d_n) > 0.0f) &
-        (fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f));
-    if (!__any_sync(0xffffffffu, c)) return false;
-    // lanes that reject divide 1 by 1 (no slow path for them)
-    t = __fdiv_rn(c ? num : 1.0f, c ? d_n : 1.0f);
-  } else {
-    t = __fdiv_rn(num, fabsf(d_n) < 1e-12f ? 1e-12f : d_n);
-  }
+  bool c = want & (fabsf(d_n) >= 1e-12f) & (__fmul_rn(num, d_n) > 0.0f) &
+           (fabsf(num) < __fmul_rn(__fmul_rn(bound, fabsf(d_n)), 1.000001f));
+  if (!__any_sync(0xffffffffu, c)) return false;
+  // lanes that reject divide 1 by 1 (no slow path for them)
+  const float t = __fdiv_rn(c ? num : 1.0f, c ? d_n : 1.0f);
   c = c & (t > lo) & (t < bound);
-  if (VOTED && !__any_sync(0xffffffffu, c)) return false;
+  if (!__any_sync(0xffffffffu, c)) return false;
   const float4 U = g[1], V = g[2];
   const float u =
       __fsub_rn(__fadd_rn(dot3v(ro, U), __fmul_rn(t, dot3v(rd, U))), U.w);
@@ -204,21 +189,23 @@ __device__ __forceinline__ int pack_walkers(const float* far_all, int n,
 }
 
 // Rows part, part + S, ... of the table against one ray, tile by tile
-// (every thread of the block stages), updating the running best with
+// (every thread of the block stages): the argmin over (valid ? t : FAR),
 // strict < in row order.
 template <int S>
 __device__ __forceinline__ void closest_sweep(
-    bool has, const float* ro, const float* rd, int part, bool warp_has,
-    float4* s_geo, const float4* geo4, int T, float& best_t, float& best_u,
-    float& best_v, int& best_i) {
+    const float* ro, const float* rd, int part, bool warp_has, float4* s_geo,
+    const float4* geo4, int T, float& best_t, float& best_u, float& best_v,
+    int& best_i) {
   for (int base = 0; base < T; base += TILE) {
     stage_tile4(s_geo, geo4, base, T);
     const int m = warp_has ? min(TILE, T - base) : 0;
     for (int j = part; j < m; j += S) {
       float t, u, v;
-      if (row_hit<false>(has, ro, rd, s_geo + 3 * j, kEps, best_t, &t, &u,
-                         &v)) {
-        best_t = t;
+      const bool ok =
+          tri_test(ro, rd, (const float*)(s_geo + 3 * j), &t, &u, &v);
+      const float tm = ok ? t : kFar;
+      if (tm < best_t) {
+        best_t = tm;
         best_u = u;
         best_v = v;
         best_i = base + j;
@@ -274,69 +261,45 @@ __global__ void tri_closest_kernel(const float* __restrict__ ro_all,
     rd[c] = rd_all[(size_t)i * 3 + c];
   }
   const float far = far_all[i];
-  // strict < from min(FAR, far): the first row reaching the least valid t
-  // wins (a hit at or beyond far is a miss all the same)
-  float best_t = fminf(kFar, far), best_u = 0.0f, best_v = 0.0f;
-  int best_i = -1;
+  // from +inf, so a part's first row always takes it; every row gives a
+  // finite tm, so a part with rows beats one without
+  float best_t = __int_as_float(0x7f800000), best_u = 0.0f, best_v = 0.0f;
+  int best_i = 0;
   // a warp with no packed ray stages rows with the block and tests none
   const bool warp_has = __any_sync(0xffffffffu, has);
   switch (S) {  // the same in the whole block; a fixed stride unrolls
     case 1:
-      closest_sweep<1>(has, ro, rd, 0, warp_has, s_geo, geo4, T, best_t,
-                       best_u, best_v, best_i);
+      closest_sweep<1>(ro, rd, 0, warp_has, s_geo, geo4, T, best_t, best_u,
+                       best_v, best_i);
       break;
     case 2:
-      closest_sweep<2>(has, ro, rd, part, warp_has, s_geo, geo4, T, best_t,
+      closest_sweep<2>(ro, rd, part, warp_has, s_geo, geo4, T, best_t,
                        best_u, best_v, best_i);
       break;
     case 4:
-      closest_sweep<4>(has, ro, rd, part, warp_has, s_geo, geo4, T, best_t,
+      closest_sweep<4>(ro, rd, part, warp_has, s_geo, geo4, T, best_t,
                        best_u, best_v, best_i);
       break;
     default:
-      closest_sweep<8>(has, ro, rd, part, warp_has, s_geo, geo4, T, best_t,
+      closest_sweep<8>(ro, rd, part, warp_has, s_geo, geo4, T, best_t,
                        best_u, best_v, best_i);
   }
   // the least (t, row) of the ray's parts: the first row reaching the
-  // least t; a part that found nothing holds the start bound and row -1,
-  // which every hit beats
+  // least t
   for (int o = 1; o < S; o <<= 1) {
     const float t2 = __shfl_xor_sync(0xffffffffu, best_t, o);
     const int i2 = __shfl_xor_sync(0xffffffffu, best_i, o);
     const float u2 = __shfl_xor_sync(0xffffffffu, best_u, o);
     const float v2 = __shfl_xor_sync(0xffffffffu, best_v, o);
-    if (i2 >= 0 &&
-        (best_i < 0 || t2 < best_t || (t2 == best_t && i2 < best_i))) {
+    if (t2 < best_t || (t2 == best_t && i2 < best_i)) {
       best_t = t2;
       best_i = i2;
       best_u = u2;
       best_v = v2;
     }
   }
-  // no valid row before FAR and far > FAR: the argmin over (valid ? t :
-  // FAR) from +inf, the whole test a row, by the ray's first thread
-  const bool redo = has && part == 0 && best_i < 0 && far > kFar;
-  if (__syncthreads_or(redo)) {
-    if (redo) best_t = __int_as_float(0x7f800000);  // +inf
-    for (int base = 0; base < T; base += TILE) {
-      stage_tile4(s_geo, geo4, base, T);
-      const int m = redo ? min(TILE, T - base) : 0;
-      for (int j = 0; j < m; ++j) {
-        float t, u, v;
-        const bool ok =
-            tri_test(ro, rd, (const float*)(s_geo + 3 * j), &t, &u, &v);
-        const float tm = ok ? t : kFar;
-        if (tm < best_t) {
-          best_t = tm;
-          best_u = u;
-          best_v = v;
-          best_i = base + j;
-        }
-      }
-    }
-  }
   if (!has || part != 0) return;
-  if (best_i < 0 || !(best_t < far)) {
+  if (!(best_t < far)) {
     miss(i, far);
     return;
   }
@@ -409,20 +372,20 @@ __global__ void tri_any_kernel(const float* __restrict__ ro_all,
 //     leaves the cut at far all the same);
 //   * the null pass, one over the null rows, the plane first against the
 //     cut min(t_blk, far): each row's t where it is a valid hit before the
-//     cut, else FAR, kept in registers (a fully unrolled array of NULL_CAP,
+//     cut, else FAR, kept in registers (a fully unrolled array of kNullCap,
 //     indexed at compile time only, so nothing goes to local memory);
 //   * the K chained selections and the overflow test compare those stored
 //     values only: no hit math is done twice.
-// A scene with more than NULL_CAP null rows takes the re-sweeping loop
+// A scene with more than kNullCap null rows takes the re-sweeping loop
 // instead, in the same kernel: K + 1 sweeps over the null rows from shared
-// memory, against min(cut, running best). NULL_CAP = 16 covers every main
+// memory, against min(cut, running best). kNullCap = 16 covers every main
 // path (vpt cbox: 12 null rows of 36; BDPT cbox: none) in 56 registers (32
 // took 67-70 and ran slower); the all-null extraction of a 34- or 36-row
 // scene takes the loop. The walking rays are packed as in the closest hit.
 //
 // Here the split test pays: a shadow ray's bound is the light's distance,
 // so most rows' planes lie beyond it, and a warp whose lanes all reject a
-// row skips its divide and its u and v (row_hit, voted: the sign of t and
+// row skips its divide and its u and v (row_hit: the sign of t and
 // |d - o.n| >= bound |dir.n| (1 + 1e-6) reject before the divide). At the
 // vpt cbox's T = 36 (12 null rows) a walking ray starts 36 tests where the
 // parent kernel ran 24 + 3 * 12 whole ones.
@@ -495,7 +458,7 @@ __global__ void tri_track_kernel(
   int q_blk = -1;
   for (int q = 0; q < n_solid; ++q) {
     float t, u, v;
-    if (row_hit<true>(has, ro, rd, s_geo + 3 * q, kEps, t_blk, &t, &u, &v)) {
+    if (row_hit(has, ro, rd, s_geo + 3 * q, kEps, t_blk, &t, &u, &v)) {
       t_blk = t;
       q_blk = q;
     }
@@ -514,23 +477,22 @@ __global__ void tri_track_kernel(
 
   float prev = 0.0f;
   bool overflow = false;
-  if (n_null <= NULL_CAP) {
+  if (n_null <= kNullCap) {
     // each null row's hit t before the cut, else FAR
-    float th[NULL_CAP];
+    float th[kNullCap];
 #pragma unroll
-    for (int j = 0; j < NULL_CAP; ++j) {
+    for (int j = 0; j < kNullCap; ++j) {
       th[j] = kFar;
       float t, u, v;
       if (j < n_null &&
-          row_hit<true>(has, ro, rd, s_null + 3 * j, kEps, t_cut, &t, &u,
-                        &v))
+          row_hit(has, ro, rd, s_null + 3 * j, kEps, t_cut, &t, &u, &v))
         th[j] = t;
     }
     for (int k = 0; k < K; ++k) {
       float best = kFar;
       int bj = -1;
 #pragma unroll
-      for (int j = 0; j < NULL_CAP; ++j) {
+      for (int j = 0; j < kNullCap; ++j) {
         if (j >= n_null) break;
         if (th[j] > prev && th[j] < best) {
           best = th[j];
@@ -541,7 +503,7 @@ __global__ void tri_track_kernel(
       prev = __fadd_rn(best, kChainSep);
     }
 #pragma unroll
-    for (int j = 0; j < NULL_CAP; ++j) {
+    for (int j = 0; j < kNullCap; ++j) {
       if (j >= n_null) break;
       overflow |= th[j] > prev && th[j] < kFar;
     }
@@ -553,8 +515,8 @@ __global__ void tri_track_kernel(
       const float lo = fmaxf(kEps, prev);
       for (int j = 0; j < n_null; ++j) {
         float t, u, v;
-        if (row_hit<true>(has, ro, rd, s_null + 3 * j, lo, fminf(t_cut, best),
-                          &t, &u, &v)) {
+        if (row_hit(has, ro, rd, s_null + 3 * j, lo, fminf(t_cut, best), &t,
+                    &u, &v)) {
           best = t;
           bj = j;
         }
@@ -615,7 +577,7 @@ extern "C" int tri_track_hits(const float* ro, const float* rd,
 
 // which: 0 closest hit, 1 any hit, 2 media walk. out: registers a thread,
 // local (spilled) bytes a thread, blocks of TILE resident on one SM, SMs,
-// TILE, NULL_CAP.
+// TILE, kNullCap.
 extern "C" int tri_kernel_info(int which, int* out) {
   cudaFuncAttributes attr;
   const void* fn = which == 0   ? (const void*)tri_closest_kernel
@@ -633,6 +595,6 @@ extern "C" int tri_kernel_info(int which, int* out) {
   err = (int)cudaDeviceGetAttribute(out + 3, cudaDevAttrMultiProcessorCount,
                                     dev);
   out[4] = TILE;
-  out[5] = NULL_CAP;
+  out[5] = kNullCap;
   return err;
 }

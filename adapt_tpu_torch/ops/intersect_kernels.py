@@ -34,6 +34,9 @@ TWIN_LANES = 1 << 22
 # triangles the media-walk kernel keeps in shared memory (its TILE; the
 # brute-force tier has at most 256, ops/intersect.py `_bvh_tier`)
 TRACK_ROWS = 256
+# null rows the media-walk kernel keeps in registers (its kNullCap); above
+# it the walk re-sweeps
+NULL_CAP = 16
 
 launches = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0}
 
@@ -222,8 +225,8 @@ def _lib():
 def kernel_info(n):
     """{kernel: (registers a thread, spilled bytes a thread, blocks of 256
     threads resident on one SM, SMs, 256, waves)} for n rays, and the
-    media walk's null-row cap (NULL_CAP: above it the walk re-sweeps).
-    Needs the card."""
+    media walk's null-row cap the build holds (NULL_CAP). Needs the
+    card."""
     lib = _lib()
     out, cap = {}, None
     for which, name in enumerate(launches):

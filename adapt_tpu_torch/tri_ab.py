@@ -2,18 +2,18 @@
 build of them, in one process on one card.
 
     python -m adapt_tpu_torch.tri_ab BASELINE.cu [--spp 2] [--sass DIR]
-        [--define NAME=VALUE ...] [--baseline-only]
+        [--baseline-only]
 
-BASELINE.cu is an earlier csrc/tri_intersect.cu whose media-walk entry
-point takes a (T,) bool null-flag table, `tri_track_hits(ro, rd, far0, n,
-geo, ng, obj, null_tab, T, K, t_null, obj_null, dn_null, t_blk, obj_blk,
-dn_blk, overflow, stream)`, and whose closest hit takes the current
-arguments, e.g. that of commit 88b64af (`git show
-88b64af:adapt_tpu_torch/csrc/tri_intersect.cu > build/base.cu`). It is
-built beside the current source with the same flags; each `--define`
-builds the current source once more with `-DNAME=VALUE` (NULL_CAP, the
-media walk's null-row cap),
-called through the current wrappers.
+BASELINE.cu is another csrc/tri_intersect.cu whose closest hit takes the
+current arguments. Its media-walk entry point either takes the current
+row lists too, or (as that of commit 88b64af: `git show
+88b64af:adapt_tpu_torch/csrc/tri_intersect.cu > build/base.cu`) a (T,)
+bool null-flag table, `tri_track_hits(ro, rd, far0, n, geo, ng, obj,
+null_tab, T, K, t_null, obj_null, dn_null, t_blk, obj_blk, dn_blk,
+overflow, stream)`; the source says which (the row lists are named
+`solid_rows`). It is built beside the current source with the same
+flags. A patched copy of the current source times another design choice
+(the null-row cap, say).
 
 On chip_smoke.py's sets (`cbox_rays`: cbox 512^2 primary and bounce rays,
 and the bounce rays with 50% and 80% of their lanes dead; `vpt_rays`: the
@@ -21,12 +21,12 @@ vpt cbox's shadow rays at K = 2, and with 50% dead), every build is held
 bit-equal to the plain versions, then timed in turns baseline, current,
 current, baseline (the variants after each current turn): single calls
 and kernel-only device times (chip_smoke.py `_time_ms`, `_graph_ms`: a CUDA
-graph of 10 calls reading the scene's prebuilt tables); the baseline also
-with the table build its wrappers did on every call (`tri_table`, and the
-null flags by `_is_null_obj`), inside the call as they were (on the sets
-with no extra dead lanes); and ms/spp of
-PT on cbox (512^2, 8 bounces) and of VPT on the vpt cbox (its own settings)
-with each build in place, the baseline with its per-call table build.
+graph of 10 calls reading the scene's prebuilt tables); a null-flag
+baseline also with the table build its wrappers did on every call
+(`tri_table`, and the null flags by `_is_null_obj`), inside the call as
+they were (on the sets with no extra dead lanes); and ms/spp of PT on cbox
+(512^2, 8 bounces) and of VPT on the vpt cbox (its own settings) with each
+build in place, a null-flag baseline with its per-call table build.
 `--baseline-only` times the baseline alone (no current build is loaded).
 Then per build and kernel: registers, shared and local bytes
 (`cuobjdump -res-usage`) and the blocks of 256 threads one SM holds by
@@ -57,20 +57,28 @@ TRI_KERNELS = ("tri_closest_kernel", "tri_track_kernel")
 
 
 def baseline_kernels(path):
-    """(library, {"closest": fn, "track": fn}) of the baseline build with
-    the current wrappers' arguments and outputs, and a keyword `build`:
-    True makes the tables inside the call, as the baseline's wrappers did;
-    False reads the scene's prebuilt ones (the kernel alone)."""
+    """(library, {"closest": fn, "any": fn, "track": fn}, flags) of the
+    baseline build with the current wrappers' arguments and outputs;
+    flags is True where its media walk takes a null-flag table. Each fn
+    takes a keyword `build`: True makes the tables inside the call, as a
+    null-flag baseline's wrappers did; False reads the scene's prebuilt
+    ones (the kernel alone)."""
     from .ops import _build, intersect_kernels as K
     from .ops.intersect import _is_null_obj
+    flags = "solid_rows" not in Path(path).read_text()
     lib = _build.compiled("tri_baseline", Path(path), _build._nvcc,
                           _build.NVCC_FLAGS)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tri_closest_hit.argtypes = [P, P, P, I, P, P, P, I] + [P] * 7
-    lib.tri_any_hit.argtypes = [P, P, P, I, P, I, P, P]
-    lib.tri_track_hits.argtypes = [P, P, P, I, P, P, P, P, I, I] + [P] * 8
-    for fn in (lib.tri_closest_hit, lib.tri_any_hit, lib.tri_track_hits):
-        fn.restype = I
+    if flags:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.tri_closest_hit.argtypes = [P, P, P, I, P, P, P, I] + [P] * 7
+        lib.tri_any_hit.argtypes = [P, P, P, I, P, I, P, P]
+        lib.tri_track_hits.argtypes = [P, P, P, I, P, P, P, P, I, I] \
+            + [P] * 8
+        for fn in (lib.tri_closest_hit, lib.tri_any_hit,
+                   lib.tri_track_hits):
+            fn.restype = I
+    else:
+        K.typed(lib)
     ones = {}
 
     def tables(scene, build):
@@ -113,6 +121,8 @@ def baseline_kernels(path):
         return occ
 
     def track(scene, ray_o, ray_d, far0, k, all_null=False, build=False):
+        if not flags:
+            return rows_track(scene, ray_o, ray_d, far0, k, all_null)
         geo, ng, obj = tables(scene, build)
         T = geo.shape[0]
         if build:
@@ -141,30 +151,29 @@ def baseline_kernels(path):
             torch.cuda.current_stream().cuda_stream),
             "baseline tri_track_hits")
         return t_k, o_k, d_k, tb, ob, db, ov
-    return lib, {"closest": closest, "any": any_hit, "track": track}
 
-
-def variant_kernels(define):
-    """(library, {"closest", "any", "track"}) of the current source built
-    with -D`define`, through the current wrappers."""
-    from .ops import _build, intersect_kernels as K
-    name = "tri_" + re.sub(r"\W", "_", define).lower()
-    lib = K.typed(_build.compiled(name, _build.CSRC / "tri_intersect.cu",
-                                  _build._nvcc,
-                                  _build.NVCC_FLAGS + (f"-D{define}",)))
-
-    def through(fn):
-        def call(*args, **kw):
-            saved = K._lib
-            K._lib = lambda: lib
-            try:
-                return fn(*args, **kw)
-            finally:
-                K._lib = saved
-        return call
-    return lib, {"closest": through(K.tri_closest_hit),
-                 "any": through(K.tri_any_hit),
-                 "track": through(K.tri_track_hits)}
+    def rows_track(scene, ray_o, ray_d, far0, k, all_null):
+        (ro, rd, far, n, geo, ng, obj), (solid_p, n_solid, null_p) = \
+            K._track_operands(scene, ray_o, ray_d, far0, all_null)
+        T = geo.shape[0]
+        if n == 0:
+            return K.tri_track_hits_plain(scene, ray_o, ray_d, far0, k,
+                                          K.null_flags(scene, all_null))
+        dev = ro.device
+        t_k, d_k = (torch.empty((k, n), device=dev) for _ in range(2))
+        o_k = torch.empty((k, n), dtype=torch.int32, device=dev)
+        tb, db = (torch.empty(n, device=dev) for _ in range(2))
+        ob = torch.empty(n, dtype=torch.int32, device=dev)
+        ov = torch.empty(n, dtype=torch.bool, device=dev)
+        K._check(lib.tri_track_hits(
+            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
+            ng.data_ptr(), obj.data_ptr(), solid_p, n_solid, null_p,
+            T - n_solid, k, t_k.data_ptr(), o_k.data_ptr(), d_k.data_ptr(),
+            tb.data_ptr(), ob.data_ptr(), db.data_ptr(), ov.data_ptr(),
+            torch.cuda.current_stream().cuda_stream),
+            "baseline tri_track_hits")
+        return t_k, o_k, d_k, tb, ob, db, ov
+    return lib, {"closest": closest, "any": any_hit, "track": track}, flags
 
 
 def resources(so_path):
@@ -200,8 +209,6 @@ def main(argv=None):
     ap.add_argument("baseline", help="an earlier csrc/tri_intersect.cu")
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--sass", help="a directory for the kernels' listings")
-    ap.add_argument("--define", action="append", default=[],
-                    help="also time the current source built with -D this")
     ap.add_argument("--baseline-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -213,15 +220,13 @@ def main(argv=None):
     from .scene import compile as C
 
     card = card_name()
-    base_lib, base = baseline_kernels(args.baseline)
+    base_lib, base, flags = baseline_kernels(args.baseline)
     builds = {"baseline": base}
     libs = {"baseline": base_lib}
     if not args.baseline_only:
         libs["current"] = K._lib()
         builds["current"] = {"closest": K.tri_closest_hit,
                              "any": K.tri_any_hit, "track": K.tri_track_hits}
-        for d in args.define:
-            libs[d], builds[d] = variant_kernels(d)
     dev = torch.device("cuda")
     scene, cfg0, _ = C.load_scene(os.path.join(ROOT, "scenes", "cbox"),
                                   "cbox.xml")
@@ -245,7 +250,8 @@ def main(argv=None):
     for tag, (o, d, far) in b1_sets.items():
         want = K.tri_closest_hit_plain(scene, o, d, far)
         for name, fns in builds.items():
-            for build in ((False, True) if name == "baseline" else (None,)):
+            for build in ((False, True) if name == "baseline" and flags
+                          else (None,)):
                 kw = {} if build is None else {"build": build}
                 got = fns["closest"](scene, o, d, far, **kw)
                 cs._require(all(torch.equal(a, b) for a, b in
@@ -262,7 +268,8 @@ def main(argv=None):
         want = K.tri_track_hits_plain(vscene, o, d, far, k,
                                       K.null_flags(vscene, all_null))
         for name, fns in builds.items():
-            for build in ((False, True) if name == "baseline" else (None,)):
+            for build in ((False, True) if name == "baseline" and flags
+                          else (None,)):
                 kw = {} if build is None else {"build": build}
                 got = fns["track"](vscene, o, d, far, k, all_null, **kw)
                 cs._require(all(torch.equal(a, b) for a, b in
@@ -292,14 +299,14 @@ def main(argv=None):
         for key, call in calls.items():
             row[f"{key} ms"] = cs._time_ms(torch, call)
             row[f"{key} device_ms"] = cs._graph_ms(torch, call)
-            if name == "baseline" and "dead" not in key:
+            if name == "baseline" and flags and "dead" not in key:
                 row[f"{key} ms, table build"] = cs._time_ms(
                     torch, lambda: call(build=True))
                 row[f"{key} device_ms, table build"] = cs._graph_ms(
                     torch, lambda: call(build=True))
         if name in ("baseline", "current"):
             saved = K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits
-            extra = {"build": True} if name == "baseline" else {}
+            extra = {"build": True} if name == "baseline" and flags else {}
             K.tri_closest_hit = (lambda *a: fns["closest"](*a, **extra))
             K.tri_any_hit = (lambda *a: fns["any"](*a, **extra))
             K.tri_track_hits = (lambda *a, **kw: fns["track"](*a, **kw,
@@ -317,8 +324,7 @@ def main(argv=None):
         return row
 
     order = ["baseline"] if args.baseline_only else \
-        ["baseline", "current", *args.define, "current", *args.define,
-         "baseline"]
+        ["baseline", "current", "current", "baseline"]
     turns = [turn(name) for name in order]
     if args.baseline_only:
         turns.append(turn("baseline"))

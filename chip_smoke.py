@@ -143,7 +143,8 @@ TRI_PLANE_OPS = 17
 
 
 def _split_ops(planes, us, vs):
-    """Operations of csrc/tri_intersect.cu's split test: the plane half
+    """Operations of the split test (csrc/tri_intersect.cu `row_hit`),
+    the work a ray needs: the plane half
     (TRI_PLANE_OPS), u and v the rest in two equal parts."""
     return planes * TRI_PLANE_OPS + (us + vs) * (TRI_PAIR_OPS
                                                  - TRI_PLANE_OPS) / 2
@@ -263,6 +264,14 @@ def _bound(nbytes, ops):
     """(least ms the card could take, what sets it)."""
     b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def _ray_bytes(K, far):
+    """Bytes of rays a brute-force kernel must read: origin, direction and
+    far (28) of a walking lane (far > RAY_EPS), far alone (4) of a dead
+    one, whose output depends on nothing else."""
+    walking = int((far > K.RAY_EPS).sum())
+    return walking * 28 + (far.shape[0] - walking) * 4
 
 
 def _close(torch, got, want, far, name):
@@ -676,8 +685,9 @@ def main():
             _time_ms(torch, lambda: K.tri_any_hit(scene, so, sd, far_s)),
             _time_ms(torch, lambda: K.tri_any_hit_plain(scene, so, sd,
                                                         far_s)))}
-    # bounds: rays, far and the tables read once, outputs written once;
-    # the closest hit's operations are the plane half of every live pair
+    # bounds: rays and far read once (a dead lane's output needs its far
+    # alone), the tables read once, outputs written once; the closest
+    # hit's operations are the plane half of every live pair
     # and the u/v half where the row can win (`closest_work`), the any
     # hit's each ray's rows up to its first occluder (what these rays need)
     T = scene.tri_n.shape[0]
@@ -687,7 +697,7 @@ def main():
     any_pairs = int(torch.where(far_s < 0, 0,
                                 torch.clamp(first + 1, max=T)).sum())
     bounds = {
-        "tri_closest_hit": _bound(N * 28 + T * 64 + N * 32,
+        "tri_closest_hit": _bound(_ray_bytes(K, far_b) + T * 64 + N * 32,
                                   _split_ops(*b1_work["bounce"][:3])),
         "tri_any_hit": _bound(N * 28 + T * 48 + N, any_pairs * TRI_PAIR_OPS)}
     device = {
@@ -698,6 +708,8 @@ def main():
     b1_primary_dev = _graph_ms(
         torch, lambda: K.tri_closest_hit(scene, ro, rd, far_p))
     tinfo, null_cap = K.kernel_info(N)
+    _require(null_cap == K.NULL_CAP, f"the media walk's null-row cap is "
+             f"{null_cap} in the build, {K.NULL_CAP} in its wrapper")
     b1_sparse_dev = _graph_ms(
         torch, lambda: K.tri_closest_hit(scene, bo, bd, far_sparse))
     print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
@@ -1215,14 +1227,15 @@ def main():
                                                  2)),
         _time_ms(torch, lambda: K.tri_track_hits_plain(
             vscene, v_p, v_sd, v_far_s, 2, vscene.tri_null)))
-    # bound: rays and far read once, the table (12 + 3 floats, obj and a
-    # row id per row) read once, 3 K + 4 outputs written once; operations:
+    # bound: rays and far read once (a dead lane needs its far alone), the
+    # table (12 + 3 floats, obj and a row id per row) read once, 3 K + 4 outputs written once; operations:
     # the plane half of every (walking ray, triangle) pair and the u/v half
     # where the row can block or lies before the cut (`track_work`)
     VT = vscene.tri_n.shape[0]
     b3_work = track_work(torch, K, vscene, v_p, v_sd, v_far_s)
     bounds["tri_track_hits"] = _bound(
-        N * 28 + VT * 68 + N * (2 * 12 + 13), _split_ops(*b3_work))
+        _ray_bytes(K, v_far_s) + VT * 68 + N * (2 * 12 + 13),
+        _split_ops(*b3_work))
     walking = max(1, int((v_far_s > K.RAY_EPS).sum()))
     tt, tp = times["tri_track_hits"]
     device["tri_track_hits"] = _graph_ms(

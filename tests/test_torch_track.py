@@ -325,7 +325,7 @@ def test_track_kernel_matches_twin_on_card():
     from test_torch_bvh import _smoke
     from adapt_tpu_torch.scene import compile as C
     smoke = _smoke()
-    cap = intersect_kernels.kernel_info(1)[1]
+    cap = intersect_kernels.NULL_CAP
     dup = min(12, cap - 12)
     cases = [(dev, 2, False), (dev, 7, True),
              (smoke.null_layers(torch, C, dev, dup, cap - 12 - dup), 3,

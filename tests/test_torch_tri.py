@@ -21,8 +21,6 @@ inputs, against the JAX package.
   all-null case passes a flag, not a table.
 """
 import dataclasses
-import pathlib
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,11 +40,7 @@ from test_torch_track import _assert_track_close
 
 TRI_FIELDS = ("tri_gid", "tri_obj", "tri_n", "tri_d", "tri_U", "tri_cu",
               "tri_V", "tri_cv")
-# the media-walk kernel's null-row cap, as its source sets it
-NULL_CAP = int(re.search(
-    r"#define NULL_CAP (\d+)",
-    (pathlib.Path(K.__file__).parents[1] / "csrc" / "tri_intersect.cu")
-    .read_text()).group(1))
+NULL_CAP = K.NULL_CAP   # the media-walk kernel's null-row cap
 
 
 @pytest.fixture(scope="module", autouse=True)
