@@ -19,8 +19,7 @@ On chip_smoke.py's sets (`cbox_rays`: cbox 512^2 primary and bounce rays,
 and the bounce rays with 50% and 80% of their lanes dead; `vpt_rays`: the
 vpt cbox's shadow rays at K = 2, and with 50% dead), every build is held
 bit-equal to the plain versions, then timed in turns baseline, current,
-current, baseline (the variants after each current turn): single calls
-and kernel-only device times (chip_smoke.py `_time_ms`, `_graph_ms`: a CUDA
+current, baseline: single calls and kernel-only device times (chip_smoke.py `_time_ms`, `_graph_ms`: a CUDA
 graph of 10 calls reading the scene's prebuilt tables); a null-flag
 baseline also with the table build its wrappers did on every call
 (`tri_table`, and the null flags by `_is_null_obj`), inside the call as
