@@ -31,9 +31,10 @@ DEAD = -3e38           # far0 of a dead lane: no hit can lie before it
 CHAIN_SEP = 0.5 * RAY_EPS
 # elements per (rays, triangles) table of the twins; bounds their memory
 TWIN_LANES = 1 << 22
-# triangles the media-walk kernel keeps in shared memory (its TILE; the
-# brute-force tier has at most 256, ops/intersect.py `_bvh_tier`)
-TRACK_ROWS = 256
+# triangles the any-hit and media-walk kernels stage in shared memory at
+# once (their TILE; the brute-force tier has at most 256, ops/intersect.py
+# `_bvh_tier`)
+STAGED_ROWS = 256
 # null rows the media-walk kernel keeps in registers (its kNullCap); above
 # it the walk re-sweeps
 NULL_CAP = 16
@@ -273,17 +274,24 @@ def _operands(scene, ray_o, ray_d, far0):
             scene.tri_geo, scene.tri_ng, scene.tri_obj)
 
 
+def _staged(scene, fn):
+    """The scene's triangle count; raises beyond STAGED_ROWS, which a
+    kernel that stages the whole table cannot take."""
+    T = scene.tri_geo.shape[0]
+    if T > STAGED_ROWS:
+        raise ValueError(f"{fn}: {T} triangles, the kernel keeps at most "
+                         f"{STAGED_ROWS} in shared memory (the brute-force "
+                         "tier's most)")
+    return T
+
+
 def _track_operands(scene, ray_o, ray_d, far0, all_null):
     """`_operands`, and the media walk's row lists: (pointer to the
     non-null rows or None, their count, pointer to the null rows or None);
     with all_null no non-null row and None for the null rows (every row
-    in order). Raises beyond TRACK_ROWS triangles."""
+    in order). Raises beyond STAGED_ROWS triangles."""
     ops = _operands(scene, ray_o, ray_d, far0)
-    T = scene.tri_geo.shape[0]
-    if T > TRACK_ROWS:
-        raise ValueError(f"tri_track_hits: {T} triangles, the kernel keeps "
-                         f"at most {TRACK_ROWS} in shared memory (the "
-                         "brute-force tier's most)")
+    T = _staged(scene, "tri_track_hits")
     solid, nulls = scene.tri_solid_rows, scene.tri_null_rows
     Ts = solid.shape[0]
     _checked(ray_o, ("scene.tri_solid_rows", solid, (Ts,), torch.int32),
@@ -334,10 +342,13 @@ def tri_closest_hit(scene, ray_o, ray_d, far0):
 
 
 def tri_any_hit(scene, ray_o, ray_d, far0):
-    """True where any triangle lies strictly before far0."""
+    """True where any triangle lies strictly before far0 (dead lanes,
+    far0 <= RAY_EPS, never). The kernel takes at most STAGED_ROWS
+    triangles."""
     if _is_cpu(ray_o):
         return tri_any_hit_plain(scene, ray_o, ray_d, far0)
     ro, rd, far, n, geo, _, _ = _operands(scene, ray_o, ray_d, far0)
+    _staged(scene, "tri_any_hit")
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ

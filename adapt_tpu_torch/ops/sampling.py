@@ -1,5 +1,5 @@
-"""Direction sampling (port of adapt_tpu/ops/sampling.py, the parts PT and
-VPT call).
+"""Direction sampling (port of adapt_tpu/ops/sampling.py, the parts PT,
+VPT and SSAO call).
 
 Samplers are pure: uniforms come in as tensors, so the RNG schedule stays
 at the integrator level. Local frames are y-up, as in the reference.
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import INV_PI, INV_4PI, PI2
+from ..constants import INV_PI, INV_2PI, INV_4PI, PI2
 
 
 def _spherical(cos_theta, phi):
@@ -22,6 +22,14 @@ def cosine_hemisphere(u1, u2):
     cos_theta = torch.sqrt(u1)
     phi = PI2 * u2
     return _spherical(cos_theta, phi), cos_theta * INV_PI
+
+
+def uniform_hemisphere(u1, u2):
+    """Uniform direction on the hemisphere around +y; returns (dir,
+    pdf)."""
+    cos_theta = u1
+    phi = PI2 * u2
+    return _spherical(cos_theta, phi), torch.full_like(u1, INV_2PI)
 
 
 def uniform_sphere(u1, u2):

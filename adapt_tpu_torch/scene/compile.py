@@ -254,19 +254,26 @@ class RenderConfig:
 
 def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
     """Raise NotImplementedError for what a renderer of the port cannot
-    render yet; `renderer` is "pt", "vpt" or "bdpt".
+    render yet; `renderer` is "pt", "vpt", "bdpt", "direct" or "ssao".
 
     PT: lambertian BRDFs and point lights. Participating media are not on
     its list: the JAX package's PT reads only the world IOR and ignores
     them too (cbox itself declares a scattering world medium).
     VPT and BDPT: also null BSDFs (medium boundaries), area lights and HG,
-    multi-HG and Rayleigh media."""
+    multi-HG and Rayleigh media.
+    The direct preview and SSAO read only the geometry, mat_kd/ks/kg and
+    emitter 0's position and intensity, so they take every scene the
+    port's tables hold."""
     def nope(what, item):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
-    if renderer not in ("pt", "vpt", "bdpt"):
+    if renderer not in ("pt", "vpt", "bdpt", "direct", "ssao"):
         raise ValueError(f"unknown renderer {renderer!r}")
+    if cfg.volume_kind:
+        nope("grid volumes", 14)
+    if renderer in ("direct", "ssao"):
+        return
     vpt = renderer != "pt"                    # the media renderers
     bsdfs = set(cfg.bsdf_types) - ({BSDFTag.NULL} if vpt else set())
     if bsdfs or (cfg.has_null_bsdf and not vpt):
@@ -283,8 +290,6 @@ def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
     if (cfg.has_normal_map or cfg.has_bump_map
             or any(t.present for t in scene.tex.values())):
         nope("textures", 9)
-    if cfg.volume_kind:
-        nope("grid volumes", 14)
 
 
 # the leaves `tri_tables` reads

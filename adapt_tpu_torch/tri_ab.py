@@ -1,8 +1,8 @@
-"""The brute-force closest hit (B1) and media walk (B3) against a baseline
-build of them, in one process on one card.
+"""The brute-force closest hit (B1), any hit (B2) and media walk (B3)
+against a baseline build of them, in one process on one card.
 
     python -m adapt_tpu_torch.tri_ab BASELINE.cu [--spp 2] [--sass DIR]
-        [--baseline-only]
+        [--baseline-only] [--b2-only] [--extra OTHER.cu ...]
 
 BASELINE.cu is another csrc/tri_intersect.cu whose closest hit takes the
 current arguments. Its media-walk entry point either takes the current
@@ -17,9 +17,13 @@ flags. A patched copy of the current source times another design choice
 
 On chip_smoke.py's sets (`cbox_rays`: cbox 512^2 primary and bounce rays,
 and the bounce rays with 50% and 80% of their lanes dead; `vpt_rays`: the
-vpt cbox's shadow rays at K = 2, and with 50% dead), every build is held
-bit-equal to the plain versions, then timed in turns baseline, current,
-current, baseline: single calls and kernel-only device times (chip_smoke.py `_time_ms`, `_graph_ms`: a CUDA
+vpt cbox's shadow rays at K = 2, and with 50% dead) and B2's (the cbox
+shadow rays, with 50% and 80% of their lanes dead; the direct preview's
+shadow rays at 512^2, chip_smoke.py `direct_rays`; the shadow rays of
+one transient BDPT pass on trans/cbox-point.xml at its own settings, each
+of its any-hit calls, recorded with the plain version in place and timed
+together), every build is held bit-equal to the plain versions, then
+timed in turns baseline, current, current, baseline: single calls and kernel-only device times (chip_smoke.py `_time_ms`, `_graph_ms`: a CUDA
 graph of 10 calls reading the scene's prebuilt tables); a null-flag
 baseline also with the table build its wrappers did on every call
 (`tri_table`, and the null flags by `_is_null_obj`), inside the call as
@@ -27,6 +31,11 @@ they were (on the sets with no extra dead lanes); and ms/spp of PT on cbox
 (512^2, 8 bounces) and of VPT on the vpt cbox (its own settings) with each
 build in place, a null-flag baseline with its per-call table build.
 `--baseline-only` times the baseline alone (no current build is loaded).
+`--b2-only` times B2's sets alone (no B1 or B3 set, no render). Each
+`--extra` file is one more build with the current entry points (a
+patched copy of the current source: another design choice), held and
+timed on B2's sets only, in turns baseline, current, extras, extras in
+reverse, current, baseline.
 Then per build and kernel: registers, shared and local bytes
 (`cuobjdump -res-usage`) and the blocks of 256 threads one SM holds by
 them, and the SASS loops (pick_ab.py `sass_of`, `sass_loops`: instructions
@@ -52,12 +61,13 @@ import torch
 from .pick_ab import sass_of, sass_loops
 from .sweep_ab import ROOT, card_name
 
-TRI_KERNELS = ("tri_closest_kernel", "tri_track_kernel")
+TRI_KERNELS = ("tri_closest_kernel", "tri_any_kernel", "tri_track_kernel")
 
 
-def baseline_kernels(path):
+def baseline_kernels(path, name="tri_baseline"):
     """(library, {"closest": fn, "any": fn, "track": fn}, flags) of the
-    baseline build with the current wrappers' arguments and outputs;
+    baseline build (the library `name`) with the current wrappers'
+    arguments and outputs;
     flags is True where its media walk takes a null-flag table. Each fn
     takes a keyword `build`: True makes the tables inside the call, as a
     null-flag baseline's wrappers did; False reads the scene's prebuilt
@@ -65,7 +75,7 @@ def baseline_kernels(path):
     from .ops import _build, intersect_kernels as K
     from .ops.intersect import _is_null_obj
     flags = "solid_rows" not in Path(path).read_text()
-    lib = _build.compiled("tri_baseline", Path(path), _build._nvcc,
+    lib = _build.compiled(name, Path(path), _build._nvcc,
                           _build.NVCC_FLAGS)
     if flags:
         P, I = ctypes.c_void_p, ctypes.c_int
@@ -175,6 +185,27 @@ def baseline_kernels(path):
     return lib, {"closest": closest, "any": any_hit, "track": track}, flags
 
 
+def transient_rays(C, K):
+    """(scene, calls): trans/cbox-point.xml at its own settings and the
+    shadow rays of one transient BDPT pass there, (ro, rd, far) of each
+    any-hit call, recorded with the plain version in place."""
+    from . import rng
+    from .renderer import bdpt
+    scene, cfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "trans"),
+                                 "cbox-point.xml")
+    calls, saved = [], K.tri_any_hit
+
+    def record(s, o, d, far):
+        calls.append(tuple(x.contiguous().clone() for x in (o, d, far)))
+        return K.tri_any_hit_plain(s, o, d, far)
+    K.tri_any_hit = record
+    try:
+        bdpt.render_pass_bdpt(scene, cfg, rng.PRNGKey(5), 1)
+    finally:
+        K.tri_any_hit = saved
+    return scene, calls
+
+
 def resources(so_path):
     """{kernel: (registers, shared bytes, local bytes, blocks of 256
     threads one SM holds)} of the library's triangle kernels, from
@@ -209,6 +240,11 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--sass", help="a directory for the kernels' listings")
     ap.add_argument("--baseline-only", action="store_true")
+    ap.add_argument("--b2-only", action="store_true",
+                    help="time B2's sets alone")
+    ap.add_argument("--extra", action="append", default=[],
+                    help="another build with the current entry points, "
+                    "timed on B2's sets (repeatable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tri_ab: torch.cuda.is_available() is false")
@@ -226,6 +262,9 @@ def main(argv=None):
         libs["current"] = K._lib()
         builds["current"] = {"closest": K.tri_closest_hit,
                              "any": K.tri_any_hit, "track": K.tri_track_hits}
+    extras = [f"extra{i}" for i in range(len(args.extra))]
+    for name, path in zip(extras, args.extra):
+        libs[name], builds[name], _ = baseline_kernels(path, f"tri_{name}")
     dev = torch.device("cuda")
     scene, cfg0, _ = C.load_scene(os.path.join(ROOT, "scenes", "cbox"),
                                   "cbox.xml")
@@ -256,6 +295,25 @@ def main(argv=None):
                 cs._require(all(torch.equal(a, b) for a, b in
                                 zip(got, want)),
                             f"{name} closest hit ({tag}) differs from the "
+                            "plain version")
+    # B2's sets: the cbox shadow rays, with half and four fifths of their
+    # lanes dead; the direct preview's at 512^2; a transient pass's calls
+    so, sd, sfar = rays["shadow"]
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    b2_sets = {"shadow": (scene, [(so, sd, sfar)])}
+    for share in (50, 80):
+        b2_sets[f"shadow {share}% dead"] = (scene, [(so, sd, torch.where(
+            torch.rand(N, generator=g2, device=dev) < share / 100, K.DEAD,
+            sfar))])
+    b2_sets["direct 512^2"] = (scene, [cs.direct_rays(torch, scene, cfg0)])
+    tscene, tcalls = transient_rays(C, K)
+    b2_sets[f"transient pass ({len(tcalls)} calls)"] = (tscene, tcalls)
+    for tag, (sc, calls) in b2_sets.items():
+        for o, d, far in calls:
+            want = K.tri_any_hit_plain(sc, o, d, far)
+            for name, fns in builds.items():
+                cs._require(torch.equal(fns["any"](sc, o, d, far), want),
+                            f"{name} any hit ({tag}) differs from the "
                             "plain version")
     vo, vd, vfar = vrays["shadow"]
     vbo, vbd, vbfar = vrays["bounce"]
@@ -288,6 +346,17 @@ def main(argv=None):
         fns = builds[name]
         row = {"build": name}
         calls = {}
+        for tag, (sc, rays_) in b2_sets.items():
+            calls[f"B2 {tag}"] = (lambda sc=sc, rays_=rays_: [
+                fns["any"](sc, o, d, far) for o, d, far in rays_])
+        if args.b2_only or name in extras:
+            for key, call in calls.items():
+                row[f"{key} ms"] = cs._time_ms(torch, call)
+                row[f"{key} device_ms"] = cs._graph_ms(torch, call)
+            print(f"{name}: " + "; ".join(
+                f"{k} {v:.4f}" for k, v in row.items() if k != "build")
+                + f" [{card}]", flush=True)
+            return row
         for tag, (o, d, far) in b1_sets.items():
             calls[f"B1 {tag}"] = (lambda o=o, d=d, far=far, **kw:
                                   fns["closest"](scene, o, d, far, **kw))
@@ -298,7 +367,8 @@ def main(argv=None):
         for key, call in calls.items():
             row[f"{key} ms"] = cs._time_ms(torch, call)
             row[f"{key} device_ms"] = cs._graph_ms(torch, call)
-            if name == "baseline" and flags and "dead" not in key:
+            if name == "baseline" and flags and "dead" not in key \
+                    and not key.startswith("B2"):
                 row[f"{key} ms, table build"] = cs._time_ms(
                     torch, lambda: call(build=True))
                 row[f"{key} device_ms, table build"] = cs._graph_ms(
@@ -323,7 +393,8 @@ def main(argv=None):
         return row
 
     order = ["baseline"] if args.baseline_only else \
-        ["baseline", "current", "current", "baseline"]
+        ["baseline", "current", *extras, *extras[::-1], "current",
+         "baseline"]
     turns = [turn(name) for name in order]
     if args.baseline_only:
         turns.append(turn("baseline"))
@@ -350,6 +421,10 @@ def main(argv=None):
               flush=True)
     print(card)
     print(json.dumps({"card": card, "rays": N, "spp": args.spp,
+                      "extras": dict(zip(extras, args.extra)),
+                      "b2_sets": {tag: [int((far > K.RAY_EPS).sum())
+                                        for _o, _d, far in rays_]
+                                  for tag, (_s, rays_) in b2_sets.items()},
                       "turns": turns, "resources": res,
                       "sass_loops": sass}))
 

@@ -13,8 +13,12 @@ non-zero exit and no result line.
 2. kernels: each hand-written CUDA kernel against its plain PyTorch twin
    at 512^2 shapes (262,144 rays a batch): the brute-force pair on cbox
    (the closest hit also on a tie set, an all-dead set, far0 = 2e7 and
-   sets four fifths dead, bit-equal; one call of each brute-force
-   wrapper launches one kernel),
+   sets four fifths dead, bit-equal; the any hit also on shadow rays four
+   fifths dead, all dead, with far at each ray's closest hit t and one ULP
+   either side, on rays that are all occluded and on the direct
+   preview's shadow rays, bit-equal, with each set's device time, bound
+   and plane / u / v tests a ray (`any_work`); one call of each
+   brute-force wrapper launches one kernel),
    the BVH pair on knot290k (primary rays; bounce rays from the primary
    hits in seeded random directions with 15% dead lanes; shadow rays to
    the point light). Hit ids and occlusion exactly equal, t within rtol
@@ -62,7 +66,10 @@ non-zero exit and no result line.
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
    same for render_pass_vpt against tests/goldens/vptcbox_48.npy; 3c: for
-   render_pass_bdpt against tests/goldens/cbox_bdpt_48.npy;
+   render_pass_bdpt against tests/goldens/cbox_bdpt_48.npy; 3d: for
+   render_pass_direct against tests/goldens/cbox_direct_48.npy (one
+   closest hit, one any hit); 3e: for depth_prepass and render_pass_ssao
+   against tests/goldens/cbox_ao_48.npy;
 4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
    setting), render_batch of a few spp with the launch counts read around
    it; the image must be finite with mean > 0.05 and match the same render
@@ -98,7 +105,13 @@ non-zero exit and no result line.
    image against phase 5's BVH-tier image of the same seed: the mean under
    the goldens' bound, every pixel within 5e-2 but for at most 1e-4 of
    them, whose path took another prim at a grazed edge (`_check_tier`);
-   ms/spp of each tier beside the BVH tier's.
+   ms/spp of each tier beside the BVH tier's;
+10. direct preview and SSAO: DirectRenderer and SSAORenderer on cbox at
+   512^2: the SSAO depth prepass (64 closest hits) timed with its
+   renderer's set-up, one warm-up pass, then render_batch of a few passes
+   with one closest hit (and, for the direct preview, one any hit) a
+   pass; each image finite and under the goldens' bounds against the same
+   render with the twins in place.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
 result line {"ok": true, "device": {...}}.
@@ -120,6 +133,7 @@ SPP = 4            # cbox main-path samples per pixel (after one warm-up spp)
 KNOT_SPP = 3       # knot290k main-path samples per pixel (after one warm-up)
 VPT_SPP = 3        # vpt cbox main-path samples per pixel (after one warm-up)
 BDPT_SPP = 3       # BDPT cbox main-path samples per pixel (after one warm-up)
+PREVIEW_SPP = 5    # direct preview and SSAO passes (after one warm-up pass)
 REPS = 5           # kernel timing repetitions (median)
 TIE_RAYS = 65536   # rays of phase 2e's tie set (`tie_rays`)
 # largest share of lanes on which a cluster sweep kernel may take another
@@ -305,6 +319,14 @@ def tie_rays(torch, scene, n, seed, prims=None):
     at = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [0.5, 0.0],
                        [0.0, 0.5], [0.5, 0.5]], device=dev)[
         torch.randint(0, 6, (n,), generator=g, device=dev)]
+    return _rays_at(torch, scene, pick, at, g)
+
+
+def _rays_at(torch, scene, pick, at, g):
+    """(ro, rd, dist): a ray at barycentric point `at` of each triangle
+    `pick`, from a point 0.05-1 away on a random side, with the distance
+    to its target."""
+    n, dev = pick.shape[0], scene.device
     target = scene.pre2[pick] + at[:, :1] * scene.pre0[pick] \
         + at[:, 1:] * scene.pre1[pick]
     side = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, -1.0,
@@ -405,6 +427,54 @@ def cbox_rays(torch, scene, cfg, g):
             "shadow": (so, sd, far_s)}
 
 
+def direct_rays(torch, scene, cfg):
+    """The direct preview's shadow rays on this scene at cfg's size, (ro,
+    rd, far): from each primary hit (a miss's point FAR out) to emitter 0,
+    far its distance less RAY_EPS, as renderer/direct.py
+    `render_pass_direct` makes them for its first pass of seed 0; the
+    primary hits by the plain closest hit (no kernel launches)."""
+    from adapt_tpu_torch import rng
+    from adapt_tpu_torch.ops import intersect_kernels as K
+    from adapt_tpu_torch.renderer.base import camera_rays
+    from adapt_tpu_torch.renderer.direct import shadow_rays
+    ro, rd = camera_rays(scene, cfg, rng.split(rng.PRNGKey(0))[1], 1)
+    far_p = torch.full((ro.shape[0],), K.FAR, device=scene.device)
+    t = K.tri_closest_hit_plain(scene, ro, rd, far_p)[0]
+    hit_p, ld, dist = shadow_rays(scene, ro, rd, t)
+    return hit_p.contiguous(), ld.contiguous(), K.far_bound(hit_p, dist)
+
+
+def occluded_rays(torch, scene, n, seed):
+    """(ro, rd, far): n rays at inner points of random triangles
+    (barycentric coordinates 0.1-0.8 each, their sum at most 0.9), each
+    from a point 0.05-1 away on either side (`_rays_at`), far 2: every
+    ray is occluded, by its target if by nothing nearer."""
+    dev = scene.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tri = torch.nonzero(~scene.prim_is_sphere).squeeze(1)
+    pick = tri[torch.randint(0, tri.numel(), (n,), generator=g, device=dev)]
+    at = 0.1 + 0.7 * torch.rand((n, 2), generator=g, device=dev)
+    at = torch.where(at.sum(1, keepdim=True) > 0.9, 0.9 - at.flip(1), at)
+    ro, rd, _dist = _rays_at(torch, scene, pick, at, g)
+    return ro, rd, torch.full((n,), 2.0, device=dev)
+
+
+def edge_sets(torch, K, scene, ro, rd, far):
+    """{name: far} of the bound-edge sets: far at each ray's closest hit
+    t (FAR bound) and one ULP either side; a ray without a hit keeps its
+    far. Also the mask of the rays with a hit: none of them is occluded
+    at t or below it (nothing lies strictly before the closest hit), all
+    of them one ULP above."""
+    t, row = K.tri_closest_hit_plain(scene, ro, rd,
+                                     torch.full_like(far, K.FAR))[:2]
+    hit = row >= 0
+    return {"at t": torch.where(hit, t, far),
+            "1 ulp above": torch.where(
+                hit, torch.nextafter(t, torch.full_like(t, 3e38)), far),
+            "1 ulp below": torch.where(
+                hit, torch.nextafter(t, torch.zeros_like(t)), far)}, hit
+
+
 def vpt_rays(torch, scene, cfg, g):
     """Phase 2c's ray sets on the vpt cbox, {name: (ro, rd, far)} from the
     primary hits: "shadow", NEE rays to area-light samples; "bounce",
@@ -489,6 +559,24 @@ def track_work(torch, K, scene, ro, rd, far, all_null=False):
     return planes, int(uh.sum()), vs
 
 
+def any_work(torch, K, scene, ro, rd, far):
+    """The work these shadow rays need of an any hit that splits the test
+    (csrc/tri_intersect.cu `row_occludes`): (plane tests, u tests, v
+    tests). A walking lane (far > RAY_EPS) tests rows in order up to its
+    first occluder; it computes u where the plane gives RAY_EPS < t < far,
+    and v where u lies in [0, 1] as well."""
+    t, u, valid, ahead = _plane_tables(torch, K, scene, ro, rd)
+    T = t.shape[1]
+    walk = far > K.RAY_EPS
+    occ = valid & (t < far[:, None])
+    first = torch.where(occ, torch.arange(T, device=t.device), T).amin(1)
+    tested = walk[:, None] & (torch.arange(T, device=t.device)[None, :]
+                              <= first[:, None])
+    uh = tested & ahead & (t < far[:, None])
+    return (int(tested.sum()), int(uh.sum()),
+            int((uh & (u >= 0.0) & (u <= 1.0)).sum()))
+
+
 def null_layers(torch, C, scene, dup, eps):
     """The scene with copies of its null rows appended: exact duplicates
     (the same t) of the first `dup` of them, then copies of the first
@@ -548,7 +636,7 @@ def main():
     from adapt_tpu_torch.ops import splat as S
     from adapt_tpu_torch.ops.intersect import DEAD
     from adapt_tpu_torch.parsers.xml_parser import scene_parsing
-    from adapt_tpu_torch.renderer import bdpt as B, pt, vpt
+    from adapt_tpu_torch.renderer import bdpt as B, direct, pt, ssao, vpt
     from adapt_tpu_torch.renderer.base import camera_rays
     from adapt_tpu_torch.scene import compile as C
 
@@ -654,14 +742,34 @@ def main():
     _require(tie_n > 0, "no tie-set ray ties in t")
     _require(b1_seen["all dead"][0] == 0.0, "an all-dead lane hit")
     _require(b1_seen["far0 2e7"][1] > 0, "no far0 2e7 ray took the FAR row")
-    n_occ = 0
-    for o, d, far in ((so, sd, far_s), (bo, bd, far_b)):
+    # B2 bit-equal on the shadow and bounce rays and on harder sets: four
+    # fifths dead (2-8 threads a ray), all dead, far at the closest hit's
+    # t and one ULP either side, every ray occluded (whole warps leave
+    # early), the direct preview's shadow rays
+    edges, edge_hit = edge_sets(torch, K, scene, so, sd, far_s)
+    b2_sets = {"shadow": (so, sd, far_s), "bounce": (bo, bd, far_b),
+               "shadow 80% dead": (so, sd, torch.where(sparse, DEAD,
+                                                       far_s)),
+               "all dead": (so, sd, torch.full_like(far_s, DEAD)),
+               **{f"edge {k}": (so, sd, f) for k, f in edges.items()},
+               "all occluded": occluded_rays(torch, scene, N, 6),
+               "direct": direct_rays(torch, scene, cfg0)}
+    b2_seen = {}
+    for tag, (o, d, far) in b2_sets.items():
         occ = K.tri_any_hit(scene, o, d, far)
         _require(torch.equal(occ, K.tri_any_hit_plain(scene, o, d, far)),
-                 "tri_any_hit: occlusion differs from the twin")
-        _require(not bool(occ[far < 0].any()), "a dead lane is occluded")
-        n_occ += int(occ.sum())
-    _require(n_occ > 0, "no shadow ray was occluded")
+                 f"tri_any_hit ({tag} rays): occlusion differs from the "
+                 "twin")
+        _require(not bool(occ[far <= K.RAY_EPS].any()),
+                 f"tri_any_hit ({tag} rays): a dead lane is occluded")
+        b2_seen[tag] = float(occ.float().mean())
+    _require(b2_seen["shadow"] > 0, "no shadow ray was occluded")
+    _require(b2_seen["all occluded"] == 1.0, "an aimed ray was not occluded")
+    for k in edges:
+        occ = K.tri_any_hit(scene, so, sd, b2_sets[f"edge {k}"][2])[edge_hit]
+        _require(bool(occ.all()) if k == "1 ulp above"
+                 else not bool(occ.any()),
+                 f"tri_any_hit (edge {k}): wrong side of the closest hit")
     # one call, one kernel: the wrappers read the scene's tables (before
     # any CUDA graph is captured: the profiler misses kernels after one)
     vscene, vcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "vpt"),
@@ -691,15 +799,15 @@ def main():
     # and the u/v half where the row can win (`closest_work`), the any
     # hit's each ray's rows up to its first occluder (what these rays need)
     T = scene.tri_n.shape[0]
-    geo_t, _u, _v, valid = K._hit_tables(scene.tri_geo, so, sd)
-    first = torch.where(valid & (geo_t < far_s[:, None]),
-                        torch.arange(T, device=dev), T).amin(dim=1)
-    any_pairs = int(torch.where(far_s < 0, 0,
-                                torch.clamp(first + 1, max=T)).sum())
+
+    def b2_bound(o, d, far):
+        return _bound(_ray_bytes(K, far) + T * 48 + far.shape[0],
+                      _split_ops(*any_work(torch, K, scene, o, d, far)))
+
     bounds = {
         "tri_closest_hit": _bound(_ray_bytes(K, far_b) + T * 64 + N * 32,
                                   _split_ops(*b1_work["bounce"][:3])),
-        "tri_any_hit": _bound(N * 28 + T * 48 + N, any_pairs * TRI_PAIR_OPS)}
+        "tri_any_hit": b2_bound(so, sd, far_s)}
     device = {
         "tri_closest_hit": _graph_ms(
             torch, lambda: K.tri_closest_hit(scene, bo, bd, far_b)),
@@ -712,6 +820,16 @@ def main():
              f"{null_cap} in the build, {K.NULL_CAP} in its wrapper")
     b1_sparse_dev = _graph_ms(
         torch, lambda: K.tri_closest_hit(scene, bo, bd, far_sparse))
+    # B2 on each set: device ms (kernel only), bound, plane / u / v tests
+    # a walking ray
+    b2_rows = {}
+    for tag, (o, d, far) in b2_sets.items():
+        walking = max(int((far > K.RAY_EPS).sum()), 1)
+        b2_rows[tag] = (
+            _graph_ms(torch, lambda o=o, d=d, far=far:
+                      K.tri_any_hit(scene, o, d, far)),
+            b2_bound(o, d, far),
+            [x / walking for x in any_work(torch, K, scene, o, d, far)])
     print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
                       f"{t:.4f} ms (device, kernel only {device[k]:.4f}), "
@@ -726,7 +844,13 @@ def main():
               f"{tag} {h:.4f}, {fr}; {p / N:.2f}, {u / N:.2f}, {v / N:.2f}, "
               f"{idle:.4f}" for tag, ((h, fr), (p, u, v, idle)) in
               ((t_, (b1_seen[t_], b1_work[t_])) for t_ in b1_sets))
-          + f"; {tie_n} tie-set rays tie in t | one call launches "
+          + f"; {tie_n} tie-set rays tie in t | B2 bit-equal on every set "
+          "(occluded share; device ms, kernel only; bound ms; plane, u and v "
+          "tests a walking ray): " + ", ".join(
+              f"{tag} {b2_seen[tag]:.4f}; {dv:.4f}; {bd_[0]:.4f} "
+              f"({bd_[1]}); {w[0]:.2f}, {w[1]:.2f}, {w[2]:.2f}"
+              for tag, (dv, bd_, w) in b2_rows.items())
+          + " | one call launches "
           + ", ".join(f"{k} {names[0].split('(')[0]}"
                       for k, names in one_call.items())
           + " | " + "; ".join(
@@ -1400,6 +1524,35 @@ def main():
           f"{_shown(bgolden_launches)}",
           flush=True)
 
+    # ---- 3d. direct preview golden on the card ----
+    reset()
+    img, _, _ = direct.render_pass_direct(scene, small, rng.PRNGKey(42), 1)
+    dgolden_launches = counts()
+    _require(dgolden_launches == {**none, "tri_closest_hit": 1,
+                                  "tri_any_hit": 1},
+             f"direct launch counts {dgolden_launches}")
+    err, mean, ref_mean = _check(
+        img.cpu().numpy(),
+        np.load(os.path.join(ROOT, "tests", "goldens", "cbox_direct_48.npy")))
+    print(f"phase 3d golden cbox_direct_48 on cuda: max abs diff {err:.3g}, "
+          f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
+          f"{_shown(dgolden_launches)}", flush=True)
+
+    # ---- 3e. SSAO golden on the card ----
+    reset()
+    dmap = ssao.depth_prepass(scene, small, rng.PRNGKey(42))
+    img = ssao.render_pass_ssao(scene, small, rng.PRNGKey(42), 1, dmap)
+    agolden_launches = counts()
+    _require(agolden_launches == {**none, "tri_closest_hit":
+                                  small.depth_samples + 1},
+             f"SSAO launch counts {agolden_launches}")
+    err, mean, ref_mean = _check(
+        img.cpu().numpy(),
+        np.load(os.path.join(ROOT, "tests", "goldens", "cbox_ao_48.npy")))
+    print(f"phase 3e golden cbox_ao_48 on cuda: max abs diff {err:.3g}, "
+          f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
+          f"{_shown(agolden_launches)}", flush=True)
+
     @contextlib.contextmanager
     def twins():
         """The path's wrappers swapped for their plain twins."""
@@ -1648,8 +1801,55 @@ def main():
           + f"; BVH tier (phase 5): {1e3 * dt_knot / KNOT_SPP:.2f} ms/spp "
           f"[{card}]", flush=True)
 
-    path_launches = {**{k: launches[k] for k in ("tri_closest_hit",
-                                                 "tri_any_hit")},
+    # ---- 10. direct preview and SSAO at full size ----
+    preview_rows, preview_launches = [], dict(none)
+    for name, cls in (("direct", direct.DirectRenderer),
+                      ("SSAO", ssao.SSAORenderer)):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = cls(scene, cfg0, seed=0)          # SSAO: the depth prepass
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        made = counts()
+        r.render_batch(1)                     # warm-up pass, not timed
+        reset()
+        dt = timed_batch(r, PREVIEW_SPP)
+        plaunches = counts()
+        want = {**none, "tri_closest_hit": PREVIEW_SPP,
+                "tri_any_hit": PREVIEW_SPP if name == "direct" else 0}
+        _require(plaunches == want,
+                 f"{name} launch counts {plaunches}, want {want}")
+        _require(made == {**none, "tri_closest_hit": 0 if name == "direct"
+                          else cfg0.depth_samples},
+                 f"{name} set-up launch counts {made}")
+        for k, n in plaunches.items():
+            preview_launches[k] += n
+        pimage = r.image()
+        _require(pimage.shape == (cfg0.h, cfg0.w, 3)
+                 and bool(np.isfinite(pimage).all()) and pimage.mean() > 0.05,
+                 f"{name}: image not finite or too dark")
+        with twins():
+            rt = cls(scene, cfg0, seed=0)
+            rt.render_batch(1 + PREVIEW_SPP)
+        perr, _, _ = _check(pimage, rt.image())
+        preview_rows.append((name, dt, made_s, pimage.mean(), perr,
+                             bool(torch.equal(r.color, rt.color)),
+                             plaunches))
+    print(f"phase 10 direct preview and SSAO cbox {cfg0.w}x{cfg0.h}, "
+          f"{PREVIEW_SPP} passes: " + "; ".join(
+              f"{name} {1e3 * d / PREVIEW_SPP:.2f} ms per pass"
+              + (f" (depth prepass, {cfg0.depth_samples} samples: "
+                 f"{1e3 * m:.2f} ms)" if name == "SSAO" else "")
+              + f", image mean {mean_:.6f}, max abs diff to twins "
+              f"{e:.3g} (equal: {eq}), launches per pass "
+              + ", ".join(f"{k} {n // PREVIEW_SPP}"
+                          for k, n in _shown(pl).items())
+              for name, d, m, mean_, e, eq, pl in preview_rows)
+          + f" [{card}]", flush=True)
+
+    path_launches = {**{k: launches[k] + preview_launches[k]
+                        for k in ("tri_closest_hit", "tri_any_hit")},
                      **{k: klaunches[k] for k in ("bvh_closest_hit",
                                                   "bvh_any_hit")},
                      "tri_track_hits": vlaunches["tri_track_hits"],

@@ -169,7 +169,9 @@ def test_port_imports_no_jax():
     code = ("import sys; import adapt_tpu_torch.renderer.pt, "
             "adapt_tpu_torch.renderer.vpt, adapt_tpu_torch.ops.medium_ops, "
             "adapt_tpu_torch.renderer.bdpt, adapt_tpu_torch.ops.splat, "
-            "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt; "
+            "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt, "
+            "adapt_tpu_torch.renderer.direct, adapt_tpu_torch.renderer.ssao, "
+            "adapt_tpu_torch.ops.sampling; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")

@@ -194,6 +194,56 @@ def test_closest_twin_matches_pallas(case):
         assert far_row.sum() > 10 and (row[::9] == -1).all()
 
 
+@pytest.mark.parametrize("case", ["far at t", "far 1 ulp above t",
+                                  "far 1 ulp below t", "all dead",
+                                  "all occluded"])
+def test_any_twin_matches_pallas(case):
+    """B2's plain version against the Pallas `tri_any_hit`: far0 at each
+    ray's closest hit t and one ULP either side (only the rays whose t the
+    two packages round alike: XLA's FMAs move t by an ULP on a few, and
+    at far0 = t the answer hangs on that ULP; chip_smoke.py holds the
+    kernel bit-equal to the plain version on every ray of such a set), every
+    lane dead, and every lane occluded (rays aimed at inner points of a
+    triangle, far0 beyond it)."""
+    js, s = _scenes("cbox")
+    T = s.tri_geo.shape[0]
+    ro, rd = _aimed_rays(s, np.arange(T), 600, 23)
+    far = np.full(ro.shape[0], 1e7, np.float32)
+    if case.startswith("far"):
+        jt, jrow = (np.asarray(x) for x in intersect_pallas.tri_closest_hit(
+            js, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(far))[:2])
+        t, row = (x.numpy() for x in K.tri_closest_hit(
+            s, torch.from_numpy(ro), torch.from_numpy(rd),
+            torch.from_numpy(far))[:2])
+        same = (row >= 0) & (row == jrow) & (t == jt)
+        assert same.mean() > 0.8
+        ro, rd, t = ro[same], rd[same], t[same]
+        far = {"far at t": t,
+               "far 1 ulp above t": np.nextafter(t, np.float32(3e38)),
+               "far 1 ulp below t": np.nextafter(t, np.float32(0))}[case]
+    elif case == "all dead":
+        far[:] = -3e38
+    else:
+        far[:] = 2.0          # each ray's target lies at most 1 away
+    want = np.asarray(intersect_pallas.tri_any_hit(
+        js, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(far)))
+    got = K.tri_any_hit(s, torch.from_numpy(ro), torch.from_numpy(rd),
+                        torch.from_numpy(far)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # nothing lies strictly before the closest hit; the closest row itself
+    # lies before a far0 one ULP beyond it
+    assert got.all() == (case in ("far 1 ulp above t", "all occluded"))
+    assert not got.any() or case in ("far 1 ulp above t", "all occluded")
+
+
+def test_any_hit_refuses_more_rows_than_it_stages():
+    _, s = _scenes("cbox")
+    assert K._staged(s, "tri_any_hit") == s.tri_geo.shape[0]
+    big = dataclasses.replace(s, tri_geo=s.tri_geo.repeat(8, 1))
+    with pytest.raises(ValueError, match="at most 256"):
+        K._staged(big, "tri_any_hit")
+
+
 @pytest.mark.parametrize("case", ["at-cap", "above-cap", "eps-layered"])
 def test_track_twin_matches_pallas_on_layered_nulls(case):
     """The vpt cbox's 12 null rows with copies: at the cap (duplicates,
