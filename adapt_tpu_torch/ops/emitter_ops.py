@@ -1,17 +1,19 @@
-"""Emitter sampling (port of adapt_tpu/ops/emitter_ops.py: point and area
-lights).
+"""Emitter sampling (port of adapt_tpu/ops/emitter_ops.py: point, area,
+spot and collimated lights).
 
 Per-ray emitter parameters are plain index lookups into the SceneData
 emitter tables; only the emitter kinds present in the scene are evaluated
-(cfg.emitter_kinds), and a kind the port does not have yet raises.
+(cfg.emitter_kinds).
 """
 from __future__ import annotations
 
 import torch
 
-from ..constants import EmitterTag, BIT_POS_DELTA
-from .math3d import axis_vec, delocalize_rotate, dot, normalize
-from .sampling import cosine_hemisphere, sample_triangle, uniform_sphere
+from ..constants import EmitterTag, BIT_POS_DELTA, INV_PI, INV_2PI
+from .math3d import axis_vec, delocalize_rotate, dot, norm, normalize, \
+    world_frame
+from .sampling import (concentric_disk, cosine_hemisphere, sample_triangle,
+                       uniform_cone, uniform_sphere)
 
 
 def sample_light_index(cfg, u, no_sample):
@@ -85,6 +87,8 @@ def sample_hit(scene, cfg, eid, hit_pos, u):
     kind = scene.emit_kind[eid]
     e_pos = scene.emit_pos[eid]
     e_int = scene.emit_intensity[eid]
+    if {EmitterTag.SPOT, EmitterTag.COLLIMATED} & set(cfg.emitter_kinds):
+        e_dir, e_r = scene.emit_dir[eid], scene.emit_r[eid]
     ret_pos = e_pos
     ret_int = e_int
     ret_pdf = torch.ones(N, device=hit_pos.device)
@@ -104,10 +108,34 @@ def sample_hit(scene, cfg, eid, hit_pos, u):
             ret_int = torch.where(m[:, None], a_int, ret_int)
             ret_pdf = torch.where(m, a_pdf, ret_pdf)
             normal = torch.where(m[:, None], a_n, normal)
-        else:
-            raise NotImplementedError(
-                f"emitter kind {k} is not ported yet (ROADMAP.md queue A "
-                "item 9)")
+        elif k == EmitterTag.SPOT:
+            to_hit = hit_pos - e_pos
+            depth = torch.clamp(norm(to_hit), min=1e-5)
+            cos_val = dot(to_hit / depth[:, None], e_dir)
+            in_cone = cos_val > e_r
+            s_int = torch.where(in_cone[:, None],
+                                e_int / (depth * depth)[:, None], 0.0)
+            ret_int = torch.where(m[:, None], s_int, ret_int)
+        elif k == EmitterTag.COLLIMATED:
+            # deterministic back-projection onto the beam (abtract:142-157)
+            to_hit = hit_pos - e_pos
+            proj = dot(to_hit, e_dir)
+            dist2 = torch.clamp(dot(to_hit, to_hit) - proj * proj, min=0.0)
+            behind = proj <= 0.0
+            ok = (e_r > 0.0) & ~behind & (torch.sqrt(dist2) < e_r)
+            # the reference's quirk, kept: points BEHIND the beam origin
+            # keep full intensity toward ret_pos = the emitter position
+            # (its r > 0 branch only zeroes on dist >= r,
+            # abtract_source.py:148-155; invisible in shipped scenes,
+            # whose laser sits on a wall)
+            lit = (e_r > 0.0) & (behind | (torch.sqrt(dist2) < e_r))
+            c_pos = hit_pos - proj[:, None] * e_dir
+            ret_pos = torch.where((m & ok)[:, None], c_pos, ret_pos)
+            ret_int = torch.where(m[:, None],
+                                  torch.where(lit[:, None], e_int, 0.0),
+                                  ret_int)
+            ret_pdf = torch.where(m, 0.0, ret_pdf)
+            normal = torch.where((m & ok)[:, None], e_dir, normal)
     return ret_pos, ret_int, ret_pdf, normal
 
 
@@ -123,8 +151,9 @@ def sample_le(scene, cfg, eid, u):
     u: (N,5). The area branch consumes all five (triangle pick, two for
     the position, two for the direction): sharing one between position and
     direction would correlate them, and the estimator divides by
-    pdf_pos * pdf_dir as if they were independent. The point branch takes
-    u[:, :2]. Returns (ray_o, ray_d, pdf_pos, pdf_dir, normal)."""
+    pdf_pos * pdf_dir as if they were independent. The point, spot and
+    collimated branches take u[:, :2]. Returns (ray_o, ray_d, pdf_pos,
+    pdf_dir, normal)."""
     N = eid.shape[0]
     dev = u.device
     ray_o = scene.emit_pos[eid]
@@ -164,10 +193,25 @@ def sample_le(scene, cfg, eid, u):
             normal = torch.where(m[:, None], a_n, normal)
             pdf_dir = torch.where(m, c_pdf, pdf_dir)
             pdf_pos = torch.where(m, scene.emit_inv_area[eid], pdf_pos)
-        else:
-            raise NotImplementedError(
-                f"emitter kind {k} is not ported yet (ROADMAP.md queue A "
-                "item 9)")
+        elif k == EmitterTag.SPOT:
+            e_r = scene.emit_r[eid]
+            e_dir = scene.emit_dir[eid]
+            d = _rotate(e_dir, uniform_cone(u[:, 0], u[:, 1], e_r))
+            ray_d = torch.where(m[:, None], d, ray_d)
+            normal = torch.where(m[:, None], e_dir, normal)
+            pdf_dir = torch.where(m, INV_2PI / (1.0 - e_r), pdf_dir)
+        elif k == EmitterTag.COLLIMATED:
+            e_r = scene.emit_r[eid]
+            d = scene.emit_dir[eid]
+            off = concentric_disk(u[:, 0], u[:, 1]) * e_r[:, None]
+            o = scene.emit_pos[eid] + torch.where(
+                (e_r > 0.0)[:, None],
+                world_frame(axis_vec(1, dev).expand(d.shape), d, off), 0.0)
+            ray_o = torch.where(m[:, None], o, ray_o)
+            ray_d = torch.where(m[:, None], d, ray_d)
+            normal = torch.where(m[:, None], d, normal)
+            pdf_dir = torch.where(m, 1.0, pdf_dir)
+            pdf_pos = torch.where(m, scene.emit_inv_area[eid], pdf_pos)
     return ray_o, ray_d, pdf_pos, pdf_dir, normal
 
 
@@ -188,6 +232,23 @@ def solid_angle_pdf(scene, eid, n_s, depth, incid_dir):
     return torch.where(dot_res > 0.0,
                        area_pdf * depth * depth
                        / torch.clamp(dot_res, min=1e-12), 0.0)
+
+
+def direction_pdf(scene, cfg, eid, exit_dir, light_n):
+    """Solid-angle pdf of sample_le directions (abtract_source.py:234-244);
+    0 for the collimated kind, as in the reference."""
+    kind = scene.emit_kind[eid]
+    pdf = torch.zeros(eid.shape, device=exit_dir.device)
+    for k in cfg.emitter_kinds:
+        m = kind == k
+        if k == EmitterTag.POINT:
+            pdf = torch.where(m, INV_PI * 0.25, pdf)
+        elif k == EmitterTag.SPOT:
+            pdf = torch.where(m, INV_2PI / (1.0 - scene.emit_r[eid]), pdf)
+        elif k == EmitterTag.AREA:
+            pdf = torch.where(
+                m, torch.clamp(dot(exit_dir, light_n), min=0.0) * INV_PI, pdf)
+    return pdf
 
 
 def is_delta_pos(scene, eid):

@@ -1,8 +1,10 @@
 """Vectorized 3D math for ray batches (port of adapt_tpu/ops/math3d.py).
 
-Only what the PT slice calls. Dot products and norms are written out as
+Dot products and norms are written out as
 ((x0*y0 + x1*y1) + x2*y2), the order the JAX package's size-3 reductions
-take, so results round like it does (no FMA, no pairwise reordering).
+take op by op, so results round like it does (no FMA, no pairwise
+reordering). Where a cancellation magnifies the last bit, `fma_dot`
+takes the fused chain XLA's CPU backend makes of them instead.
 """
 from __future__ import annotations
 
@@ -24,6 +26,20 @@ def dot(a, b, keepdims=False):
     p = a * b
     s = (p[..., 0] + p[..., 1]) + p[..., 2]
     return s[..., None] if keepdims else s
+
+
+def fma_dot(a, b):
+    """dot() as XLA's CPU backend computes a size-3 contraction (an
+    einsum, or a sum of products it fuses): the chain of fused
+    multiply-adds fma(a2, b2, fma(a1, b1, a0 * b0)), each product-sum
+    rounded once to f32. The products are exact in float64, so only the
+    f64 rounding of each sum comes before the f32 one (a double rounding
+    that differs from a fused one only at f32 ties). For a test whose
+    cancellation turns one ULP into many, such as the sphere test."""
+    a64, b64 = a.double(), b.double()
+    s = (a[..., 0] * b[..., 0]).double()
+    s = (a64[..., 1] * b64[..., 1] + s).float().double()
+    return (a64[..., 2] * b64[..., 2] + s).float()
 
 
 def norm(v, keepdims=False):
@@ -68,6 +84,63 @@ def delocalize_rotate(anchor, local_dir):
     (reference la/cam_transform.py:89-93)."""
     return rotate_between_apply(axis_vec(1, anchor.device), anchor,
                                 local_dir)
+
+
+def rotation_between(fixed, target):
+    """Batched Rodrigues rotation taking `fixed` to `target` (both unit);
+    returns (..., 3, 3). The skew term uses the unnormalized cross product
+    (|axis| = sin(theta)); near (anti)parallel inputs fall back to +/-
+    identity (reference la/cam_transform.py:51-68)."""
+    fixed = fixed.expand(target.shape)
+    axis = cross(fixed, target)                        # |axis| = sin
+    cos_t = dot(fixed, target)[..., None, None]
+    axis_n = safe_normalize(axis)
+    eye = torch.eye(3, dtype=target.dtype, device=target.device)
+    outer = axis_n[..., :, None] * axis_n[..., None, :]
+    ax, ay, az = axis[..., 0], axis[..., 1], axis[..., 2]
+    zeros = torch.zeros_like(ax)
+    skew = torch.stack([
+        torch.stack([zeros, -az, ay], dim=-1),
+        torch.stack([az, zeros, -ax], dim=-1),
+        torch.stack([-ay, ax, zeros], dim=-1),
+    ], dim=-2)
+    rot = cos_t * eye + (1.0 - cos_t) * outer + skew
+    parallel = torch.abs(cos_t) >= 1.0 - 1e-5
+    return torch.where(parallel, torch.sign(cos_t) * eye, rot)
+
+
+def rotation_from_y(target):
+    """rotation_between([0,1,0], target): the tangent-frame case."""
+    return rotation_between(axis_vec(1, target.device), target)
+
+
+def localize_rotate(anchor, global_dir):
+    """Global frame -> local y-up frame of `anchor`
+    (reference la/cam_transform.py:95-99)."""
+    return rotate_between_apply(anchor,
+                                axis_vec(1, anchor.device).expand(
+                                    anchor.shape), global_dir)
+
+
+def world_frame(local_anchor, global_anchor, local_dir):
+    """Rotate `local_dir` by the rotation taking local_anchor to
+    global_anchor (reference la/cam_transform.py:101-105)."""
+    return rotate_between_apply(local_anchor, global_anchor, local_dir)
+
+
+def convert_to_raw(d_in, normal):
+    """Direction -> (cos_theta, sin_theta, cos_phi, sin_phi) in the
+    normal's local frame (reference la/cam_transform.py:70-87); (..., 4)."""
+    local_dir = localize_rotate(normal, d_in)
+    cos_theta = local_dir[..., 1]
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
+                                       min=0.0))
+    safe = sin_theta > 1e-5
+    inv_sin = torch.where(safe, 1.0 / torch.clamp(sin_theta, min=1e-12),
+                          0.0)
+    cos_phi = torch.where(safe, local_dir[..., 0] * inv_sin, 1.0)
+    sin_phi = torch.where(safe, local_dir[..., 2] * inv_sin, 0.0)
+    return torch.stack([cos_theta, sin_theta, cos_phi, sin_phi], dim=-1)
 
 
 def np_rotation_between(fixed: np.ndarray, target: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Scene compiler: host object model -> flat SoA torch tensors.
 
 Port of adapt_tpu/scene/compile.py. The XML parse (copied numpy host code)
-produces host records; this module flattens the ones the PT slice reads
+produces host records; this module flattens the ones the renderers read
 into `SceneData`, with the JAX package's field names and the same
 precompute (triangles in plane + dual-basis form, so the ray/triangle test
 is t = (d - o.n)/(dir.n), u = (o + t dir).U - cu, v = (o + t dir).V - cv).
@@ -256,14 +256,18 @@ def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
     """Raise NotImplementedError for what a renderer of the port cannot
     render yet; `renderer` is "pt", "vpt", "bdpt", "direct" or "ssao".
 
-    PT: lambertian BRDFs and point lights. Participating media are not on
-    its list: the JAX package's PT reads only the world IOR and ignores
-    them too (cbox itself declares a scattering world medium).
-    VPT and BDPT: also null BSDFs (medium boundaries), area lights and HG,
-    multi-HG and Rayleigh media.
+    PT: every BRDF, the det-refraction and lambertian BSDFs, and point,
+    area, spot and collimated lights. Participating media are not on its
+    list: the JAX package's PT reads only the world IOR and ignores them
+    too (cbox itself declares a scattering world medium).
+    VPT: the same, null BSDFs (medium boundaries) and HG, multi-HG and
+    Rayleigh media.
+    BDPT: lambertian BRDFs, null BSDFs, point and area lights and the
+    same media.
     The direct preview and SSAO read only the geometry, mat_kd/ks/kg and
     emitter 0's position and intensity, so they take every scene the
-    port's tables hold."""
+    port's tables hold. Textures and grid volumes are refused everywhere
+    else, and BxDF mixtures at compile."""
     def nope(what, item):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md queue A item {item})")
@@ -274,18 +278,28 @@ def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
         nope("grid volumes", 14)
     if renderer in ("direct", "ssao"):
         return
-    vpt = renderer != "pt"                    # the media renderers
-    bsdfs = set(cfg.bsdf_types) - ({BSDFTag.NULL} if vpt else set())
-    if bsdfs or (cfg.has_null_bsdf and not vpt):
-        nope(f"BSDFs {cfg.bsdf_types}", 9)
-    if set(cfg.brdf_types) - {BRDFTag.LAMBERTIAN}:
-        nope(f"BRDFs {cfg.brdf_types} other than lambertian", 9)
-    lights = {EmitterTag.POINT} | ({EmitterTag.AREA} if vpt else set())
+    media = renderer != "pt"                  # the media renderers
+    if renderer == "bdpt":
+        bsdfs, brdfs = {BSDFTag.NULL}, {BRDFTag.LAMBERTIAN}
+        lights = {EmitterTag.POINT, EmitterTag.AREA}
+    else:
+        bsdfs = {BSDFTag.DET_REFRACTION, BSDFTag.LAMBERTIAN} \
+            | ({BSDFTag.NULL} if media else set())
+        brdfs = {BRDFTag.BLINN_PHONG, BRDFTag.LAMBERTIAN, BRDFTag.SPECULAR,
+                 BRDFTag.MICROFACET, BRDFTag.MOD_PHONG,
+                 BRDFTag.FRESNEL_BLEND, BRDFTag.OREN_NAYAR,
+                 BRDFTag.THIN_COAT}
+        lights = {EmitterTag.POINT, EmitterTag.AREA, EmitterTag.SPOT,
+                  EmitterTag.COLLIMATED}
+    if set(cfg.bsdf_types) - bsdfs or (cfg.has_null_bsdf and not media):
+        nope(f"BSDFs {cfg.bsdf_types} under {renderer}", 9)
+    if set(cfg.brdf_types) - brdfs:
+        nope(f"BRDFs {cfg.brdf_types} under {renderer}", 9)
     if set(cfg.emitter_kinds) - lights:
         nope(f"emitter kinds {cfg.emitter_kinds} other than "
-             f"{sorted(lights)}", 9)
-    if vpt and set(cfg.medium_kinds) - {MediumTag.HG, MediumTag.MULTI_HG,
-                                        MediumTag.RAYLEIGH}:
+             f"{sorted(lights)} under {renderer}", 9)
+    if media and set(cfg.medium_kinds) - {MediumTag.HG, MediumTag.MULTI_HG,
+                                          MediumTag.RAYLEIGH}:
         nope(f"medium kinds {cfg.medium_kinds}", 11)
     if (cfg.has_normal_map or cfg.has_bump_map
             or any(t.present for t in scene.tex.values())):

@@ -17,8 +17,14 @@ non-zero exit and no result line.
    fifths dead, all dead, with far at each ray's closest hit t and one ULP
    either side, on rays that are all occluded and on the direct
    preview's shadow rays, bit-equal, with each set's device time, bound
-   and plane / u / v tests a ray (`any_work`); one call of each
-   brute-force wrapper launches one kernel),
+   and plane / u / v tests a ray (`any_work`); the any hit also on every
+   shadow-ray call of one PT pass of csphere/balls-multi.xml at 512^2
+   (`pt_shadow_rays`: 12 bounces x 4 shadow rays), bit-equal, with their
+   occluded share and the first call's device time and bound; one call of
+   each brute-force wrapper launches one kernel, and a 64^2 pass at 3
+   bounces of balls-multi (PT) and of vpt/balls (VPT) launches under the
+   profiler the kernels its wrappers count, one closest hit a bounce and
+   one any hit or media walk a shadow ray),
    the BVH pair on knot290k (primary rays; bounce rays from the primary
    hits in seeded random directions with 15% dead lanes; shadow rays to
    the point light). Hit ids and occlusion exactly equal, t within rtol
@@ -69,7 +75,10 @@ non-zero exit and no result line.
    render_pass_bdpt against tests/goldens/cbox_bdpt_48.npy; 3d: for
    render_pass_direct against tests/goldens/cbox_direct_48.npy (one
    closest hit, one any hit); 3e: for depth_prepass and render_pass_ssao
-   against tests/goldens/cbox_ao_48.npy;
+   against tests/goldens/cbox_ao_48.npy; 3f: render_pass_pt on
+   csphere/balls-multi.xml and mix-balls.xml and render_pass_vpt on
+   vpt/balls.xml at 48^2, 6 bounces, against csphere_multi_pt_48.npy,
+   csphere_mix_pt_48.npy and vptballs_48.npy;
 4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
    setting), render_batch of a few spp with the launch counts read around
    it; the image must be finite with mean > 0.05 and match the same render
@@ -111,6 +120,18 @@ non-zero exit and no result line.
    renderer's set-up, one warm-up pass, then render_batch of a few passes
    with one closest hit (and, for the direct preview, one any hit) a
    pass; each image finite and under the goldens' bounds against the same
+   render with the twins in place;
+11. csphere PT: Renderer on csphere/balls-multi.xml at its own settings
+   (512^2, 12 bounces, 4 shadow rays a bounce, RR and MIS; Blinn-Phong,
+   lambertian, specular, modified-Phong and Fresnel-blend BRDFs, a
+   det-refraction ball, a sphere area light): one warm-up spp, then
+   render_batch of a few spp with 12 closest hits and 48 any hits per
+   spp; the image finite (no NaN pixel) and, at 64^2, equal to the same
+   render with the twins in place;
+12. vpt balls: VolumeRenderer on vpt/balls.xml at its own settings (512^2,
+   24 bounces, 4 shadow rays, a spot light, an HG world medium): one
+   warm-up spp, then render_batch of a few spp with 24 closest hits and 96
+   media walks per spp; the image finite and, at 64^2, equal to the same
    render with the twins in place.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
@@ -134,6 +155,9 @@ KNOT_SPP = 3       # knot290k main-path samples per pixel (after one warm-up)
 VPT_SPP = 3        # vpt cbox main-path samples per pixel (after one warm-up)
 BDPT_SPP = 3       # BDPT cbox main-path samples per pixel (after one warm-up)
 PREVIEW_SPP = 5    # direct preview and SSAO passes (after one warm-up pass)
+MULTI_SPP = 4      # csphere balls-multi PT samples per pixel (after a warm-up)
+VBALLS_SPP = 2     # vpt balls samples per pixel (after one warm-up spp)
+PROF_BOUNCES = 3   # bounces of phase 2a's profiled balls-multi and vpt passes
 REPS = 5           # kernel timing repetitions (median)
 TIE_RAYS = 65536   # rays of phase 2e's tie set (`tie_rays`)
 # largest share of lanes on which a cluster sweep kernel may take another
@@ -594,6 +618,29 @@ def null_layers(torch, C, scene, dup, eps):
     return C.replace_triangles(scene, **fields)
 
 
+def pt_shadow_rays(torch, K, pt, rng, scene, cfg):
+    """[(ro, rd, far)] of every any-hit call of one PT pass of seed 0 on
+    this scene at cfg's settings, recorded around the wrapper (which runs
+    the kernel: the counts are reset before each main path)."""
+    calls, launch = [], K.tri_any_hit
+
+    def record(s, o, d, far):
+        calls.append((o.clone(), d.clone(), far.clone()))
+        return launch(s, o, d, far)
+    K.tri_any_hit = record
+    try:
+        pt.render_pass_pt(scene, cfg, rng.PRNGKey(0), 1)
+    finally:
+        K.tri_any_hit = launch
+    return calls
+
+
+def _small(cfg, w, **kw):
+    """cfg at w x w pixels, the field of view kept."""
+    return dataclasses.replace(cfg, w=w, h=w, focal=cfg.focal * w / 512,
+                               end_x=w, end_y=w, **kw)
+
+
 def kernels_in(torch, fn):
     """The names of the CUDA kernels one call of fn launches (after a
     warm-up call), by torch.profiler."""
@@ -784,6 +831,57 @@ def main():
     for k, names in one_call.items():
         _require(len(names) == 1 and k.split("_")[1] in names[0],
                  f"{k}: one call launched {names}")
+    # the slice's PT and VPT paths: a 64^2 pass of each at 3 bounces
+    # launches, by the profiler (before any CUDA graph), the kernels its
+    # wrappers count (kernels_in runs the pass twice; reading the events of
+    # a full-depth pass, ~350,000 of them, took ~20 s a pass)
+    mscene, mcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "csphere"),
+                                   "balls-multi.xml")
+    vbscene, vbcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "vpt"),
+                                     "balls.xml")
+    _require((mcfg.max_bounce, mcfg.num_shadow_ray, mscene.tri_n.shape[0],
+              mscene.sph_center.shape[0]) == (12, 4, 12, 6)
+             and (vbcfg.max_bounce, vbcfg.num_shadow_ray) == (24, 4),
+             "balls-multi / vpt balls settings")
+    path_prof = {}
+    for tag, fn in (
+            ("balls-multi PT", lambda: pt.render_pass_pt(
+                mscene, _small(mcfg, 64, max_bounce=PROF_BOUNCES),
+                rng.PRNGKey(0), 1)),
+            ("vpt balls VPT", lambda: vpt.render_pass_vpt(
+                vbscene, _small(vbcfg, 64, max_bounce=PROF_BOUNCES),
+                rng.PRNGKey(0), 1))):
+        reset()
+        names = kernels_in(torch, fn)
+        wrapped = {k: n // 2 for k, n in _shown(counts()).items()}
+        seen = _shown({k: sum(kname in n for n in names)
+                       for k, kname in (("tri_closest_hit",
+                                         "tri_closest_kernel"),
+                                        ("tri_any_hit", "tri_any_kernel"),
+                                        ("tri_track_hits",
+                                         "tri_track_kernel"))})
+        _require(seen == wrapped, f"{tag}: the profiler saw {seen} "
+                 f"launches, the wrappers counted {wrapped}")
+        path_prof[tag] = seen
+    # one closest hit a bounce, one any hit (PT) or media walk (VPT) a
+    # shadow ray
+    _require(path_prof["balls-multi PT"] == {"tri_closest_hit": 3,
+                                             "tri_any_hit": 12}
+             and path_prof["vpt balls VPT"] == {"tri_closest_hit": 3,
+                                                "tri_track_hits": 12},
+             f"launches a pass {path_prof}")
+    # B2 bit-equal on every shadow-ray call of a 512^2 balls-multi PT pass
+    m_calls = pt_shadow_rays(torch, K, pt, rng, mscene, mcfg)
+    _require(len(m_calls) == mcfg.max_bounce * mcfg.num_shadow_ray,
+             f"{len(m_calls)} any-hit calls in a balls-multi pass")
+    m_occ = m_walk = 0
+    for i, (o, d, far) in enumerate(m_calls):
+        occ = K.tri_any_hit(mscene, o, d, far)
+        _require(torch.equal(occ, K.tri_any_hit_plain(mscene, o, d, far)),
+                 f"tri_any_hit (balls-multi call {i}): occlusion differs "
+                 "from the twin")
+        m_occ += int(occ.sum())
+        m_walk += int((far > K.RAY_EPS).sum())
     times = {
         "tri_closest_hit": (
             _time_ms(torch, lambda: K.tri_closest_hit(scene, bo, bd, far_b)),
@@ -830,6 +928,14 @@ def main():
                       K.tri_any_hit(scene, o, d, far)),
             b2_bound(o, d, far),
             [x / walking for x in any_work(torch, K, scene, o, d, far)])
+    mo, md, mfar = m_calls[0]               # bounce 0, shadow ray 0
+    m_walking = max(int((mfar > K.RAY_EPS).sum()), 1)
+    m_row = (_graph_ms(torch, lambda: K.tri_any_hit(mscene, mo, md, mfar)),
+             _bound(_ray_bytes(K, mfar) + mscene.tri_n.shape[0] * 48
+                    + mfar.shape[0],
+                    _split_ops(*any_work(torch, K, mscene, mo, md, mfar))),
+             [x / m_walking for x in any_work(torch, K, mscene, mo, md,
+                                               mfar)])
     print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
           + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
                       f"{t:.4f} ms (device, kernel only {device[k]:.4f}), "
@@ -850,9 +956,18 @@ def main():
               f"{tag} {b2_seen[tag]:.4f}; {dv:.4f}; {bd_[0]:.4f} "
               f"({bd_[1]}); {w[0]:.2f}, {w[1]:.2f}, {w[2]:.2f}"
               for tag, (dv, bd_, w) in b2_rows.items())
-          + " | one call launches "
+          + f" | B2 bit-equal on the {len(m_calls)} shadow-ray calls of a "
+          f"{mcfg.w}x{mcfg.h} balls-multi PT pass: occluded share of the "
+          f"walking rays {m_occ / max(m_walk, 1):.4f}; first call "
+          f"{m_walking / N:.4f} walking, device {m_row[0]:.4f} ms, bound "
+          f"{m_row[1][0]:.4f} ({m_row[1][1]}), {m_row[2][0]:.2f}, "
+          f"{m_row[2][1]:.2f}, {m_row[2][2]:.2f} plane, u, v tests a walking"
+          " ray | one call launches "
           + ", ".join(f"{k} {names[0].split('(')[0]}"
                       for k, names in one_call.items())
+          + " | a 64^2 pass at 3 bounces launches (profiler = wrapper "
+          "counts) "
+          + "; ".join(f"{tag} {_shown(c)}" for tag, c in path_prof.items())
           + " | " + "; ".join(
               f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
               f"resident per SM x {sms} SMs, {w} waves"
@@ -1439,7 +1554,17 @@ def main():
         kept = idx < P
         ik, rk = idx[kept], rgb[kept]
         lib = torch.index_add(film, 0, ik, rk)
-        torch.testing.assert_close(lib, got, rtol=1e-5, atol=1e-5)
+        # a pixel's f32 sum of n terms (its film value and its updates),
+        # in any order, lies within n 2^-24 sum|x| of the exact sum;
+        # index_add_ adds by atomics in no set order, so it and the kernel
+        # may differ by twice that (tighter than 1e-5 on a pixel of a few
+        # updates, ~1e-2 of the sum on the pixel of 200,000)
+        n_terms = torch.bincount(ik, minlength=P)[:, None] + 1
+        mag = torch.index_add(film.abs(), 0, ik, rk.abs())
+        _require(bool(((lib - got).abs()
+                       <= 2.02 * n_terms * 2.0 ** -24 * mag).all()),
+                 f"index_add ({tag}) differs from the kernel beyond the "
+                 "f32 summation bound")
         nk = int(kept.sum())
         mx = int(torch.bincount(idx[kept], minlength=P).max()) if nk else 0
         # bound: each kept update's id and rgb read once, the film read and
@@ -1472,11 +1597,9 @@ def main():
           + f" [{card}]", flush=True)
 
     # ---- 3. golden on the card ----
-    w = 48                                   # tests/test_goldens.py:25-29
-    small = dataclasses.replace(
-        cfg0, w=w, h=w, focal=cfg0.focal * w / 512, end_x=w, end_y=w,
-        max_bounce=3, anti_alias=False, stratified_sampling=False,
-        use_rr=False)
+    golden = dict(anti_alias=False, stratified_sampling=False,
+                  use_rr=False)             # tests/test_goldens.py:25-29
+    small = _small(cfg0, 48, max_bounce=3, **golden)
     reset()
     img = pt.render_pass_pt(scene, small, rng.PRNGKey(42), 1)
     golden_launches = counts()
@@ -1491,10 +1614,7 @@ def main():
           flush=True)
 
     # ---- 3b. vpt golden on the card ----
-    vsmall = dataclasses.replace(
-        vcfg, w=w, h=w, focal=vcfg.focal * w / 512, end_x=w, end_y=w,
-        max_bounce=3, anti_alias=False, stratified_sampling=False,
-        use_rr=False)
+    vsmall = _small(vcfg, 48, max_bounce=3, **golden)
     reset()
     img = vpt.render_pass_vpt(vscene, vsmall, rng.PRNGKey(42), 1)
     vgolden_launches = counts()
@@ -1552,6 +1672,34 @@ def main():
     print(f"phase 3e golden cbox_ao_48 on cuda: max abs diff {err:.3g}, "
           f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
           f"{_shown(agolden_launches)}", flush=True)
+
+    # ---- 3f. the csphere and vpt balls goldens on the card ----
+    f_rows = []
+    for gname, scn, c, render, want_k in (
+            ("csphere_multi_pt_48", mscene, mcfg, pt.render_pass_pt,
+             ("tri_closest_hit", "tri_any_hit")),
+            ("csphere_mix_pt_48", None, None, pt.render_pass_pt,
+             ("tri_closest_hit", "tri_any_hit")),
+            ("vptballs_48", vbscene, vbcfg, vpt.render_pass_vpt,
+             ("tri_closest_hit", "tri_track_hits"))):
+        if scn is None:
+            scn, c, _ = C.load_scene(os.path.join(ROOT, "scenes", "csphere"),
+                                     "mix-balls.xml")
+        reset()
+        img = render(scn, _small(c, 48, max_bounce=6, **golden),
+                     rng.PRNGKey(42), 1)
+        fl = counts()
+        _require(all(fl[k] > 0 for k in want_k),
+                 f"{gname}: a kernel did not launch: {fl}")
+        f_rows.append((gname, *_check(
+            img.cpu().numpy(),
+            np.load(os.path.join(ROOT, "tests", "goldens",
+                                 gname + ".npy"))), fl))
+    print("phase 3f goldens on cuda, 48^2, 6 bounces: " + "; ".join(
+        f"{gname}: max abs diff {err:.3g}, mean {mean:.6f} vs "
+        f"{ref_mean:.6f}, launches {_shown(fl)}"
+        for gname, err, mean, ref_mean, fl in f_rows) + f" [{card}]",
+        flush=True)
 
     @contextlib.contextmanager
     def twins():
@@ -1636,9 +1784,7 @@ def main():
     dt_plain = timed_batch(plain, KNOT_SPP)
     _require(torch.equal(plain.color, r.color),
              "the compacted render differs from the uncompacted one")
-    w = 64
-    small = dataclasses.replace(kcfg, w=w, h=w, focal=kcfg.focal * w / 512,
-                                end_x=w, end_y=w)
+    small = _small(kcfg, 64)
     rk = pt.Renderer(kscene, small, seed=1)
     rk.render_batch(1)
     rt = pt.Renderer(kscene, small, seed=1)
@@ -1678,9 +1824,7 @@ def main():
     dt_plain = timed_batch(plain, VPT_SPP)
     _require(torch.equal(plain.color, r.color),
              "the compacted vpt render differs from the uncompacted one")
-    w = 64
-    small = dataclasses.replace(vcfg, w=w, h=w, focal=vcfg.focal * w / 512,
-                                end_x=w, end_y=w)
+    small = _small(vcfg, 64)
     rv = vpt.VolumeRenderer(vscene, small, seed=1)
     rv.render_batch(1)
     rt = vpt.VolumeRenderer(vscene, small, seed=1)
@@ -1716,9 +1860,7 @@ def main():
             "splat_sorted_accumulate": BDPT_SPP}
     _require(blaunches == want,
              f"BDPT launch counts {blaunches}, want {want}")
-    w = 64
-    small = dataclasses.replace(bcfg, w=w, h=w, focal=bcfg.focal * w / 512,
-                                end_x=w, end_y=w)
+    small = _small(bcfg, 64)
     rb = B.BDPT(scene, small, seed=1)
     rb.render_batch(1)
     rt = B.BDPT(scene, small, seed=1)
@@ -1848,11 +1990,92 @@ def main():
               for name, d, m, mean_, e, eq, pl in preview_rows)
           + f" [{card}]", flush=True)
 
-    path_launches = {**{k: launches[k] + preview_launches[k]
+    def twin_equal(make, c):
+        """A 64^2 render of one spp (seed 1) with the kernels and with the
+        twins in place: (max abs diff, equal)."""
+        small = _small(c, 64)
+        a = make(small)
+        a.render_batch(1)
+        b = make(small)
+        with twins():
+            b.render_batch(1)
+        err, _, _ = _check(a.image(), b.image())
+        _require(bool(torch.equal(a.color, b.color)),
+                 "a 64^2 render differs from the twins' render")
+        return err
+
+    # ---- 11. csphere PT main path at full size ----
+    r = pt.Renderer(mscene, mcfg, seed=0)
+    _require(not r._auto, "balls-multi is under the auto-compaction gate")
+    r.render_batch(1)                         # warm-up sample, not timed
+    reset()
+    dt_m = timed_batch(r, MULTI_SPP)
+    mlaunches = counts()
+    mimage = r.image()
+    _require(mimage.shape == (mcfg.h, mcfg.w, 3), f"shape {mimage.shape}")
+    m_nan = float(np.isnan(mimage).any(axis=-1).mean())
+    _require(m_nan == 0.0 and bool(np.isfinite(mimage).all())
+             and mimage.mean() > 0.01,
+             f"balls-multi: NaN share {m_nan}, mean {mimage.mean()}")
+    want = {**none, "tri_closest_hit": MULTI_SPP * mcfg.max_bounce,
+            "tri_any_hit": MULTI_SPP * mcfg.max_bounce * mcfg.num_shadow_ray}
+    _require(mlaunches == want and all(
+        n * mcfg.max_bounce == PROF_BOUNCES * mlaunches[k] // MULTI_SPP
+        for k, n in path_prof["balls-multi PT"].items()),
+             f"balls-multi launch counts {mlaunches}, want {want}")
+    m_twin = twin_equal(lambda c: pt.Renderer(mscene, c, seed=1), mcfg)
+    print(f"phase 11 main path csphere balls-multi PT {mcfg.w}x{mcfg.h} mb "
+          f"{mcfg.max_bounce}, {mcfg.num_shadow_ray} shadow rays, "
+          f"{MULTI_SPP} spp: {1e3 * dt_m / MULTI_SPP:.2f} ms/spp; launches "
+          "per spp " + ", ".join(f"{k} {n // MULTI_SPP}"
+                                 for k, n in _shown(mlaunches).items())
+          + " (profiler, a 64^2 pass at 3 bounces: "
+          f"{_shown(path_prof['balls-multi PT'])})"
+          f"; image mean {mimage.mean():.6f}, NaN pixel share {m_nan}; 64^2 "
+          f"render equal to the twins' (max abs diff {m_twin:.3g}) [{card}]",
+          flush=True)
+
+    # ---- 12. vpt balls main path at full size ----
+    r = vpt.VolumeRenderer(vbscene, vbcfg, seed=0)
+    r.render_batch(1)                         # warm-up sample, not timed
+    reset()
+    dt_vb = timed_batch(r, VBALLS_SPP)
+    vblaunches = counts()
+    vbimage = r.image()
+    _require(vbimage.shape == (vbcfg.h, vbcfg.w, 3),
+             f"shape {vbimage.shape}")
+    vb_nan = float(np.isnan(vbimage).any(axis=-1).mean())
+    _require(vb_nan == 0.0 and bool(np.isfinite(vbimage).all())
+             and vbimage.mean() > 0.01,
+             f"vpt balls: NaN share {vb_nan}, mean {vbimage.mean()}")
+    want = {**none, "tri_closest_hit": VBALLS_SPP * vbcfg.max_bounce,
+            "tri_track_hits": VBALLS_SPP * vbcfg.max_bounce
+            * vbcfg.num_shadow_ray}
+    _require(vblaunches == want and all(
+        n * vbcfg.max_bounce == PROF_BOUNCES * vblaunches[k] // VBALLS_SPP
+        for k, n in path_prof["vpt balls VPT"].items()),
+             f"vpt balls launch counts {vblaunches}, want {want}")
+    vb_twin = twin_equal(lambda c: vpt.VolumeRenderer(vbscene, c, seed=1),
+                         vbcfg)
+    print(f"phase 12 main path vpt balls {vbcfg.w}x{vbcfg.h} mb "
+          f"{vbcfg.max_bounce}, {vbcfg.num_shadow_ray} shadow rays, schedule "
+          f"{r.schedule}, {VBALLS_SPP} spp: "
+          f"{1e3 * dt_vb / VBALLS_SPP:.2f} ms/spp; launches per spp "
+          + ", ".join(f"{k} {n // VBALLS_SPP}"
+                      for k, n in _shown(vblaunches).items())
+          + " (profiler, a 64^2 pass at 3 bounces: "
+          f"{_shown(path_prof['vpt balls VPT'])})"
+          f"; image mean {vbimage.mean():.6f}, NaN pixel share {vb_nan}; "
+          f"64^2 render equal to the twins' (max abs diff {vb_twin:.3g}) "
+          f"[{card}]", flush=True)
+
+    path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]
+                        + vblaunches[k]
                         for k in ("tri_closest_hit", "tri_any_hit")},
                      **{k: klaunches[k] for k in ("bvh_closest_hit",
                                                   "bvh_any_hit")},
-                     "tri_track_hits": vlaunches["tri_track_hits"],
+                     "tri_track_hits": vlaunches["tri_track_hits"]
+                     + vblaunches["tri_track_hits"],
                      "splat_sorted_accumulate":
                          blaunches["splat_sorted_accumulate"],
                      **{k: tier_launches["sweep"][k] for k in (

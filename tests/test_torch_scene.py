@@ -1,13 +1,14 @@
 """The port's scene tables equal the JAX package's, leaf for leaf (the
 medium tables, pre0/pre1/pre2 and the object AABBs included).
 
-Scenes the PT slice cannot render load (or refuse at load) and raise
+Scenes the port cannot render yet load (or refuse at load) and raise
 NotImplementedError when rendered, instead of taking another path.
 """
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch.convert import LEAF_NAMES, scene_from_numpy, \
@@ -56,16 +57,31 @@ def test_cbox_is_the_slice():
     assert not cfg.use_pallas and not cfg.use_cluster
 
 
-@pytest.mark.parametrize("scene_file", [("csphere", "single-ball.xml"),
-                                        ("vpt", "cbox.xml")])
+@pytest.mark.parametrize("scene_file", [
+    ("csphere", "single-ball.xml", {"has_normal_map": True}),   # textures
+    ("vpt", "cbox.xml", {}),                 # null BSDFs under PT
+    ("cbox", "cbox.xml", {"volume_kind": 1})])                  # grid volumes
 def test_unsupported_scene_raises_at_render(scene_file):
-    d, f = scene_file
+    d, f, change = scene_file
     scene, cfg, _ = load_scene(f"{SCENE_DIR}/{d}/", f, device="cpu")
-    cfg = dataclasses.replace(cfg, w=8, h=8, end_x=8, end_y=8)
+    cfg = dataclasses.replace(cfg, w=8, h=8, end_x=8, end_y=8, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_pass_pt(scene, cfg, rng.PRNGKey(0), 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(scene, cfg)
+
+
+def test_pt_takes_single_ball():
+    """csphere/single-ball.xml (blinn-phong and specular BRDFs on spheres,
+    a sphere area light) renders under PT now."""
+    scene, cfg, _ = load_scene(f"{SCENE_DIR}/csphere/", "single-ball.xml",
+                               device="cpu")
+    cfg = dataclasses.replace(cfg, w=8, h=8, focal=cfg.focal * 8 / 512,
+                              end_x=8, end_y=8, max_bounce=3)
+    img = render_pass_pt(scene, cfg, rng.PRNGKey(0), 1)
+    assert img.shape == (64, 3) and torch.isfinite(img).all()
+    assert img.mean() > 0.0
+    Renderer(scene, cfg)
 
 
 def test_scene_to_device_keeps_tables():

@@ -135,16 +135,26 @@ def test_lambertian_surface_ops(cbox, two_sides):
                           scene=jscene))
 
 
-def test_unported_bxdf_raises(cbox):
-    _, _, scene, cfg = cbox
-    obj, n_g, n_s, incid, u, _ = _inputs(3, scene.mat_kd.shape[0])
-    _, tit = _interactions(obj, n_g, n_s)
-    tmat = tbx.gather_mat(scene, torch.from_numpy(obj))
-    for bad in ({"brdf_types": (1, 3)}, {"bsdf_types": (0,)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbx.surface_sample(dataclasses.replace(cfg, **bad), tmat, tit,
-                               torch.from_numpy(incid), torch.from_numpy(u),
-                               scene.world_medium.ior[0])
+def test_unported_bxdf_raises(tmp_path):
+    """Every BRDF and the refracting BSDFs are ported; BxDF mixtures are
+    not: a scene with one is refused at compile, naming the ROADMAP item,
+    where the JAX package loads it."""
+    from test_mixture import _SCENE_TMPL
+    mixed = """
+  <brdf type="lambertian" id="base">
+    <rgb name="k_d" value="0.7, 0.5, 0.3"/>
+  </brdf>
+  <brdf type="mixture" id="ball">
+    <ref name="diffuse" id="base"/>
+    <float name="p_d" value="1.0"/>
+  </brdf>"""
+    (tmp_path / "scene.xml").write_text(
+        _SCENE_TMPL.format(materials=mixed, max_bounce=3))
+    jscene, _, _ = jax_load_scene(str(tmp_path), "scene.xml")
+    assert jscene.mixture is not None
+    with pytest.raises(NotImplementedError,
+                       match="mixtures.*ROADMAP.md queue A item 9"):
+        load_scene(str(tmp_path), "scene.xml", device="cpu")
 
 
 def test_point_light(cbox):

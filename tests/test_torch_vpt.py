@@ -275,12 +275,17 @@ def test_compacted_pass_equals_uncompacted(vcbox, schedule):
 
 
 def test_vpt_gate():
-    """Scenes with what the volumetric tracer does not have yet raise,
-    naming the ROADMAP item; PT's gate still refuses the vpt cbox
-    (tests/test_torch_scene.py)."""
-    scene, cfg, _ = load_scene(SCENE_DIR + "/csphere/", "single-ball.xml",
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        vpt.VolumeRenderer(scene, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        vpt.render_pass_vpt(scene, _small(cfg, 8), rng.PRNGKey(0), 1)
+    """What the volumetric tracer does not have yet raises, naming the
+    ROADMAP item: grid volumes (item 14) and textures (item 9); PT's gate
+    still refuses the vpt cbox (tests/test_torch_scene.py)."""
+    scene, cfg, _ = load_scene(SCENE_DIR + "/vpt/", "cbox.xml", device="cpu")
+    grid = dataclasses.replace(cfg, volume_kind=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 14"):
+        vpt.VolumeRenderer(scene, grid)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 14"):
+        vpt.render_pass_vpt(scene, _small(grid, 8), rng.PRNGKey(0), 1)
+    textured = dataclasses.replace(cfg, has_normal_map=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 9"):
+        vpt.VolumeRenderer(scene, textured)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 9"):
+        vpt.render_pass_vpt(scene, _small(textured, 8), rng.PRNGKey(0), 1)
