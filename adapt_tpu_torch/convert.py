@@ -9,8 +9,10 @@ across in the port's prim-major layout, so both packages sweep the same
 clusters); a JAX PRNG key's data (`jax.random.key_data`,
 the checkpoint `key` field) becomes a port key with `key_from_numpy`.
 BDPT vertex buffers cross in the JAX package's layout (scalars (D, N),
-vectors (3, D, N)) with `vertex_buffers_from_numpy`, and back with
-`vertex_buffers_to_numpy`; the port keeps vectors as (D, N, 3).
+vectors (3, D, N), the `tex` plane too on a textured scene) with
+`vertex_buffers_from_numpy`, and back with `vertex_buffers_to_numpy`; the
+port keeps vectors as (D, N, 3). Every texture table with its atlas, the
+vertex uvs and a scene's mixture table cross with the other leaves.
 """
 from __future__ import annotations
 
@@ -19,22 +21,29 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.mixture_ops import MixtureTable
 from .scene.compile import (TRI_SOURCES, MediumTable, RenderConfig,
                             SceneData, TextureTable, cluster_tree,
                             cluster_v4, front_boxes, prim_slots,
                             resolve_device, tri_tables, v4_packs)
 
 _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
+_TEX = tuple(f.name for f in dataclasses.fields(TextureTable)
+             if f.name != "present")
 _MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
 _NESTED = {"medium": _MEDIUM, "world_medium": _MEDIUM}
+# a scene's mixture table, when it has one (None otherwise)
+MIXTURE_NAMES = tuple(f"mixture.{f.name}"
+                      for f in dataclasses.fields(MixtureTable))
 
-# dotted names of every SceneData leaf the port reads; each resolves on a
-# JAX SceneData and on the port's alike (attributes, and dict keys in tex)
+# dotted names of every SceneData leaf the port reads but the mixture
+# table's; each resolves on a JAX SceneData and on the port's alike
+# (attributes, and dict keys in tex)
 LEAF_NAMES = tuple(
     [f.name for f in dataclasses.fields(SceneData)
-     if f.name not in _NESTED and f.name != "tex"]
+     if f.name not in _NESTED and f.name not in ("tex", "mixture")]
     + [f"{m}.{a}" for m, attrs in _NESTED.items() for a in attrs]
-    + [f"tex.{t}.mode" for t in _TEX_TAGS])
+    + [f"tex.{t}.{a}" for t in _TEX_TAGS for a in _TEX])
 
 
 def _resolve(obj, dotted):
@@ -72,11 +81,14 @@ def _jax_layout_leaves(scene) -> dict:
 
 
 def scene_leaves(scene) -> dict:
-    """{dotted name: numpy array} for LEAF_NAMES of a JAX or port scene."""
+    """{dotted name: numpy array} for LEAF_NAMES of a JAX or port scene,
+    and MIXTURE_NAMES when it has BxDF mixtures."""
     out = {}
     layout = {} if isinstance(scene, SceneData) \
         else _jax_layout_leaves(scene)
-    for name in LEAF_NAMES:
+    names = LEAF_NAMES + (MIXTURE_NAMES if scene.mixture is not None
+                          else ())
+    for name in names:
         x = layout[name] if name in layout else _resolve(scene, name)
         out[name] = x.cpu().numpy() if isinstance(x, torch.Tensor) \
             else np.asarray(x)
@@ -95,9 +107,12 @@ def scene_from_numpy(leaves: dict, cfg_fields: dict, device="cuda"):
     for m, attrs in _NESTED.items():
         kw[m] = MediumTable(**{a: t(f"{m}.{a}") for a in attrs})
     kw["tex"] = {tag: TextureTable(
-        mode=t(f"tex.{tag}.mode"),
+        **{a: t(f"tex.{tag}.{a}") for a in _TEX},
         present=bool((np.asarray(leaves[f"tex.{tag}.mode"]) > -255).any()))
         for tag in _TEX_TAGS}
+    kw["mixture"] = MixtureTable(
+        **{n.split(".")[1]: t(n) for n in MIXTURE_NAMES}) \
+        if MIXTURE_NAMES[0] in leaves else None
     scene = SceneData(**kw).to(device)
     return scene, RenderConfig(**cfg_fields)
 
@@ -115,8 +130,8 @@ def key_to_numpy(key) -> np.ndarray:
 
 def vertex_buffers_from_numpy(bufs: dict, device="cuda") -> dict:
     """BDPT vertex buffers of the JAX package (a dict of arrays: scalars
-    (D, N), vectors (3, D, N), `tex` None) -> the port's layout (vectors
-    (D, N, 3)) on `device`."""
+    (D, N), vectors (3, D, N), `tex` (3, D, N) or None) -> the port's
+    layout (vectors (D, N, 3)) on `device`."""
     device = resolve_device(device)
     out = {}
     for k, v in bufs.items():

@@ -6,9 +6,10 @@ Phong, Fresnel blend, Oren-Nayar, thin coat) and every BSDF
 light passes straight through), the material gather and the unified
 surface dispatch. Each model is a branchless batched function over the
 whole wavefront; the dispatcher evaluates only the models present in the
-scene (cfg.brdf_types, cfg.bsdf_types) and blends with masks. Operations
-follow the JAX package's order, so results round as it does. BxDF
-mixtures are refused at compile (ROADMAP.md queue A item 9).
+scene (cfg.brdf_types, cfg.bsdf_types) and blends with masks; BxDF
+mixture lanes are overlaid on that (ops/mixture_ops.py) where the caller
+passes the scene. Operations follow the JAX package's order, so results
+round as it does.
 
 Conventions (as in the reference):
   incid : ray direction pointing INTO the surface (camera->surface)
@@ -681,15 +682,20 @@ def _apply_two_sides(cfg, mat, it, incid):
                                n_g=torch.where(flip, -it.n_g, it.n_g))
 
 
+def _mixture_lanes(scene, it):
+    """(clamped mixture row, lane-is-mixture mask) for the overlay."""
+    mix_id = scene.obj_mixture[it.obj_id.clamp(min=0).long()]
+    return mix_id.clamp(min=0), (it.obj_id >= 0) & (mix_id >= 0)
+
+
 def surface_eval(cfg, mat, it, incid, out, world_ior, mode=TRANSPORT_UNI,
                  scene=None):
     """PathTracer.eval for surface interactions (path_tracer.py:459-479).
 
     mode (TRANSPORT_RAD / _IMP / _UNI) scales the refracting BSDFs'
-    transmission. scene feeds the JAX package's
-    BxDF-mixture lanes; mixtures are refused at compile (ROADMAP.md queue
-    A item 9), so it is unused here, taken so that callers read like the
-    reference."""
+    transmission. scene: pass the SceneData to overlay BxDF-mixture lanes
+    (reference bxdf/mixture.py); free when the scene has no mixtures
+    (scene.mixture is None) or scene is omitted."""
     it = _apply_two_sides(cfg, mat, it, incid)
     res = torch.zeros_like(mat.kd)
     if cfg.brdf_types:
@@ -699,6 +705,12 @@ def surface_eval(cfg, mat, it, incid, out, world_ior, mode=TRANSPORT_UNI,
         res = torch.where(mat.is_bsdf[:, None],
                           bsdf_eval(cfg, mat, it, incid, out, world_ior,
                                     mode), res)
+    if scene is not None and scene.mixture is not None:
+        from . import mixture_ops
+        mid, is_mix = _mixture_lanes(scene, it)
+        m_res = mixture_ops.mixture_eval(scene, cfg, scene.mixture, mid, it,
+                                         incid, out, world_ior, mode)
+        res = torch.where(is_mix[:, None], m_res, res)
     return res
 
 
@@ -727,6 +739,15 @@ def surface_sample(cfg, mat, it, incid, u, world_ior, mode=TRANSPORT_UNI,
         spec = torch.where(sel[:, None], s_spec, spec)
         pdf = torch.where(sel, s_pdf, pdf)
         is_specular = torch.where(sel, s_del, is_specular)
+    if scene is not None and scene.mixture is not None:
+        from . import mixture_ops
+        mid, is_mix = _mixture_lanes(scene, it)
+        m_out, m_spec, m_pdf, m_del = mixture_ops.mixture_sample(
+            scene, cfg, scene.mixture, mid, it, incid, u, world_ior, mode)
+        out = torch.where(is_mix[:, None], m_out, out)
+        spec = torch.where(is_mix[:, None], m_spec, spec)
+        pdf = torch.where(is_mix, m_pdf, pdf)
+        is_specular = torch.where(is_mix, m_del, is_specular)
     return out, spec, pdf, is_specular
 
 
@@ -741,4 +762,10 @@ def surface_pdf(cfg, mat, it, outdir, incid, world_ior, scene=None):
     if cfg.bsdf_types:
         pdf = torch.where(mat.is_bsdf,
                           bsdf_pdf(cfg, mat, it, outdir, incid, world_ior), pdf)
+    if scene is not None and scene.mixture is not None:
+        from . import mixture_ops
+        mid, is_mix = _mixture_lanes(scene, it)
+        m_pdf = mixture_ops.mixture_pdf(scene, cfg, scene.mixture, mid, it,
+                                        outdir, incid, world_ior)
+        pdf = torch.where(is_mix, m_pdf, pdf)
     return pdf

@@ -7,6 +7,8 @@ by range.
     python -m adapt_tpu_torch.profile_pt scenes/vpt cbox.xml --renderer vpt
     python -m adapt_tpu_torch.profile_pt scenes/cbox cbox.xml \
         --renderer bdpt --max-bounce 6
+    python -m adapt_tpu_torch.profile_pt scenes/cbox bunny.xml \
+        --renderer bdpt --spp 1 --runs 2
 
 Loads the scene on the CUDA device, renders one warm-up spp (which also
 runs the auto-compaction probe), times `--runs` unprofiled render_batch
@@ -15,10 +17,15 @@ synchronize), then traces one more under torch.profiler with one range per
 stage of the bounce loop (for BDPT: the two walks, and each connection
 case; under `--tier qpick`, PT's front pass and sort, tile picks, unsort
 and winner read-out), and one around each brute-force kernel's wrapper
-(B1, B2, B3: its host time a call). `--tier` names the kernels of the big-scene tier
-(`RenderConfig.big_tier`: bvh, sweep or qpick). Prints one line per range, the kernels that take the most device
-time and the port's own kernels, and a JSON summary (also written to
-`--out` when given). Needs one CUDA device.
+(B1, B2, B3: its host time a call). A range's device time counts the
+PyTorch kernels launched inside it; the port's own kernels (launched
+through ctypes, which the profiler ties to no range) are attributed to
+the ranges open when their wrapper launched them, in launch order, and
+shown beside ("own"). `--tier` names the kernels of the big-scene tier
+(`RenderConfig.big_tier`: bvh, sweep or qpick). Prints one line per
+range, the kernels that take the most device time and the port's own
+kernels, and a JSON summary (also written to `--out` when given). Needs
+one CUDA device.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ import time
 import torch
 
 from . import rng
-from .ops import bxdf_ops, cluster_kernels, emitter_ops, medium_ops
-from .ops import intersect_kernels
+from .ops import bvh_kernels, bxdf_ops, cluster_kernels, emitter_ops
+from .ops import intersect_kernels, medium_ops, splat
 from .ops.intersect import BIG_TIERS
 from .renderer import bdpt, compact, pt, vpt
 from .scene.compile import load_scene
@@ -55,6 +62,7 @@ _WRAPPERS = (
 RANGES = {
     "pt": ((rng, "lane_uniform", "rng.lane_uniform"),
            (pt, "ray_intersect", "ray_intersect"),
+           (pt, "get_uv_item", "texture fetch"),
            (pt, "does_intersect", "does_intersect"),
            (cluster_kernels, "_front_sort", "qpick front + sort"),
            (cluster_kernels, "tile_picks", "qpick tile_picks"),
@@ -65,7 +73,9 @@ RANGES = {
            (compact, "run_compacted", "bounce loop"), *_WRAPPERS),
     "vpt": ((rng, "lane_uniform", "rng.lane_uniform"),
             (vpt, "ray_intersect", "ray_intersect"),
+            (vpt, "get_uv_item", "texture fetch"),
             (vpt, "track_ray", "track_ray"),
+            (vpt, "_track_loop", "_track_loop"),
             (vpt, "ray_track_hits", "ray_track_hits"),
             (medium_ops, "sample_mfp", "sample_mfp"),
             (medium_ops, "phase_sample", "phase_sample"),
@@ -79,11 +89,13 @@ RANGES = {
              (bdpt, "generate_eye_path", "eye walk"),
              (bdpt, "generate_light_path", "light walk"),
              (bdpt, "ray_intersect", "ray_intersect"),
+             (bdpt, "get_uv_item", "texture fetch"),
              (bdpt, "connect_strategy", "connect {case}"),
              (bdpt, "eval_vertex", "eval_vertex"),
              (bdpt, "pdf_vertex", "pdf_vertex"),
              (bdpt, "_mis_weight", "_mis_weight"),
              (bdpt, "track_ray", "track_ray"),
+             (vpt, "_track_loop", "_track_loop"),
              (vpt, "ray_track_hits", "ray_track_hits"),
              (medium_ops, "sample_mfp", "sample_mfp"),
              (medium_ops, "phase_sample", "phase_sample"),
@@ -93,16 +105,62 @@ RANGES = {
 }
 CASES = ("s0", "t1", "s1", "gen")
 TOP = 8               # kernels listed by device time
-# the port's hand-written kernels (csrc/), always listed: launched through
-# ctypes, they are attributed to no range
+# the port's hand-written kernels (csrc/), always listed
 OWN_KERNELS = ("tri_", "bvh_", "splat_", "cluster_")
+# (module, wrapper, its launch counter, kernel): the wrappers whose
+# launches are attributed to the ranges open at the call
+_OWN = ((bvh_kernels, "bvh_closest_hit", bvh_kernels.launches,
+         "bvh_closest_kernel"),
+        (bvh_kernels, "bvh_any_hit", bvh_kernels.launches, "bvh_any_kernel"),
+        (intersect_kernels, "tri_closest_hit", intersect_kernels.launches,
+         "tri_closest_kernel"),
+        (intersect_kernels, "tri_any_hit", intersect_kernels.launches,
+         "tri_any_kernel"),
+        (intersect_kernels, "tri_track_hits", intersect_kernels.launches,
+         "tri_track_kernel"),
+        (bdpt, "splat_sorted_accumulate", splat.launches, "splat_kernel"))
 
-
-def _ranged(fn, name):
+def _ranged(fn, name, opened):
+    """fn inside a profiler range; `opened` lists the ranges open now,
+    innermost last."""
     def wrapped(*args, **kw):
-        with torch.profiler.record_function(name.format(case=kw.get("case"))):
-            return fn(*args, **kw)
+        full = name.format(case=kw.get("case"))
+        opened.append(full)
+        try:
+            with torch.profiler.record_function(full):
+                return fn(*args, **kw)
+        finally:
+            opened.pop()
     return wrapped
+
+
+def _recorded(fn, counter, key, opened, calls):
+    """fn, appending the open ranges to `calls` at each launch that
+    counter[key] counts."""
+    def wrapped(*args, **kw):
+        before = counter[key]
+        out = fn(*args, **kw)
+        calls.extend([tuple(opened)] * (counter[key] - before))
+        return out
+    return wrapped
+
+
+def _own_by_range(kernels, calls, spp):
+    """{range: device ms/spp of the port's kernels launched inside it}:
+    the k-th kernel of a name on the card is the k-th launch its wrapper
+    counted (one stream). A name whose counts disagree is left out."""
+    out = {}
+    for kname, opened in calls.items():
+        evs = sorted((e for e in kernels
+                      if e.name.removeprefix("void ").startswith(kname)),
+                     key=lambda e: e.time_range.start)
+        if len(evs) != len(opened):
+            continue
+        for e, ranges in zip(evs, opened):
+            for name in set(ranges):
+                out[name] = out.get(name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3 / spp
+    return out
 
 
 def _names(ranges):
@@ -148,15 +206,21 @@ def main(argv=None):
     wall = statistics.median(walls)
 
     saved = [(m, a, getattr(m, a)) for m, a, _ in ranges]
+    opened = []
     for (m, a, name), (_, _, fn) in zip(ranges, saved):
-        setattr(m, a, _ranged(fn, name))
+        setattr(m, a, _ranged(fn, name, opened))
+    calls = {k: [] for *_, k in _OWN}
+    saved += [(m, a, getattr(m, a)) for m, a, _, _ in _OWN]
+    for m, a, counter, k in _OWN:
+        setattr(m, a, _recorded(getattr(m, a), counter, a, opened,
+                                calls[k]))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     try:
         with torch.profiler.profile(activities=acts) as prof:
             prof_wall = _timed(r, args.spp) / args.spp
     finally:
-        for m, a, fn in saved:
+        for m, a, fn in reversed(saved):
             setattr(m, a, fn)
 
     spp = args.spp
@@ -165,6 +229,7 @@ def main(argv=None):
     kernels = [e for e in events
                if e.device_type == cuda and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / spp
+    own_in = _own_by_range(kernels, calls, spp)
     rows = []
     for name in _names(ranges):
         hits = [e for e in events if e.name == name and e.device_type != cuda]
@@ -173,7 +238,7 @@ def main(argv=None):
             rows.append({
                 "range": name, "calls": len(hits) / spp,
                 "device_ms": sum(e.device_time_total for e in hits) / 1e3
-                / spp,
+                / spp, "own_device_ms": own_in.get(name, 0.0),
                 "host_ms": host / spp, "host_ms_per_call": host / len(hits)})
     by_name = {}
     for e in kernels:
@@ -203,7 +268,8 @@ def main(argv=None):
           f"{out['schedule']}")
     for row in rows:
         print(f"  {row['range']:<20} calls {row['calls']:>6.1f}  device "
-              f"{row['device_ms']:9.3f} ms  host {row['host_ms']:9.3f} ms "
+              f"{row['device_ms']:9.3f} ms (+ own {row['own_device_ms']:.3f})"
+              f"  host {row['host_ms']:9.3f} ms "
               f"({row['host_ms_per_call']:.4f} a call)")
     for name, ms in top + sorted(own.items()):
         print(f"  kernel {name[:60]:<60} {ms:9.3f} ms/spp")

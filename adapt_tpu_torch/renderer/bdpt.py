@@ -48,12 +48,14 @@ scan as the sequential recurrence it computes; the association differs,
 so weights differ from the JAX package's by float rounding (~1 ulp per
 factor). The port writes the vertex buffers in place.
 
-Grid volumes (ROADMAP.md queue A item 14), BxDFs other than lambertian and
-the null BSDF, and lights other than point and area lights (item 9) raise
-at render (`check_supported(..., "bdpt")`).
+Every BxDF, BxDF mixtures, textures and all four light kinds render; a
+textured scene's vertices carry their albedo in a `tex` plane. Grid
+volumes (ROADMAP.md queue A item 14) raise at render
+(`check_supported(..., "bdpt")`).
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -67,7 +69,7 @@ from ..ops import bxdf_ops, emitter_ops, medium_ops
 from ..ops.intersect import Interaction, ray_intersect
 from ..ops.math3d import dot, norm, normalize
 from ..ops.splat import splat_sorted_accumulate
-from ..ops.texture_ops import process_ns
+from ..ops.texture_ops import get_uv_item, process_ns
 from ..scene.compile import check_supported
 from .base import ProgressiveRenderer, camera_rays, crop_pix_ids
 from .vpt import _is_null_surface, effective_medium, track_ray, \
@@ -100,10 +102,11 @@ def _remap(x):
     return torch.where(x > 0.0, x, 1.0)
 
 
-def _vertex_buffers(N, D, device):
+def _vertex_buffers(N, D, device, has_tex=False):
     """Depth-major vertex storage: scalars (D, N), vectors (D, N, 3); row
-    d holds every lane's vertex d. `tex` is always None: textured scenes
-    are refused (the JAX package's has_tex=False layout)."""
+    d holds every lane's vertex d. has_tex: the scene has albedo
+    textures; without them there is no `tex` plane at all (None), as in
+    the JAX package."""
     def ints(fill):
         return torch.full((D, N), fill, dtype=torch.int32, device=device)
     buf = dict(vtype=ints(-1), obj_id=ints(-1), emit_id=ints(-1),
@@ -112,7 +115,8 @@ def _vertex_buffers(N, D, device):
         buf[k] = torch.zeros((D, N), device=device)
     for k in _VECTORS:
         buf[k] = torch.zeros((D, N, 3), device=device)
-    buf["tex"] = None
+    buf["tex"] = torch.full((D, N, 3), -1.0, device=device) \
+        if has_tex else None
     return buf
 
 
@@ -430,14 +434,21 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
                 | torch.where(in_free, B_IN_FSPACE, 0)).to(torch.int32)
 
         it = process_ns(scene, cfg, it)
+        tex = None
+        it_tex = it
+        if scene.tex["albedo"].present:
+            tex, _ = get_uv_item(scene, scene.tex["albedo"], it)
+            it_tex = dataclasses.replace(it, tex=tex)
         vnum = vnum + place.to(torch.int32)
 
         # continuation sampling before the vertex write, so the specular
-        # flag folds into the written bits
+        # flag folds into the written bits. The JAX package passes no
+        # scene here (bdpt.py:553), so a mixture lane samples with its own
+        # placeholder row, not its components: kept for parity
         key, k_new = rng.split(key)
         u_new = rng.uniform(k_new, (N, 6), device=dev)
         s_dir, s_spec, s_pdf, is_specular = bxdf_ops.surface_sample(
-            cfg, mat, it, ray_d, u_new, world_ior, mode=mode)
+            cfg, mat, it_tex, ray_d, u_new, world_ior, mode=mode)
         if no_media:
             new_dir, ray_pdf = s_dir, s_pdf
         else:
@@ -457,6 +468,8 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
         vals = dict(vtype=vtype_v, obj_id=obj_id, emit_id=hit_light,
                     bits=bits, pdf_fwd=pdf_fwd, time=acc_time, pos=hit_point,
                     n_s=n_s_v, n_g=n_g_v, ray_in=ray_d, beta=thp)
+        if tex is not None:
+            vals["tex"] = tex
         if cfg.has_null_bsdf:
             _write_vertex(buf, vnum, place, **vals)
         else:
@@ -476,7 +489,7 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
         # lanes that do not place never read these values
         cur_v = dict(vtype=vtype_v, obj_id=obj_id, emit_id=hit_light,
                      bits=bits, pos=hit_point, n_s=n_s_v, n_g=n_g_v,
-                     ray_in=ray_d, tex=None)
+                     ray_in=ray_d, tex=tex)
         pdf_bwd_sa = torch.where(
             is_mi, ray_pdf,
             torch.where(is_delta, 0.0,
@@ -506,7 +519,7 @@ def generate_eye_path(scene, cfg, key, cnt, max_bnc, pix_ids=None):
     dev = scene.device
     key, cam_key = rng.split(key)
     ray_o, ray_d = camera_rays(scene, cfg, cam_key, cnt, pix_ids=pix_ids)
-    buf = _vertex_buffers(N, max_bnc + 1, dev)
+    buf = _vertex_buffers(N, max_bnc + 1, dev, scene.tex["albedo"].present)
     _write_vertex_at(
         buf, 0, None,
         vtype=torch.full((N,), VERTEX_CAMERA, dtype=torch.int32, device=dev),
@@ -536,7 +549,7 @@ def generate_light_path(scene, cfg, key, max_bnc, n_paths=None):
     intensity = scene.emit_intensity[eid]
     vertex_pdf = pdf_pos * emitter_pdf
 
-    buf = _vertex_buffers(N, max_bnc + 1, dev)
+    buf = _vertex_buffers(N, max_bnc + 1, dev, scene.tex["albedo"].present)
     _write_vertex_at(
         buf, 0, None,
         vtype=torch.full((N,), VERTEX_EMITTER, dtype=torch.int32, device=dev),
@@ -557,15 +570,18 @@ def generate_light_path(scene, cfg, key, max_bnc, n_paths=None):
 
 # ------------------------------- connections --------------------------------
 
-def _null_vertex(N, device):
-    """All-null placeholder vertex (the lit side of s == 0 strategies)."""
+def _null_vertex(N, device, has_tex=False):
+    """All-null placeholder vertex (the lit side of s == 0 strategies);
+    has_tex as for `_vertex_buffers` (its tex is 0, as the JAX
+    package's)."""
     def ints(fill):
         return torch.full((N,), fill, dtype=torch.int32, device=device)
     z3 = torch.zeros((N, 3), device=device)
     zf = torch.zeros(N, device=device)
     return dict(vtype=ints(-1), obj_id=ints(-1), emit_id=ints(-1),
                 bits=ints(0), pdf_fwd=zf, pdf_bwd=zf, time=zf, n_s=z3,
-                n_g=z3, pos=z3, ray_in=z3, beta=z3, tex=None)
+                n_g=z3, pos=z3, ray_in=z3, beta=z3,
+                tex=z3 if has_tex else None)
 
 
 def _pdf_ratio(scene, cfg, cur, prev_pos, prev_null, nxt):
@@ -783,7 +799,8 @@ def connect_strategy(scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
     calc_tr = torch.zeros(NF, dtype=torch.bool, device=dev)
     track_pos = conn_dir = zero3
     depth = torch.zeros(NF, device=dev)
-    lit_side = (_null_vertex(NF, dev) if case == "s0"
+    has_tex = scene.tex["albedo"].present
+    lit_side = (_null_vertex(NF, dev, has_tex) if case == "s0"
                 else _stack_rows(rows_st,
                                  lambda si, ti: _vertex_at(lit_buf, si - 1)))
 
@@ -811,7 +828,7 @@ def connect_strategy(scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
         path_time = v["time"] + depth
         # the sampled camera vertex, for MIS
         cn = _cam_normal(scene).expand(NF, 3)
-        cam_side = _null_vertex(NF, dev)
+        cam_side = _null_vertex(NF, dev, has_tex)
         cam_side.update(
             vtype=torch.full((NF,), VERTEX_CAMERA, dtype=torch.int32,
                              device=dev),
@@ -844,7 +861,7 @@ def connect_strategy(scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
         track_pos = v["pos"]
         path_time = scene.emit_time[eid] + v["time"]
         # the sampled emitter vertex, for MIS
-        lit_side = _null_vertex(NF, dev)
+        lit_side = _null_vertex(NF, dev, has_tex)
         lit_side.update(
             vtype=torch.full((NF,), VERTEX_EMITTER, dtype=torch.int32,
                              device=dev),

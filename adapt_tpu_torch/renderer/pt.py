@@ -41,10 +41,11 @@ def _hit_light(mat, it):
 
 def _finish_it(scene, cfg, it):
     """Normal/bump perturbation + albedo fetch at interaction creation
-    (identities on the untextured scenes the slice renders)."""
+    (vanilla_renderer.py:42,66). The same object on an untextured scene:
+    it.tex stays None, so the BxDFs read k_d without a select."""
     it = process_ns(scene, cfg, it)
     if scene.tex["albedo"].present:
-        tex, _ = get_uv_item(scene, "albedo", it)
+        tex, _ = get_uv_item(scene, scene.tex["albedo"], it)
         it = dataclasses.replace(it, tex=tex)
     return it
 
@@ -103,7 +104,7 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=(),
         # package's stream order) ---
         new_dir, indirect_spec, ray_pdf, is_specular = \
             bxdf_ops.surface_sample(cfg, mat, it, ray_d, u_all[:, 1:7],
-                                    world_ior)
+                                    world_ior, scene=scene)
 
         # --- next-event estimation (vanilla_renderer.py:67-97) ---
         direct_int = torch.zeros((n, 3), device=dev)
@@ -119,11 +120,13 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=(),
             occluded = does_intersect(scene, cfg, hit_point, light_dir,
                                       emitter_d, alive=active)
             direct_spec = bxdf_ops.surface_eval(cfg, mat, it, ray_d,
-                                                light_dir, world_ior)
+                                                light_dir, world_ior,
+                                                scene=scene)
             if cfg.use_mis:
                 light_pdf = emitter_pdf * direct_pdf
                 bsdf_pdf = bxdf_ops.surface_pdf(cfg, mat, it, light_dir,
-                                                ray_d, world_ior)
+                                                ray_d, world_ior,
+                                                scene=scene)
                 mis_w = torch.where(emitter_ops.is_delta_pos(scene, eid), 1.0,
                                     balance_heuristic(light_pdf, bsdf_pdf))
             else:

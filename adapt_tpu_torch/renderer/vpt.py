@@ -32,11 +32,15 @@ other samples, not in expectation.
 
 Every pass is length-compacted with the JAX package's shipped schedule
 ((7, 2), (13, 8)) by renderer/compact.py, which carries the whole state,
-the interaction included. Textures, normal maps and grid volumes are
-refused at render (`check_supported`), so the JAX package's texture hooks
-and volume branches have no counterpart here yet.
+the interaction included. Each iteration perturbs the shading normal by
+the scene's normal or bump map and fetches the albedo texture
+(ops/texture_ops.py), as the JAX package does; grid volumes are refused
+at render (`check_supported`), so its volume branches have no
+counterpart here yet.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -48,6 +52,7 @@ from ..ops.intersect import (FAR, _bvh_tier, does_intersect, ray_intersect,
 from ..ops.intersect import _is_null_obj as _is_null_surface
 from ..ops.math3d import dot, norm
 from ..ops.sampling import balance_heuristic
+from ..ops.texture_ops import get_uv_item, process_ns
 from ..scene.compile import check_supported
 from . import compact
 from .base import ProgressiveRenderer, camera_rays, crop_pix_ids
@@ -301,6 +306,12 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
 
         mat = bxdf_ops.gather_mat(scene, obj_id)
         hit_light = torch.where(is_mi | miss, -1, mat.emit)
+        it = process_ns(scene, cfg, it)
+        # the same object on an untextured scene (it.tex stays None)
+        it_s = it
+        if scene.tex["albedo"].present:
+            tex, _ = get_uv_item(scene, scene.tex["albedo"], it)
+            it_s = dataclasses.replace(it, tex=tex)
 
         # --- NEE with transmittance (vpt.py:194-237) ---
         direct_int = torch.zeros((n, 3), device=dev)
@@ -319,15 +330,15 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
             ph_val = medium_ops.phase_eval(rows["kind"], rows["ph_par"],
                                            rows["ph_pdf"], ray_d, l_dir,
                                            phase_kinds)
-            surf_val = bxdf_ops.surface_eval(cfg, mat, it, ray_d, l_dir,
-                                             world_ior)
+            surf_val = bxdf_ops.surface_eval(cfg, mat, it_s, ray_d, l_dir,
+                                             world_ior, scene=scene)
             d_spec = torch.where(is_mi[:, None], ph_val[:, None], surf_val)
             if cfg.use_mis:
                 light_pdf = emitter_pdf * direct_pdf
                 bsdf_pdf = torch.where(
                     is_mi, ph_val,
-                    bxdf_ops.surface_pdf(cfg, mat, it, l_dir, ray_d,
-                                         world_ior))
+                    bxdf_ops.surface_pdf(cfg, mat, it_s, l_dir, ray_d,
+                                         world_ior, scene=scene))
                 mis_w = torch.where(emitter_ops.is_delta_pos(scene, eid), 1.0,
                                     balance_heuristic(light_pdf, bsdf_pdf))
             else:
@@ -345,7 +356,7 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
         # --- continuation sampling (vpt.py:245) ---
         u_new = u_all[:, 3 + 4 * S:9 + 4 * S]
         s_dir, s_spec, s_pdf, is_specular = bxdf_ops.surface_sample(
-            cfg, mat, it, ray_d, u_new, world_ior)
+            cfg, mat, it_s, ray_d, u_new, world_ior, scene=scene)
         p_dir, p_val = medium_ops.phase_sample(
             rows["kind"], rows["ph_par"], rows["ph_pdf"], ray_d,
             u_new[:, :3], phase_kinds)

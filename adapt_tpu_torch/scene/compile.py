@@ -15,11 +15,13 @@ which the closest-hit kernel reads, and its cluster cut of that tree
 rows, and the same rows as aligned float4 rows, `cl_rows_v4`;
 `cluster_v4`), which the cluster kernels sweep, with the tree of the BVH
 nodes above that cut (`cl_tree`; `cluster_tree`), which the front pass
-walks. Tables the port does not
-read (texture atlases, grid volumes) are not built.
-Scenes that need them are recognised from their configuration and raise
-NotImplementedError at render (`check_supported`; grid volumes and BxDF
-mixtures already here), naming the ROADMAP item that ports them: the port
+walks. Each texture tag gets its per-object table and its packed atlas
+(`TextureTable`), the triangles their vertex uvs (`prim_uv`), and BxDF
+mixtures their table (`MixtureTable`, ops/mixture_ops.py) with the
+component materials appended after the objects' material rows. Grid
+volumes, which the port does not read, are recognised from the
+configuration and raise NotImplementedError (here and in
+`check_supported`), naming the ROADMAP item that ports them: the port
 never silently takes another path.
 
 Scenes load onto the CUDA device unless the caller asks for another; with
@@ -32,9 +34,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..constants import BRDFTag, BSDFTag, EmitterTag, MediumTag, SPHERE
+from ..constants import MediumTag, SPHERE
 from ..native import bvh_build
 from ..ops.math3d import np_rotation_between, fov2focal
+from ..ops.mixture_ops import MixtureTable, N_COMPONENTS
+from .bxdf import MIXTURE_SLOTS, Mixture_np
 
 # Below this many prims the JAX package builds no BVH and scans every
 # triangle (adapt_tpu/scene/compile.py:455); ops/intersect.py picks the
@@ -60,12 +64,21 @@ class MediumTable:
 
 @dataclasses.dataclass
 class TextureTable:
-    """Per-object texture slots for one tag; mode -255 = no texture.
+    """Per-object texture slots for one tag (albedo, normal, bump,
+    roughness); mode -255 = no texture (reference bxdf/texture.py:92-96).
 
-    The slice renders untextured scenes only; `present` (any object has
-    this tag) is what ops/texture_ops.py checks, a host bool so the bounce
-    loop never waits on the device for it."""
-    mode: torch.Tensor     # (O,) i32
+    `present` (any object carries this tag) is what ops/texture_ops.py
+    checks, a host bool so the bounce loop never waits on the device."""
+    mode: torch.Tensor     # (O,) i32: 0 image, 1 checker, -255 none
+    off_x: torch.Tensor    # (O,) i32 atlas offsets
+    off_y: torch.Tensor
+    w: torch.Tensor        # (O,) f32 native texture size
+    h: torch.Tensor
+    scale_u: torch.Tensor  # (O,) f32
+    scale_v: torch.Tensor
+    c1: torch.Tensor       # (O,3) checker colors
+    c2: torch.Tensor
+    atlas: torch.Tensor    # (S,S,3) f32 packed atlas ((1,1,3) if unused)
     present: bool
 
 
@@ -95,6 +108,7 @@ class SceneData:
     # --- global prims (P = T + S) ---
     prim_ng: torch.Tensor    # (P,3) geometric normals
     prim_vn: torch.Tensor    # (P,3,3) vertex normals (zeros when absent)
+    prim_uv: torch.Tensor    # (P,3,2) vertex uvs (zeros when absent)
     pre0: torch.Tensor       # (P,3) e1 (tri) / center (sphere)
     pre1: torch.Tensor       # (P,3) e2 (tri) / radius row (sphere)
     pre2: torch.Tensor       # (P,3) p0 (tri) / zeros (sphere)
@@ -126,7 +140,9 @@ class SceneData:
     obj_emitter: torch.Tensor    # (O,) i32 emitter id or -1
     obj_aabb_min: torch.Tensor   # (O,3)
     obj_aabb_max: torch.Tensor   # (O,3)
-    # --- materials (O) ---
+    # --- materials (O, or O + K with BxDF mixtures: the K component
+    # records follow the objects' rows in the mat_* and medium tables and
+    # in obj_emitter, so mixture_ops gathers them as any other row) ---
     mat_type: torch.Tensor     # (O,) i32 BRDFTag / BSDFTag
     mat_is_bsdf: torch.Tensor  # (O,) bool
     mat_is_delta: torch.Tensor  # (O,) bool
@@ -135,6 +151,8 @@ class SceneData:
     mat_kg: torch.Tensor
     mat_mean: torch.Tensor     # (O,3)
     medium: MediumTable        # (O,) attached media
+    mixture: object            # MixtureTable, or None: no mixtures
+    obj_mixture: torch.Tensor  # (O+K,) i32 mixture row or -1
     # --- emitters (E) ---
     emit_kind: torch.Tensor      # (E,) i32 EmitterTag
     emit_intensity: torch.Tensor  # (E,3)
@@ -256,18 +274,15 @@ def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
     """Raise NotImplementedError for what a renderer of the port cannot
     render yet; `renderer` is "pt", "vpt", "bdpt", "direct" or "ssao".
 
-    PT: every BRDF, the det-refraction and lambertian BSDFs, and point,
-    area, spot and collimated lights. Participating media are not on its
-    list: the JAX package's PT reads only the world IOR and ignores them
-    too (cbox itself declares a scattering world medium).
-    VPT: the same, null BSDFs (medium boundaries) and HG, multi-HG and
-    Rayleigh media.
-    BDPT: lambertian BRDFs, null BSDFs, point and area lights and the
-    same media.
+    PT, VPT and BDPT take every BRDF, the det-refraction and lambertian
+    BSDFs, point, area, spot and collimated lights, albedo, normal and
+    bump textures and BxDF mixtures. VPT and BDPT also take null BSDFs
+    (medium boundaries) and HG, multi-HG and Rayleigh media; PT takes no
+    null BSDF, and reads no medium (the JAX package's PT reads only the
+    world IOR: cbox itself declares a scattering world medium).
     The direct preview and SSAO read only the geometry, mat_kd/ks/kg and
     emitter 0's position and intensity, so they take every scene the
-    port's tables hold. Textures and grid volumes are refused everywhere
-    else, and BxDF mixtures at compile."""
+    port's tables hold. Grid volumes are refused everywhere."""
     def nope(what, item):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md queue A item {item})")
@@ -278,32 +293,11 @@ def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
         nope("grid volumes", 14)
     if renderer in ("direct", "ssao"):
         return
-    media = renderer != "pt"                  # the media renderers
-    if renderer == "bdpt":
-        bsdfs, brdfs = {BSDFTag.NULL}, {BRDFTag.LAMBERTIAN}
-        lights = {EmitterTag.POINT, EmitterTag.AREA}
-    else:
-        bsdfs = {BSDFTag.DET_REFRACTION, BSDFTag.LAMBERTIAN} \
-            | ({BSDFTag.NULL} if media else set())
-        brdfs = {BRDFTag.BLINN_PHONG, BRDFTag.LAMBERTIAN, BRDFTag.SPECULAR,
-                 BRDFTag.MICROFACET, BRDFTag.MOD_PHONG,
-                 BRDFTag.FRESNEL_BLEND, BRDFTag.OREN_NAYAR,
-                 BRDFTag.THIN_COAT}
-        lights = {EmitterTag.POINT, EmitterTag.AREA, EmitterTag.SPOT,
-                  EmitterTag.COLLIMATED}
-    if set(cfg.bsdf_types) - bsdfs or (cfg.has_null_bsdf and not media):
-        nope(f"BSDFs {cfg.bsdf_types} under {renderer}", 9)
-    if set(cfg.brdf_types) - brdfs:
-        nope(f"BRDFs {cfg.brdf_types} under {renderer}", 9)
-    if set(cfg.emitter_kinds) - lights:
-        nope(f"emitter kinds {cfg.emitter_kinds} other than "
-             f"{sorted(lights)} under {renderer}", 9)
-    if media and set(cfg.medium_kinds) - {MediumTag.HG, MediumTag.MULTI_HG,
-                                          MediumTag.RAYLEIGH}:
+    if renderer == "pt" and cfg.has_null_bsdf:
+        nope("null BSDFs (medium boundaries) under pt", 11)
+    if renderer != "pt" and set(cfg.medium_kinds) - {
+            MediumTag.HG, MediumTag.MULTI_HG, MediumTag.RAYLEIGH}:
         nope(f"medium kinds {cfg.medium_kinds}", 11)
-    if (cfg.has_normal_map or cfg.has_bump_map
-            or any(t.present for t in scene.tex.values())):
-        nope("textures", 9)
 
 
 # the leaves `tri_tables` reads
@@ -579,6 +573,72 @@ def _medium_table(mediums) -> MediumTable:
         ph_pdf=f("pdf"))
 
 
+def _texture_table(recs, atlas) -> TextureTable:
+    """One tag's per-object texture table from the host records (None:
+    the object has no texture of the tag) and the tag's packed atlas
+    (adapt_tpu/scene/compile.py:271-297)."""
+    n = len(recs)
+    mode = np.full(n, -255, np.int32)
+    off_x = np.zeros(n, np.int32)
+    off_y = np.zeros(n, np.int32)
+    w = np.zeros(n, np.float32)
+    h = np.zeros(n, np.float32)
+    su = np.ones(n, np.float32)
+    sv = np.ones(n, np.float32)
+    c1 = np.zeros((n, 3), np.float32)
+    c2 = np.zeros((n, 3), np.float32)
+    for i, rec in enumerate(recs):
+        if rec is None:
+            continue
+        mode[i] = rec.mode
+        off_x[i], off_y[i] = rec.off_x, rec.off_y
+        w[i], h[i] = rec.w, rec.h
+        su[i], sv[i] = rec.scale_u, rec.scale_v
+        c1[i], c2[i] = rec.c1, rec.c2
+    if atlas is None:
+        atlas = np.zeros((1, 1, 3), np.float32)
+    return TextureTable(mode=_t(mode), off_x=_t(off_x), off_y=_t(off_y),
+                        w=_t(w), h=_t(h), scale_u=_t(su), scale_v=_t(sv),
+                        c1=_t(c1), c2=_t(c2), atlas=_t(atlas, np.float32),
+                        present=bool((mode > -255).any()))
+
+
+def _mixtures(mats):
+    """BxDF mixtures (reference bxdf/mixture.py; adapt_tpu/scene/
+    compile.py:556-591): each mixture's component records are appended
+    after the O per-object rows, so mixture_ops delegates with the
+    ordinary row gather. Returns (the O + K material records, the
+    MixtureTable or None, obj_mixture (O + K,) i32: an object row's
+    mixture-table row or -1)."""
+    mix_list, mix_index = [], {}
+    for m in mats:
+        if isinstance(m, Mixture_np) and id(m) not in mix_index:
+            mix_index[id(m)] = len(mix_list)
+            mix_list.append(m)
+    pad_mats = list(mats)
+    row_of = {id(m): i for i, m in enumerate(mats)
+              if not isinstance(m, Mixture_np)}
+    for mx in mix_list:
+        for comp in mx.components.values():
+            if id(comp) not in row_of:
+                row_of[id(comp)] = len(pad_mats)
+                pad_mats.append(comp)
+    obj_mixture = np.full(len(pad_mats), -1, np.int32)
+    for i, m in enumerate(mats):
+        if isinstance(m, Mixture_np):
+            obj_mixture[i] = mix_index[id(m)]
+    if not mix_list:
+        return pad_mats, None, obj_mixture
+    comp_ids = np.full((len(mix_list), N_COMPONENTS), -1, np.int32)
+    probs = np.zeros((len(mix_list), N_COMPONENTS), np.float32)
+    for mi, mx in enumerate(mix_list):
+        probs[mi] = mx.probs
+        for slot, comp in mx.components.items():
+            comp_ids[mi, MIXTURE_SLOTS.index(slot)] = row_of[id(comp)]
+    return pad_mats, MixtureTable(comp_ids=_t(comp_ids),
+                                  probs=_t(probs)), obj_mixture
+
+
 def _t(x, dtype=None):
     return torch.from_numpy(np.ascontiguousarray(
         np.asarray(x) if dtype is None else np.asarray(x, dtype)))
@@ -593,7 +653,6 @@ def _stack3(vals):
 def compile_scene(emitters, array_info, objects, configs, device="cuda"):
     """Assemble (SceneData, RenderConfig) from parsed host structures,
     with the precompute of adapt_tpu/scene/compile.py:383-738."""
-    from .bxdf import Mixture_np
     device = resolve_device(device)
     if configs.get("volume"):
         raise NotImplementedError(
@@ -685,9 +744,10 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
 
     world = configs["world"]
     mats = [obj.bxdf for obj in objects]
-    if any(isinstance(m, Mixture_np) for m in mats):
-        raise NotImplementedError(
-            "BxDF mixtures are not ported yet (ROADMAP.md queue A item 9)")
+    pad_mats, mixture, obj_mixture = _mixtures(mats)
+    # the dispatch tables cover the component kinds; the MIXTURE tag
+    # itself never enters brdf_types (its lanes are overlaid)
+    disp_mats = [m for m in pad_mats if not isinstance(m, Mixture_np)]
 
     cfg = RenderConfig(
         w=w, h=h, focal=fov2focal(configs["fov"], min(w, h)),
@@ -702,18 +762,20 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         brdf_two_sides=bool(configs.get("brdf_two_sides", False)),
         has_v_normal=bool(configs.get("has_vertex_normal", False)),
         start_x=sx, end_x=ex, start_y=sy, end_y=ey,
-        brdf_types=tuple(sorted({m.type_id for m in mats
+        brdf_types=tuple(sorted({m.type_id for m in disp_mats
                                  if not m.is_bsdf})),
-        bsdf_types=tuple(sorted({m.type_id for m in mats if m.is_bsdf})),
+        bsdf_types=tuple(sorted({m.type_id for m in disp_mats
+                                 if m.is_bsdf})),
         emitter_kinds=tuple(sorted({e.kind for e in emitters})),
         n_emitters=len(emitters),
         world_scattering=world.medium.is_scattering,
         medium_kinds=tuple(sorted(
-            {m.medium.type_id for m in mats if m.medium.type_id >= 0}
+            {m.medium.type_id for m in pad_mats if m.medium.type_id >= 0}
             | ({world.medium.type_id} if world.medium.is_scattering
                else set()))),
-        has_null_bsdf=any(m.is_bsdf and m.type_id < 0 for m in mats),
-        n_null_objs=sum(1 for m in mats if m.is_bsdf and m.type_id < 0),
+        has_null_bsdf=any(m.is_bsdf and m.type_id < 0 for m in pad_mats),
+        n_null_objs=sum(1 for m in pad_mats
+                        if m.is_bsdf and m.type_id < 0),
         use_bvh=P >= BVH_THRESHOLD,
         has_normal_map=any(obj.texture_group.get("normal") is not None
                            for obj in objects),
@@ -735,7 +797,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
     )
 
     def mat_rows(attr, dtype=np.float32):
-        return _t(np.stack([np.asarray(getattr(m, attr)) for m in mats])
+        return _t(np.stack([np.asarray(getattr(m, attr)) for m in pad_mats])
                   .astype(dtype))
 
     emit_obj = np.full(len(emitters), -1, np.int32)
@@ -743,13 +805,10 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         if obj.emitter_ref_id >= 0:
             emit_obj[obj.emitter_ref_id] = i
     aabbs = np.stack([obj.aabb for obj in objects])  # (O,2,3)
-    tex = {}
-    for tag in ("albedo", "normal", "bump", "roughness"):
-        mode = np.array([-255 if r is None else r.mode for r in
-                         (obj.texture_group.get(tag) for obj in objects)],
-                        np.int32)
-        tex[tag] = TextureTable(mode=_t(mode),
-                                present=bool((mode > -255).any()))
+    packed = configs.get("packed_textures") or {}
+    tex = {tag: _texture_table([obj.texture_group.get(tag)
+                                for obj in objects], packed.get(tag))
+           for tag in ("albedo", "normal", "bump", "roughness")}
 
     tri = dict(
         tri_gid=_t(tri_ids, np.int32),
@@ -761,8 +820,8 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         tri_cu=_t(prim_cu[tri_ids]),
         tri_cv=_t(prim_cv[tri_ids]),
         prim_ng=_t(array_info["n_g"], np.float32),
-        mat_type=_t([m.type_id for m in mats], np.int32),
-        mat_is_bsdf=_t([m.is_bsdf for m in mats], bool))
+        mat_type=_t([m.type_id for m in pad_mats], np.int32),
+        mat_is_bsdf=_t([m.is_bsdf for m in pad_mats], bool))
     scene = SceneData(
         **tri,
         **tri_tables(**{n: tri[n] for n in TRI_SOURCES}),
@@ -770,6 +829,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         sph_center=_t(prims[sph_ids, 0].reshape(-1, 3), np.float32),
         sph_radius=_t(prims[sph_ids, 1, 0], np.float32),
         prim_vn=_t(array_info["n_s"], np.float32),
+        prim_uv=_t(array_info["uvs"], np.float32),
         pre0=_t(pre0, np.float32),
         pre1=_t(pre1, np.float32),
         pre2=_t(pre2, np.float32),
@@ -790,15 +850,18 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         obj_start=_t(obj_start),
         obj_cnt=_t(obj_cnt),
         obj_is_sphere=_t(obj_is_sphere),
-        obj_emitter=_t([obj.emitter_ref_id for obj in objects], np.int32),
+        obj_emitter=_t([obj.emitter_ref_id for obj in objects]
+                       + [-1] * (len(pad_mats) - len(mats)), np.int32),
         obj_aabb_min=_t(aabbs[:, 0]),
         obj_aabb_max=_t(aabbs[:, 1]),
-        mat_is_delta=_t([m.is_delta for m in mats], bool),
+        mat_is_delta=_t([m.is_delta for m in pad_mats], bool),
         mat_kd=mat_rows("k_d"),
         mat_ks=mat_rows("k_s"),
         mat_kg=mat_rows("k_g"),
         mat_mean=mat_rows("mean"),
-        medium=_medium_table([m.medium for m in mats]),
+        medium=_medium_table([m.medium for m in pad_mats]),
+        mixture=mixture,
+        obj_mixture=_t(obj_mixture),
         emit_kind=_t([e.kind for e in emitters], np.int32),
         emit_intensity=_t(_stack3([e.intensity for e in emitters])),
         emit_pos=_t(_stack3([e.pos for e in emitters])),

@@ -78,7 +78,12 @@ non-zero exit and no result line.
    against tests/goldens/cbox_ao_48.npy; 3f: render_pass_pt on
    csphere/balls-multi.xml and mix-balls.xml and render_pass_vpt on
    vpt/balls.xml at 48^2, 6 bounces, against csphere_multi_pt_48.npy,
-   csphere_mix_pt_48.npy and vptballs_48.npy;
+   csphere_mix_pt_48.npy and vptballs_48.npy; 3g: render_pass_bdpt on
+   the reduced bunny (bunny.xml with its four generated meshes swapped
+   for the 495-face cornell/bunny.obj: its textures, glass, Fresnel blend,
+   spot lights and HG world on the BVH tier) and render_pass_pt on cbox
+   with a two-tone texture on its floor, 48^2, 3 bounces, against
+   bunny_bdpt_48.npy and cbox_tex_pt_48.npy;
 4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
    setting), render_batch of a few spp with the launch counts read around
    it; the image must be finite with mean > 0.05 and match the same render
@@ -87,8 +92,8 @@ non-zero exit and no result line.
    12 bounces, auto-compaction): the derived schedule, one warm-up spp,
    then render_batch of a few spp with 12 launches of each BVH kernel per
    spp and none of the brute-force ones; the image equal to the same
-   render with no compaction, and at 64^2 the render with the twins in
-   place matches under the goldens' bounds;
+   render with no compaction, and at 64^2 (3 bounces) the render with
+   the twins in place matches under the goldens' bounds;
 6. vpt cbox main path: VolumeRenderer on scenes/vpt/cbox.xml at its own
    settings (512^2, 16 bounces, 24 iterations, schedule ((7, 2), (13, 8))):
    one warm-up spp, then render_batch of a few spp with one media-walk
@@ -132,7 +137,28 @@ non-zero exit and no result line.
    24 bounces, 4 shadow rays, a spot light, an HG world medium): one
    warm-up spp, then render_batch of a few spp with 24 closest hits and 96
    media walks per spp; the image finite and, at 64^2, equal to the same
-   render with the twins in place.
+   render with the twins in place;
+13. bunny BDPT: BDPT on cbox/bunny.xml at its own settings (800^2, 10
+   bounces, 65,290 triangles on the BVH tier, three spot lights, an HG
+   world medium, three JPEG textures written by scripts/gen_procedural.py
+   if missing): one warm-up spp, then render_batch of a few spp with 20
+   BVH closest hits per spp from the walks, one more for each step of
+   the media walk `_track_loop` (counted apart), one film splat and no
+   brute-force kernel, the same counts by the profiler over one spp; the
+   peak device memory; the BVH closest hit on the walks' own rays of one
+   pass (the eye walk's primary rays, the light walk's first bounce),
+   bit-equal to its twin, with device time and bound; the image finite,
+   at 64^2 (3 bounces) under the goldens' bounds against the same render
+   with the twins in place, and at 64^2 different from the render
+   without textures on the textured floor;
+14. bunny PT: Renderer on bunny.xml at its own settings (2 shadow rays,
+   auto-compaction): 10 BVH closest hits and 20 BVH any hits per spp (by
+   the wrappers and the profiler), peak memory, the image finite, at
+   64^2 (3 bounces) equal to the twins' render, and different from the
+   untextured one on the floor.
+Every phase that loads a textured scene fails unless each texture it
+names loaded (`load_textured`): the loader only warns about a missing
+file and renders without it.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
 result line {"ok": true, "device": {...}}.
@@ -157,7 +183,10 @@ BDPT_SPP = 3       # BDPT cbox main-path samples per pixel (after one warm-up)
 PREVIEW_SPP = 5    # direct preview and SSAO passes (after one warm-up pass)
 MULTI_SPP = 4      # csphere balls-multi PT samples per pixel (after a warm-up)
 VBALLS_SPP = 2     # vpt balls samples per pixel (after one warm-up spp)
+BUNNY_SPP = 2      # bunny BDPT samples per pixel (after one warm-up spp)
+BUNNY_PT_SPP = 2   # bunny PT samples per pixel (after one warm-up spp)
 PROF_BOUNCES = 3   # bounces of phase 2a's profiled balls-multi and vpt passes
+TWIN_BOUNCES = 3   # bounces of the 64^2 twin renders of the BVH-tier scenes
 REPS = 5           # kernel timing repetitions (median)
 TIE_RAYS = 65536   # rays of phase 2e's tie set (`tie_rays`)
 # largest share of lanes on which a cluster sweep kernel may take another
@@ -212,6 +241,15 @@ KERNELS = {
     "cluster_pick_any": ("adapt_tpu_torch/csrc/cluster_intersect.cu",
                          "adapt_tpu/ops/cluster_pallas.py:1691"),
 }
+
+
+# each wrapper's kernel, by the name the profiler gives it
+PROFILED = {"tri_closest_hit": "tri_closest_kernel",
+            "tri_any_hit": "tri_any_kernel",
+            "tri_track_hits": "tri_track_kernel",
+            "bvh_closest_hit": "bvh_closest_kernel",
+            "bvh_any_hit": "bvh_any_kernel",
+            "splat_sorted_accumulate": "splat_kernel"}
 
 
 def _require(ok, what):
@@ -641,13 +679,16 @@ def _small(cfg, w, **kw):
                                end_x=w, end_y=w, **kw)
 
 
-def kernels_in(torch, fn):
-    """The names of the CUDA kernels one call of fn launches (after a
-    warm-up call), by torch.profiler."""
-    fn()
+def kernels_in(torch, fn, warm=False):
+    """The names of the CUDA kernels one call of fn launches, by
+    torch.profiler: after a warm-up call, or, for an fn already `warm`
+    (a full-size pass of ~65,000 launches), at once and tracing the card
+    alone (fewer events to read)."""
+    if not warm:
+        fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA] \
+        + ([] if warm else [torch.profiler.ProfilerActivity.CPU])
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -656,17 +697,193 @@ def kernels_in(torch, fn):
             and not e.is_user_annotation]
 
 
-def knot_mesh():
-    """Write knot290k.xml's one procedural mesh if it is missing, with
-    scripts/gen_procedural.py `ensure` (numpy only: the script's
-    `ensure_all` also writes grid volumes through the JAX package, which
-    this script never loads)."""
+def _gen_procedural():
+    """scripts/gen_procedural.py, loaded by path (it imports numpy only;
+    its `ensure_all` also writes grid volumes through the JAX package,
+    which this script never calls)."""
     spec = importlib.util.spec_from_file_location(
         "gen_procedural", os.path.join(ROOT, "scripts", "gen_procedural.py"))
     gen = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gen)
+    return gen
+
+
+def knot_mesh():
+    """Write knot290k.xml's one procedural mesh if it is missing, with
+    scripts/gen_procedural.py `ensure`."""
     with contextlib.redirect_stdout(io.StringIO()):
-        gen.ensure("knot290k.obj", 1450, 100)
+        _gen_procedural().ensure("knot290k.obj", 1450, 100)
+
+
+# bunny.xml's generated stand-in meshes (scripts/gen_procedural.py
+# `ensure_all`: path, n_u, n_v, torus-knot shape) and its textures
+BUNNY_MESHES = (
+    ("cornell/bunny_body.obj", 300, 24, dict(R=0.3, r=0.12, tube=0.06)),
+    ("cornell/bunny_head.obj", 120, 12, dict(R=0.15, r=0.06, tube=0.035)),
+    ("cornell/bunny_full1.obj", 400, 30, dict(R=0.35, r=0.12, tube=0.06)),
+    ("cornell/bunny_full2.obj", 400, 30, dict(R=0.35, r=0.12, tube=0.06)))
+BUNNY_TEXTURES = ("textures/crystal.jpg", "textures/lava.jpeg",
+                  "textures/mat.jpeg")
+
+
+def bunny_assets(meshes=True):
+    """Write bunny.xml's JPEG textures (scripts/gen_procedural.py
+    `ensure_texture`) and, with meshes, its four meshes (`ensure_at`),
+    each only if it is missing."""
+    gen = _gen_procedural()
+    with contextlib.redirect_stdout(io.StringIO()):
+        for rel, n_u, n_v, kw in BUNNY_MESHES if meshes else ():
+            gen.ensure_at(rel, n_u, n_v, **kw)
+        for rel in BUNNY_TEXTURES:
+            gen.ensure_texture(rel)
+
+
+def write_png(path, rgb):
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (standard
+    library zlib, filter 0 on every row)."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        body = kind + data
+        return struct.pack(">I", len(data)) + body \
+            + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                              0))
+                 + chunk(b"IDAT", zlib.compress(raw, 9))
+                 + chunk(b"IEND", b""))
+
+
+def _scene_copy(directory, file, out_dir, edit):
+    """Write directory/file to out_dir/scene.xml with every mesh and
+    texture path made absolute (meshes resolve against the scene's
+    directory, textures against the working directory, here the
+    repository's root) after `edit(root)` changed the tree; returns
+    (out_dir, "scene.xml")."""
+    import xml.etree.ElementTree as xet
+    tree = xet.parse(os.path.join(directory, file))
+    root = tree.getroot()
+    edit(root)
+    for shape in root.findall("shape"):
+        fn = shape.find("string")
+        if fn is not None and not os.path.isabs(fn.get("value")):
+            fn.set("value", os.path.normpath(
+                os.path.join(directory, fn.get("value"))))
+    for tex in root.findall("texture"):
+        fn = tex.find("string")
+        if fn is not None and not os.path.isabs(fn.get("value")):
+            fn.set("value", os.path.normpath(
+                os.path.join(ROOT, fn.get("value"))))
+    os.makedirs(out_dir, exist_ok=True)
+    tree.write(os.path.join(out_dir, "scene.xml"))
+    return out_dir, "scene.xml"
+
+
+def add_texture(root, tex_id, path, tag="albedo"):
+    import xml.etree.ElementTree as xet
+    te = xet.SubElement(root, "texture", {"id": tex_id, "type": "image",
+                                          "tag": tag})
+    xet.SubElement(te, "string", {"name": "filename", "value": path})
+
+
+def ref_texture(shape, tex_id, tag=None):
+    import xml.etree.ElementTree as xet
+    xet.SubElement(shape, "ref", {"type": "texture", "id": tex_id,
+                                  **({"tag": tag} if tag else {})})
+
+
+def floor_shape(root):
+    """The <shape> that reads cbox_floor.obj."""
+    return next(s for s in root.findall("shape")
+                if "cbox_floor" in s.find("string").get("value"))
+
+
+def twotone_cbox(out_dir, suite="cbox", file="cbox.xml"):
+    """A cbox scene (cbox/cbox.xml unless told another) with the two-tone
+    64^2 image of tests/test_texture.py (red left, blue right) on its
+    floor, written to out_dir (tests/goldens/cbox_tex_pt_48.npy renders
+    it); returns (out_dir, "scene.xml")."""
+    import numpy as np
+    tex = np.zeros((64, 64, 3), np.float32)
+    tex[:, :32] = [1.0, 0.1, 0.1]
+    tex[:, 32:] = [0.1, 0.1, 1.0]
+    os.makedirs(out_dir, exist_ok=True)
+    png = os.path.join(out_dir, "twotone.png")
+    write_png(png, (tex * 255).astype(np.uint8))
+
+    def edit(root):
+        add_texture(root, "twotone", png)
+        ref_texture(floor_shape(root), "twotone")
+    return _scene_copy(os.path.join(ROOT, "scenes", suite), file, out_dir,
+                       edit)
+
+
+def reduced_bunny(out_dir):
+    """bunny.xml with its four generated meshes swapped for the tracked
+    495-face cornell/bunny.obj (as tests/test_bvh.py does), written to
+    out_dir (tests/goldens/bunny_bdpt_48.npy renders it); returns
+    (out_dir, "scene.xml")."""
+    def edit(root):
+        for shape in root.findall("shape"):
+            fn = shape.find("string")
+            if "bunny_" in fn.get("value"):
+                fn.set("value", "../meshes/cornell/bunny.obj")
+    return _scene_copy(os.path.join(ROOT, "scenes", "cbox"), "bunny.xml",
+                       out_dir, edit)
+
+
+def floor_difference(torch, render, scene, untextured, cfg, rows):
+    """Mean over the pixels whose primary ray hits one of the object rows
+    `rows` (a textured floor) of the largest channel difference between
+    render(scene, cfg) and render(untextured, cfg), two (n_pixels, 3)
+    images in pixel order; fails unless the floor takes some 64 pixels
+    and the difference is clearly nonzero."""
+    from adapt_tpu_torch import rng
+    from adapt_tpu_torch.ops.intersect import ray_intersect
+    from adapt_tpu_torch.renderer.base import camera_rays
+    c = dataclasses.replace(cfg, anti_alias=False)
+    hit = ray_intersect(scene, c, *camera_rays(scene, c, rng.PRNGKey(0),
+                                               1)).obj_id
+    floor = torch.isin(hit, torch.tensor(rows, dtype=hit.dtype,
+                                         device=hit.device))
+    _require(int(floor.sum()) > 64, f"{int(floor.sum())} floor pixels")
+    diff = (render(scene, cfg) - render(untextured, cfg)).abs().amax(dim=-1)
+    out = float(diff[floor].mean())
+    _require(out > 1e-3, f"textured and untextured renders differ by "
+             f"{out} on the floor")
+    return out
+
+
+def load_textured(directory, file, device="cuda"):
+    """Load a scene that names textures, and fail unless every texture
+    record it names loaded as an image (mode MODE_IMAGE, w, h > 0) and the
+    albedo table is present: the loader of either package only warns
+    about a missing file and renders without the texture. Texture paths
+    in the XML are relative to the working directory (the repository's
+    root). Returns (scene, cfg, {texture id: the object rows that carry
+    it})."""
+    from adapt_tpu_torch.parsers.xml_parser import scene_parsing
+    from adapt_tpu_torch.scene import compile as C
+    from adapt_tpu_torch.scene.texture import MODE_IMAGE
+    parsed = scene_parsing(directory, file)
+    rows = {}
+    for i, obj in enumerate(parsed[2]):
+        for rec in obj.texture_group.values():
+            if rec is None:
+                continue
+            _require(rec.mode == MODE_IMAGE and rec.w > 0 and rec.h > 0,
+                     f"{file}: texture {rec.id!r} did not load (mode "
+                     f"{rec.mode}, {rec.w}x{rec.h})")
+            rows.setdefault(rec.id, []).append(i)
+    _require(rows, f"{file} names no texture")
+    scene, cfg = C.compile_scene(*parsed, device=device)
+    _require(scene.tex["albedo"].present,
+             f"{file}: no albedo texture in the compiled scene")
+    return scene, cfg, rows
 
 
 def main():
@@ -1701,6 +1918,35 @@ def main():
         for gname, err, mean, ref_mean, fl in f_rows) + f" [{card}]",
         flush=True)
 
+    # ---- 3g. the textured goldens on the card ----
+    bunny_assets()
+    g_dir = os.path.join(ROOT, "build", "chip_smoke")
+    g_rows = []
+    for gname, where, render, want_k in (
+            ("bunny_bdpt_48", reduced_bunny(os.path.join(g_dir, "rbunny")),
+             lambda s, c: B.render_pass_bdpt(s, c, rng.PRNGKey(42), 1)[0],
+             ("bvh_closest_hit", "splat_sorted_accumulate")),
+            ("cbox_tex_pt_48", twotone_cbox(os.path.join(g_dir, "tex_cbox")),
+             lambda s, c: pt.render_pass_pt(s, c, rng.PRNGKey(42), 1),
+             ("tri_closest_hit", "tri_any_hit"))):
+        scn, c, tex_rows = load_textured(*where)
+        reset()
+        img = render(scn, _small(c, 48, max_bounce=3, **golden))
+        gl = counts()
+        _require(all(gl[k] > 0 for k in want_k),
+                 f"{gname}: a kernel did not launch: {gl}")
+        g_rows.append((gname, *_check(
+            img.cpu().numpy(),
+            np.load(os.path.join(ROOT, "tests", "goldens",
+                                 gname + ".npy"))), gl, sorted(tex_rows)))
+    import PIL                        # the loaders read images with it
+    print(f"phase 3g textured goldens on cuda, 48^2, 3 bounces (images "
+          f"read with PIL {PIL.__version__}): " + "; ".join(
+        f"{gname}: textures {tex} loaded, max abs diff {err:.3g}, mean "
+        f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(gl)}"
+        for gname, err, mean, ref_mean, gl, tex in g_rows) + f" [{card}]",
+        flush=True)
+
     @contextlib.contextmanager
     def twins():
         """The path's wrappers swapped for their plain twins."""
@@ -1784,7 +2030,8 @@ def main():
     dt_plain = timed_batch(plain, KNOT_SPP)
     _require(torch.equal(plain.color, r.color),
              "the compacted render differs from the uncompacted one")
-    small = _small(kcfg, 64)
+    # 3 bounces: the twin walks a 64^2 wavefront as long as a 512^2 one
+    small = _small(kcfg, 64, max_bounce=TWIN_BOUNCES)
     rk = pt.Renderer(kscene, small, seed=1)
     rk.render_batch(1)
     rt = pt.Renderer(kscene, small, seed=1)
@@ -1798,7 +2045,8 @@ def main():
           f"Mrays/s [{card}]; uncompacted: {dt_plain / KNOT_SPP:.4f} s/spp, "
           f"{rays * KNOT_SPP / dt_plain / 1e6:.3f} Mrays/s, image equal; "
           f"probe + warm-up spp {warm_s:.2f} s; image mean "
-          f"{kimage.mean():.6f}; 64^2 max abs diff to twins {ktwin_err:.3g}; "
+          f"{kimage.mean():.6f}; 64^2 max abs diff to twins at "
+          f"{TWIN_BOUNCES} bounces {ktwin_err:.3g}; "
           f"launches {_shown(klaunches)}", flush=True)
 
     # ---- 6. vpt cbox main path at full size ----
@@ -1990,10 +2238,11 @@ def main():
               for name, d, m, mean_, e, eq, pl in preview_rows)
           + f" [{card}]", flush=True)
 
-    def twin_equal(make, c):
+    def twin_equal(make, c, small=None):
         """A 64^2 render of one spp (seed 1) with the kernels and with the
-        twins in place: (max abs diff, equal)."""
-        small = _small(c, 64)
+        twins in place: (max abs diff, equal). small: the 64^2
+        configuration, when `_small`'s 512-pixel field of view is not c's."""
+        small = small or _small(c, 64)
         a = make(small)
         a.render_batch(1)
         b = make(small)
@@ -2069,15 +2318,217 @@ def main():
           f"64^2 render equal to the twins' (max abs diff {vb_twin:.3g}) "
           f"[{card}]", flush=True)
 
+    # ---- 13. BDPT on bunny.xml at its own settings ----
+    t13 = t0 = time.perf_counter()
+    bunny_assets()
+    buscene, bucfg, bu_tex = load_textured(cbox_dir, "bunny.xml")
+    torch.cuda.synchronize()
+    bu_load_s = time.perf_counter() - t0
+    _require(buscene.n_prims == 65290 and bucfg.use_bvh
+             and (bucfg.w, bucfg.h, bucfg.max_bounce,
+                  bucfg.num_shadow_ray) == (800, 800, 10, 2)
+             and bucfg.n_emitters == 3 and bucfg.world_scattering
+             and sorted(bu_tex) == ["crystal", "lava", "mat"],
+             f"bunny.xml settings ({buscene.n_prims} prims, {bucfg})")
+    bgroups = B._strategy_groups(bucfg, bucfg.max_bounce)
+    bQ = max(1, B.FLAT_LANES // bucfg.n_pixels)
+    bchunks = {case: -(-len(rows) // bQ) for case, rows in bgroups.items()}
+    # the closest hits _track_loop launches, counted apart from the walks'
+    track_loop, track_b5a = vpt._track_loop, [0]
+
+    def counted_track(*a, **kw):
+        before = BK.launches["bvh_closest_hit"]
+        try:
+            return track_loop(*a, **kw)
+        finally:
+            track_b5a[0] += BK.launches["bvh_closest_hit"] - before
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30   # earlier phases' own
+    r = B.BDPT(buscene, bucfg, seed=0)
+    r.render_batch(1)                         # warm-up sample, not timed
+    vpt._track_loop = counted_track
+    try:
+        reset()
+        dt_bu = timed_batch(r, BUNNY_SPP)
+        bulaunches = counts()
+    finally:
+        vpt._track_loop = track_loop
+    bu_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    buimage = r.image()
+    _require(buimage.shape == (bucfg.h, bucfg.w, 3), f"shape {buimage.shape}")
+    bu_nan = float(np.isnan(buimage).any(axis=-1).mean())
+    _require(bu_nan == 0.0 and bool(np.isfinite(buimage).all())
+             and buimage.mean() > 0.01,
+             f"bunny BDPT: NaN share {bu_nan}, mean {buimage.mean()}")
+    # two walks of max_bounce closest hits; one _track_loop step (one
+    # closest hit) for each chunk of the t1, s1 and gen groups in which
+    # some connection needs its transmittance: every surface blocks and a
+    # miss ends at the target, so no lane takes a second step; one film
+    # splat a pass; no brute-force kernel (65,290 triangles)
+    bu_walks = BUNNY_SPP * 2 * bucfg.max_bounce
+    want = {**none, "bvh_closest_hit": bu_walks + track_b5a[0],
+            "splat_sorted_accumulate": BUNNY_SPP}
+    _require(bulaunches == want and 0 < track_b5a[0] <= BUNNY_SPP * (
+        bchunks["t1"] + bchunks["s1"] + bchunks["gen"]),
+             f"bunny BDPT launch counts {bulaunches} ({track_b5a[0]} in "
+             f"_track_loop), want {want}")
+    # the same counts by the profiler, over one more spp
+    reset()
+    names = kernels_in(torch, lambda: r.render_batch(1), warm=True)
+    bu_wrapped = _shown(counts())
+    bu_seen = _shown({k: sum(kname in n for n in names)
+                      for k, kname in PROFILED.items()})
+    _require(bu_seen == bu_wrapped and set(bu_seen) == {
+        "bvh_closest_hit", "splat_sorted_accumulate"},
+             f"bunny BDPT: the profiler saw {bu_seen} launches a pass, the "
+             f"wrappers counted {bu_wrapped}")
+    # B5a on the bunny's own walk rays: the eye walk's first closest hit
+    # (primary rays) and the light walk's second (its first bounce),
+    # bit-equal to the twin, with device time and bound
+    b5a_sets, b5a = [], BK.bvh_closest_hit
+
+    def capture_b5a(scn, o, d, far):
+        if len(b5a_sets) < 2 * bucfg.max_bounce:
+            b5a_sets.append((o.clone(), d.clone(), far.clone()))
+        return b5a(scn, o, d, far)
+    BK.bvh_closest_hit = capture_b5a
+    try:
+        B.render_pass_bdpt(buscene, bucfg, rng.PRNGKey(5), 1)
+    finally:
+        BK.bvh_closest_hit = b5a
+    mb_ = bucfg.max_bounce
+    bu_sets = {"eye primary": b5a_sets[0], "light bounce": b5a_sets[mb_ + 1]}
+    del b5a_sets
+    bu_tables = 4 * (buscene.bvh_node_pack.numel()
+                     + buscene.bvh_prim_pack.numel())
+    bu_rows = []
+    for tag, (o, d, far) in bu_sets.items():
+        got = BK.bvh_closest_hit(buscene, o, d, far)
+        want_ = bvh.walk(buscene, o, d, far, stats=True)
+        _require(all(torch.equal(a, b) for a, b in zip(got, want_[:4])),
+                 f"bvh_closest_hit (bunny {tag} rays): not bit-equal to the "
+                 "twin")
+        n_ = o.shape[0]
+        live = int((far > K.RAY_EPS).sum())
+        visits, tests = int(want_[4].sum()), int(want_[5].sum())
+        bu_rows.append((tag, n_, live, visits / max(live, 1),
+                        tests / max(live, 1),
+                        _graph_ms(torch, lambda: BK.bvh_closest_hit(
+                            buscene, o, d, far)),
+                        _bound(n_ * 28 + bu_tables + n_ * 16,
+                               visits * bvh.NODE_OPS
+                               + tests * bvh.PRIM_OPS)))
+    del bu_sets
+    # 64^2: the render with the twins in place; and without the textures,
+    # which must differ on the textured floor
+    # 64^2 with bunny.xml's own field of view (`_small` scales a 512^2
+    # one); the twins at 3 bounces (their walk costs as much at 64^2 as at
+    # 800^2: a step a node level, whatever the lanes)
+    bsmall = dataclasses.replace(bucfg, w=64, h=64, end_x=64, end_y=64,
+                                 focal=bucfg.focal * 64 / bucfg.w)
+    btwin = dataclasses.replace(bsmall, max_bounce=TWIN_BOUNCES)
+    ra = B.BDPT(buscene, btwin, seed=1)
+    ra.render_batch(1)
+    rb = B.BDPT(buscene, btwin, seed=1)
+    with twins():
+        rb.render_batch(1)
+    bu_twin, _, _ = _check(ra.image(), rb.image())
+    bu_eq = bool(torch.equal(ra.color, rb.color))
+    untextured = dataclasses.replace(buscene, tex={
+        k: dataclasses.replace(t, present=False)
+        for k, t in buscene.tex.items()})
+    bu_floor = floor_difference(
+        torch, lambda scn, c: B.render_pass_bdpt(scn, c, rng.PRNGKey(3),
+                                                 1)[0],
+        buscene, untextured, bsmall, bu_tex["mat"])
+    print(f"phase 13 main path bunny BDPT {bucfg.w}x{bucfg.h} mb "
+          f"{bucfg.max_bounce}, {buscene.n_prims} triangles (BVH tier), "
+          f"textures {sorted(bu_tex)} loaded (set-up {bu_load_s:.2f} s), "
+          f"{sum(map(len, bgroups.values()))} strategies in chunks "
+          f"{bchunks}, {BUNNY_SPP} spp: {1e3 * dt_bu / BUNNY_SPP:.2f} ms/spp "
+          f"[{card}]; peak memory {bu_peak - held:.3f} GiB over the "
+          f"{held:.3f} GiB earlier phases hold; launches per spp "
+          + ", ".join(f"{k} {n // BUNNY_SPP}"
+                      for k, n in _shown(bulaunches).items())
+          + f" ({bu_walks // BUNNY_SPP} in the walks, "
+          f"{track_b5a[0] / BUNNY_SPP:g} in _track_loop; profiler, one "
+          f"spp: {bu_seen}); B5a on the walk rays, bit-equal: " + "; ".join(
+              f"{tag} {n_} rays ({live} live): device {ms:.4f} ms, bound "
+              f"{bd[0]:.4f} ms ({bd[1]}), {v:.2f} node visits / {t:.2f} "
+              f"prim tests a live ray"
+              for tag, n_, live, v, t, ms, bd in bu_rows)
+          + f"; image mean {buimage.mean():.6f}, NaN pixel share {bu_nan}; "
+          f"64^2 max abs diff to twins at {TWIN_BOUNCES} bounces "
+          f"{bu_twin:.3g} (equal: {bu_eq}); "
+          f"64^2 textured vs untextured on the floor: mean abs diff "
+          f"{bu_floor:.4f}; phase {time.perf_counter() - t13:.1f} s",
+          flush=True)
+    del r, ra, rb
+
+    # ---- 14. PT on bunny.xml at its own settings ----
+    t14 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    r = pt.Renderer(buscene, bucfg, seed=0)
+    _require(r._auto, "bunny.xml is over the auto-compaction gate")
+    r.render_batch(1)                         # warm-up sample (and probe)
+    reset()
+    dt_bp = timed_batch(r, BUNNY_PT_SPP)
+    bplaunches = counts()
+    bp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bpimage = r.image()
+    _require(bpimage.shape == (bucfg.h, bucfg.w, 3), f"shape {bpimage.shape}")
+    bp_nan = float(np.isnan(bpimage).any(axis=-1).mean())
+    _require(bp_nan == 0.0 and bool(np.isfinite(bpimage).all())
+             and bpimage.mean() > 0.01,
+             f"bunny PT: NaN share {bp_nan}, mean {bpimage.mean()}")
+    want = {**none, "bvh_closest_hit": BUNNY_PT_SPP * bucfg.max_bounce,
+            "bvh_any_hit": BUNNY_PT_SPP * bucfg.max_bounce
+            * bucfg.num_shadow_ray}
+    _require(bplaunches == want, f"bunny PT launch counts {bplaunches}, "
+             f"want {want}")
+    reset()
+    names = kernels_in(torch, lambda: r.render_batch(1), warm=True)
+    bp_wrapped = _shown(counts())
+    bp_seen = _shown({k: sum(kname in n for n in names)
+                      for k, kname in PROFILED.items()})
+    _require(bp_seen == bp_wrapped == {
+        k: n // BUNNY_PT_SPP for k, n in _shown(bplaunches).items()},
+             f"bunny PT: the profiler saw {bp_seen} launches a pass, the "
+             f"wrappers counted {bp_wrapped}")
+    bp_twin = twin_equal(lambda c: pt.Renderer(buscene, c, seed=1), bucfg,
+                         btwin)
+    bp_floor = floor_difference(
+        torch, lambda scn, c: pt.render_pass_pt(scn, c, rng.PRNGKey(3), 1),
+        buscene, untextured, bsmall, bu_tex["mat"])
+    print(f"phase 14 main path bunny PT {bucfg.w}x{bucfg.h} mb "
+          f"{bucfg.max_bounce}, {bucfg.num_shadow_ray} shadow rays, schedule "
+          f"{r._sched}, {BUNNY_PT_SPP} spp: "
+          f"{1e3 * dt_bp / BUNNY_PT_SPP:.2f} ms/spp [{card}]; peak memory "
+          f"{bp_peak - held:.3f} GiB over the {held:.3f} GiB earlier phases "
+          "hold; launches per spp "
+          + ", ".join(f"{k} {n // BUNNY_PT_SPP}"
+                      for k, n in _shown(bplaunches).items())
+          + f" (profiler, one spp: {bp_seen}); image mean "
+          f"{bpimage.mean():.6f}, NaN pixel share {bp_nan}; 64^2 render at "
+          f"{TWIN_BOUNCES} bounces equal to the twins' (max abs diff "
+          f"{bp_twin:.3g}); 64^2 textured "
+          f"vs untextured on the floor: mean abs diff {bp_floor:.4f}; phase "
+          f"{time.perf_counter() - t14:.1f} s", flush=True)
+    del r
+
     path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]
                         + vblaunches[k]
                         for k in ("tri_closest_hit", "tri_any_hit")},
-                     **{k: klaunches[k] for k in ("bvh_closest_hit",
-                                                  "bvh_any_hit")},
+                     **{k: klaunches[k] + bulaunches[k] + bplaunches[k]
+                        for k in ("bvh_closest_hit", "bvh_any_hit")},
                      "tri_track_hits": vlaunches["tri_track_hits"]
                      + vblaunches["tri_track_hits"],
                      "splat_sorted_accumulate":
-                         blaunches["splat_sorted_accumulate"],
+                         blaunches["splat_sorted_accumulate"]
+                         + bulaunches["splat_sorted_accumulate"],
                      **{k: tier_launches["sweep"][k] for k in (
                          "cluster_closest_hit", "cluster_any_hit")},
                      **{k: tier_launches["qpick"][k] for k in (

@@ -572,11 +572,21 @@ def test_transient_checkpoint_roundtrip(trans):
 
 
 def test_bdpt_gate(cbox):
-    """What BDPT does not have yet raises, naming the ROADMAP item."""
+    """What BDPT does not have yet raises, naming the ROADMAP item: grid
+    volumes (item 14). csphere/single-ball.xml (Blinn-Phong and specular
+    BRDFs, a sphere area light), which it refused until item 9, renders:
+    12^2, 2 bounces, against the JAX render."""
     scene, cfg, _ = load_scene(SCENE_DIR + "/csphere/", "single-ball.xml",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        B.BDPT(scene, cfg)
+    B.BDPT(scene, cfg)
+    jscene, jcfg, _ = jax_load_scene(SCENE_DIR + "/csphere/",
+                                     "single-ball.xml")
+    img, _, _ = B.render_pass_bdpt(scene, _small(cfg, w=12, mb=2),
+                                   rng.PRNGKey(42), 1)
+    ref, _, _ = JB.render_pass_bdpt(jscene, _small(jcfg, w=12, mb=2),
+                                    jax.random.PRNGKey(42), jnp.int32(1))
+    _close(img.numpy(), ref)
+    assert img.mean() > 0.01
     _, _, scene, cfg = cbox
     with pytest.raises(NotImplementedError, match="item 14"):
         B.render_pass_bdpt(scene, dataclasses.replace(_cut(cfg, w=8),

@@ -171,7 +171,8 @@ def test_port_imports_no_jax():
             "adapt_tpu_torch.renderer.bdpt, adapt_tpu_torch.ops.splat, "
             "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt, "
             "adapt_tpu_torch.renderer.direct, adapt_tpu_torch.renderer.ssao, "
-            "adapt_tpu_torch.ops.sampling; "
+            "adapt_tpu_torch.ops.sampling, adapt_tpu_torch.ops.texture_ops, "
+            "adapt_tpu_torch.ops.mixture_ops; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")

@@ -11,6 +11,7 @@ on a small component of a unit vector.
 import dataclasses
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -18,13 +19,17 @@ import torch
 from adapt_tpu.ops import bxdf_ops as jbx, emitter_ops as jem
 from adapt_tpu.ops import math3d as jm, sampling as js
 from adapt_tpu.ops.intersect import Interaction as JInteraction
+from adapt_tpu.renderer import pt as jpt
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch.ops import bxdf_ops as tbx, emitter_ops as tem
 from adapt_tpu_torch.ops import math3d as tm, sampling as ts
 from adapt_tpu_torch.ops.intersect import Interaction
+from adapt_tpu_torch import rng
+from adapt_tpu_torch.renderer import pt
 from adapt_tpu_torch.scene.compile import load_scene
 
 from conftest import SCENE_DIR
+from test_torch_pt import _close
 
 N = 4096
 
@@ -136,9 +141,10 @@ def test_lambertian_surface_ops(cbox, two_sides):
 
 
 def test_unported_bxdf_raises(tmp_path):
-    """Every BRDF and the refracting BSDFs are ported; BxDF mixtures are
-    not: a scene with one is refused at compile, naming the ROADMAP item,
-    where the JAX package loads it."""
+    """BxDF mixtures, which the port refused at compile until they were
+    ported, load and render: a mixture of one diffuse component at
+    p_d = 1 renders as the JAX package's does (its op-level and
+    multi-component passes are in tests/test_torch_mixture.py)."""
     from test_mixture import _SCENE_TMPL
     mixed = """
   <brdf type="lambertian" id="base">
@@ -150,11 +156,17 @@ def test_unported_bxdf_raises(tmp_path):
   </brdf>"""
     (tmp_path / "scene.xml").write_text(
         _SCENE_TMPL.format(materials=mixed, max_bounce=3))
-    jscene, _, _ = jax_load_scene(str(tmp_path), "scene.xml")
+    jscene, jcfg, _ = jax_load_scene(str(tmp_path), "scene.xml")
     assert jscene.mixture is not None
-    with pytest.raises(NotImplementedError,
-                       match="mixtures.*ROADMAP.md queue A item 9"):
-        load_scene(str(tmp_path), "scene.xml", device="cpu")
+    scene, cfg, _ = load_scene(str(tmp_path), "scene.xml", device="cpu")
+    assert scene.mixture is not None
+    np.testing.assert_array_equal(scene.obj_mixture.numpy(),
+                                  np.asarray(jscene.obj_mixture))
+    img = pt.render_pass_pt(scene, cfg, rng.PRNGKey(5), 1)
+    ref = jpt.render_pass_pt(jscene, jcfg, jax.random.PRNGKey(5),
+                             jnp.int32(1))
+    _close(img.numpy(), ref)
+    assert img.mean() > 0.01
 
 
 def test_point_light(cbox):

@@ -274,18 +274,28 @@ def test_compacted_pass_equals_uncompacted(vcbox, schedule):
     assert plain.mean() > 0.05
 
 
-def test_vpt_gate():
+def test_vpt_gate(tmp_path):
     """What the volumetric tracer does not have yet raises, naming the
-    ROADMAP item: grid volumes (item 14) and textures (item 9); PT's gate
-    still refuses the vpt cbox (tests/test_torch_scene.py)."""
+    ROADMAP item: grid volumes (item 14); PT's gate still refuses the vpt
+    cbox (tests/test_torch_scene.py). Textures, which it refused until
+    they were ported, render: the vpt cbox with the two-tone floor of
+    tests/test_torch_texture.py, 24^2, 3 bounces, against the JAX
+    render."""
     scene, cfg, _ = load_scene(SCENE_DIR + "/vpt/", "cbox.xml", device="cpu")
     grid = dataclasses.replace(cfg, volume_kind=1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 14"):
         vpt.VolumeRenderer(scene, grid)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 14"):
         vpt.render_pass_vpt(scene, _small(grid, 8), rng.PRNGKey(0), 1)
-    textured = dataclasses.replace(cfg, has_normal_map=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 9"):
-        vpt.VolumeRenderer(scene, textured)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 9"):
-        vpt.render_pass_vpt(scene, _small(textured, 8), rng.PRNGKey(0), 1)
+    import chip_smoke
+    from test_torch_texture import _load_both
+    jscene, jcfg, tscene, tcfg = _load_both(
+        *chip_smoke.twotone_cbox(str(tmp_path), "vpt", "cbox.xml"))
+    assert tscene.tex["albedo"].present
+    vpt.VolumeRenderer(tscene, tcfg)
+    img = vpt.render_pass_vpt(tscene, _small(tcfg, 24), rng.PRNGKey(42), 1)
+    ref = jvpt.render_pass_vpt(jscene, _small(jcfg, 24),
+                               jax.random.PRNGKey(42), jnp.int32(1))
+    _close(img.numpy(), ref)
+    plain = vpt.render_pass_vpt(scene, _small(cfg, 24), rng.PRNGKey(42), 1)
+    assert (img - plain).abs().max() > 1e-2
