@@ -23,6 +23,9 @@ from . import bvh
 from .intersect_kernels import _check, _is_cpu
 
 launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0}
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = {"bvh_closest_hit": "bvh_closest_kernel",
+                "bvh_any_hit": "bvh_any_kernel"}
 
 
 def reset_launches():

@@ -40,6 +40,10 @@ STAGED_ROWS = 256
 NULL_CAP = 16
 
 launches = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0}
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = {"tri_closest_hit": "tri_closest_kernel",
+                "tri_any_hit": "tri_any_kernel",
+                "tri_track_hits": "tri_track_kernel"}
 
 
 def reset_launches():

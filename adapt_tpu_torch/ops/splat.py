@@ -24,6 +24,8 @@ import ctypes
 import torch
 
 launches = {"splat_sorted_accumulate": 0}
+# the wrapper's kernel, by the name the profiler gives it
+kernel_names = {"splat_sorted_accumulate": "splat_kernel"}
 
 
 def reset_launches():

@@ -108,17 +108,14 @@ TOP = 8               # kernels listed by device time
 # the port's hand-written kernels (csrc/), always listed
 OWN_KERNELS = ("tri_", "bvh_", "splat_", "cluster_")
 # (module, wrapper, its launch counter, kernel): the wrappers whose
-# launches are attributed to the ranges open at the call
-_OWN = ((bvh_kernels, "bvh_closest_hit", bvh_kernels.launches,
-         "bvh_closest_kernel"),
-        (bvh_kernels, "bvh_any_hit", bvh_kernels.launches, "bvh_any_kernel"),
-        (intersect_kernels, "tri_closest_hit", intersect_kernels.launches,
-         "tri_closest_kernel"),
-        (intersect_kernels, "tri_any_hit", intersect_kernels.launches,
-         "tri_any_kernel"),
-        (intersect_kernels, "tri_track_hits", intersect_kernels.launches,
-         "tri_track_kernel"),
-        (bdpt, "splat_sorted_accumulate", splat.launches, "splat_kernel"))
+# launches are attributed to the ranges open at the call (BDPT calls the
+# film splat by the name it imported)
+_OWN = tuple((at, wrapper, ops.launches, kernel)
+             for at, ops in ((bvh_kernels, bvh_kernels),
+                             (intersect_kernels, intersect_kernels),
+                             (bdpt, splat))
+             for wrapper, kernel in ops.kernel_names.items())
+
 
 def _ranged(fn, name, opened):
     """fn inside a profiler range; `opened` lists the ranges open now,

@@ -19,7 +19,7 @@ non-zero exit and no result line.
    preview's shadow rays, bit-equal, with each set's device time, bound
    and plane / u / v tests a ray (`any_work`); the any hit also on every
    shadow-ray call of one PT pass of csphere/balls-multi.xml at 512^2
-   (`pt_shadow_rays`: 12 bounces x 4 shadow rays), bit-equal, with their
+   (`recorded_rays`: 12 bounces x 4 shadow rays), bit-equal, with their
    occluded share and the first call's device time and bound; one call of
    each brute-force wrapper launches one kernel, and a 64^2 pass at 3
    bounces of balls-multi (PT) and of vpt/balls (VPT) launches under the
@@ -47,7 +47,7 @@ non-zero exit and no result line.
    512^2 streams of
    1,572,864 updates (the t=1 stream of one BDPT cbox pass at 6 bounces, a
    uniform one with 10% dropped, one whose first 1024-pixel tile holds
-   70,000 updates, and the uniform one with 200,000 of its updates moved
+   70,000 updates, and the uniform one with 20,000 of its updates moved
    to one pixel), bit-equal to its plain version, with index_add_'s time
    beside it, single calls and device times; 2e: the five cluster kernels
    on knot290k (the all-cluster
@@ -153,9 +153,11 @@ non-zero exit and no result line.
    without textures on the textured floor;
 14. bunny PT: Renderer on bunny.xml at its own settings (2 shadow rays,
    auto-compaction): 10 BVH closest hits and 20 BVH any hits per spp (by
-   the wrappers and the profiler), peak memory, the image finite, at
-   64^2 (3 bounces) equal to the twins' render, and different from the
-   untextured one on the floor.
+   the wrappers and the profiler), peak memory, the BVH any hit on the
+   first shadow rays of one pass, bit-equal to its twin, with device time
+   and bound; the image finite, at 64^2 (3 bounces) equal to the twins'
+   render, and different from the untextured one on the floor.
+Each phase's line ends with its wall time in seconds.
 Every phase that loads a textured scene fails unless each texture it
 names loaded (`load_textured`): the loader only warns about a missing
 file and renders without it.
@@ -188,6 +190,9 @@ BUNNY_PT_SPP = 2   # bunny PT samples per pixel (after one warm-up spp)
 PROF_BOUNCES = 3   # bounces of phase 2a's profiled balls-multi and vpt passes
 TWIN_BOUNCES = 3   # bounces of the 64^2 twin renders of the BVH-tier scenes
 REPS = 5           # kernel timing repetitions (median)
+# updates of phase 2d's one-pixel stream: 20 of the splat kernel's staged
+# chunks (its plain version loops once per update of the longest segment)
+HOT_UPDATES = 20000
 TIE_RAYS = 65536   # rays of phase 2e's tie set (`tie_rays`)
 # largest share of lanes on which a cluster sweep kernel may take another
 # prim than the BVH kernel (the two round u and v in another order)
@@ -241,15 +246,6 @@ KERNELS = {
     "cluster_pick_any": ("adapt_tpu_torch/csrc/cluster_intersect.cu",
                          "adapt_tpu/ops/cluster_pallas.py:1691"),
 }
-
-
-# each wrapper's kernel, by the name the profiler gives it
-PROFILED = {"tri_closest_hit": "tri_closest_kernel",
-            "tri_any_hit": "tri_any_kernel",
-            "tri_track_hits": "tri_track_kernel",
-            "bvh_closest_hit": "bvh_closest_kernel",
-            "bvh_any_hit": "bvh_any_kernel",
-            "splat_sorted_accumulate": "splat_kernel"}
 
 
 def _require(ok, what):
@@ -656,20 +652,21 @@ def null_layers(torch, C, scene, dup, eps):
     return C.replace_triangles(scene, **fields)
 
 
-def pt_shadow_rays(torch, K, pt, rng, scene, cfg):
-    """[(ro, rd, far)] of every any-hit call of one PT pass of seed 0 on
-    this scene at cfg's settings, recorded around the wrapper (which runs
-    the kernel: the counts are reset before each main path)."""
-    calls, launch = [], K.tri_any_hit
+def recorded_rays(module, wrapper, run, first=None):
+    """[(ro, rd, far)] of the calls of module.wrapper (its first `first`
+    calls, or all) while run() runs, recorded around the wrapper (which
+    runs the kernel: the counts are reset before each main path)."""
+    calls, launch = [], getattr(module, wrapper)
 
     def record(s, o, d, far):
-        calls.append((o.clone(), d.clone(), far.clone()))
+        if first is None or len(calls) < first:
+            calls.append((o.clone(), d.clone(), far.clone()))
         return launch(s, o, d, far)
-    K.tri_any_hit = record
+    setattr(module, wrapper, record)
     try:
-        pt.render_pass_pt(scene, cfg, rng.PRNGKey(0), 1)
+        run()
     finally:
-        K.tri_any_hit = launch
+        setattr(module, wrapper, launch)
     return calls
 
 
@@ -738,26 +735,6 @@ def bunny_assets(meshes=True):
             gen.ensure_texture(rel)
 
 
-def write_png(path, rgb):
-    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (standard
-    library zlib, filter 0 on every row)."""
-    import struct
-    import zlib
-
-    def chunk(kind, data):
-        body = kind + data
-        return struct.pack(">I", len(data)) + body \
-            + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n"
-                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
-                                              0))
-                 + chunk(b"IDAT", zlib.compress(raw, 9))
-                 + chunk(b"IEND", b""))
-
-
 def _scene_copy(directory, file, out_dir, edit):
     """Write directory/file to out_dir/scene.xml with every mesh and
     texture path made absolute (meshes resolve against the scene's
@@ -808,12 +785,13 @@ def twotone_cbox(out_dir, suite="cbox", file="cbox.xml"):
     floor, written to out_dir (tests/goldens/cbox_tex_pt_48.npy renders
     it); returns (out_dir, "scene.xml")."""
     import numpy as np
+    from PIL import Image
     tex = np.zeros((64, 64, 3), np.float32)
     tex[:, :32] = [1.0, 0.1, 0.1]
     tex[:, 32:] = [0.1, 0.1, 1.0]
     os.makedirs(out_dir, exist_ok=True)
     png = os.path.join(out_dir, "twotone.png")
-    write_png(png, (tex * 255).astype(np.uint8))
+    Image.fromarray((tex * 255).astype(np.uint8)).save(png)
 
     def edit(root):
         add_texture(root, "twotone", png)
@@ -903,6 +881,13 @@ def main():
     from adapt_tpu_torch.renderer import bdpt as B, direct, pt, ssao, vpt
     from adapt_tpu_torch.renderer.base import camera_rays
     from adapt_tpu_torch.scene import compile as C
+    said = [time.perf_counter()]
+
+    def say(line):
+        """A phase's line, with the seconds since the previous one."""
+        now = time.perf_counter()
+        print(f"{line} ({now - said[0]:.1f} s)", flush=True)
+        said[0] = now
 
     def reset():
         K.reset_launches()
@@ -914,6 +899,30 @@ def main():
         return {**K.launches, **BK.launches, **S.launches, **CK.launches}
 
     none = {k: 0 for k in KERNELS}
+    # each wrapper's kernel, by the name the profiler gives it
+    profiled = {**K.kernel_names, **BK.kernel_names, **S.kernel_names}
+
+    def profiled_launches(fn, what, warm=False, tries=3):
+        """(launches of each kernel in one call of fn by torch.profiler
+        (`kernels_in`), calls profiled). They must equal the wrappers'
+        counts of that call. The profiler may miss a kernel's record (on
+        an H100 it once saw 9 of a full-size bunny PT pass's 10 BVH
+        closest hits, among ~21,500 kernels): a call it saw short of the
+        wrappers' counts is profiled again, up to `tries` calls; it may
+        never see a launch the wrappers did not count."""
+        for call in range(1, tries + 1):
+            reset()
+            names = kernels_in(torch, fn, warm)
+            wrapped = {k: n // (1 if warm else 2)   # and a warm-up call
+                       for k, n in _shown(counts()).items()}
+            seen = _shown({k: sum(kname in n for n in names)
+                           for k, kname in profiled.items()})
+            _require(all(n <= wrapped.get(k, 0) for k, n in seen.items())
+                     and (seen == wrapped or call < tries),
+                     f"{what}: the profiler saw {seen} launches, the "
+                     f"wrappers counted {wrapped} (call {call})")
+            if seen == wrapped:
+                return seen, call
 
     # ---- 1. device, builds, assets, set-up ----
     card = subprocess.run(
@@ -953,13 +962,13 @@ def main():
     upload_s = time.perf_counter() - t0
     _require(kscene.n_prims == 290010 and kcfg.max_bounce == 12
              and (kcfg.w, kcfg.h) == (512, 512), "knot290k settings")
-    print(f"phase 1 device: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | builds started together, all done in "
-          f"{build_s:.2f} s {_build.build_seconds} | knot mesh {gen_s:.2f} s | "
-          f"knot290k set-up: parse {parse_s:.2f} s, compile {compile_s:.2f} "
-          f"s of which BVH build {bvh_s[0]:.2f} s "
-          f"({kscene.bvh_node_pack.shape[0]} nodes), upload {upload_s:.3f} "
-          f"s", flush=True)
+    say(f"phase 1 device: {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | builds started together, all done in "
+        f"{build_s:.2f} s {_build.build_seconds} | knot mesh {gen_s:.2f} s | "
+        f"knot290k set-up: parse {parse_s:.2f} s, compile {compile_s:.2f} "
+        f"s of which BVH build {bvh_s[0]:.2f} s "
+        f"({kscene.bvh_node_pack.shape[0]} nodes), upload {upload_s:.3f} "
+        f"s")
 
     # ---- 2a. brute-force kernels against their twins, cbox 512^2 ----
     scene, cfg0, _ = C.load_scene(cbox_dir, "cbox.xml")
@@ -1068,18 +1077,7 @@ def main():
             ("vpt balls VPT", lambda: vpt.render_pass_vpt(
                 vbscene, _small(vbcfg, 64, max_bounce=PROF_BOUNCES),
                 rng.PRNGKey(0), 1))):
-        reset()
-        names = kernels_in(torch, fn)
-        wrapped = {k: n // 2 for k, n in _shown(counts()).items()}
-        seen = _shown({k: sum(kname in n for n in names)
-                       for k, kname in (("tri_closest_hit",
-                                         "tri_closest_kernel"),
-                                        ("tri_any_hit", "tri_any_kernel"),
-                                        ("tri_track_hits",
-                                         "tri_track_kernel"))})
-        _require(seen == wrapped, f"{tag}: the profiler saw {seen} "
-                 f"launches, the wrappers counted {wrapped}")
-        path_prof[tag] = seen
+        path_prof[tag], _ = profiled_launches(fn, tag)
     # one closest hit a bounce, one any hit (PT) or media walk (VPT) a
     # shadow ray
     _require(path_prof["balls-multi PT"] == {"tri_closest_hit": 3,
@@ -1088,7 +1086,8 @@ def main():
                                                 "tri_track_hits": 12},
              f"launches a pass {path_prof}")
     # B2 bit-equal on every shadow-ray call of a 512^2 balls-multi PT pass
-    m_calls = pt_shadow_rays(torch, K, pt, rng, mscene, mcfg)
+    m_calls = recorded_rays(K, "tri_any_hit", lambda: pt.render_pass_pt(
+        mscene, mcfg, rng.PRNGKey(0), 1))
     _require(len(m_calls) == mcfg.max_bounce * mcfg.num_shadow_ray,
              f"{len(m_calls)} any-hit calls in a balls-multi pass")
     m_occ = m_walk = 0
@@ -1153,43 +1152,43 @@ def main():
                     _split_ops(*any_work(torch, K, mscene, mo, md, mfar))),
              [x / m_walking for x in any_work(torch, K, mscene, mo, md,
                                                mfar)])
-    print("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
-          + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
-                      f"{t:.4f} ms (device, kernel only {device[k]:.4f}), "
-                      f"twin {p:.4f} ms, bound {bounds[k][0]:.4f} ms "
-                      f"({bounds[k][1]})"
-                      for k, (t, p) in times.items())
-          + f" | B1 device on primary rays {b1_primary_dev:.4f} ms, on bounce"
-          f" rays four fifths dead {b1_sparse_dev:.4f} ms | B1 "
-          "bit-equal on every set (hit share, FAR-row hits; plane, u and v "
-          "tests a ray, share of (warp, row) steps with no lane on the u "
-          "half): " + ", ".join(
-              f"{tag} {h:.4f}, {fr}; {p / N:.2f}, {u / N:.2f}, {v / N:.2f}, "
-              f"{idle:.4f}" for tag, ((h, fr), (p, u, v, idle)) in
-              ((t_, (b1_seen[t_], b1_work[t_])) for t_ in b1_sets))
-          + f"; {tie_n} tie-set rays tie in t | B2 bit-equal on every set "
-          "(occluded share; device ms, kernel only; bound ms; plane, u and v "
-          "tests a walking ray): " + ", ".join(
-              f"{tag} {b2_seen[tag]:.4f}; {dv:.4f}; {bd_[0]:.4f} "
-              f"({bd_[1]}); {w[0]:.2f}, {w[1]:.2f}, {w[2]:.2f}"
-              for tag, (dv, bd_, w) in b2_rows.items())
-          + f" | B2 bit-equal on the {len(m_calls)} shadow-ray calls of a "
-          f"{mcfg.w}x{mcfg.h} balls-multi PT pass: occluded share of the "
-          f"walking rays {m_occ / max(m_walk, 1):.4f}; first call "
-          f"{m_walking / N:.4f} walking, device {m_row[0]:.4f} ms, bound "
-          f"{m_row[1][0]:.4f} ({m_row[1][1]}), {m_row[2][0]:.2f}, "
-          f"{m_row[2][1]:.2f}, {m_row[2][2]:.2f} plane, u, v tests a walking"
-          " ray | one call launches "
-          + ", ".join(f"{k} {names[0].split('(')[0]}"
-                      for k, names in one_call.items())
-          + " | a 64^2 pass at 3 bounces launches (profiler = wrapper "
-          "counts) "
-          + "; ".join(f"{tag} {_shown(c)}" for tag, c in path_prof.items())
-          + " | " + "; ".join(
-              f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
-              f"resident per SM x {sms} SMs, {w} waves"
-              for k, (r, sp, b, sms, bs, w) in tinfo.items()
-              if k != "tri_track_hits") + f" [{card}]", flush=True)
+    say("phase 2a brute-force kernels vs twins, cbox, %d rays: " % N
+        + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
+                    f"{t:.4f} ms (device, kernel only {device[k]:.4f}), "
+                    f"twin {p:.4f} ms, bound {bounds[k][0]:.4f} ms "
+                    f"({bounds[k][1]})"
+                    for k, (t, p) in times.items())
+        + f" | B1 device on primary rays {b1_primary_dev:.4f} ms, on bounce"
+        f" rays four fifths dead {b1_sparse_dev:.4f} ms | B1 "
+        "bit-equal on every set (hit share, FAR-row hits; plane, u and v "
+        "tests a ray, share of (warp, row) steps with no lane on the u "
+        "half): " + ", ".join(
+            f"{tag} {h:.4f}, {fr}; {p / N:.2f}, {u / N:.2f}, {v / N:.2f}, "
+            f"{idle:.4f}" for tag, ((h, fr), (p, u, v, idle)) in
+            ((t_, (b1_seen[t_], b1_work[t_])) for t_ in b1_sets))
+        + f"; {tie_n} tie-set rays tie in t | B2 bit-equal on every set "
+        "(occluded share; device ms, kernel only; bound ms; plane, u and v "
+        "tests a walking ray): " + ", ".join(
+            f"{tag} {b2_seen[tag]:.4f}; {dv:.4f}; {bd_[0]:.4f} "
+            f"({bd_[1]}); {w[0]:.2f}, {w[1]:.2f}, {w[2]:.2f}"
+            for tag, (dv, bd_, w) in b2_rows.items())
+        + f" | B2 bit-equal on the {len(m_calls)} shadow-ray calls of a "
+        f"{mcfg.w}x{mcfg.h} balls-multi PT pass: occluded share of the "
+        f"walking rays {m_occ / max(m_walk, 1):.4f}; first call "
+        f"{m_walking / N:.4f} walking, device {m_row[0]:.4f} ms, bound "
+        f"{m_row[1][0]:.4f} ({m_row[1][1]}), {m_row[2][0]:.2f}, "
+        f"{m_row[2][1]:.2f}, {m_row[2][2]:.2f} plane, u, v tests a walking"
+        " ray | one call launches "
+        + ", ".join(f"{k} {names[0].split('(')[0]}"
+                    for k, names in one_call.items())
+        + " | a 64^2 pass at 3 bounces launches (profiler = wrapper "
+        "counts) "
+        + "; ".join(f"{tag} {_shown(c)}" for tag, c in path_prof.items())
+        + " | " + "; ".join(
+            f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
+            f"resident per SM x {sms} SMs, {w} waves"
+            for k, (r, sp, b, sms, bs, w) in tinfo.items()
+            if k != "tri_track_hits") + f" [{card}]")
 
     # ---- 2b. BVH kernels against their twin, knot290k 512^2 ----
     kro, krd = camera_rays(kscene, kcfg, rng.split(rng.PRNGKey(1))[1], 1)
@@ -1270,26 +1269,26 @@ def main():
         for tag, (o, d, far) in rays.items():
             rays[tag] = _graph_ms(torch, lambda: fns[k](kscene, o, d, far))
     device.update({k: v[next(iter(v))] for k, v in kdevice.items()})
-    print("phase 2b BVH kernels vs twin, knot290k, %d rays: " % N
-          + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
-                      f"{t:.4f} ms (device " + ", ".join(
-                          f"{tag} rays {ms:.4f}"
-                          for tag, ms in kdevice[k].items())
-                      + f"), twin {p:.4f} ms (one call), bound "
-                      f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
-                      for k, (t, p) in ktimes.items())
-          + " | node visits / prim tests per ray: " + ", ".join(
-              f"{k} {tag} {v / N:.2f} / {s / N:.2f}"
-              for (k, tag), (v, s) in work.items())
-          + " | live lanes of the any hit's sets: " + ", ".join(
-              f"{tag} {sh:.4f}" for tag, sh in live_share.items())
-          + " | " + "; ".join(
-              f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
-              f"resident per SM x {sms} SMs, "
-              + (f"one wave, {w:.2f} rays per resident thread"
-                 if k == "bvh_closest_hit" else f"{w} waves")
-              for k, (r, sp, b, sms, bs, w) in kinfo.items())
-          + f" [{card}]", flush=True)
+    say("phase 2b BVH kernels vs twin, knot290k, %d rays: " % N
+        + "; ".join(f"{k} exact ids, max abs err {errs[k]:.3g}, kernel "
+                    f"{t:.4f} ms (device " + ", ".join(
+                        f"{tag} rays {ms:.4f}"
+                        for tag, ms in kdevice[k].items())
+                    + f"), twin {p:.4f} ms (one call), bound "
+                    f"{bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                    for k, (t, p) in ktimes.items())
+        + " | node visits / prim tests per ray: " + ", ".join(
+            f"{k} {tag} {v / N:.2f} / {s / N:.2f}"
+            for (k, tag), (v, s) in work.items())
+        + " | live lanes of the any hit's sets: " + ", ".join(
+            f"{tag} {sh:.4f}" for tag, sh in live_share.items())
+        + " | " + "; ".join(
+            f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
+            f"resident per SM x {sms} SMs, "
+            + (f"one wave, {w:.2f} rays per resident thread"
+               if k == "bvh_closest_hit" else f"{w} waves")
+            for k, (r, sp, b, sms, bs, w) in kinfo.items())
+        + f" [{card}]")
 
     # ---- 2e. cluster kernels against their plain versions, knot290k ----
     CM = kscene.cluster_size
@@ -1576,50 +1575,50 @@ def main():
         bounds[k] = _bound(pk.numel() * 4 + picked.numel() * 4 + rows_b
                            + active * active_b + N * lane_b,
                            row_ops(tests, whole))
-    print("phase 2e cluster kernels vs plain, knot290k (%d clusters of %d "
-          "slots), %d rays: every output bit-equal; " % (NC, CM, N)
-          + "; ".join(f"{k} max abs err {errs[k]:.3g}, kernel {t:.4f} ms "
-                      f"(device {cdevice[k]:.4f}), plain {p:.4f} ms (one "
-                      f"call), bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
-                      for k, (t, p) in ctimes.items())
-          + f" | front pass ({NT} rows of cl_tree), box tests a ray, flat "
-          f"{NC} / culled walk (most one ray; entering share, second "
-          "share): " + ", ".join(
-              f"{tag} {b / N:.2f} ({mx}; {e:.4f}, {sc:.4f})"
-              for tag, (b, mx, e, sc) in front_tests.items())
-          + f", walk bit-equal; device on primary rays "
-          f"{cdevice['cluster_front primary']:.4f} ms; bound of the flat "
-          f"loop {flat_bound[0]:.4f} ms ({flat_bound[1]})"
-          + " | " + tie_line + " | " + "; ".join(
-              f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
-              f"resident per SM x {sms} SMs, {w} waves"
-              for k, (r, sp, b, sms, bs, w) in cinfo.items())
-          + " | divergence factor (one thread a ray / warp-cooperative): "
-          + ", ".join(f"{k} {tag} {a:.2f} / {b:.2f}"
-                      for (k, tag), (a, b) in diverge.items())
-          + " | box tests / row tests per ray: " + ", ".join(
-              f"{k} {tag} {b / N:.1f} / {r / N:.1f}"
-              for (k, tag), (b, r, _w) in cwork.items())
-          + " | whole row tests per ray: " + ", ".join(
-              f"{k} {tag} {w / N:.2f}"
-              for (k, tag), (_b, _r, w) in cwork.items())
-          + f"; pick pass 0: closest {pick_tests / N:.1f} ({pick_whole / N:.2f}"
-          f" whole), any {any_tests / N:.1f} ({any_whole / N:.2f} whole) row "
-          "tests per ray; " + ", ".join(
-              f"{k} reads {c} clusters' {b} B of live rows and the rays of "
-              f"{a} lanes" for k, (c, b, a) in pick_bytes.items())
-          + " | bounce rays entering a "
-          f"cluster {pick_shares[0]:.4f}, covered by {CK.QP_P} picks "
-          f"{pick_shares[1]:.4f}, hit in a pick pass {pick_hits:.4f}, left to "
-          f"the cleanup {pick_shares[2]:.4f} | pick passes on harder sets, "
-          f"bit-equal, closest / any (forced: cluster {big}, "
-          f"{int(kscene.cl_count[big])} live rows, {N - 37} rays): "
-          + "; ".join(pick_lines) + " | "
-          "share of lanes differing from the BVH kernels: " + ", ".join(
-              f"{k} {tag} {v:.3g}" for (k, tag), v in vs_bvh.items())
-          + f" | BVH kernels on the same rays: closest "
-          f"{times['bvh_closest_hit'][0]:.4f} ms, any "
-          f"{times['bvh_any_hit'][0]:.4f} ms [{card}]", flush=True)
+    say("phase 2e cluster kernels vs plain, knot290k (%d clusters of %d "
+        "slots), %d rays: every output bit-equal; " % (NC, CM, N)
+        + "; ".join(f"{k} max abs err {errs[k]:.3g}, kernel {t:.4f} ms "
+                    f"(device {cdevice[k]:.4f}), plain {p:.4f} ms (one "
+                    f"call), bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                    for k, (t, p) in ctimes.items())
+        + f" | front pass ({NT} rows of cl_tree), box tests a ray, flat "
+        f"{NC} / culled walk (most one ray; entering share, second "
+        "share): " + ", ".join(
+            f"{tag} {b / N:.2f} ({mx}; {e:.4f}, {sc:.4f})"
+            for tag, (b, mx, e, sc) in front_tests.items())
+        + f", walk bit-equal; device on primary rays "
+        f"{cdevice['cluster_front primary']:.4f} ms; bound of the flat "
+        f"loop {flat_bound[0]:.4f} ms ({flat_bound[1]})"
+        + " | " + tie_line + " | " + "; ".join(
+            f"{k}: {r} registers, {sp} B spilled, {b} blocks of {bs} "
+            f"resident per SM x {sms} SMs, {w} waves"
+            for k, (r, sp, b, sms, bs, w) in cinfo.items())
+        + " | divergence factor (one thread a ray / warp-cooperative): "
+        + ", ".join(f"{k} {tag} {a:.2f} / {b:.2f}"
+                    for (k, tag), (a, b) in diverge.items())
+        + " | box tests / row tests per ray: " + ", ".join(
+            f"{k} {tag} {b / N:.1f} / {r / N:.1f}"
+            for (k, tag), (b, r, _w) in cwork.items())
+        + " | whole row tests per ray: " + ", ".join(
+            f"{k} {tag} {w / N:.2f}"
+            for (k, tag), (_b, _r, w) in cwork.items())
+        + f"; pick pass 0: closest {pick_tests / N:.1f} ({pick_whole / N:.2f}"
+        f" whole), any {any_tests / N:.1f} ({any_whole / N:.2f} whole) row "
+        "tests per ray; " + ", ".join(
+            f"{k} reads {c} clusters' {b} B of live rows and the rays of "
+            f"{a} lanes" for k, (c, b, a) in pick_bytes.items())
+        + " | bounce rays entering a "
+        f"cluster {pick_shares[0]:.4f}, covered by {CK.QP_P} picks "
+        f"{pick_shares[1]:.4f}, hit in a pick pass {pick_hits:.4f}, left to "
+        f"the cleanup {pick_shares[2]:.4f} | pick passes on harder sets, "
+        f"bit-equal, closest / any (forced: cluster {big}, "
+        f"{int(kscene.cl_count[big])} live rows, {N - 37} rays): "
+        + "; ".join(pick_lines) + " | "
+        "share of lanes differing from the BVH kernels: " + ", ".join(
+            f"{k} {tag} {v:.3g}" for (k, tag), v in vs_bvh.items())
+        + f" | BVH kernels on the same rays: closest "
+        f"{times['bvh_closest_hit'][0]:.4f} ms, any "
+        f"{times['bvh_any_hit'][0]:.4f} ms [{card}]")
 
     # ---- 2c. media-walk kernel against its twin, vpt cbox 512^2 ----
     _require(vcfg.max_bounce == 16 and (vcfg.w, vcfg.h) == (512, 512)
@@ -1697,21 +1696,21 @@ def main():
     device["tri_track_hits"] = _graph_ms(
         torch, lambda: K.tri_track_hits(vscene, v_p, v_sd, v_far_s, 2))
     r, sp, b, sms, bs, w = tinfo["tri_track_hits"]
-    print(f"phase 2c media-walk kernel vs twin, vpt cbox, {N} rays, "
-          f"{VT} triangles ({VN} null), null-row cap {null_cap}: every "
-          f"output equal, max abs err {errs['tri_track_hits']:.3g}; "
-          + "; ".join(f"{tag} K={k} ({nn} null rows, {br}): null-hit share "
-                      f"{a:.4f}, second {a2:.4f}, overflow share {o:.5f}, "
-                      f"blocked share {bl:.4f}"
-                      for tag, k, nn, br, a, a2, o, bl in shares)
-          + f" (shares of live lanes) | shadow K=2: kernel {tt:.4f} ms "
-          f"(device, kernel only {device['tri_track_hits']:.4f}), twin "
-          f"{tp:.4f} ms, bound {bounds['tri_track_hits'][0]:.4f} ms "
-          f"({bounds['tri_track_hits'][1]}); plane, u and v tests a walking"
-          " ray " + ", ".join(f"{x / walking:.2f}" for x in b3_work)
-          + f" | {r} registers, {sp} B "
-          f"spilled, {b} blocks of {bs} resident per SM x {sms} SMs, {w} "
-          f"waves [{card}]", flush=True)
+    say(f"phase 2c media-walk kernel vs twin, vpt cbox, {N} rays, "
+        f"{VT} triangles ({VN} null), null-row cap {null_cap}: every "
+        f"output equal, max abs err {errs['tri_track_hits']:.3g}; "
+        + "; ".join(f"{tag} K={k} ({nn} null rows, {br}): null-hit share "
+                    f"{a:.4f}, second {a2:.4f}, overflow share {o:.5f}, "
+                    f"blocked share {bl:.4f}"
+                    for tag, k, nn, br, a, a2, o, bl in shares)
+        + f" (shares of live lanes) | shadow K=2: kernel {tt:.4f} ms "
+        f"(device, kernel only {device['tri_track_hits']:.4f}), twin "
+        f"{tp:.4f} ms, bound {bounds['tri_track_hits'][0]:.4f} ms "
+        f"({bounds['tri_track_hits'][1]}); plane, u and v tests a walking"
+        " ray " + ", ".join(f"{x / walking:.2f}" for x in b3_work)
+        + f" | {r} registers, {sp} B "
+        f"spilled, {b} blocks of {bs} resident per SM x {sms} SMs, {w} "
+        f"waves [{card}]")
 
     # ---- 2d. film-splat kernel against its plain version, 512^2 ----
     bcfg = dataclasses.replace(cfg0, max_bounce=6)  # scripts/bench_all.py:74-78
@@ -1756,7 +1755,7 @@ def main():
     streams = (("bdpt t=1", (film1, idx1, rgb1)),
                ("uniform", splat_stream(0)),
                ("skewed", splat_stream(70000)),
-               ("one pixel 200000", hot_stream(200000)))
+               ("one pixel 20000", hot_stream(HOT_UPDATES)))
     _require(int((streams[2][1][1] < 1024).sum()) >= 65536,
              "the skewed stream's first tile holds 65,536 updates")
     splat_rows = []
@@ -1775,7 +1774,7 @@ def main():
         # in any order, lies within n 2^-24 sum|x| of the exact sum;
         # index_add_ adds by atomics in no set order, so it and the kernel
         # may differ by twice that (tighter than 1e-5 on a pixel of a few
-        # updates, ~1e-2 of the sum on the pixel of 200,000)
+        # updates, ~1e-3 of the sum on the pixel of 20,000)
         n_terms = torch.bincount(ik, minlength=P)[:, None] + 1
         mag = torch.index_add(film.abs(), 0, ik, rk.abs())
         _require(bool(((lib - got).abs()
@@ -1804,14 +1803,14 @@ def main():
     times["splat_sorted_accumulate"] = (sk, sp, sl)
     device["splat_sorted_accumulate"] = kb
     bounds["splat_sorted_accumulate"] = sb
-    print(f"phase 2d film-splat kernel vs plain, {P} pixels, {M} updates: "
-          "bit-equal on every stream; " + "; ".join(
-              f"{tag}: {nk} kept (most in one pixel {mx}), kernel {k:.4f} ms,"
-              f" plain {p:.4f} ms{' (one call)' if mx >= 1000 else ''}, "
-              f"bound {b[0]:.4f} ms ({b[1]}), index_add_ {lb:.4f} ms; "
-              f"device: kernel {kb:.4f}, index_add_ {ib:.4f} ms"
-              for tag, nk, k, p, b, lb, mx, kb, ib in splat_rows)
-          + f" [{card}]", flush=True)
+    say(f"phase 2d film-splat kernel vs plain, {P} pixels, {M} updates: "
+        "bit-equal on every stream; " + "; ".join(
+            f"{tag}: {nk} kept (most in one pixel {mx}), kernel {k:.4f} ms,"
+            f" plain {p:.4f} ms{' (one call)' if mx >= 1000 else ''}, "
+            f"bound {b[0]:.4f} ms ({b[1]}), index_add_ {lb:.4f} ms; "
+            f"device: kernel {kb:.4f}, index_add_ {ib:.4f} ms"
+            for tag, nk, k, p, b, lb, mx, kb, ib in splat_rows)
+        + f" [{card}]")
 
     # ---- 3. golden on the card ----
     golden = dict(anti_alias=False, stratified_sampling=False,
@@ -1826,9 +1825,8 @@ def main():
     err, mean, ref_mean = _check(
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "cbox_pt_48.npy")))
-    print(f"phase 3 golden cbox_pt_48 on cuda: max abs diff {err:.3g}, mean "
-          f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(golden_launches)}",
-          flush=True)
+    say(f"phase 3 golden cbox_pt_48 on cuda: max abs diff {err:.3g}, mean "
+        f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(golden_launches)}")
 
     # ---- 3b. vpt golden on the card ----
     vsmall = _small(vcfg, 48, max_bounce=3, **golden)
@@ -1841,9 +1839,8 @@ def main():
     err, mean, ref_mean = _check(
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "vptcbox_48.npy")))
-    print(f"phase 3b golden vptcbox_48 on cuda: max abs diff {err:.3g}, mean "
-          f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(vgolden_launches)}",
-          flush=True)
+    say(f"phase 3b golden vptcbox_48 on cuda: max abs diff {err:.3g}, mean "
+        f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(vgolden_launches)}")
 
     # ---- 3c. BDPT golden on the card ----
     reset()
@@ -1856,10 +1853,9 @@ def main():
     err, mean, ref_mean = _check(
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "cbox_bdpt_48.npy")))
-    print(f"phase 3c golden cbox_bdpt_48 on cuda: max abs diff {err:.3g}, "
-          f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
-          f"{_shown(bgolden_launches)}",
-          flush=True)
+    say(f"phase 3c golden cbox_bdpt_48 on cuda: max abs diff {err:.3g}, "
+        f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
+        f"{_shown(bgolden_launches)}")
 
     # ---- 3d. direct preview golden on the card ----
     reset()
@@ -1871,9 +1867,9 @@ def main():
     err, mean, ref_mean = _check(
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "cbox_direct_48.npy")))
-    print(f"phase 3d golden cbox_direct_48 on cuda: max abs diff {err:.3g}, "
-          f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
-          f"{_shown(dgolden_launches)}", flush=True)
+    say(f"phase 3d golden cbox_direct_48 on cuda: max abs diff {err:.3g}, "
+        f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
+        f"{_shown(dgolden_launches)}")
 
     # ---- 3e. SSAO golden on the card ----
     reset()
@@ -1886,9 +1882,9 @@ def main():
     err, mean, ref_mean = _check(
         img.cpu().numpy(),
         np.load(os.path.join(ROOT, "tests", "goldens", "cbox_ao_48.npy")))
-    print(f"phase 3e golden cbox_ao_48 on cuda: max abs diff {err:.3g}, "
-          f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
-          f"{_shown(agolden_launches)}", flush=True)
+    say(f"phase 3e golden cbox_ao_48 on cuda: max abs diff {err:.3g}, "
+        f"mean {mean:.6f} vs {ref_mean:.6f}, launches "
+        f"{_shown(agolden_launches)}")
 
     # ---- 3f. the csphere and vpt balls goldens on the card ----
     f_rows = []
@@ -1912,11 +1908,10 @@ def main():
             img.cpu().numpy(),
             np.load(os.path.join(ROOT, "tests", "goldens",
                                  gname + ".npy"))), fl))
-    print("phase 3f goldens on cuda, 48^2, 6 bounces: " + "; ".join(
-        f"{gname}: max abs diff {err:.3g}, mean {mean:.6f} vs "
-        f"{ref_mean:.6f}, launches {_shown(fl)}"
-        for gname, err, mean, ref_mean, fl in f_rows) + f" [{card}]",
-        flush=True)
+    say("phase 3f goldens on cuda, 48^2, 6 bounces: " + "; ".join(
+      f"{gname}: max abs diff {err:.3g}, mean {mean:.6f} vs "
+      f"{ref_mean:.6f}, launches {_shown(fl)}"
+      for gname, err, mean, ref_mean, fl in f_rows) + f" [{card}]")
 
     # ---- 3g. the textured goldens on the card ----
     bunny_assets()
@@ -1940,12 +1935,11 @@ def main():
             np.load(os.path.join(ROOT, "tests", "goldens",
                                  gname + ".npy"))), gl, sorted(tex_rows)))
     import PIL                        # the loaders read images with it
-    print(f"phase 3g textured goldens on cuda, 48^2, 3 bounces (images "
-          f"read with PIL {PIL.__version__}): " + "; ".join(
-        f"{gname}: textures {tex} loaded, max abs diff {err:.3g}, mean "
-        f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(gl)}"
-        for gname, err, mean, ref_mean, gl, tex in g_rows) + f" [{card}]",
-        flush=True)
+    say(f"phase 3g textured goldens on cuda, 48^2, 3 bounces (images "
+        f"read with PIL {PIL.__version__}): " + "; ".join(
+      f"{gname}: textures {tex} loaded, max abs diff {err:.3g}, mean "
+      f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(gl)}"
+      for gname, err, mean, ref_mean, gl, tex in g_rows) + f" [{card}]")
 
     @contextlib.contextmanager
     def twins():
@@ -1997,13 +1991,13 @@ def main():
         dt_twin = timed_batch(r_twin, SPP)
     twin_err, _, _ = _check(image, r_twin.image())
     rays = rays_per_spp(cfg)
-    print(f"phase 4 main path cbox {cfg.w}x{cfg.h} mb {cfg.max_bounce}, "
-          f"{SPP} spp: {1e3 * dt / SPP:.2f} ms/spp, "
-          f"{rays * SPP / dt / 1e6:.3f} Mrays/s [{card}]; twins in place: "
-          f"{1e3 * dt_twin / SPP:.2f} ms/spp, "
-          f"{rays * SPP / dt_twin / 1e6:.3f} Mrays/s [{card}]; image mean "
-          f"{image.mean():.6f}, max abs diff to twins {twin_err:.3g}; "
-          f"launches {_shown(launches)}", flush=True)
+    say(f"phase 4 main path cbox {cfg.w}x{cfg.h} mb {cfg.max_bounce}, "
+        f"{SPP} spp: {1e3 * dt / SPP:.2f} ms/spp, "
+        f"{rays * SPP / dt / 1e6:.3f} Mrays/s [{card}]; twins in place: "
+        f"{1e3 * dt_twin / SPP:.2f} ms/spp, "
+        f"{rays * SPP / dt_twin / 1e6:.3f} Mrays/s [{card}]; image mean "
+        f"{image.mean():.6f}, max abs diff to twins {twin_err:.3g}; "
+        f"launches {_shown(launches)}")
 
     # ---- 5. knot290k main path at full size, auto-compaction ----
     r = pt.Renderer(kscene, kcfg, seed=0)
@@ -2035,19 +2029,20 @@ def main():
     rk = pt.Renderer(kscene, small, seed=1)
     rk.render_batch(1)
     rt = pt.Renderer(kscene, small, seed=1)
+    rt._sched = rk._sched        # its probe's schedule, as in twin_equal
     with twins():
         rt.render_batch(1)
     ktwin_err, _, _ = _check(rk.image(), rt.image())
     rays = rays_per_spp(kcfg)
-    print(f"phase 5 main path knot290k {kcfg.w}x{kcfg.h} mb "
-          f"{kcfg.max_bounce}, schedule {sched}, {KNOT_SPP} spp: "
-          f"{dt / KNOT_SPP:.4f} s/spp, {rays * KNOT_SPP / dt / 1e6:.3f} "
-          f"Mrays/s [{card}]; uncompacted: {dt_plain / KNOT_SPP:.4f} s/spp, "
-          f"{rays * KNOT_SPP / dt_plain / 1e6:.3f} Mrays/s, image equal; "
-          f"probe + warm-up spp {warm_s:.2f} s; image mean "
-          f"{kimage.mean():.6f}; 64^2 max abs diff to twins at "
-          f"{TWIN_BOUNCES} bounces {ktwin_err:.3g}; "
-          f"launches {_shown(klaunches)}", flush=True)
+    say(f"phase 5 main path knot290k {kcfg.w}x{kcfg.h} mb "
+        f"{kcfg.max_bounce}, schedule {sched}, {KNOT_SPP} spp: "
+        f"{dt / KNOT_SPP:.4f} s/spp, {rays * KNOT_SPP / dt / 1e6:.3f} "
+        f"Mrays/s [{card}]; uncompacted: {dt_plain / KNOT_SPP:.4f} s/spp, "
+        f"{rays * KNOT_SPP / dt_plain / 1e6:.3f} Mrays/s, image equal; "
+        f"probe + warm-up spp {warm_s:.2f} s; image mean "
+        f"{kimage.mean():.6f}; 64^2 max abs diff to twins at "
+        f"{TWIN_BOUNCES} bounces {ktwin_err:.3g}; "
+        f"launches {_shown(klaunches)}")
 
     # ---- 6. vpt cbox main path at full size ----
     iters = vcfg.max_bounce + vpt.NULL_BUDGET
@@ -2079,12 +2074,12 @@ def main():
     with twins():
         rt.render_batch(1)
     vtwin_err, _, _ = _check(rv.image(), rt.image())
-    print(f"phase 6 main path vpt cbox {vcfg.w}x{vcfg.h} mb "
-          f"{vcfg.max_bounce}, {iters} iterations, schedule {r.schedule}, "
-          f"{VPT_SPP} spp: {1e3 * dt / VPT_SPP:.2f} ms/spp [{card}]; "
-          f"uncompacted: {1e3 * dt_plain / VPT_SPP:.2f} ms/spp, image equal; "
-          f"image mean {vimage.mean():.6f}; 64^2 max abs diff to twins "
-          f"{vtwin_err:.3g}; launches {_shown(vlaunches)}", flush=True)
+    say(f"phase 6 main path vpt cbox {vcfg.w}x{vcfg.h} mb "
+        f"{vcfg.max_bounce}, {iters} iterations, schedule {r.schedule}, "
+        f"{VPT_SPP} spp: {1e3 * dt / VPT_SPP:.2f} ms/spp [{card}]; "
+        f"uncompacted: {1e3 * dt_plain / VPT_SPP:.2f} ms/spp, image equal; "
+        f"image mean {vimage.mean():.6f}; 64^2 max abs diff to twins "
+        f"{vtwin_err:.3g}; launches {_shown(vlaunches)}")
 
     # ---- 7. BDPT main path at full size ----
     groups = B._strategy_groups(bcfg, bcfg.max_bounce)
@@ -2115,12 +2110,11 @@ def main():
     with twins():
         rt.render_batch(1)
     btwin_err, _, _ = _check(rb.image(), rt.image())
-    print(f"phase 7 main path BDPT cbox {bcfg.w}x{bcfg.h} mb "
-          f"{bcfg.max_bounce}, {sum(map(len, groups.values()))} strategies "
-          f"in chunks {chunks}, {BDPT_SPP} spp: {1e3 * dt / BDPT_SPP:.2f} "
-          f"ms/spp [{card}]; image mean {bimage.mean():.6f}; 64^2 max abs "
-          f"diff to twins {btwin_err:.3g}; launches {_shown(blaunches)}",
-          flush=True)
+    say(f"phase 7 main path BDPT cbox {bcfg.w}x{bcfg.h} mb "
+        f"{bcfg.max_bounce}, {sum(map(len, groups.values()))} strategies "
+        f"in chunks {chunks}, {BDPT_SPP} spp: {1e3 * dt / BDPT_SPP:.2f} "
+        f"ms/spp [{card}]; image mean {bimage.mean():.6f}; 64^2 max abs "
+        f"diff to twins {btwin_err:.3g}; launches {_shown(blaunches)}")
 
     # ---- 8. transient BDPT at full size ----
     tscene, tcfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "trans"),
@@ -2145,12 +2139,12 @@ def main():
              and tlaunches["splat_sorted_accumulate"] == 1
              and tlaunches["tri_track_hits"] == 0,
              f"transient launch counts {tlaunches}")
-    print(f"phase 8 transient BDPT trans/cbox-point {tcfg.w}x{tcfg.h} mb "
-          f"{tcfg.max_bounce}, {tcfg.t_bins} bins: {1e3 * dt:.2f} ms per pass "
-          f"[{card}]; {n_cnt} samples binned, {int((tcnts > 0).sum())} bins "
-          f"filled; image mean {float(tcolor.mean()):.6f}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"{_shown(tlaunches)}", flush=True)
+    say(f"phase 8 transient BDPT trans/cbox-point {tcfg.w}x{tcfg.h} mb "
+        f"{tcfg.max_bounce}, {tcfg.t_bins} bins: {1e3 * dt:.2f} ms per pass "
+        f"[{card}]; {n_cnt} samples binned, {int((tcnts > 0).sum())} bins "
+        f"filled; image mean {float(tcolor.mean()):.6f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{_shown(tlaunches)}")
 
     # ---- 9. knot290k main path under the two cluster-tier schedules ----
     per = kcfg.max_bounce
@@ -2179,17 +2173,17 @@ def main():
                  f"{tier}: image not finite")
         tier_rows.append((tier, dt_tier, r._sched,
                           *_check_tier(timage, kimage)))
-    print(f"phase 9 main path knot290k {kcfg.w}x{kcfg.h} mb "
-          f"{kcfg.max_bounce}, {KNOT_SPP} spp, cluster tier: " + "; ".join(
-              f"{tier}: {1e3 * d / KNOT_SPP:.2f} ms/spp, "
-              f"{rays_per_spp(kcfg) * KNOT_SPP / d / 1e6:.3f} Mrays/s, "
-              f"schedule {sc}, against the BVH tier's image {sh:.3g} of the "
-              f"pixels differ by 5e-2 or more (most {mx:.3g}), the others by "
-              f"at most {e:.3g}, launches "
-              f"{_shown(tier_launches[tier])}"
-              for tier, d, sc, e, sh, mx in tier_rows)
-          + f"; BVH tier (phase 5): {1e3 * dt_knot / KNOT_SPP:.2f} ms/spp "
-          f"[{card}]", flush=True)
+    say(f"phase 9 main path knot290k {kcfg.w}x{kcfg.h} mb "
+        f"{kcfg.max_bounce}, {KNOT_SPP} spp, cluster tier: " + "; ".join(
+            f"{tier}: {1e3 * d / KNOT_SPP:.2f} ms/spp, "
+            f"{rays_per_spp(kcfg) * KNOT_SPP / d / 1e6:.3f} Mrays/s, "
+            f"schedule {sc}, against the BVH tier's image {sh:.3g} of the "
+            f"pixels differ by 5e-2 or more (most {mx:.3g}), the others by "
+            f"at most {e:.3g}, launches "
+            f"{_shown(tier_launches[tier])}"
+            for tier, d, sc, e, sh, mx in tier_rows)
+        + f"; BVH tier (phase 5): {1e3 * dt_knot / KNOT_SPP:.2f} ms/spp "
+        f"[{card}]")
 
     # ---- 10. direct preview and SSAO at full size ----
     preview_rows, preview_launches = [], dict(none)
@@ -2226,17 +2220,17 @@ def main():
         preview_rows.append((name, dt, made_s, pimage.mean(), perr,
                              bool(torch.equal(r.color, rt.color)),
                              plaunches))
-    print(f"phase 10 direct preview and SSAO cbox {cfg0.w}x{cfg0.h}, "
-          f"{PREVIEW_SPP} passes: " + "; ".join(
-              f"{name} {1e3 * d / PREVIEW_SPP:.2f} ms per pass"
-              + (f" (depth prepass, {cfg0.depth_samples} samples: "
-                 f"{1e3 * m:.2f} ms)" if name == "SSAO" else "")
-              + f", image mean {mean_:.6f}, max abs diff to twins "
-              f"{e:.3g} (equal: {eq}), launches per pass "
-              + ", ".join(f"{k} {n // PREVIEW_SPP}"
-                          for k, n in _shown(pl).items())
-              for name, d, m, mean_, e, eq, pl in preview_rows)
-          + f" [{card}]", flush=True)
+    say(f"phase 10 direct preview and SSAO cbox {cfg0.w}x{cfg0.h}, "
+        f"{PREVIEW_SPP} passes: " + "; ".join(
+            f"{name} {1e3 * d / PREVIEW_SPP:.2f} ms per pass"
+            + (f" (depth prepass, {cfg0.depth_samples} samples: "
+               f"{1e3 * m:.2f} ms)" if name == "SSAO" else "")
+            + f", image mean {mean_:.6f}, max abs diff to twins "
+            f"{e:.3g} (equal: {eq}), launches per pass "
+            + ", ".join(f"{k} {n // PREVIEW_SPP}"
+                        for k, n in _shown(pl).items())
+            for name, d, m, mean_, e, eq, pl in preview_rows)
+        + f" [{card}]")
 
     def twin_equal(make, c, small=None):
         """A 64^2 render of one spp (seed 1) with the kernels and with the
@@ -2246,6 +2240,11 @@ def main():
         a = make(small)
         a.render_batch(1)
         b = make(small)
+        if getattr(a, "_auto", False):
+            # the probe's schedule (the twins' probe would render the
+            # same pass again with the plain walks); it leaves the image
+            # as it is
+            b._sched = a._sched
         with twins():
             b.render_batch(1)
         err, _, _ = _check(a.image(), b.image())
@@ -2273,16 +2272,15 @@ def main():
         for k, n in path_prof["balls-multi PT"].items()),
              f"balls-multi launch counts {mlaunches}, want {want}")
     m_twin = twin_equal(lambda c: pt.Renderer(mscene, c, seed=1), mcfg)
-    print(f"phase 11 main path csphere balls-multi PT {mcfg.w}x{mcfg.h} mb "
-          f"{mcfg.max_bounce}, {mcfg.num_shadow_ray} shadow rays, "
-          f"{MULTI_SPP} spp: {1e3 * dt_m / MULTI_SPP:.2f} ms/spp; launches "
-          "per spp " + ", ".join(f"{k} {n // MULTI_SPP}"
-                                 for k, n in _shown(mlaunches).items())
-          + " (profiler, a 64^2 pass at 3 bounces: "
-          f"{_shown(path_prof['balls-multi PT'])})"
-          f"; image mean {mimage.mean():.6f}, NaN pixel share {m_nan}; 64^2 "
-          f"render equal to the twins' (max abs diff {m_twin:.3g}) [{card}]",
-          flush=True)
+    say(f"phase 11 main path csphere balls-multi PT {mcfg.w}x{mcfg.h} mb "
+        f"{mcfg.max_bounce}, {mcfg.num_shadow_ray} shadow rays, "
+        f"{MULTI_SPP} spp: {1e3 * dt_m / MULTI_SPP:.2f} ms/spp; launches "
+        "per spp " + ", ".join(f"{k} {n // MULTI_SPP}"
+                               for k, n in _shown(mlaunches).items())
+        + " (profiler, a 64^2 pass at 3 bounces: "
+        f"{_shown(path_prof['balls-multi PT'])})"
+        f"; image mean {mimage.mean():.6f}, NaN pixel share {m_nan}; 64^2 "
+        f"render equal to the twins' (max abs diff {m_twin:.3g}) [{card}]")
 
     # ---- 12. vpt balls main path at full size ----
     r = vpt.VolumeRenderer(vbscene, vbcfg, seed=0)
@@ -2306,20 +2304,20 @@ def main():
              f"vpt balls launch counts {vblaunches}, want {want}")
     vb_twin = twin_equal(lambda c: vpt.VolumeRenderer(vbscene, c, seed=1),
                          vbcfg)
-    print(f"phase 12 main path vpt balls {vbcfg.w}x{vbcfg.h} mb "
-          f"{vbcfg.max_bounce}, {vbcfg.num_shadow_ray} shadow rays, schedule "
-          f"{r.schedule}, {VBALLS_SPP} spp: "
-          f"{1e3 * dt_vb / VBALLS_SPP:.2f} ms/spp; launches per spp "
-          + ", ".join(f"{k} {n // VBALLS_SPP}"
-                      for k, n in _shown(vblaunches).items())
-          + " (profiler, a 64^2 pass at 3 bounces: "
-          f"{_shown(path_prof['vpt balls VPT'])})"
-          f"; image mean {vbimage.mean():.6f}, NaN pixel share {vb_nan}; "
-          f"64^2 render equal to the twins' (max abs diff {vb_twin:.3g}) "
-          f"[{card}]", flush=True)
+    say(f"phase 12 main path vpt balls {vbcfg.w}x{vbcfg.h} mb "
+        f"{vbcfg.max_bounce}, {vbcfg.num_shadow_ray} shadow rays, schedule "
+        f"{r.schedule}, {VBALLS_SPP} spp: "
+        f"{1e3 * dt_vb / VBALLS_SPP:.2f} ms/spp; launches per spp "
+        + ", ".join(f"{k} {n // VBALLS_SPP}"
+                    for k, n in _shown(vblaunches).items())
+        + " (profiler, a 64^2 pass at 3 bounces: "
+        f"{_shown(path_prof['vpt balls VPT'])})"
+        f"; image mean {vbimage.mean():.6f}, NaN pixel share {vb_nan}; "
+        f"64^2 render equal to the twins' (max abs diff {vb_twin:.3g}) "
+        f"[{card}]")
 
     # ---- 13. BDPT on bunny.xml at its own settings ----
-    t13 = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     bunny_assets()
     buscene, bucfg, bu_tex = load_textured(cbox_dir, "bunny.xml")
     torch.cuda.synchronize()
@@ -2374,30 +2372,16 @@ def main():
              f"bunny BDPT launch counts {bulaunches} ({track_b5a[0]} in "
              f"_track_loop), want {want}")
     # the same counts by the profiler, over one more spp
-    reset()
-    names = kernels_in(torch, lambda: r.render_batch(1), warm=True)
-    bu_wrapped = _shown(counts())
-    bu_seen = _shown({k: sum(kname in n for n in names)
-                      for k, kname in PROFILED.items()})
-    _require(bu_seen == bu_wrapped and set(bu_seen) == {
-        "bvh_closest_hit", "splat_sorted_accumulate"},
-             f"bunny BDPT: the profiler saw {bu_seen} launches a pass, the "
-             f"wrappers counted {bu_wrapped}")
+    bu_seen, bu_calls = profiled_launches(lambda: r.render_batch(1),
+                                          "bunny BDPT", warm=True)
+    _require(set(bu_seen) == {"bvh_closest_hit", "splat_sorted_accumulate"},
+             f"bunny BDPT: the profiler saw {bu_seen} launches a pass")
     # B5a on the bunny's own walk rays: the eye walk's first closest hit
     # (primary rays) and the light walk's second (its first bounce),
     # bit-equal to the twin, with device time and bound
-    b5a_sets, b5a = [], BK.bvh_closest_hit
-
-    def capture_b5a(scn, o, d, far):
-        if len(b5a_sets) < 2 * bucfg.max_bounce:
-            b5a_sets.append((o.clone(), d.clone(), far.clone()))
-        return b5a(scn, o, d, far)
-    BK.bvh_closest_hit = capture_b5a
-    try:
-        B.render_pass_bdpt(buscene, bucfg, rng.PRNGKey(5), 1)
-    finally:
-        BK.bvh_closest_hit = b5a
     mb_ = bucfg.max_bounce
+    b5a_sets = recorded_rays(BK, "bvh_closest_hit", lambda: B.render_pass_bdpt(
+        buscene, bucfg, rng.PRNGKey(5), 1), first=2 * mb_)
     bu_sets = {"eye primary": b5a_sets[0], "light bounce": b5a_sets[mb_ + 1]}
     del b5a_sets
     bu_tables = 4 * (buscene.bvh_node_pack.numel()
@@ -2442,32 +2426,31 @@ def main():
         torch, lambda scn, c: B.render_pass_bdpt(scn, c, rng.PRNGKey(3),
                                                  1)[0],
         buscene, untextured, bsmall, bu_tex["mat"])
-    print(f"phase 13 main path bunny BDPT {bucfg.w}x{bucfg.h} mb "
-          f"{bucfg.max_bounce}, {buscene.n_prims} triangles (BVH tier), "
-          f"textures {sorted(bu_tex)} loaded (set-up {bu_load_s:.2f} s), "
-          f"{sum(map(len, bgroups.values()))} strategies in chunks "
-          f"{bchunks}, {BUNNY_SPP} spp: {1e3 * dt_bu / BUNNY_SPP:.2f} ms/spp "
-          f"[{card}]; peak memory {bu_peak - held:.3f} GiB over the "
-          f"{held:.3f} GiB earlier phases hold; launches per spp "
-          + ", ".join(f"{k} {n // BUNNY_SPP}"
-                      for k, n in _shown(bulaunches).items())
-          + f" ({bu_walks // BUNNY_SPP} in the walks, "
-          f"{track_b5a[0] / BUNNY_SPP:g} in _track_loop; profiler, one "
-          f"spp: {bu_seen}); B5a on the walk rays, bit-equal: " + "; ".join(
-              f"{tag} {n_} rays ({live} live): device {ms:.4f} ms, bound "
-              f"{bd[0]:.4f} ms ({bd[1]}), {v:.2f} node visits / {t:.2f} "
-              f"prim tests a live ray"
-              for tag, n_, live, v, t, ms, bd in bu_rows)
-          + f"; image mean {buimage.mean():.6f}, NaN pixel share {bu_nan}; "
-          f"64^2 max abs diff to twins at {TWIN_BOUNCES} bounces "
-          f"{bu_twin:.3g} (equal: {bu_eq}); "
-          f"64^2 textured vs untextured on the floor: mean abs diff "
-          f"{bu_floor:.4f}; phase {time.perf_counter() - t13:.1f} s",
-          flush=True)
+    say(f"phase 13 main path bunny BDPT {bucfg.w}x{bucfg.h} mb "
+        f"{bucfg.max_bounce}, {buscene.n_prims} triangles (BVH tier), "
+        f"textures {sorted(bu_tex)} loaded (set-up {bu_load_s:.2f} s), "
+        f"{sum(map(len, bgroups.values()))} strategies in chunks "
+        f"{bchunks}, {BUNNY_SPP} spp: {1e3 * dt_bu / BUNNY_SPP:.2f} ms/spp "
+        f"[{card}]; peak memory {bu_peak - held:.3f} GiB over the "
+        f"{held:.3f} GiB earlier phases hold; launches per spp "
+        + ", ".join(f"{k} {n // BUNNY_SPP}"
+                    for k, n in _shown(bulaunches).items())
+        + f" ({bu_walks // BUNNY_SPP} in the walks, "
+        f"{track_b5a[0] / BUNNY_SPP:g} in _track_loop; profiler, one "
+        f"spp: {bu_seen}, spp profiled {bu_calls}); B5a on the walk "
+        "rays, bit-equal: " + "; ".join(
+            f"{tag} {n_} rays ({live} live): device {ms:.4f} ms, bound "
+            f"{bd[0]:.4f} ms ({bd[1]}), {v:.2f} node visits / {t:.2f} "
+            f"prim tests a live ray"
+            for tag, n_, live, v, t, ms, bd in bu_rows)
+        + f"; image mean {buimage.mean():.6f}, NaN pixel share {bu_nan}; "
+        f"64^2 max abs diff to twins at {TWIN_BOUNCES} bounces "
+        f"{bu_twin:.3g} (equal: {bu_eq}); "
+        f"64^2 textured vs untextured on the floor: mean abs diff "
+        f"{bu_floor:.4f}")
     del r, ra, rb
 
     # ---- 14. PT on bunny.xml at its own settings ----
-    t14 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2 ** 30
@@ -2489,34 +2472,53 @@ def main():
             * bucfg.num_shadow_ray}
     _require(bplaunches == want, f"bunny PT launch counts {bplaunches}, "
              f"want {want}")
-    reset()
-    names = kernels_in(torch, lambda: r.render_batch(1), warm=True)
-    bp_wrapped = _shown(counts())
-    bp_seen = _shown({k: sum(kname in n for n in names)
-                      for k, kname in PROFILED.items()})
-    _require(bp_seen == bp_wrapped == {
-        k: n // BUNNY_PT_SPP for k, n in _shown(bplaunches).items()},
-             f"bunny PT: the profiler saw {bp_seen} launches a pass, the "
-             f"wrappers counted {bp_wrapped}")
+    bp_seen, bp_calls = profiled_launches(lambda: r.render_batch(1),
+                                          "bunny PT", warm=True)
+    _require(bp_seen == {k: n // BUNNY_PT_SPP
+                         for k, n in _shown(bplaunches).items()},
+             f"bunny PT: the profiler saw {bp_seen} launches a pass")
+    # B5b on the bunny's own shadow rays: the first any-hit call of one
+    # full-size pass, bit-equal to the twin, with device time and bound
+    (so, sd, sfar), = recorded_rays(
+        BK, "bvh_any_hit", lambda: pt.render_pass_pt(
+            buscene, bucfg, rng.PRNGKey(5), 1), first=1)
+    occ = BK.bvh_any_hit(buscene, so, sd, sfar)
+    want_ = bvh.walk(buscene, so, sd, sfar, any_hit=True, stats=True)
+    _require(torch.equal(occ, want_[1] >= 0)
+             and not bool(occ[~(sfar > K.RAY_EPS)].any()),
+             "bvh_any_hit (bunny shadow rays): occlusion differs from the "
+             "twin")
+    n_, live = so.shape[0], int((sfar > K.RAY_EPS).sum())
+    visits, tests = int(want_[4].sum()), int(want_[5].sum())
+    bp_b5b = (n_, live, int(occ.sum()) / max(live, 1), visits / max(live, 1),
+              tests / max(live, 1),
+              _graph_ms(torch, lambda: BK.bvh_any_hit(buscene, so, sd, sfar)),
+              _bound(n_ * 28 + bu_tables + n_,
+                     visits * bvh.NODE_OPS + tests * bvh.PRIM_OPS))
+    del so, sd, sfar, occ, want_
     bp_twin = twin_equal(lambda c: pt.Renderer(buscene, c, seed=1), bucfg,
                          btwin)
     bp_floor = floor_difference(
         torch, lambda scn, c: pt.render_pass_pt(scn, c, rng.PRNGKey(3), 1),
         buscene, untextured, bsmall, bu_tex["mat"])
-    print(f"phase 14 main path bunny PT {bucfg.w}x{bucfg.h} mb "
-          f"{bucfg.max_bounce}, {bucfg.num_shadow_ray} shadow rays, schedule "
-          f"{r._sched}, {BUNNY_PT_SPP} spp: "
-          f"{1e3 * dt_bp / BUNNY_PT_SPP:.2f} ms/spp [{card}]; peak memory "
-          f"{bp_peak - held:.3f} GiB over the {held:.3f} GiB earlier phases "
-          "hold; launches per spp "
-          + ", ".join(f"{k} {n // BUNNY_PT_SPP}"
-                      for k, n in _shown(bplaunches).items())
-          + f" (profiler, one spp: {bp_seen}); image mean "
-          f"{bpimage.mean():.6f}, NaN pixel share {bp_nan}; 64^2 render at "
-          f"{TWIN_BOUNCES} bounces equal to the twins' (max abs diff "
-          f"{bp_twin:.3g}); 64^2 textured "
-          f"vs untextured on the floor: mean abs diff {bp_floor:.4f}; phase "
-          f"{time.perf_counter() - t14:.1f} s", flush=True)
+    say(f"phase 14 main path bunny PT {bucfg.w}x{bucfg.h} mb "
+        f"{bucfg.max_bounce}, {bucfg.num_shadow_ray} shadow rays, schedule "
+        f"{r._sched}, {BUNNY_PT_SPP} spp: "
+        f"{1e3 * dt_bp / BUNNY_PT_SPP:.2f} ms/spp [{card}]; peak memory "
+        f"{bp_peak - held:.3f} GiB over the {held:.3f} GiB earlier phases "
+        "hold; launches per spp "
+        + ", ".join(f"{k} {n // BUNNY_PT_SPP}"
+                    for k, n in _shown(bplaunches).items())
+        + f" (profiler, one spp: {bp_seen}, spp profiled {bp_calls}); B5b "
+        f"on the first shadow rays of a pass, bit-equal: {bp_b5b[0]} rays "
+        f"({bp_b5b[1]} live, "
+        f"{bp_b5b[2]:.4f} of them occluded): device {bp_b5b[5]:.4f} ms, "
+        f"bound {bp_b5b[6][0]:.4f} ms ({bp_b5b[6][1]}), {bp_b5b[3]:.2f} "
+        f"node visits / {bp_b5b[4]:.2f} prim tests a live ray; image mean "
+        f"{bpimage.mean():.6f}, NaN pixel share {bp_nan}; 64^2 render at "
+        f"{TWIN_BOUNCES} bounces equal to the twins' (max abs diff "
+        f"{bp_twin:.3g}); 64^2 textured "
+        f"vs untextured on the floor: mean abs diff {bp_floor:.4f}")
     del r
 
     path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]

@@ -41,6 +41,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from PIL import Image
 
 from adapt_tpu.ops import texture_ops as jtx
 from adapt_tpu.ops.intersect import Interaction as JInteraction
@@ -74,7 +75,7 @@ def bunny_assets(meshes=False):
 
 
 def _write_png(path, arr):
-    chip_smoke.write_png(path, (arr * 255).astype(np.uint8))
+    Image.fromarray((arr * 255).astype(np.uint8)).save(path)
 
 
 def _load_both(directory, file):
