@@ -12,7 +12,9 @@ BDPT vertex buffers cross in the JAX package's layout (scalars (D, N),
 vectors (3, D, N), the `tex` plane too on a textured scene) with
 `vertex_buffers_from_numpy`, and back with `vertex_buffers_to_numpy`; the
 port keeps vectors as (D, N, 3). Every texture table with its atlas, the
-vertex uvs and a scene's mixture table cross with the other leaves.
+vertex uvs and a scene's mixture table cross with the other leaves, and
+so does the grid volume (`volume.*`, its supervoxel edge `volume.sv_size`
+a 0-d array), a real one or the placeholder.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .ops.mixture_ops import MixtureTable
+from .ops.volume_ops import GridVolumeData
 from .scene.compile import (TRI_SOURCES, MediumTable, RenderConfig,
                             SceneData, TextureTable, cluster_tree,
                             cluster_v4, front_boxes, prim_slots,
@@ -31,7 +34,8 @@ _TEX_TAGS = ("albedo", "normal", "bump", "roughness")
 _TEX = tuple(f.name for f in dataclasses.fields(TextureTable)
              if f.name != "present")
 _MEDIUM = tuple(f.name for f in dataclasses.fields(MediumTable))
-_NESTED = {"medium": _MEDIUM, "world_medium": _MEDIUM}
+_VOLUME = tuple(f.name for f in dataclasses.fields(GridVolumeData))
+_NESTED = {"medium": _MEDIUM, "world_medium": _MEDIUM, "volume": _VOLUME}
 # a scene's mixture table, when it has one (None otherwise)
 MIXTURE_NAMES = tuple(f"mixture.{f.name}"
                       for f in dataclasses.fields(MixtureTable))
@@ -104,8 +108,11 @@ def scene_from_numpy(leaves: dict, cfg_fields: dict, device="cuda"):
         return torch.tensor(np.asarray(leaves[name]))
 
     kw = {n: t(n) for n in LEAF_NAMES if "." not in n}
-    for m, attrs in _NESTED.items():
-        kw[m] = MediumTable(**{a: t(f"{m}.{a}") for a in attrs})
+    for m in ("medium", "world_medium"):
+        kw[m] = MediumTable(**{a: t(f"{m}.{a}") for a in _MEDIUM})
+    kw["volume"] = GridVolumeData(
+        **{a: t(f"volume.{a}") for a in _VOLUME if a != "sv_size"},
+        sv_size=int(leaves["volume.sv_size"]))
     kw["tex"] = {tag: TextureTable(
         **{a: t(f"tex.{tag}.{a}") for a in _TEX},
         present=bool((np.asarray(leaves[f"tex.{tag}.mode"]) > -255).any()))

@@ -1,11 +1,13 @@
-"""The binned-SAH BVH builder, native C++ loaded over a plain C ABI.
+"""The native host code, C++ loaded over a plain C ABI.
 
-`bvh_builder.cpp` is a copy of the JAX package's builder (kBins=16,
-kLeafMax=4, DFS order with skip offsets, single-threaded and so
-deterministic). It compiles with g++ at first use, with the flags of
+`bvh_builder.cpp` is a copy of the JAX package's binned-SAH BVH builder
+(kBins=16, kLeafMax=4, DFS order with skip offsets, single-threaded and so
+deterministic); `vol_loader.cpp` a copy of its mitsuba3 `.vol` reader.
+Each compiles with g++ at first use, with the flags of
 adapt_tpu/native/Makefile, into build/adapt_tpu_torch/. There is no
 fallback: a different builder would give a different tree, and the
 port's tables must equal the JAX package's. A failed build raises.
+`write_vol` is plain numpy.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 from ..ops import _build
 
 SRC = Path(__file__).resolve().parent / "bvh_builder.cpp"
+VOL_SRC = SRC.with_name("vol_loader.cpp")
 # adapt_tpu/native/Makefile:3-4, compile and link in one call
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-std=c++17",
              "-Wall", "-shared")
@@ -65,3 +68,49 @@ def bvh_build(aabbs: np.ndarray):
     if m <= 0:
         raise RuntimeError(f"bvh_build failed ({m}) on {P} prims")
     return node_f[:m].copy(), node_i[:m].copy(), order
+
+
+def _vol_lib() -> ctypes.CDLL:
+    lib = _build.compiled("vol_loader", VOL_SRC, _gxx, CXX_FLAGS)
+    if not getattr(lib, "_typed", False):
+        lib.vol_read_header.argtypes = [ctypes.c_char_p,
+                                        ctypes.POINTER(ctypes.c_int32)]
+        lib.vol_read_header.restype = ctypes.c_int
+        lib.vol_read.argtypes = [ctypes.c_char_p,
+                                 ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+        lib.vol_read.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def vol_file_to_numpy(path: str, force_mono: bool = False) -> np.ndarray:
+    """Read a mitsuba3 .vol into (Z, Y, X, 3) float32, or (Z, Y, X) of
+    channel 0 with force_mono: one channel broadcast to three, six cut to
+    the first three (reference vol2numpy.cpp:124-131). Raises ValueError
+    on a bad header or a short payload."""
+    lib = _vol_lib()
+    dims = (ctypes.c_int32 * 4)()
+    rc = lib.vol_read_header(path.encode(), dims)
+    if rc != 0:
+        raise ValueError(f"bad .vol file '{path}' (error {rc})")
+    x, y, z = dims[0], dims[1], dims[2]
+    out = np.empty(z * y * x * (1 if force_mono else 3), np.float32)
+    rc = lib.vol_read(path.encode(),
+                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                      int(force_mono))
+    if rc != 0:
+        raise ValueError(f".vol payload read failed ({rc})")
+    return out.reshape((z, y, x) if force_mono else (z, y, x, 3))
+
+
+def write_vol(path: str, grid: np.ndarray) -> None:
+    """Write a (Z, Y, X) or (Z, Y, X, C) float32 grid as mitsuba3 .vol
+    (version 3, float32 encoding, a unit bounding box)."""
+    if grid.ndim == 3:
+        grid = grid[..., None]
+    z, y, x, c = grid.shape
+    with open(path, "wb") as f:
+        f.write(b"VOL\x03")
+        np.array([1, x, y, z, c], np.int32).tofile(f)
+        np.array([0, 0, 0, 1, 1, 1], np.float32).tofile(f)  # bbox
+        grid.astype(np.float32).tofile(f)

@@ -9,6 +9,8 @@ by range.
         --renderer bdpt --max-bounce 6
     python -m adapt_tpu_torch.profile_pt scenes/cbox bunny.xml \
         --renderer bdpt --spp 1 --runs 2
+    python -m adapt_tpu_torch.profile_pt scenes/cbox cbox-rgbvol.xml \
+        --renderer vpt --spp 1
 
 Loads the scene on the CUDA device, renders one warm-up spp (which also
 runs the auto-compaction probe), times `--runs` unprofiled render_batch
@@ -16,7 +18,8 @@ calls of `--spp` samples (host clock around work that ends in a
 synchronize), then traces one more under torch.profiler with one range per
 stage of the bounce loop (for BDPT: the two walks, and each connection
 case; under `--tier qpick`, PT's front pass and sort, tile picks, unsort
-and winner read-out), and one around each brute-force kernel's wrapper
+and winner read-out; a grid volume's delta and ratio tracking), and one
+around each brute-force kernel's wrapper
 (B1, B2, B3: its host time a call). A range's device time counts the
 PyTorch kernels launched inside it; the port's own kernels (launched
 through ctypes, which the profiler ties to no range) are attributed to
@@ -40,7 +43,7 @@ import torch
 
 from . import rng
 from .ops import bvh_kernels, bxdf_ops, cluster_kernels, emitter_ops
-from .ops import intersect_kernels, medium_ops, splat
+from .ops import intersect_kernels, medium_ops, splat, volume_ops
 from .ops.intersect import BIG_TIERS
 from .renderer import bdpt, compact, pt, vpt
 from .scene.compile import load_scene
@@ -56,6 +59,12 @@ _WRAPPERS = (
     (intersect_kernels, "tri_closest_hit", "B1 wrapper"),
     (intersect_kernels, "tri_any_hit", "B2 wrapper"),
     (intersect_kernels, "tri_track_hits", "B3 wrapper"),
+)
+# the grid volume's march (ops/volume_ops.py): delta tracking on each
+# segment, ratio tracking in each track_ray
+_VOLUME = (
+    (volume_ops, "sample_distance_delta_tracking", "delta tracking"),
+    (volume_ops, "eval_tr_ratio_tracking", "ratio tracking"),
 )
 # (module, attribute, range name): the stages a pass spends time in, per
 # renderer; ranges may nest (track_ray holds ray_track_hits)
@@ -81,7 +90,7 @@ RANGES = {
             (medium_ops, "phase_sample", "phase_sample"),
             (medium_ops, "phase_eval", "phase_eval"),
             (emitter_ops, "sample_hit", "sample_hit"),
-            *_SHADING,
+            *_VOLUME, *_SHADING,
             (vpt, "camera_rays", "camera_rays"),
             (compact, "run_compacted", "iteration loop"), *_WRAPPERS),
     # "{case}": one range per connection case (s0, t1, s1, gen)
@@ -100,7 +109,7 @@ RANGES = {
              (medium_ops, "sample_mfp", "sample_mfp"),
              (medium_ops, "phase_sample", "phase_sample"),
              (emitter_ops, "sample_hit", "sample_hit"),
-             *_SHADING,
+             *_VOLUME, *_SHADING,
              (bdpt, "splat_sorted_accumulate", "film splat"), *_WRAPPERS),
 }
 CASES = ("s0", "t1", "s1", "gen")

@@ -49,9 +49,13 @@ so weights differ from the JAX package's by float rounding (~1 ulp per
 factor). The port writes the vertex buffers in place.
 
 Every BxDF, BxDF mixtures, textures and all four light kinds render; a
-textured scene's vertices carry their albedo in a `tex` plane. Grid
-volumes (ROADMAP.md queue A item 14) raise at render
-(`check_supported(..., "bdpt")`).
+textured scene's vertices carry their albedo in a `tex` plane. On a scene
+with a grid volume each walk segment delta-tracks it (a volume event
+places a medium vertex, sampled with the volume's phase function) and
+each connection multiplies by its ratio-tracking transmittance
+(`track_ray`). As in the JAX package, a volume vertex's connection
+evaluates the phase function of the medium rows of its object, not the
+volume's.
 """
 from __future__ import annotations
 
@@ -65,7 +69,7 @@ from .. import rng
 from ..constants import (EmitterTag, INV_2PI, INV_PI, TRANSPORT_IMP,
                          TRANSPORT_RAD, VERTEX_CAMERA, VERTEX_EMITTER,
                          VERTEX_MEDIUM, VERTEX_SURFACE)
-from ..ops import bxdf_ops, emitter_ops, medium_ops
+from ..ops import bxdf_ops, emitter_ops, medium_ops, volume_ops
 from ..ops.intersect import Interaction, ray_intersect
 from ..ops.math3d import dot, norm, normalize
 from ..ops.splat import splat_sorted_accumulate
@@ -73,7 +77,7 @@ from ..ops.texture_ops import get_uv_item, process_ns
 from ..scene.compile import check_supported
 from .base import ProgressiveRenderer, camera_rays, crop_pix_ids
 from .vpt import _is_null_surface, effective_medium, track_ray, \
-    world_bound_time
+    volume_phase_kinds, volume_phase_rows, world_bound_time
 
 CAP = 32            # max vertices per subpath - 1 (reference N_MAX_BOUNCE)
 CAP_CROP = 400      # crop-window cap (reference T_MAX_BOUNCE): buffers scale
@@ -301,10 +305,6 @@ def pdf_camera(cfg, dot_normal):
 
 # ----------------------------- vertex-space eval ----------------------------
 
-def _phase_kinds(cfg):
-    return tuple(sorted(set(cfg.medium_kinds)))
-
-
 def eval_vertex(scene, cfg, v, out_dir, mode):
     """fr at vertex v toward out_dir (PathTracer.eval semantics:
     path_tracer.py:459-479): phase value at medium vertices, BxDF
@@ -312,7 +312,7 @@ def eval_vertex(scene, cfg, v, out_dir, mode):
     is_mi = _is_mi_v(v)
     rows, _ = effective_medium(scene, cfg, v["obj_id"], _in_fspace(v))
     ph = medium_ops.phase_eval(rows["kind"], rows["ph_par"], rows["ph_pdf"],
-                               v["ray_in"], out_dir, _phase_kinds(cfg))
+                               v["ray_in"], out_dir, volume_phase_kinds(cfg))
     mat = bxdf_ops.gather_mat(scene, v["obj_id"])
     fr = bxdf_ops.surface_eval(cfg, mat, _interaction_of(v), v["ray_in"],
                                out_dir, scene.world_medium.ior[0], mode=mode,
@@ -325,7 +325,7 @@ def pdf_vertex(scene, cfg, v, ray_in, out_dir):
     is_mi = _is_mi_v(v)
     rows, _ = effective_medium(scene, cfg, v["obj_id"], _in_fspace(v))
     ph = medium_ops.phase_eval(rows["kind"], rows["ph_par"], rows["ph_pdf"],
-                               ray_in, out_dir, _phase_kinds(cfg))
+                               ray_in, out_dir, volume_phase_kinds(cfg))
     mat = bxdf_ops.gather_mat(scene, v["obj_id"])
     sp = bxdf_ops.surface_pdf(cfg, mat, _interaction_of(v), out_dir, ray_in,
                               scene.world_medium.ior[0], scene=scene)
@@ -366,12 +366,13 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
     N = ray_o.shape[0]
     dev = ray_o.device
     world_ior = scene.world_medium.ior[0]
-    media_everywhere = cfg.world_scattering
+    media_everywhere = cfg.world_scattering or bool(cfg.volume_kind)
     max_time = cfg.t_min + cfg.t_interval * max(cfg.t_bins, 1)
     # media-free scenes skip mean-free-path sampling (the key split stays,
     # so the stream is the JAX package's)
-    no_media = not cfg.medium_kinds and not cfg.world_scattering
-    phase_kinds = _phase_kinds(cfg)
+    no_media = not (cfg.medium_kinds or cfg.world_scattering
+                    or cfg.volume_kind)
+    phase_kinds = volume_phase_kinds(cfg)
     zero3 = torch.zeros((N, 3), device=dev)
     # extra iterations absorb null-surface crossings, which advance a ray
     # without placing a vertex
@@ -409,6 +410,17 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
             u_mfp = rng.uniform(k_mfp, (N, 2), device=dev)
             is_mi, mfp, path_beta = medium_ops.sample_mfp(
                 rows["u_e"], rows["u_s"], scat, depth, u_mfp)
+        rows_v = rows
+        if cfg.volume_kind:
+            key, k_vol = rng.split(key)
+            v_t, v_beta = volume_ops.sample_distance_delta_tracking(
+                scene.volume, cfg.volume_kind, k_vol, ray_o, ray_d, thp,
+                depth, active=active)
+            is_vol = v_t > 0.0
+            mfp = torch.where(is_vol, v_t, mfp)
+            path_beta = torch.where(is_vol[:, None], v_beta, path_beta)
+            is_mi = is_mi | is_vol
+            rows_v = volume_phase_rows(scene, cfg, rows, is_vol)
         active = active & ~(miss & ~is_mi)
         if not no_media:
             thp = thp * torch.where(active[:, None], path_beta, 1.0)
@@ -453,7 +465,7 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
             new_dir, ray_pdf = s_dir, s_pdf
         else:
             p_dir, p_val = medium_ops.phase_sample(
-                rows["kind"], rows["ph_par"], rows["ph_pdf"], ray_d,
+                rows_v["kind"], rows_v["ph_par"], rows_v["ph_pdf"], ray_d,
                 u_new[:, :3], phase_kinds)
             new_dir = torch.where(is_mi[:, None], p_dir, s_dir)
             ray_pdf = torch.where(is_mi, p_val, s_pdf)

@@ -6,13 +6,18 @@ split of a schedule the lanes still active are gathered, by index, into a
 prefix of width N // div, carrying the whole loop state, and the remaining
 iterations run on that prefix only. If more lanes are alive than the
 prefix holds (the overflow branch), the loop stays at its current width
-for the rest of the pass. Each lane's color lands back at its original
-position (`pos`) at the end.
+for the rest of the pass. Either way the lanes take the JAX package's
+order (alive lanes first, each class by original lane id). Each lane's
+color lands back at its original position (`pos`) at the end.
 
 Exactness: the loop draws each lane's randomness keyed by (iteration,
 original lane id) (rng.lane_uniform), so a lane's path does not depend on
 where it sits in the wavefront, and a compacted pass equals the plain one
-lane for lane.
+lane for lane. A grid volume's march is the exception
+(ops/volume_ops.py): it draws by a lane's place in the wavefront and by
+the wavefront's width, as the JAX package's does, so on a volume scene a
+compacted pass equals the JAX package's compacted pass, not the plain
+one.
 
 Requirements on the state dict: 'active' (n,) bool, 'pos' (n,) i32
 (original lane ids), 'color' (n,3); every other entry is a tensor with n
@@ -98,14 +103,18 @@ def run_compacted(iteration, state, iters, schedule):
             break
         (at, div), splits = splits[0], splits[1:]
         start = at
-        alive = torch.nonzero(state["active"]).squeeze(1)
+        # the JAX package's order: alive lanes first, each class by
+        # original lane id, also when the alive lanes overflow the prefix
+        # (a grid volume's march draws by a lane's place in the wavefront)
+        skey = state["pos"].long() + torch.where(state["active"], 0, N)
+        order = torch.argsort(skey)
         W2 = N // div
-        if alive.numel() > W2:
+        if int(state["active"].sum()) > W2:
             splits = []                    # overflow: stay at this width
+            state = take(state, order)
             continue
-        dead = torch.nonzero(~state["active"]).squeeze(1)
         # lanes left behind are finished: their colors are final
         out[state["pos"].long()] = state["color"]
-        state = take(state, torch.cat([alive, dead])[:W2])
+        state = take(state, order[:W2])
     out[state["pos"].long()] = state["color"]
     return out

@@ -34,9 +34,11 @@ Every pass is length-compacted with the JAX package's shipped schedule
 ((7, 2), (13, 8)) by renderer/compact.py, which carries the whole state,
 the interaction included. Each iteration perturbs the shading normal by
 the scene's normal or bump map and fetches the albedo texture
-(ops/texture_ops.py), as the JAX package does; grid volumes are refused
-at render (`check_supported`), so its volume branches have no
-counterpart here yet.
+(ops/texture_ops.py), as the JAX package does. On a scene with a grid
+volume (ops/volume_ops.py) a miss can still scatter, each segment
+delta-tracks the volume (a volume event overrides the medium event and
+takes the volume's phase function) and each shadow ray multiplies its
+media walk by the volume's ratio-tracking transmittance.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ import dataclasses
 import torch
 
 from .. import rng
-from ..ops import bxdf_ops, emitter_ops, medium_ops
+from ..ops import bxdf_ops, emitter_ops, medium_ops, volume_ops
 from ..ops.intersect import (FAR, _bvh_tier, does_intersect, ray_intersect,
                              ray_track_hits)
 # null BSDF = medium boundary (reference bsdf.py:238-240)
@@ -80,6 +82,25 @@ def effective_medium(scene, cfg, obj_id, in_free_space):
         sel = in_free_space[:, None] if rows[f].ndim > 1 else in_free_space
         rows[f] = torch.where(sel, getattr(w, f)[0], rows[f])
     return rows, in_free_space | obj_scat
+
+
+def volume_phase_kinds(cfg):
+    """The phase functions a pass can meet: the media's and the grid
+    volume's."""
+    return tuple(sorted(set(cfg.medium_kinds)
+                        | ({cfg.volume_phase} if cfg.volume_kind
+                           else set())))
+
+
+def volume_phase_rows(scene, cfg, rows, is_vol):
+    """Medium rows with the grid volume's phase function on the lanes of
+    a volume event (vpt.py:462-474, bdpt.py:556-565)."""
+    rows = dict(rows)
+    rows["kind"] = torch.where(is_vol, cfg.volume_phase, rows["kind"])
+    for f in ("ph_par", "ph_pdf"):
+        rows[f] = torch.where(is_vol[:, None],
+                              getattr(scene.volume, f)[None, :], rows[f])
+    return rows
 
 
 def world_bound_time(scene, ray_o, ray_d):
@@ -208,13 +229,10 @@ def track_ray(scene, cfg, start_p, ray_d, depth, key=None, thp=None,
     path crossing up to TRACK_STEPS medium interfaces (reference
     vpt.py:101-137). Returns (tr (N,3), acc_depth (N,)); tr = 0 where a
     non-null surface blocks the segment. active: dead lanes take no
-    intersection work (their results are unused). key and thp feed only
-    the JAX package's grid-volume ratio tracking, which the port does not
-    have yet: a scene with a grid volume raises. (The JAX `key_hint`, a
-    TPU wavefront sort key, has no counterpart.)"""
-    if cfg.volume_kind:
-        raise NotImplementedError(
-            "grid volumes are not ported yet (ROADMAP.md queue A item 14)")
+    intersection work (their results are unused). key and thp feed the
+    grid volume's ratio tracking (vpt.py:110-112), required on a scene
+    with one. (The JAX `key_hint`, a TPU wavefront sort key, has no
+    counterpart.)"""
     N = start_p.shape[0]
     w_ior = scene.world_medium.ior[0]
     if not (cfg.world_scattering or cfg.has_null_bsdf or cfg.volume_kind
@@ -223,9 +241,19 @@ def track_ray(scene, cfg, start_p, ray_d, depth, key=None, thp=None,
         occ = does_intersect(scene, cfg, start_p, ray_d, depth, alive=active)
         return (torch.where(occ[:, None], 0.0, 1.0)
                 * torch.ones((N, 3), device=start_p.device)), depth * w_ior
+    vol_tr = 1.0
+    if cfg.volume_kind:
+        key, k_vol = rng.split(key)
+        vol_tr = volume_ops.eval_tr_ratio_tracking(
+            scene.volume, cfg.volume_kind, k_vol, start_p, ray_d,
+            torch.ones((N, 3), device=start_p.device) if thp is None
+            else thp, depth, active=active)
     if scene.tri_n.shape[0] > 0 and not _bvh_tier(scene, cfg):
-        return _track_segments_khit(scene, cfg, start_p, ray_d, depth, active)
-    return _track_loop(scene, cfg, start_p, ray_d, depth, active)
+        tr, acc = _track_segments_khit(scene, cfg, start_p, ray_d, depth,
+                                       active)
+    else:
+        tr, acc = _track_loop(scene, cfg, start_p, ray_d, depth, active)
+    return tr * vol_tr, acc
 
 
 def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
@@ -237,10 +265,10 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
     N = ray_o.shape[0]
     dev = ray_o.device
     world_ior = scene.world_medium.ior[0]
-    # a miss can still scatter when the world medium fills open space
-    # (reference vpt.py:173-179)
-    media_everywhere = cfg.world_scattering
-    phase_kinds = tuple(sorted(set(cfg.medium_kinds)))
+    # a miss can still scatter when the world medium or a grid volume
+    # fills open space (reference vpt.py:173-179)
+    media_everywhere = cfg.world_scattering or bool(cfg.volume_kind)
+    phase_kinds = volume_phase_kinds(cfg)
     S = max(cfg.num_shadow_ray, 1)
     D = 9 + 4 * S                   # uniforms drawn per iteration
     # null crossings are the only way an iteration advances without a
@@ -263,7 +291,8 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
         n = active.shape[0]
         # per-lane counter RNG keyed by (iteration, original lane id), so
         # compaction cannot change any lane's draws
-        u_all = rng.lane_uniform(rng.fold_in(key, i), st["pos"], D)
+        it_key = rng.fold_in(key, i)
+        u_all = rng.lane_uniform(it_key, st["pos"], D)
 
         # --- russian roulette on the lane's bounce (vpt.py:160-168) ---
         max_val = thp.amax(dim=-1)
@@ -295,6 +324,17 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
         rows, scat = effective_medium(scene, cfg, obj_id, in_free)
         is_mi, mfp, beta = medium_ops.sample_mfp(
             rows["u_e"], rows["u_s"], scat, depth, u_all[:, 1:3])
+        if cfg.volume_kind:
+            # a grid-volume event overrides the medium event
+            # (vpt.py:93-99) and takes the volume's phase function
+            v_t, v_beta = volume_ops.sample_distance_delta_tracking(
+                scene.volume, cfg.volume_kind, rng.fold_in(it_key, 7001),
+                ray_o, ray_d, thp, depth, active=active)
+            is_vol = v_t > 0.0
+            mfp = torch.where(is_vol, v_t, mfp)
+            beta = torch.where(is_vol[:, None], v_beta, beta)
+            is_mi = is_mi | is_vol
+            rows = volume_phase_rows(scene, cfg, rows, is_vol)
         active = active & ~(miss & ~is_mi)       # left the world bound
         hit_point = ray_o + ray_d * torch.where(active, mfp, 0.0)[:, None]
         thp = thp * torch.where(active[:, None], beta, 1.0)
@@ -324,6 +364,7 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
             e_d = norm(to_e)
             l_dir = to_e / torch.clamp(e_d[:, None], min=1e-12)
             tr, _t = track_ray(scene, cfg, hit_point, l_dir, e_d,
+                               key=rng.fold_in(it_key, 7101 + s), thp=thp,
                                active=active)
             shadow_int = shadow_int * tr
             # phase value at medium events, BxDF at surfaces

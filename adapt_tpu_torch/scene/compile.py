@@ -18,11 +18,11 @@ nodes above that cut (`cl_tree`; `cluster_tree`), which the front pass
 walks. Each texture tag gets its per-object table and its packed atlas
 (`TextureTable`), the triangles their vertex uvs (`prim_uv`), and BxDF
 mixtures their table (`MixtureTable`, ops/mixture_ops.py) with the
-component materials appended after the objects' material rows. Grid
-volumes, which the port does not read, are recognised from the
-configuration and raise NotImplementedError (here and in
-`check_supported`), naming the ROADMAP item that ports them: the port
-never silently takes another path.
+component materials appended after the objects' material rows, and a
+scene's grid volume its tables (`GridVolumeData`, ops/volume_ops.py;
+`dummy_volume()` when it has none). What the port cannot render yet
+raises NotImplementedError in `check_supported`, naming the ROADMAP item
+that ports it: the port never silently takes another path.
 
 Scenes load onto the CUDA device unless the caller asks for another; with
 no CUDA device that default raises (`resolve_device`).
@@ -38,7 +38,9 @@ from ..constants import MediumTag, SPHERE
 from ..native import bvh_build
 from ..ops.math3d import np_rotation_between, fov2focal
 from ..ops.mixture_ops import MixtureTable, N_COMPONENTS
+from ..ops.volume_ops import compile_volume, dummy_volume
 from .bxdf import MIXTURE_SLOTS, Mixture_np
+from .volume import GridVolumeRec
 
 # Below this many prims the JAX package builds no BVH and scans every
 # triangle (adapt_tpu/scene/compile.py:455); ops/intersect.py picks the
@@ -168,6 +170,7 @@ class SceneData:
     cam_r: torch.Tensor          # (3,3)
     cam_t: torch.Tensor          # (3,)
     tex: dict                    # {tag: TextureTable}
+    volume: object               # GridVolumeData (dummy_volume(): none)
 
     @property
     def device(self) -> torch.device:
@@ -282,15 +285,15 @@ def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
     world IOR: cbox itself declares a scattering world medium).
     The direct preview and SSAO read only the geometry, mat_kd/ks/kg and
     emitter 0's position and intensity, so they take every scene the
-    port's tables hold. Grid volumes are refused everywhere."""
+    port's tables hold. VPT and BDPT render heterogeneous grid volumes
+    (mono and RGB, delta and ratio tracking); PT, as the JAX package's,
+    reads none (cbox-volgrid.xml renders there as an empty box)."""
     def nope(what, item):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md queue A item {item})")
 
     if renderer not in ("pt", "vpt", "bdpt", "direct", "ssao"):
         raise ValueError(f"unknown renderer {renderer!r}")
-    if cfg.volume_kind:
-        nope("grid volumes", 14)
     if renderer in ("direct", "ssao"):
         return
     if renderer == "pt" and cfg.has_null_bsdf:
@@ -650,13 +653,17 @@ def _stack3(vals):
     return np.stack(vals).astype(np.float32)
 
 
-def compile_scene(emitters, array_info, objects, configs, device="cuda"):
+def compile_scene(emitters, array_info, objects, configs, device="cuda",
+                  scene_dir="."):
     """Assemble (SceneData, RenderConfig) from parsed host structures,
-    with the precompute of adapt_tpu/scene/compile.py:383-738."""
+    with the precompute of adapt_tpu/scene/compile.py:383-738. A grid
+    volume's `.vol` file resolves against scene_dir (scene/volume.py);
+    a missing one warns and leaves the scene without its volume, as in
+    the JAX package."""
     device = resolve_device(device)
-    if configs.get("volume"):
-        raise NotImplementedError(
-            "grid volumes are not ported yet (ROADMAP.md queue A item 14)")
+    vol_nodes = configs.get("volume") or []
+    vol_rec = GridVolumeRec(vol_nodes[0] if vol_nodes else None, scene_dir)
+    vol_data = compile_volume(vol_rec) if vol_rec.type_id else dummy_volume()
     prims = array_info["primitives"]            # (P,3,3)
     sphere_ids = array_info["indices"]
     P = prims.shape[0]
@@ -776,6 +783,8 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         has_null_bsdf=any(m.is_bsdf and m.type_id < 0 for m in pad_mats),
         n_null_objs=sum(1 for m in pad_mats
                         if m.is_bsdf and m.type_id < 0),
+        volume_kind=int(vol_rec.type_id),
+        volume_phase=int(vol_rec.phase_type_id),
         use_bvh=P >= BVH_THRESHOLD,
         has_normal_map=any(obj.texture_group.get("normal") is not None
                            for obj in objects),
@@ -875,6 +884,7 @@ def compile_scene(emitters, array_info, objects, configs, device="cuda"):
         cam_r=_t(cam_r, np.float32),
         cam_t=_t(cam_t, np.float32),
         tex=tex,
+        volume=vol_data,
     )
     return scene.to(device), cfg
 
@@ -888,5 +898,5 @@ def load_scene(directory: str, file: str, device="cuda"):
     device = resolve_device(device)
     emitters, array_info, objects, configs = scene_parsing(directory, file)
     scene, cfg = compile_scene(emitters, array_info, objects, configs,
-                               device)
+                               device, scene_dir=directory)
     return scene, cfg, configs

@@ -156,11 +156,44 @@ non-zero exit and no result line.
    the wrappers and the profiler), peak memory, the BVH any hit on the
    first shadow rays of one pass, bit-equal to its twin, with device time
    and bound; the image finite, at 64^2 (3 bounces) equal to the twins'
-   render, and different from the untextured one on the floor.
+   render, and different from the untextured one on the floor;
+3h (after 3g): the grid-volume goldens on cuda: render_pass_vpt on
+   cbox-volgrid.xml and cbox-rgbvol.xml at 64^2, 4 bounces, and
+   render_pass_bdpt on cbox-volgrid.xml at 32^2, 3 bounces, against
+   volgrid_vpt_64.npy, rgbvol_vpt_64.npy and volgrid_bdpt_32.npy (the
+   `.vol` grids written by `vol_assets` where missing);
+15. VPT cbox-rgbvol: VolumeRenderer on cbox-rgbvol.xml at its own
+   settings (512^2, 32 bounces, 1 shadow ray, the tornado grid made RGB
+   and rotated; the JAX package's bench row, scripts/bench_all.py:80-84):
+   one warm-up spp, then render_batch of a few spp with one closest hit
+   an iteration and one media walk a shadow ray, and every tracking call
+   of the grid volume recorded (`volume_marches`: march steps an spp, the
+   share of lanes that cross the grid, the rounds, the march's share of
+   the pass's wall time); one more spp under the profiler (device busy
+   and idle share, kernels an spp, `device_work`); the peak memory; the
+   image finite and, at 64^2, equal to the twins' render;
+16. VPT cbox-volgrid: the same on cbox-volgrid.xml (640^2, 12 bounces, 2
+   shadow rays, the mono plume grid);
+17. BDPT cbox-volgrid: BDPT on cbox-volgrid.xml at 640^2 and the scene's
+   12 bounces, one spp without a warm-up: 24 closest hits, a media walk
+   (and a ratio tracking) for each chunk of the t1, s1 and gen groups, one
+   film splat; the same numbers; at 64^2 (3 bounces) against the twins'
+   render under the goldens' bounds;
+18. PT ite-orb: Renderer on ite-orb.xml at its own settings (681x629, 24
+   bounces, 480,004 triangles on the BVH tier; its meshes and two JPEG
+   textures written by scripts/gen_procedural.py where missing,
+   `orb_assets`): one warm-up spp (and the auto-compaction probe), then
+   render_batch of a few spp with 24 BVH closest hits and 24 BVH any hits
+   an spp; the same numbers;
+19. the CLI: `python -m adapt_tpu_torch.render` from the repository's
+   root in three processes (PT on cbox for 4 passes; `-l` for 2 more,
+   the checkpoint's count 6; VPT on cbox-volgrid.xml for 2 passes), each
+   exiting 0 on cuda with its image and checkpoint written.
 Each phase's line ends with its wall time in seconds.
 Every phase that loads a textured scene fails unless each texture it
-names loaded (`load_textured`): the loader only warns about a missing
-file and renders without it.
+names loaded (`load_textured`), and every phase that loads a grid volume
+unless the volume loaded (`load_volume`): the loaders only warn about a
+missing file and render without it.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
 result line {"ok": true, "device": {...}}.
@@ -187,6 +220,11 @@ MULTI_SPP = 4      # csphere balls-multi PT samples per pixel (after a warm-up)
 VBALLS_SPP = 2     # vpt balls samples per pixel (after one warm-up spp)
 BUNNY_SPP = 2      # bunny BDPT samples per pixel (after one warm-up spp)
 BUNNY_PT_SPP = 2   # bunny PT samples per pixel (after one warm-up spp)
+RGBVOL_SPP = 2     # VPT cbox-rgbvol samples per pixel (after a warm-up spp)
+VOLGRID_SPP = 2    # VPT cbox-volgrid samples per pixel (after a warm-up spp)
+VOLGRID_BDPT_SPP = 1       # BDPT cbox-volgrid samples per pixel
+VOLGRID_BDPT_BOUNCES = 12  # BDPT cbox-volgrid bounces (the scene's own)
+ORB_SPP = 1        # PT ite-orb samples per pixel (after a warm-up spp)
 PROF_BOUNCES = 3   # bounces of phase 2a's profiled balls-multi and vpt passes
 TWIN_BOUNCES = 3   # bounces of the 64^2 twin renders of the BVH-tier scenes
 REPS = 5           # kernel timing repetitions (median)
@@ -694,6 +732,54 @@ def kernels_in(torch, fn, warm=False):
             and not e.is_user_annotation]
 
 
+def device_work(torch, fn):
+    """(device busy ms, kernels) of one call of fn, by torch.profiler
+    tracing the card alone (profile_pt's accounting: the sum of the
+    kernels' durations)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation]
+    return sum(e.time_range.elapsed_us() for e in ks) / 1e3, len(ks)
+
+
+@contextlib.contextmanager
+def volume_marches(torch, volume_ops):
+    """Record every tracking call of ops/volume_ops.py while open: a list
+    of {lanes, crossing, rounds, steps, s} (the lanes handed to it, those
+    that march, the JAX package's rounds, the march's steps and its
+    seconds, synchronized at its ends; 0 where no lane crosses)."""
+    calls, lanes, march = [], volume_ops._lanes, volume_ops._march
+
+    def counted_lanes(crossing):
+        out = lanes(crossing)
+        calls.append(dict(lanes=crossing.shape[0], crossing=out[0].shape[0],
+                          rounds=out[3], steps=0, s=0.0))
+        return out
+
+    def timed_march(*a):
+        step_fn, rec = a[-1], calls[-1]
+
+        def step(*b):
+            rec["steps"] += 1
+            return step_fn(*b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = march(*a[:-1], step)
+        torch.cuda.synchronize()
+        rec["s"] = time.perf_counter() - t0
+        return out
+    volume_ops._lanes, volume_ops._march = counted_lanes, timed_march
+    try:
+        yield calls
+    finally:
+        volume_ops._lanes, volume_ops._march = lanes, march
+
+
 def _gen_procedural():
     """scripts/gen_procedural.py, loaded by path (it imports numpy only;
     its `ensure_all` also writes grid volumes through the JAX package,
@@ -733,6 +819,83 @@ def bunny_assets(meshes=True):
             gen.ensure_at(rel, n_u, n_v, **kw)
         for rel in BUNNY_TEXTURES:
             gen.ensure_texture(rel)
+
+
+# the grid volumes of cbox-volgrid.xml and cbox-rgbvol.xml, as
+# scripts/gen_procedural.py `ensure_all` names them: file, grid kind
+VOLUMES = (("janga-smoke-264-136-136.vol", "plume"),
+           ("embergen_dust_devil_tornado_a_50-256-256-256.vol", "tornado"))
+
+
+def vol_grid(kind, n=96):
+    """scripts/gen_procedural.py `ensure_vol`'s density grid ((n, n, n)
+    float32; "plume" or "tornado"), its formula evaluated here: that
+    function writes through the JAX package's `write_vol`."""
+    import numpy as np
+    z, y, x = np.mgrid[0:n, 0:n, 0:n].astype(np.float32) / (n - 1)
+    swirl = np.sin(7.0 * y + 11.0 * (x + z)) * 0.04
+    if kind == "tornado":
+        # swirling funnel: radius grows with height around a wavy axis
+        cx = 0.5 + 0.08 * np.sin(6.0 * y) + swirl
+        cz = 0.5 + 0.08 * np.cos(6.0 * y) + swirl
+        r = np.sqrt((x - cx) ** 2 + (z - cz) ** 2)
+        funnel = 0.06 + 0.25 * y
+        d = np.exp(-((r / funnel) ** 2) * 4.0) * (0.3 + 0.7 * y)
+    else:
+        # buoyant plume: dense core rising and spreading
+        cx = 0.5 + 0.1 * np.sin(4.0 * y) + swirl
+        cz = 0.5 + 0.1 * np.cos(5.0 * y) + swirl
+        r = np.sqrt((x - cx) ** 2 + (z - cz) ** 2)
+        width = 0.12 + 0.18 * y * y
+        d = np.exp(-((r / width) ** 2) * 3.0) * np.exp(-2.5 * y)
+    d *= (0.75 + 0.25 * np.sin(13.0 * x) * np.sin(17.0 * z)
+          * np.sin(9.0 * y))
+    return d.astype(np.float32)
+
+
+def vol_assets(directory=None):
+    """Write the two scenes' `.vol` grids (`vol_grid`, through the port's
+    `write_vol`) into `directory` (scenes/volume/ by default), each only
+    if it is missing; returns their paths."""
+    from adapt_tpu_torch.native import write_vol
+    directory = directory or os.path.join(ROOT, "scenes", "volume")
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for name, kind in VOLUMES:
+        path = os.path.join(directory, name)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            write_vol(tmp, vol_grid(kind))
+            os.replace(tmp, path)
+        paths.append(path)
+    return paths
+
+
+ORB_TEXTURES = ("kitchen_textures/wood.jpg", "textures/crystal.jpg")
+
+
+def orb_assets():
+    """Write ite-orb.xml's meshes (six 80,000-triangle knots, a floor and
+    an emitter: scripts/gen_procedural.py `ensure_orbs`) and its two JPEG
+    textures (`ensure_texture`), each only if it is missing."""
+    gen = _gen_procedural()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen.ensure_orbs()
+        for rel in ORB_TEXTURES:
+            gen.ensure_texture(rel)
+
+
+def load_volume(directory, file, device="cuda"):
+    """Load a scene with a grid volume, and fail unless the volume loaded:
+    the loader of either package only warns about a missing `.vol` file
+    and renders without the volume. Returns (scene, cfg, configs)."""
+    import warnings
+    from adapt_tpu_torch.scene import compile as C
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="volume file")
+        scene, cfg, configs = C.load_scene(directory, file, device=device)
+    _require(cfg.volume_kind > 0, f"{file}: no grid volume")
+    return scene, cfg, configs
 
 
 def _scene_copy(directory, file, out_dir, edit):
@@ -876,6 +1039,7 @@ def main():
     from adapt_tpu_torch.ops import cluster_kernels as CK
     from adapt_tpu_torch.ops import intersect_kernels as K
     from adapt_tpu_torch.ops import splat as S
+    from adapt_tpu_torch.ops import volume_ops as V
     from adapt_tpu_torch.ops.intersect import DEAD
     from adapt_tpu_torch.parsers.xml_parser import scene_parsing
     from adapt_tpu_torch.renderer import bdpt as B, direct, pt, ssao, vpt
@@ -1941,6 +2105,38 @@ def main():
       f"{mean:.6f} vs {ref_mean:.6f}, launches {_shown(gl)}"
       for gname, err, mean, ref_mean, gl, tex in g_rows) + f" [{card}]")
 
+    # ---- 3h. the grid-volume goldens on the card ----
+    vol_paths = vol_assets()
+    vg_scene, vg_cfg, _ = load_volume(cbox_dir, "cbox-volgrid.xml")
+    rg_scene, rg_cfg, _ = load_volume(cbox_dir, "cbox-rgbvol.xml")
+    h_rows = []
+    for gname, scn, c, w, mb, render, want_k in (
+            ("volgrid_vpt_64", vg_scene, vg_cfg, 64, 4, vpt.render_pass_vpt,
+             ("tri_closest_hit", "tri_track_hits")),
+            ("rgbvol_vpt_64", rg_scene, rg_cfg, 64, 4, vpt.render_pass_vpt,
+             ("tri_closest_hit", "tri_track_hits")),
+            ("volgrid_bdpt_32", vg_scene, vg_cfg, 32, 3,
+             lambda *a: B.render_pass_bdpt(*a)[0],
+             ("tri_closest_hit", "tri_track_hits",
+              "splat_sorted_accumulate"))):
+        reset()
+        img = render(scn, _small(c, w, max_bounce=mb, **golden),
+                     rng.PRNGKey(42), 1)
+        hl = counts()
+        _require(all(hl[k] > 0 for k in want_k),
+                 f"{gname}: a kernel did not launch: {hl}")
+        h_rows.append((gname, *_check(
+            img.cpu().numpy(),
+            np.load(os.path.join(ROOT, "tests", "goldens",
+                                 gname + ".npy"))), hl))
+    say(f"phase 3h grid-volume goldens on cuda (volume kinds "
+        f"{vg_cfg.volume_kind}, {rg_cfg.volume_kind}; "
+        f"{', '.join(os.path.basename(p) for p in vol_paths)}): "
+        + "; ".join(
+            f"{gname}: max abs diff {err:.3g}, mean {mean:.6f} vs "
+            f"{ref_mean:.6f}, launches {_shown(hl)}"
+            for gname, err, mean, ref_mean, hl in h_rows) + f" [{card}]")
+
     @contextlib.contextmanager
     def twins():
         """The path's wrappers swapped for their plain twins."""
@@ -2521,16 +2717,208 @@ def main():
         f"vs untextured on the floor: mean abs diff {bp_floor:.4f}")
     del r
 
+    # ---- 15-18. grid volumes and ite-orb at the scenes' own settings ----
+    def path_run(make, spp, warm=True):
+        """A renderer from make(), a warm-up spp when warm, then spp
+        samples timed with the kernels counted and every tracking call of
+        the grid volume recorded (`volume_marches`), then one more spp
+        under the profiler (`device_work`). The image must be finite with
+        no NaN pixel. Returns a dict: the renderer, s/spp, launches, peak
+        GiB over what earlier phases hold and that, the tracking calls,
+        device busy ms and kernels of the profiled spp, the image."""
+        r = make()
+        if warm:
+            r.render_batch(1)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        with volume_marches(torch, V) as calls:
+            dt = timed_batch(r, spp)
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+        busy, nk = device_work(torch, lambda: r.render_batch(1))
+        img = r.image()
+        nan = float(np.isnan(img).any(axis=-1).mean())
+        _require(img.shape == (r.cfg.h, r.cfg.w, 3) and nan == 0.0
+                 and bool(np.isfinite(img).all()) and img.mean() > 0.01,
+                 f"image shape {img.shape}, NaN share {nan}, mean "
+                 f"{img.mean()}")
+        return dict(r=r, s=dt / spp, launches=launches, peak=peak,
+                    held=held, calls=calls, busy=busy, nk=nk, img=img)
+
+    def perf_text(res, spp):
+        return (f"{1e3 * res['s']:.2f} ms/spp [{card}]; one more spp "
+                f"profiled: device busy {res['busy']:.2f} ms, idle share "
+                f"{1 - res['busy'] / (1e3 * res['s']):.3f}, {res['nk']} "
+                f"kernels; peak memory {res['peak']:.3f} GiB over the "
+                f"{res['held']:.3f} GiB earlier phases hold; launches per "
+                "spp " + ", ".join(f"{k} {n / spp:g}" for k, n in
+                                   _shown(res["launches"]).items())
+                + f"; image mean {res['img'].mean():.6f}, no NaN pixel")
+
+    def march_text(res, spp):
+        calls = res["calls"]
+        lanes = sum(c["lanes"] for c in calls)
+        cross = sum(c["crossing"] for c in calls)
+        _require(cross > 0, "no lane crossed the grid volume")
+        march_s = sum(c["s"] for c in calls)
+        return (f"march: {len(calls) / spp:g} tracking calls and "
+                f"{sum(c['steps'] for c in calls) / spp:g} steps an spp, "
+                f"{cross / lanes:.4f} of their {lanes / spp:.0f} lanes an "
+                f"spp cross the grid, up to "
+                f"{max(c['rounds'] for c in calls)} rounds "
+                f"({sum(c['rounds'] > 1 for c in calls) / spp:g} calls an "
+                f"spp in two or more), {march_s / (res['s'] * spp):.3f} of "
+                "the pass's wall time")
+
+    vol_launches = dict(none)
+    for tag, file, scn, c, spp, settings in (
+            ("15", "cbox-rgbvol.xml", rg_scene, rg_cfg, RGBVOL_SPP,
+             (512, 512, 32, 1, 2)),
+            ("16", "cbox-volgrid.xml", vg_scene, vg_cfg, VOLGRID_SPP,
+             (640, 640, 12, 2, 1))):
+        _require((c.w, c.h, c.max_bounce, c.num_shadow_ray, c.volume_kind)
+                 == settings and not c.has_null_bsdf and scn.n_prims == 16,
+                 f"phase {tag} scene settings {c}")
+        res = path_run(lambda: vpt.VolumeRenderer(scn, c, seed=0), spp)
+        # one closest hit an iteration (the first before the loop), one
+        # media walk a shadow ray (no null surface: no overflow walk)
+        want = {**none, "tri_closest_hit": spp * c.max_bounce,
+                "tri_track_hits": spp * c.max_bounce * c.num_shadow_ray}
+        _require(res["launches"] == want,
+                 f"phase {tag} launch counts {res['launches']}, want {want}")
+        for k, n in res["launches"].items():
+            vol_launches[k] += n
+        v_twin = twin_equal(lambda c_: vpt.VolumeRenderer(scn, c_, seed=1),
+                            c)
+        say(f"phase {tag} main path VPT {file} "
+            f"{c.w}x{c.h} mb {c.max_bounce}, {c.num_shadow_ray} shadow "
+            f"ray(s), volume kind {c.volume_kind}, schedule "
+            f"{res['r'].schedule}, {spp} spp: " + perf_text(res, spp)
+            + "; " + march_text(res, spp) + "; 64^2 render equal to the "
+            f"twins' (max abs diff {v_twin:.3g})")
+        del res
+
+    # ---- 17. BDPT on cbox-volgrid.xml ----
+    vb_cfg = dataclasses.replace(vg_cfg, max_bounce=VOLGRID_BDPT_BOUNCES)
+    vgroups = B._strategy_groups(vb_cfg, vb_cfg.max_bounce)
+    vQ = max(1, B.FLAT_LANES // vb_cfg.n_pixels)
+    vchunks = {case: -(-len(rows) // vQ) for case, rows in vgroups.items()}
+    res = path_run(lambda: B.BDPT(vg_scene, vb_cfg, seed=0),
+                   VOLGRID_BDPT_SPP, warm=False)
+    # two walks of max_bounce closest hits; one media walk (and one ratio
+    # tracking) for each chunk of the t1, s1 and gen groups; one splat
+    want = {**none,
+            "tri_closest_hit": VOLGRID_BDPT_SPP * 2 * vb_cfg.max_bounce,
+            "tri_track_hits": VOLGRID_BDPT_SPP * (
+                vchunks["t1"] + vchunks["s1"] + vchunks["gen"]),
+            "splat_sorted_accumulate": VOLGRID_BDPT_SPP}
+    _require(res["launches"] == want,
+             f"phase 17 launch counts {res['launches']}, want {want}")
+    for k, n in res["launches"].items():
+        vol_launches[k] += n
+    tw_cfg = _small(vb_cfg, 64, max_bounce=TWIN_BOUNCES)
+    ra = B.BDPT(vg_scene, tw_cfg, seed=1)
+    ra.render_batch(1)
+    rb = B.BDPT(vg_scene, tw_cfg, seed=1)
+    with twins():
+        rb.render_batch(1)
+    vb_twin, _, _ = _check(ra.image(), rb.image())
+    say(f"phase 17 main path BDPT cbox-volgrid.xml {vb_cfg.w}x{vb_cfg.h} "
+        f"mb {vb_cfg.max_bounce} (the scene's: {vg_cfg.max_bounce}), "
+        f"{sum(map(len, vgroups.values()))} strategies in chunks {vchunks}, "
+        f"{VOLGRID_BDPT_SPP} spp, no warm-up: "
+        + perf_text(res, VOLGRID_BDPT_SPP) + "; "
+        + march_text(res, VOLGRID_BDPT_SPP) + f"; 64^2 at {TWIN_BOUNCES} "
+        f"bounces: max abs diff to twins {vb_twin:.3g} (equal: "
+        f"{bool(torch.equal(ra.color, rb.color))})")
+    del res, ra, rb
+
+    # ---- 18. PT on ite-orb.xml at its own settings ----
+    t0 = time.perf_counter()
+    orb_assets()
+    oscene, ocfg, otex = load_textured(cbox_dir, "ite-orb.xml")
+    torch.cuda.synchronize()
+    orb_load_s = time.perf_counter() - t0
+    _require(oscene.n_prims == 480004 and ocfg.use_bvh
+             and (ocfg.w, ocfg.h, ocfg.max_bounce, ocfg.num_shadow_ray)
+             == (681, 629, 24, 1) and sorted(otex) == ["back-door",
+                                                        "crystal"],
+             f"ite-orb.xml settings ({oscene.n_prims} prims, {ocfg})")
+    res = path_run(lambda: pt.Renderer(oscene, ocfg, seed=0), ORB_SPP)
+    _require(res["r"]._auto, "ite-orb is over the auto-compaction gate")
+    want = {**none, "bvh_closest_hit": ORB_SPP * ocfg.max_bounce,
+            "bvh_any_hit": ORB_SPP * ocfg.max_bounce * ocfg.num_shadow_ray}
+    _require(res["launches"] == want,
+             f"ite-orb launch counts {res['launches']}, want {want}")
+    orb_launches = res["launches"]
+    say(f"phase 18 main path PT ite-orb.xml {ocfg.w}x{ocfg.h} mb "
+        f"{ocfg.max_bounce}, {oscene.n_prims} triangles (BVH tier), "
+        f"textures {sorted(otex)} loaded (set-up {orb_load_s:.2f} s), "
+        f"schedule {res['r']._sched}, {ORB_SPP} spp: "
+        + perf_text(res, ORB_SPP))
+    del res, oscene
+
+    # ---- 19. the CLI on the card, in subprocesses ----
+    def cli(*args):
+        """`python -m adapt_tpu_torch.render` from the repository's root
+        (scene paths resolve against it): (stdout, seconds)."""
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "adapt_tpu_torch.render",
+             "--output_path", cli_out, "--no_watermark", *args],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600)
+        _require(p.returncode == 0 and "device=cuda (" in p.stdout
+                 and "volume file" not in p.stderr,
+                 f"the CLI {args}: exit {p.returncode}, stdout "
+                 f"{p.stdout[-1500:]}, stderr {p.stderr[-1500:]}")
+        done = [ln for ln in p.stdout.splitlines() if ln.startswith("done:")]
+        return done[-1], time.perf_counter() - t0
+
+    def ckpt(name):
+        import pickle
+        with open(os.path.join(ROOT, "checkpoint", name), "rb") as fh:
+            return pickle.load(fh)["counter"]
+    cli_out = os.path.join(ROOT, "build", "chip_smoke", "cli")
+    for name in ("smoke_pt-cbox-pt-512x512.pkl",
+                 "smoke_vpt-cbox-vpt-640x640.pkl"):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(ROOT, "checkpoint", name))
+    pt_args = ("--scene", "cbox", "--name", "cbox.xml", "--type", "pt",
+               "--img_name", "smoke_pt")
+    c1 = cli(*pt_args, "--iter_num", "4")
+    _require(os.path.exists(os.path.join(cli_out, "smoke_pt.png"))
+             and ckpt("smoke_pt-cbox-pt-512x512.pkl") == 4,
+             "the CLI's PT image or checkpoint")
+    c2 = cli(*pt_args, "--iter_num", "2", "-l")
+    _require(ckpt("smoke_pt-cbox-pt-512x512.pkl") == 6,
+             "the CLI's resumed PT checkpoint")
+    c3 = cli("--scene", "cbox", "--name", "cbox-volgrid.xml", "--type",
+             "vpt", "--iter_num", "2", "--img_name", "smoke_vpt")
+    _require(os.path.exists(os.path.join(cli_out, "smoke_vpt.png"))
+             and ckpt("smoke_vpt-cbox-vpt-640x640.pkl") == 2,
+             "the CLI's VPT image or checkpoint")
+    say("phase 19 the CLI on the card (python -m adapt_tpu_torch.render, "
+        "each in a process of its own): " + "; ".join(
+            f"{what}: {line} (process {sec:.1f} s)" for what, (line, sec) in
+            (("PT cbox 4 passes", c1), ("-l: 2 more, counter 6", c2),
+             ("VPT cbox-volgrid 2 passes", c3))))
+
     path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]
-                        + vblaunches[k]
+                        + vblaunches[k] + vol_launches[k]
                         for k in ("tri_closest_hit", "tri_any_hit")},
                      **{k: klaunches[k] + bulaunches[k] + bplaunches[k]
+                        + orb_launches[k]
                         for k in ("bvh_closest_hit", "bvh_any_hit")},
                      "tri_track_hits": vlaunches["tri_track_hits"]
-                     + vblaunches["tri_track_hits"],
+                     + vblaunches["tri_track_hits"]
+                     + vol_launches["tri_track_hits"],
                      "splat_sorted_accumulate":
                          blaunches["splat_sorted_accumulate"]
-                         + bulaunches["splat_sorted_accumulate"],
+                         + bulaunches["splat_sorted_accumulate"]
+                         + vol_launches["splat_sorted_accumulate"],
                      **{k: tier_launches["sweep"][k] for k in (
                          "cluster_closest_hit", "cluster_any_hit")},
                      **{k: tier_launches["qpick"][k] for k in (

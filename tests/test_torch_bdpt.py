@@ -572,10 +572,12 @@ def test_transient_checkpoint_roundtrip(trans):
 
 
 def test_bdpt_gate(cbox):
-    """What BDPT does not have yet raises, naming the ROADMAP item: grid
-    volumes (item 14). csphere/single-ball.xml (Blinn-Phong and specular
-    BRDFs, a sphere area light), which it refused until item 9, renders:
-    12^2, 2 bounces, against the JAX render."""
+    """BDPT refuses nothing the JAX package's renders.
+    csphere/single-ball.xml (Blinn-Phong and specular BRDFs, a sphere area
+    light), which it refused until item 9, renders: 12^2, 2 bounces,
+    against the JAX render. A grid volume, which it refused until item 14,
+    renders: an 8^2 pass of cbox-volgrid.xml (tests/test_torch_volume.py
+    holds a pass to the JAX render)."""
     scene, cfg, _ = load_scene(SCENE_DIR + "/csphere/", "single-ball.xml",
                                device="cpu")
     B.BDPT(scene, cfg)
@@ -587,8 +589,12 @@ def test_bdpt_gate(cbox):
                                     jax.random.PRNGKey(42), jnp.int32(1))
     _close(img.numpy(), ref)
     assert img.mean() > 0.01
-    _, _, scene, cfg = cbox
-    with pytest.raises(NotImplementedError, match="item 14"):
-        B.render_pass_bdpt(scene, dataclasses.replace(_cut(cfg, w=8),
-                                                      volume_kind=1),
-                           rng.PRNGKey(0), 1)
+    import chip_smoke
+    from test_torch_volume import volume_assets
+    volume_assets()
+    vscene, vcfg, _ = chip_smoke.load_volume(SCENE_DIR + "/cbox/",
+                                             "cbox-volgrid.xml", "cpu")
+    B.BDPT(vscene, vcfg)
+    vimg, _, _ = B.render_pass_bdpt(vscene, _small(vcfg, w=8, mb=2),
+                                    rng.PRNGKey(0), 1)
+    assert torch.isfinite(vimg).all() and vimg.mean() > 0.01

@@ -65,7 +65,9 @@ def test_compaction_exact(schedule):
 
 def test_compaction_overflow_branch_exact(monkeypatch):
     """Without roulette nearly every lane lives past bounce 2, so the
-    split to 1/32 of the width overflows and the pass stays wide."""
+    split to 1/32 of the width overflows and the pass stays wide: its
+    lanes take the JAX package's order (alive first) at the full width,
+    and the second split is dropped."""
     scene, cfg = _cbox(16, max_bounce=5, use_rr=False)
     widths = []
     take = compact.take
@@ -78,11 +80,11 @@ def test_compaction_overflow_branch_exact(monkeypatch):
     base = pt.render_pass_pt(scene, cfg, rng.PRNGKey(3), 1, schedule=())
     comp = pt.render_pass_pt(scene, cfg, rng.PRNGKey(3), 1,
                              schedule=((2, 32), (3, 64)))
-    assert widths == []                        # never narrowed
+    assert widths == [16 * 16]                 # reordered, never narrowed
     assert torch.equal(comp, base)
     narrow = pt.render_pass_pt(scene, cfg, rng.PRNGKey(3), 1,
                                schedule=((4, 2),))
-    assert widths == [16 * 16 // 2]
+    assert widths == [16 * 16, 16 * 16 // 2]
     assert torch.equal(narrow, base)
 
 

@@ -172,7 +172,10 @@ def test_port_imports_no_jax():
             "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt, "
             "adapt_tpu_torch.renderer.direct, adapt_tpu_torch.renderer.ssao, "
             "adapt_tpu_torch.ops.sampling, adapt_tpu_torch.ops.texture_ops, "
-            "adapt_tpu_torch.ops.mixture_ops; "
+            "adapt_tpu_torch.ops.mixture_ops, adapt_tpu_torch.render, "
+            "adapt_tpu_torch.ops.volume_ops, adapt_tpu_torch.scene.volume, "
+            "adapt_tpu_torch.utils.tdom_analyze, "
+            "adapt_tpu_torch.utils.preview; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")

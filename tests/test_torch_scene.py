@@ -64,18 +64,22 @@ def test_cbox_is_the_slice():
 @pytest.mark.parametrize("scene_file", [
     ("csphere", "single-ball.xml", {"has_normal_map": True}),   # renders
     ("vpt", "cbox.xml", {}),                 # null BSDFs under PT
-    ("cbox", "cbox.xml", {"volume_kind": 1})])                  # grid volumes
+    ("cbox", "cbox-volgrid.xml", {})])                          # grid volumes
 def test_unsupported_scene_raises_at_render(scene_file):
     """What PT does not render raises at render, naming its ROADMAP item:
-    null BSDFs (item 11) and grid volumes (item 14). A configuration that
-    declares a normal map, which PT refused until textures were ported,
-    now renders as the JAX package's does (single-ball has no normal
-    texture, so the map's fetch finds none and n_s stays);
-    tests/test_torch_texture.py holds real maps."""
+    null BSDFs (item 11). A configuration that declares a normal map,
+    which PT refused until textures were ported, now renders as the JAX
+    package's does (single-ball has no normal texture, so the map's fetch
+    finds none and n_s stays); tests/test_torch_texture.py holds real
+    maps. A scene with a grid volume, which PT refused until grid volumes
+    were ported, renders as the JAX package's PT renders it: without the
+    volume, which only VPT and BDPT read."""
+    from test_torch_volume import volume_assets
+    volume_assets()
     d, f, change = scene_file
     scene, cfg, _ = load_scene(f"{SCENE_DIR}/{d}/", f, device="cpu")
     cfg = dataclasses.replace(cfg, w=8, h=8, end_x=8, end_y=8, **change)
-    if cfg.has_normal_map:
+    if cfg.has_normal_map or cfg.volume_kind:
         jscene, jcfg, _ = jax_load_scene(f"{SCENE_DIR}/{d}/", f)
         jcfg = dataclasses.replace(jcfg, w=8, h=8, end_x=8, end_y=8,
                                    **change)

@@ -275,19 +275,23 @@ def test_compacted_pass_equals_uncompacted(vcbox, schedule):
 
 
 def test_vpt_gate(tmp_path):
-    """What the volumetric tracer does not have yet raises, naming the
-    ROADMAP item: grid volumes (item 14); PT's gate still refuses the vpt
-    cbox (tests/test_torch_scene.py). Textures, which it refused until
-    they were ported, render: the vpt cbox with the two-tone floor of
+    """The volumetric tracer refuses nothing the JAX package's renders;
+    PT's gate still refuses the vpt cbox (tests/test_torch_scene.py). Grid
+    volumes, which it refused until they were ported, render: a 12^2 pass
+    of cbox-volgrid.xml (tests/test_torch_volume.py holds the passes to
+    the JAX renders). Textures, which it refused until they were ported,
+    render: the vpt cbox with the two-tone floor of
     tests/test_torch_texture.py, 24^2, 3 bounces, against the JAX
     render."""
-    scene, cfg, _ = load_scene(SCENE_DIR + "/vpt/", "cbox.xml", device="cpu")
-    grid = dataclasses.replace(cfg, volume_kind=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 14"):
-        vpt.VolumeRenderer(scene, grid)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 14"):
-        vpt.render_pass_vpt(scene, _small(grid, 8), rng.PRNGKey(0), 1)
     import chip_smoke
+    from test_torch_volume import volume_assets
+    volume_assets()
+    vscene, vcfg, _ = chip_smoke.load_volume(SCENE_DIR + "/cbox/",
+                                             "cbox-volgrid.xml", "cpu")
+    vpt.VolumeRenderer(vscene, vcfg)
+    vimg = vpt.render_pass_vpt(vscene, _small(vcfg, 12), rng.PRNGKey(0), 1)
+    assert torch.isfinite(vimg).all() and vimg.mean() > 0.01
+    scene, cfg, _ = load_scene(SCENE_DIR + "/vpt/", "cbox.xml", device="cpu")
     from test_torch_texture import _load_both
     jscene, jcfg, tscene, tcfg = _load_both(
         *chip_smoke.twotone_cbox(str(tmp_path), "vpt", "cbox.xml"))
