@@ -2874,8 +2874,15 @@ def main():
                  and "volume file" not in p.stderr,
                  f"the CLI {args}: exit {p.returncode}, stdout "
                  f"{p.stdout[-1500:]}, stderr {p.stderr[-1500:]}")
-        done = [ln for ln in p.stdout.splitlines() if ln.startswith("done:")]
-        return done[-1], time.perf_counter() - t0
+        # "done: N spp in Ts (...) on DEVICE": N counts a resumed
+        # checkpoint's passes; T is this process's render with its set-up
+        done = [ln.split() for ln in p.stdout.splitlines()
+                if ln.startswith("done:")][-1]
+        passes = int(args[args.index("--iter_num") + 1])
+        sec = float(done[4].rstrip("s"))
+        return (f"{done[1]} spp counted, {passes} passes in {sec:.2f} s "
+                f"({1e3 * sec / passes:.1f} ms/spp with the set-up) on "
+                f"{' '.join(done[8:])}", time.perf_counter() - t0)
 
     def ckpt(name):
         import pickle
@@ -2903,8 +2910,8 @@ def main():
     say("phase 19 the CLI on the card (python -m adapt_tpu_torch.render, "
         "each in a process of its own): " + "; ".join(
             f"{what}: {line} (process {sec:.1f} s)" for what, (line, sec) in
-            (("PT cbox 4 passes", c1), ("-l: 2 more, counter 6", c2),
-             ("VPT cbox-volgrid 2 passes", c3))))
+            (("PT cbox 512^2 4 passes", c1), ("-l: 2 more, counter 6", c2),
+             ("VPT cbox-volgrid 640^2 2 passes", c3))) + f" [{card}]")
 
     path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]
                         + vblaunches[k] + vol_launches[k]
