@@ -41,7 +41,9 @@ arrays), which moved no lane of tests/test_torch_volume.py's sets.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -56,6 +58,29 @@ COMPACT_DIV = 8      # round width: N / COMPACT_DIV, rounded up to 128
 COMPACT_MIN = 2048   # at or below this many lanes, one round of N lanes
 STEP_BLOCK = 8       # march steps between two tests of `done`
 FLT_MIN = float(np.finfo(np.float32).tiny)   # the least normal float32
+
+# the tracking calls while `record_marches()` is open, else None
+_marches = None
+
+
+@contextlib.contextmanager
+def record_marches():
+    """Record every tracking call while open. Yields a list that gets one
+    dict a call: lanes (handed to it), crossing (those that march), rounds
+    (the JAX package's), steps (the march's) and s (its seconds, the
+    device synchronized at both ends); steps and s stay 0 where no lane
+    crosses."""
+    global _marches
+    saved, _marches = _marches, []
+    try:
+        yield _marches
+    finally:
+        _marches = saved
+
+
+def _sync(x):
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
 
 
 @dataclasses.dataclass
@@ -311,6 +336,10 @@ def _march(key, r, slot, rounds, ins, state, step_fn):
     launches takes longer than the sync); once half of the batch is
     done, the done lanes leave it with their state. Returns the final
     state of every lane, in lane order."""
+    rec = _marches[-1] if _marches is not None else None
+    if rec is not None:
+        _sync(r)
+        t0 = time.perf_counter()
     out = {k: v.clone() for k, v in state.items()}
     idx = torch.arange(r.shape[0], device=r.device)
     u = None
@@ -331,6 +360,9 @@ def _march(key, r, slot, rounds, ins, state, step_fn):
         idx, r, slot, u = idx[live], r[live], slot[live], u[live]
         ins = {k: v[live] for k, v in ins.items()}
         state = {k: v[live] for k, v in state.items()}
+    if rec is not None:
+        _sync(r)
+        rec.update(steps=step + 1, s=time.perf_counter() - t0)
     return out
 
 
@@ -403,6 +435,9 @@ def _setup(vol, key, ray_o, ray_d, thp, max_t, active):
     if active is not None:
         crossing = crossing & active
     lane, r, slot, rounds = _lanes(crossing)
+    if _marches is not None:
+        _marches.append(dict(lanes=N, crossing=lane.shape[0], rounds=rounds,
+                             steps=0, s=0.0))
     ins = dict(_walk(lo[lane], ld[lane]), far=far[lane], ch=ch[lane])
     return key, ch, pdf, crossing, lane, r, slot, rounds, ins, near[lane]
 

@@ -161,17 +161,21 @@ non-zero exit and no result line.
    cbox-volgrid.xml and cbox-rgbvol.xml at 64^2, 4 bounces, and
    render_pass_bdpt on cbox-volgrid.xml at 32^2, 3 bounces, against
    volgrid_vpt_64.npy, rgbvol_vpt_64.npy and volgrid_bdpt_32.npy (the
-   `.vol` grids written by `vol_assets` where missing);
+   `.vol` grids written where missing by adapt_tpu_torch/scene/assets.py
+   `vol_assets`);
 15. VPT cbox-rgbvol: VolumeRenderer on cbox-rgbvol.xml at its own
    settings (512^2, 32 bounces, 1 shadow ray, the tornado grid made RGB
    and rotated; the JAX package's bench row, scripts/bench_all.py:80-84):
    one warm-up spp, then render_batch of a few spp with one closest hit
    an iteration and one media walk a shadow ray, and every tracking call
-   of the grid volume recorded (`volume_marches`: march steps an spp, the
-   share of lanes that cross the grid, the rounds, the march's share of
-   the pass's wall time); one more spp under the profiler (device busy
-   and idle share, kernels an spp, `device_work`); the peak memory; the
-   image finite and, at 64^2, equal to the twins' render;
+   of the grid volume recorded (ops/volume_ops.py `record_marches`: march
+   steps an spp, the share of lanes that cross the grid, the rounds, the
+   march's share of the pass's wall time); one more spp under the
+   profiler (device busy and idle share, kernels an spp, `device_work`);
+   the peak memory; B1 on the first two closest-hit calls of a full-size
+   pass (primary rays, the first bounce) and B3 on its first media walk
+   (shadow rays), each bit-equal to its twin, with device time and bound;
+   the image finite and, at 64^2, equal to the twins' render;
 16. VPT cbox-volgrid: the same on cbox-volgrid.xml (640^2, 12 bounces, 2
    shadow rays, the mono plume grid);
 17. BDPT cbox-volgrid: BDPT on cbox-volgrid.xml at 640^2 and the scene's
@@ -184,7 +188,10 @@ non-zero exit and no result line.
    textures written by scripts/gen_procedural.py where missing,
    `orb_assets`): one warm-up spp (and the auto-compaction probe), then
    render_batch of a few spp with 24 BVH closest hits and 24 BVH any hits
-   an spp; the same numbers;
+   an spp; the same numbers; B5a on the primary rays and B5b on the
+   first shadow rays of a full-size pass, each bit-equal to its twin,
+   with device time and bound; at 64^2 (3 bounces) equal to the twins'
+   render;
 19. the CLI: `python -m adapt_tpu_torch.render` from the repository's
    root in three processes (PT on cbox for 4 passes; `-l` for 2 more,
    the checkpoint's count 6; VPT on cbox-volgrid.xml for 2 passes), each
@@ -192,7 +199,8 @@ non-zero exit and no result line.
 Each phase's line ends with its wall time in seconds.
 Every phase that loads a textured scene fails unless each texture it
 names loaded (`load_textured`), and every phase that loads a grid volume
-unless the volume loaded (`load_volume`): the loaders only warn about a
+unless the volume loaded (scene/assets.py `load_volume`): the loaders
+only warn about a
 missing file and render without it.
 
 Then one JSON line of per-kernel numbers, the card line again, and the
@@ -691,15 +699,15 @@ def null_layers(torch, C, scene, dup, eps):
 
 
 def recorded_rays(module, wrapper, run, first=None):
-    """[(ro, rd, far)] of the calls of module.wrapper (its first `first`
+    """[(ro, rd, far, *the wrapper's further arguments)] of the calls of module.wrapper (its first `first`
     calls, or all) while run() runs, recorded around the wrapper (which
     runs the kernel: the counts are reset before each main path)."""
     calls, launch = [], getattr(module, wrapper)
 
-    def record(s, o, d, far):
+    def record(s, o, d, far, *rest):
         if first is None or len(calls) < first:
-            calls.append((o.clone(), d.clone(), far.clone()))
-        return launch(s, o, d, far)
+            calls.append((o.clone(), d.clone(), far.clone(), *rest))
+        return launch(s, o, d, far, *rest)
     setattr(module, wrapper, record)
     try:
         run()
@@ -747,39 +755,6 @@ def device_work(torch, fn):
     return sum(e.time_range.elapsed_us() for e in ks) / 1e3, len(ks)
 
 
-@contextlib.contextmanager
-def volume_marches(torch, volume_ops):
-    """Record every tracking call of ops/volume_ops.py while open: a list
-    of {lanes, crossing, rounds, steps, s} (the lanes handed to it, those
-    that march, the JAX package's rounds, the march's steps and its
-    seconds, synchronized at its ends; 0 where no lane crosses)."""
-    calls, lanes, march = [], volume_ops._lanes, volume_ops._march
-
-    def counted_lanes(crossing):
-        out = lanes(crossing)
-        calls.append(dict(lanes=crossing.shape[0], crossing=out[0].shape[0],
-                          rounds=out[3], steps=0, s=0.0))
-        return out
-
-    def timed_march(*a):
-        step_fn, rec = a[-1], calls[-1]
-
-        def step(*b):
-            rec["steps"] += 1
-            return step_fn(*b)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = march(*a[:-1], step)
-        torch.cuda.synchronize()
-        rec["s"] = time.perf_counter() - t0
-        return out
-    volume_ops._lanes, volume_ops._march = counted_lanes, timed_march
-    try:
-        yield calls
-    finally:
-        volume_ops._lanes, volume_ops._march = lanes, march
-
-
 def _gen_procedural():
     """scripts/gen_procedural.py, loaded by path (it imports numpy only;
     its `ensure_all` also writes grid volumes through the JAX package,
@@ -821,56 +796,6 @@ def bunny_assets(meshes=True):
             gen.ensure_texture(rel)
 
 
-# the grid volumes of cbox-volgrid.xml and cbox-rgbvol.xml, as
-# scripts/gen_procedural.py `ensure_all` names them: file, grid kind
-VOLUMES = (("janga-smoke-264-136-136.vol", "plume"),
-           ("embergen_dust_devil_tornado_a_50-256-256-256.vol", "tornado"))
-
-
-def vol_grid(kind, n=96):
-    """scripts/gen_procedural.py `ensure_vol`'s density grid ((n, n, n)
-    float32; "plume" or "tornado"), its formula evaluated here: that
-    function writes through the JAX package's `write_vol`."""
-    import numpy as np
-    z, y, x = np.mgrid[0:n, 0:n, 0:n].astype(np.float32) / (n - 1)
-    swirl = np.sin(7.0 * y + 11.0 * (x + z)) * 0.04
-    if kind == "tornado":
-        # swirling funnel: radius grows with height around a wavy axis
-        cx = 0.5 + 0.08 * np.sin(6.0 * y) + swirl
-        cz = 0.5 + 0.08 * np.cos(6.0 * y) + swirl
-        r = np.sqrt((x - cx) ** 2 + (z - cz) ** 2)
-        funnel = 0.06 + 0.25 * y
-        d = np.exp(-((r / funnel) ** 2) * 4.0) * (0.3 + 0.7 * y)
-    else:
-        # buoyant plume: dense core rising and spreading
-        cx = 0.5 + 0.1 * np.sin(4.0 * y) + swirl
-        cz = 0.5 + 0.1 * np.cos(5.0 * y) + swirl
-        r = np.sqrt((x - cx) ** 2 + (z - cz) ** 2)
-        width = 0.12 + 0.18 * y * y
-        d = np.exp(-((r / width) ** 2) * 3.0) * np.exp(-2.5 * y)
-    d *= (0.75 + 0.25 * np.sin(13.0 * x) * np.sin(17.0 * z)
-          * np.sin(9.0 * y))
-    return d.astype(np.float32)
-
-
-def vol_assets(directory=None):
-    """Write the two scenes' `.vol` grids (`vol_grid`, through the port's
-    `write_vol`) into `directory` (scenes/volume/ by default), each only
-    if it is missing; returns their paths."""
-    from adapt_tpu_torch.native import write_vol
-    directory = directory or os.path.join(ROOT, "scenes", "volume")
-    os.makedirs(directory, exist_ok=True)
-    paths = []
-    for name, kind in VOLUMES:
-        path = os.path.join(directory, name)
-        if not os.path.exists(path):
-            tmp = f"{path}.{os.getpid()}.tmp"
-            write_vol(tmp, vol_grid(kind))
-            os.replace(tmp, path)
-        paths.append(path)
-    return paths
-
-
 ORB_TEXTURES = ("kitchen_textures/wood.jpg", "textures/crystal.jpg")
 
 
@@ -883,19 +808,6 @@ def orb_assets():
         gen.ensure_orbs()
         for rel in ORB_TEXTURES:
             gen.ensure_texture(rel)
-
-
-def load_volume(directory, file, device="cuda"):
-    """Load a scene with a grid volume, and fail unless the volume loaded:
-    the loader of either package only warns about a missing `.vol` file
-    and renders without the volume. Returns (scene, cfg, configs)."""
-    import warnings
-    from adapt_tpu_torch.scene import compile as C
-    with warnings.catch_warnings():
-        warnings.filterwarnings("error", message="volume file")
-        scene, cfg, configs = C.load_scene(directory, file, device=device)
-    _require(cfg.volume_kind > 0, f"{file}: no grid volume")
-    return scene, cfg, configs
 
 
 def _scene_copy(directory, file, out_dir, edit):
@@ -1045,6 +957,7 @@ def main():
     from adapt_tpu_torch.renderer import bdpt as B, direct, pt, ssao, vpt
     from adapt_tpu_torch.renderer.base import camera_rays
     from adapt_tpu_torch.scene import compile as C
+    from adapt_tpu_torch.scene.assets import load_volume, vol_assets
     said = [time.perf_counter()]
 
     def say(line):
@@ -2721,7 +2634,7 @@ def main():
     def path_run(make, spp, warm=True):
         """A renderer from make(), a warm-up spp when warm, then spp
         samples timed with the kernels counted and every tracking call of
-        the grid volume recorded (`volume_marches`), then one more spp
+        the grid volume recorded (`record_marches`), then one more spp
         under the profiler (`device_work`). The image must be finite with
         no NaN pixel. Returns a dict: the renderer, s/spp, launches, peak
         GiB over what earlier phases hold and that, the tracking calls,
@@ -2733,7 +2646,7 @@ def main():
         held = torch.cuda.memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
         reset()
-        with volume_marches(torch, V) as calls:
+        with V.record_marches() as calls:
             dt = timed_batch(r, spp)
         launches = counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
@@ -2762,6 +2675,9 @@ def main():
         lanes = sum(c["lanes"] for c in calls)
         cross = sum(c["crossing"] for c in calls)
         _require(cross > 0, "no lane crossed the grid volume")
+        _require(all(c["steps"] > 0 and c["s"] > 0 for c in calls
+                     if c["crossing"]),
+                 "a tracking call with crossing lanes recorded no march")
         march_s = sum(c["s"] for c in calls)
         return (f"march: {len(calls) / spp:g} tracking calls and "
                 f"{sum(c['steps'] for c in calls) / spp:g} steps an spp, "
@@ -2771,6 +2687,50 @@ def main():
                 f"({sum(c['rounds'] > 1 for c in calls) / spp:g} calls an "
                 f"spp in two or more), {march_s / (res['s'] * spp):.3f} of "
                 "the pass's wall time")
+
+    def tri_on_path(scn, run):
+        """B1 on the first two closest-hit calls of run(), a full-size
+        pass (primary rays, the first bounce), and B3 on its first media
+        walk (shadow rays), each bit-equal to its twin: [(what, rays,
+        walking, device ms, bound)]."""
+        b1 = []
+        b3 = recorded_rays(K, "tri_track_hits", lambda: b1.extend(
+            recorded_rays(K, "tri_closest_hit", run, first=2)), first=1)
+        _require(len(b1) == 2 and len(b3) == 1,
+                 f"{len(b1)} closest hits, {len(b3)} media walks recorded")
+        T, rows = scn.tri_n.shape[0], []
+        for tag, (o, d, far) in zip(("B1 primary", "B1 bounce"), b1):
+            got = K.tri_closest_hit(scn, o, d, far)
+            want = K.tri_closest_hit_plain(scn, o, d, far)
+            _require(all(a.dtype == b.dtype and torch.equal(a, b)
+                         for a, b in zip(got, want)),
+                     f"tri_closest_hit ({tag} rays): not bit-equal to the "
+                     "twin")
+            n_ = o.shape[0]
+            rows.append((tag, n_, int((far > K.RAY_EPS).sum()), _graph_ms(
+                torch, lambda: K.tri_closest_hit(scn, o, d, far)), _bound(
+                _ray_bytes(K, far) + T * 64 + n_ * 32, _split_ops(
+                    *closest_work(torch, K, scn, o, d, far)[:3]))))
+        (o, d, far, k, all_null), = b3
+        got = K.tri_track_hits(scn, o, d, far, k, all_null)
+        want = K.tri_track_hits_plain(scn, o, d, far, k,
+                                      K.null_flags(scn, all_null))
+        _require(all(a.dtype == b.dtype and torch.equal(a, b)
+                     for a, b in zip(got, want)),
+                 "tri_track_hits (shadow rays): differs from the twin")
+        n_ = o.shape[0]
+        rows.append(("B3 shadow", n_, int((far > K.RAY_EPS).sum()),
+                     _graph_ms(torch, lambda: K.tri_track_hits(
+                         scn, o, d, far, k, all_null)),
+                     _bound(_ray_bytes(K, far) + T * 68 + n_ * (12 * k + 13),
+                            _split_ops(*track_work(torch, K, scn, o, d, far,
+                                                   all_null)))))
+        return rows
+
+    def kernel_text(rows):
+        return "; ".join(f"{tag} {n_} rays ({w} walking): device {ms:.4f} "
+                         f"ms, bound {bd[0]:.4f} ms ({bd[1]})"
+                         for tag, n_, w, ms, bd in rows)
 
     vol_launches = dict(none)
     for tag, file, scn, c, spp, settings in (
@@ -2790,14 +2750,18 @@ def main():
                  f"phase {tag} launch counts {res['launches']}, want {want}")
         for k, n in res["launches"].items():
             vol_launches[k] += n
+        v_rows = tri_on_path(scn, lambda: vpt.render_pass_vpt(
+            scn, c, rng.PRNGKey(5), 1))
         v_twin = twin_equal(lambda c_: vpt.VolumeRenderer(scn, c_, seed=1),
                             c)
         say(f"phase {tag} main path VPT {file} "
             f"{c.w}x{c.h} mb {c.max_bounce}, {c.num_shadow_ray} shadow "
             f"ray(s), volume kind {c.volume_kind}, schedule "
             f"{res['r'].schedule}, {spp} spp: " + perf_text(res, spp)
-            + "; " + march_text(res, spp) + "; 64^2 render equal to the "
-            f"twins' (max abs diff {v_twin:.3g})")
+            + "; " + march_text(res, spp) + "; on the first calls of a "
+            "pass, bit-equal to the twins: " + kernel_text(v_rows)
+            + f"; 64^2 render equal to the twins' (max abs diff "
+            f"{v_twin:.3g})")
         del res
 
     # ---- 17. BDPT on cbox-volgrid.xml ----
@@ -2853,11 +2817,63 @@ def main():
     _require(res["launches"] == want,
              f"ite-orb launch counts {res['launches']}, want {want}")
     orb_launches = res["launches"]
+    # B5a and B5b on ite-orb's own rays: the first closest-hit call
+    # (primary rays) and the first shadow-ray call of a full-size pass,
+    # bit-equal to the plain walks, with device time and bound
+    o_any = []
+    o_closest = recorded_rays(BK, "bvh_closest_hit", lambda: o_any.extend(
+        recorded_rays(BK, "bvh_any_hit", lambda: pt.render_pass_pt(
+            oscene, ocfg, rng.PRNGKey(5), 1), first=1)), first=1)
+    o_tables = 4 * (oscene.bvh_node_pack.numel()
+                    + oscene.bvh_prim_pack.numel())
+    (o, d, far), = o_closest
+    got = BK.bvh_closest_hit(oscene, o, d, far)
+    want_ = bvh.walk(oscene, o, d, far, stats=True)
+    _require(all(torch.equal(a, b) for a, b in zip(got, want_[:4])),
+             "bvh_closest_hit (ite-orb primary rays): not bit-equal to the "
+             "twin")
+    n_, live = o.shape[0], int((far > K.RAY_EPS).sum())
+    visits, tests = int(want_[4].sum()), int(want_[5].sum())
+    o_b5a = (n_, live, visits / max(live, 1), tests / max(live, 1),
+             _graph_ms(torch, lambda: BK.bvh_closest_hit(oscene, o, d, far)),
+             _bound(n_ * 28 + o_tables + n_ * 16,
+                    visits * bvh.NODE_OPS + tests * bvh.PRIM_OPS))
+    del o_closest, o, d, far, got, want_
+    (so, sd, sfar), = o_any
+    occ = BK.bvh_any_hit(oscene, so, sd, sfar)
+    want_ = bvh.walk(oscene, so, sd, sfar, any_hit=True, stats=True)
+    _require(torch.equal(occ, want_[1] >= 0)
+             and not bool(occ[~(sfar > K.RAY_EPS)].any()),
+             "bvh_any_hit (ite-orb shadow rays): occlusion differs from the "
+             "twin")
+    n_, live = so.shape[0], int((sfar > K.RAY_EPS).sum())
+    visits, tests = int(want_[4].sum()), int(want_[5].sum())
+    o_b5b = (n_, live, int(occ.sum()) / max(live, 1), visits / max(live, 1),
+             tests / max(live, 1),
+             _graph_ms(torch, lambda: BK.bvh_any_hit(oscene, so, sd, sfar)),
+             _bound(n_ * 28 + o_tables + n_,
+                    visits * bvh.NODE_OPS + tests * bvh.PRIM_OPS))
+    del o_any, so, sd, sfar, occ, want_
+    # 64^2 with ite-orb's own field of view, the twins at 3 bounces
+    o_twin = twin_equal(
+        lambda c: pt.Renderer(oscene, c, seed=1), ocfg,
+        dataclasses.replace(ocfg, w=64, h=64, end_x=64, end_y=64,
+                            focal=ocfg.focal * 64 / ocfg.w,
+                            max_bounce=TWIN_BOUNCES))
     say(f"phase 18 main path PT ite-orb.xml {ocfg.w}x{ocfg.h} mb "
         f"{ocfg.max_bounce}, {oscene.n_prims} triangles (BVH tier), "
         f"textures {sorted(otex)} loaded (set-up {orb_load_s:.2f} s), "
         f"schedule {res['r']._sched}, {ORB_SPP} spp: "
-        + perf_text(res, ORB_SPP))
+        + perf_text(res, ORB_SPP) + f"; B5a on the primary rays of a pass, "
+        f"bit-equal: {o_b5a[0]} rays ({o_b5a[1]} live): device "
+        f"{o_b5a[4]:.4f} ms, bound {o_b5a[5][0]:.4f} ms ({o_b5a[5][1]}), "
+        f"{o_b5a[2]:.2f} node visits / {o_b5a[3]:.2f} prim tests a live "
+        f"ray; B5b on its first shadow rays, bit-equal: {o_b5b[0]} rays "
+        f"({o_b5b[1]} live, {o_b5b[2]:.4f} of them occluded): device "
+        f"{o_b5b[5]:.4f} ms, bound {o_b5b[6][0]:.4f} ms ({o_b5b[6][1]}), "
+        f"{o_b5b[3]:.2f} node visits / {o_b5b[4]:.2f} prim tests a live "
+        f"ray; 64^2 render at {TWIN_BOUNCES} bounces equal to the twins' "
+        f"(max abs diff {o_twin:.3g})")
     del res, oscene
 
     # ---- 19. the CLI on the card, in subprocesses ----

@@ -589,11 +589,11 @@ def test_bdpt_gate(cbox):
                                     jax.random.PRNGKey(42), jnp.int32(1))
     _close(img.numpy(), ref)
     assert img.mean() > 0.01
-    import chip_smoke
+    from adapt_tpu_torch.scene.assets import load_volume
     from test_torch_volume import volume_assets
     volume_assets()
-    vscene, vcfg, _ = chip_smoke.load_volume(SCENE_DIR + "/cbox/",
-                                             "cbox-volgrid.xml", "cpu")
+    vscene, vcfg, _ = load_volume(SCENE_DIR + "/cbox/",
+                                  "cbox-volgrid.xml", "cpu")
     B.BDPT(vscene, vcfg)
     vimg, _, _ = B.render_pass_bdpt(vscene, _small(vcfg, w=8, mb=2),
                                     rng.PRNGKey(0), 1)

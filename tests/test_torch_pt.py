@@ -174,6 +174,7 @@ def test_port_imports_no_jax():
             "adapt_tpu_torch.ops.sampling, adapt_tpu_torch.ops.texture_ops, "
             "adapt_tpu_torch.ops.mixture_ops, adapt_tpu_torch.render, "
             "adapt_tpu_torch.ops.volume_ops, adapt_tpu_torch.scene.volume, "
+            "adapt_tpu_torch.scene.assets, "
             "adapt_tpu_torch.utils.tdom_analyze, "
             "adapt_tpu_torch.utils.preview; "
             "bad = [m for m in sys.modules if m == 'jax' "

@@ -3,15 +3,18 @@ passes.
 
 * I/O: `vol_file_to_numpy` reads what the JAX loader reads from 1-, 3-
   and 6-channel grids, with and without `force_mono`; `write_vol` writes
-  the JAX writer's bytes; chip_smoke.vol_assets writes the bytes
-  scripts/gen_procedural.py `ensure_vol` writes, and it and
-  `orb_assets` load nothing of the JAX package.
+  the JAX writer's bytes; adapt_tpu_torch/scene/assets.py `vol_assets`
+  writes the bytes scripts/gen_procedural.py `ensure_vol` writes, and it
+  and chip_smoke's `orb_assets` load nothing of the JAX package;
+  `load_volume` refuses a scene whose `.vol` file is missing.
 * Tables: `GridVolumeRec` and `compile_volume` on cbox-volgrid.xml (a mono
   plume) and cbox-rgbvol.xml (the tornado made RGB by mono2rgb, rotated):
   grid, inv_T, majorant, pdf, sv_maj, sv_size and the AABB exactly equal.
 * The march on rays aimed at each volume, at N = 1,024 (one round) and
   N = 8,192 with more than 1,024 lanes crossing (rounds of C = 1,024, at
-  least two): `intersect_volume` and `_march_interval` exactly equal; `_sv_step`'s majorants and
+  least two): `intersect_volume` and `_march_interval` exactly equal;
+  `record_marches` records each tracking call's lanes, crossing lanes,
+  rounds and steps; `_sv_step`'s majorants and
   hops exactly equal, its candidates within 4 ULP (XLA's CPU log1p rounds
   unlike torch's in ~10% of its values); both tracking functions differ
   from the JAX package's in at most LANES_DIFFER of the lanes (measured:
@@ -30,9 +33,9 @@ passes.
   renders.
 
 The scenes' `.vol` files are git-ignored; `volume_assets` writes them
-(chip_smoke.vol_assets) under the lock tests/test_torch_bvh.py makes the
-procedural assets under, and every load fails unless the volume loaded
-(chip_smoke.load_volume): a missing file would otherwise render without
+(scene/assets.py `vol_assets`) under the lock tests/test_torch_bvh.py
+makes the procedural assets under, and every load fails unless the
+volume loaded (scene/assets.py `load_volume`): a missing file would otherwise render without
 the volume with only a warning, as the JAX package's loader does.
 """
 import dataclasses
@@ -58,9 +61,10 @@ from adapt_tpu_torch import native, rng
 from adapt_tpu_torch.convert import scene_leaves
 from adapt_tpu_torch.ops import volume_ops as T
 from adapt_tpu_torch.renderer import bdpt, vpt
+from adapt_tpu_torch.scene import assets
+from adapt_tpu_torch.scene.compile import load_scene
 from adapt_tpu_torch.scene.volume import GridVolumeRec
 
-import chip_smoke
 from conftest import SCENE_DIR
 from test_goldens import _check, _small
 from test_torch_bvh import _asset_lock
@@ -74,10 +78,10 @@ LANES_DIFFER = 5e-3
 
 
 def volume_assets():
-    """The two scenes' `.vol` files (chip_smoke.vol_assets), under the
+    """The two scenes' `.vol` files (assets.vol_assets), under the
     procedural assets' lock."""
     with _asset_lock():
-        chip_smoke.vol_assets()
+        assets.vol_assets()
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +91,7 @@ def scenes():
     out = {}
     for f in SCENES:
         jscene, jcfg, _ = jax_load_scene(CBOX, f)
-        scene, cfg, _ = chip_smoke.load_volume(CBOX, f, "cpu")
+        scene, cfg, _ = assets.load_volume(CBOX, f, "cpu")
         out[f] = (jscene, jcfg, scene, cfg)
     return out
 
@@ -113,7 +117,7 @@ def test_vol_io_equals_jax(tmp_path, channels):
 
 
 def test_vol_assets_bytes_equal_gen_procedural(tmp_path):
-    """chip_smoke.vol_assets writes what scripts/gen_procedural.py
+    """assets.vol_assets writes what scripts/gen_procedural.py
     `ensure_vol` writes (through the JAX package's writer), byte for
     byte. The script is run from a copy under tmp_path, where it writes
     its files."""
@@ -127,25 +131,27 @@ def test_vol_assets_bytes_equal_gen_procedural(tmp_path):
     path = list(sys.path)
     try:
         want = [gen.ensure_vol(name, kind=kind)
-                for name, kind in chip_smoke.VOLUMES]
+                for name, kind in assets.VOLUMES]
     finally:
         sys.path[:] = path
-    got = chip_smoke.vol_assets(str(tmp_path / "port"))
+    got = assets.vol_assets(str(tmp_path / "port"))
     for a, b in zip(got, want):
         with open(a, "rb") as fa, open(b, "rb") as fb:
             assert fa.read() == fb.read(), os.path.basename(a)
 
 
 def test_chip_smoke_assets_import_no_jax(tmp_path):
-    """chip_smoke's `vol_assets` and `orb_assets` write their files
-    without loading the JAX package (gen_procedural's `ensure_vol` would,
-    through its writer), under the procedural assets' lock."""
+    """scene/assets.py `vol_assets` and chip_smoke's `orb_assets` write
+    their files without loading the JAX package (gen_procedural's
+    `ensure_vol` would, through its writer), under the procedural assets'
+    lock."""
     code = ("import fcntl, os, sys; import chip_smoke; "
+            "from adapt_tpu_torch.scene.assets import vol_assets; "
             "d = os.path.join('scenes', 'meshes', 'procedural'); "
             "os.makedirs(d, exist_ok=True); "
             "fh = open(os.path.join(d, '.lock'), 'w'); "
             "fcntl.flock(fh, fcntl.LOCK_EX); "
-            f"paths = chip_smoke.vol_assets({str(tmp_path)!r}); "
+            f"paths = vol_assets({str(tmp_path)!r}); "
             "chip_smoke.orb_assets(); "
             "assert all(os.path.getsize(p) > 0 for p in paths); "
             "bad = [m for m in sys.modules if m in ('jax', 'adapt_tpu') "
@@ -153,6 +159,47 @@ def test_chip_smoke_assets_import_no_jax(tmp_path):
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=300)
+
+
+def test_load_volume_refuses_missing_file(tmp_path):
+    """A scene whose `.vol` file is missing loads with the volume disabled
+    and a warning (as in the JAX package); `load_volume` raises."""
+    with open(os.path.join(CBOX, "cbox-volgrid.xml")) as fh:
+        text = fh.read()
+    missing = str(tmp_path / "missing.vol")
+    text = text.replace("./scenes/volume/janga-smoke-264-136-136.vol",
+                        missing)
+    text = text.replace('value="../meshes/', f'value="{CBOX}/../meshes/')
+    (tmp_path / "scene.xml").write_text(text)
+    with pytest.warns(UserWarning, match="volume file"):
+        _, cfg, _ = load_scene(str(tmp_path), "scene.xml", device="cpu")
+    assert cfg.volume_kind == 0
+    with pytest.raises(RuntimeError, match="not found"):
+        assets.load_volume(str(tmp_path), "scene.xml", "cpu")
+
+
+def test_record_marches(scenes):
+    """`record_marches` gets one record a tracking call while it is open
+    (lanes, crossing lanes, the rounds, steps > 0), and none after."""
+    _, _, scene, cfg = scenes["cbox-rgbvol.xml"]
+    n = 8192
+    o, d, far, thp, act = _rays(scene, n, n)
+    args = (_t(o), _t(d), _t(thp), _t(far))
+    *_, near, far_ = T._march_interval(scene.volume, _t(o), _t(d), _t(far))
+    crossing = int(((near < far_) & (far_ > 0.0) & _t(act)).sum())
+    with T.record_marches() as calls:
+        T.eval_tr_ratio_tracking(scene.volume, cfg.volume_kind,
+                                 rng.PRNGKey(5), *args, active=_t(act))
+        T.sample_distance_delta_tracking(scene.volume, cfg.volume_kind,
+                                         rng.PRNGKey(6), *args,
+                                         active=_t(act))
+    T.eval_tr_ratio_tracking(scene.volume, cfg.volume_kind, rng.PRNGKey(7),
+                             *args, active=_t(act))
+    assert len(calls) == 2 and T._marches is None
+    for c in calls:
+        assert (c["lanes"], c["crossing"]) == (n, crossing)
+        assert c["rounds"] == -(-crossing // 1024) >= 2
+        assert 0 < c["steps"] <= T.MAX_STEPS and c["s"] > 0
 
 
 # -------------------------------- tables ------------------------------------

@@ -284,10 +284,11 @@ def test_vpt_gate(tmp_path):
     tests/test_torch_texture.py, 24^2, 3 bounces, against the JAX
     render."""
     import chip_smoke
+    from adapt_tpu_torch.scene.assets import load_volume
     from test_torch_volume import volume_assets
     volume_assets()
-    vscene, vcfg, _ = chip_smoke.load_volume(SCENE_DIR + "/cbox/",
-                                             "cbox-volgrid.xml", "cpu")
+    vscene, vcfg, _ = load_volume(SCENE_DIR + "/cbox/",
+                                  "cbox-volgrid.xml", "cpu")
     vpt.VolumeRenderer(vscene, vcfg)
     vimg = vpt.render_pass_vpt(vscene, _small(vcfg, 12), rng.PRNGKey(0), 1)
     assert torch.isfinite(vimg).all() and vimg.mean() > 0.01
