@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from . import bvh
-from .intersect_kernels import _check, _is_cpu
+from .intersect_kernels import _check, _is_cpu, twin
 
 launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0}
 # each wrapper's kernel, by the name the profiler gives it
@@ -99,7 +99,7 @@ def bvh_closest_hit(scene, ray_o, ray_d, far0):
     prim is the global prim id, u/v the triangle barycentrics
     (o + t d).U - cu and (o + t d).V - cv."""
     if _is_cpu(ray_o):
-        return bvh_closest_hit_plain(scene, ray_o, ray_d, far0)
+        return twin(bvh_closest_hit_plain, scene, ray_o, ray_d, far0)
     ro, rd, far, n, nodes, prims = _operands(scene, ray_o, ray_d, far0)
     t = torch.empty(n, device=ro.device)
     prim = torch.empty(n, dtype=torch.int32, device=ro.device)
@@ -121,7 +121,7 @@ def bvh_closest_hit(scene, ray_o, ray_d, far0):
 def bvh_any_hit(scene, ray_o, ray_d, far0):
     """True where any prim lies strictly before far0."""
     if _is_cpu(ray_o):
-        return bvh_any_hit_plain(scene, ray_o, ray_d, far0)
+        return twin(bvh_any_hit_plain, scene, ray_o, ray_d, far0)
     ro, rd, far, n, nodes, prims = _operands(scene, ray_o, ray_d, far0)
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:

@@ -27,7 +27,7 @@ from ..constants import BRDFTag, BSDFTag, INV_PI, TRANSPORT_RAD, TRANSPORT_UNI
 from .geo_optics import (fresnel_equation, fresnel_eval, inci_reflect_dir,
                          refraction_cos2, schlick_fresnel, snell_refraction)
 from .math3d import (axis_vec, convert_to_raw, cross, delocalize_rotate, dot,
-                     localize_rotate, normalize)
+                     localize_rotate, normalize, sqrt0)
 from .sampling import (cosine_hemisphere, fresnel_hemisphere,
                        mod_phong_hemisphere)
 
@@ -156,14 +156,14 @@ def eval_thin_coat(mat, it, incid, out):
     refra_in, cos_r2_in = snell_refraction(incid, it.n_s, dot_in,
                                            torch.ones_like(ior), ior)
     in_F = fresnel_equation(1.0, ior, torch.abs(dot_in),
-                            torch.sqrt(torch.clamp(cos_r2_in, min=0.0)))
+                            sqrt0(torch.clamp(cos_r2_in, min=0.0)))
     is_mirror = torch.abs(dot(out, reflect)) > (1.0 - 1e-4)
     mirror_spec = mat.ks * in_F[:, None]
     dot_out = dot(out, it.n_s)
     refra_out, cos_r2_out = snell_refraction(out, it.n_s, dot_out,
                                              torch.ones_like(ior), ior)
     out_F = fresnel_equation(1.0, ior, torch.abs(dot_out),
-                             torch.sqrt(torch.clamp(cos_r2_out, min=0.0)))
+                             sqrt0(torch.clamp(cos_r2_out, min=0.0)))
     on = eval_oren_nayar(mat, it, refra_in, refra_out) \
         * (1.0 - torch.maximum(in_F, out_F))[:, None]
     return torch.where(is_mirror[:, None], mirror_spec, on)
@@ -176,7 +176,7 @@ def _thin_coat_fresnel(mat, it, incid):
     ratio = 1.0 / ior
     cos_r2 = 1.0 - ratio * ratio * (1.0 - dot_in * dot_in)
     return fresnel_equation(1.0, ior, torch.abs(dot_in),
-                            torch.sqrt(torch.clamp(cos_r2, min=0.0)))
+                            sqrt0(torch.clamp(cos_r2, min=0.0)))
 
 
 # ================= GGX / Trowbridge-Reitz microfacet =================
@@ -228,10 +228,10 @@ def _ggx_sample_wh(wo_l, ax, ay, u1, u2):
     t1 = r * torch.cos(phi)
     t2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vh[:, 1])
-    t2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - t1 * t1, min=0.0)) \
+    t2 = (1.0 - s) * sqrt0(torch.clamp(1.0 - t1 * t1, min=0.0)) \
         + s * t2
     nh = (t1[:, None] * T1 + t2[:, None] * T2
-          + torch.sqrt(torch.clamp(1.0 - t1 * t1 - t2 * t2, min=0.0))[:, None]
+          + sqrt0(torch.clamp(1.0 - t1 * t1 - t2 * t2, min=0.0))[:, None]
           * vh)
     wh = torch.stack([ax * nh[:, 0], torch.clamp(nh[:, 1], min=1e-6),
                       ay * nh[:, 2]], dim=-1)
@@ -439,7 +439,7 @@ def _sample_thin_coat(mat, it, incid, u):
     refra_in, cos_r2 = snell_refraction(incid, it.n_s, dot_normal, ones,
                                         ior)
     in_F = fresnel_equation(1.0, mat.kg[:, 0], torch.abs(dot_normal),
-                            torch.sqrt(torch.clamp(cos_r2, min=0.0)))
+                            sqrt0(torch.clamp(cos_r2, min=0.0)))
     take_reflect = u[:, 2] <= in_F
 
     # diffuse branch: cosine-hemisphere + second Fresnel event
@@ -450,7 +450,7 @@ def _sample_thin_coat(mat, it, incid, u):
     total_ref = cos_r2_out < 0.0
     refra_out, _ = snell_refraction(d_dir, it.n_s, dot_out, ior, ones)
     out_F = fresnel_equation(ior, 1.0, torch.abs(dot_out),
-                             torch.sqrt(torch.clamp(cos_r2_out, min=0.0)))
+                             sqrt0(torch.clamp(cos_r2_out, min=0.0)))
     # on internal total reflection the reference keeps the raw cosine pdf
     # and zero throughput (brdf.py:372-380); (1-F) applies only when the
     # ray escapes the coating
@@ -541,7 +541,7 @@ def _refraction_terms(mat, it, d, world_ior):
     cos_r2 = refraction_cos2(dot_n, ni, nr)
     refra_vec, _ = snell_refraction(d, it.n_s, dot_n, ni, nr)
     F = fresnel_equation(ni, nr, torch.abs(dot_n),
-                         torch.sqrt(torch.clamp(cos_r2, min=0.0)))
+                         sqrt0(torch.clamp(cos_r2, min=0.0)))
     return dot_n, ni, nr, reflect, cos_r2 < 0.0, refra_vec, F
 
 

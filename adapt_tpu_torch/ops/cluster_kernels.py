@@ -40,7 +40,7 @@ import torch
 
 from . import bvh_kernels
 from .bvh import _slab_test
-from .intersect_kernels import DEAD, FAR, RAY_EPS, _check, _is_cpu
+from .intersect_kernels import DEAD, FAR, RAY_EPS, _check, _is_cpu, twin
 
 TILE = 128             # rays of one pick tile (the JAX package's LANE_B)
 QP_P = 2               # pick passes of the queue-pick schedule (its QP_P)
@@ -628,7 +628,7 @@ def cluster_closest_hit(scene, ray_o, ray_d, far0):
     and n_g = (1, 0, 0) on a miss; sphere lanes carry their final normal
     and spherical u, v."""
     if _is_cpu(ray_o):
-        return cluster_closest_hit_plain(scene, ray_o, ray_d, far0)
+        return twin(cluster_closest_hit_plain, scene, ray_o, ray_d, far0)
     ro, rd, far, n = _sweep_operands(scene, ray_o, ray_d, far0)
     dev = ro.device
     t, u, v = (torch.empty(n, device=dev) for _ in range(3))
@@ -655,7 +655,7 @@ def cluster_closest_hit(scene, ray_o, ray_d, far0):
 def cluster_any_hit(scene, ray_o, ray_d, far0):
     """True where any prim lies strictly before far0 (all-cluster sweep)."""
     if _is_cpu(ray_o):
-        return cluster_any_hit_plain(scene, ray_o, ray_d, far0)
+        return twin(cluster_any_hit_plain, scene, ray_o, ray_d, far0)
     ro, rd, far, n = _sweep_operands(scene, ray_o, ray_d, far0)
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
@@ -678,7 +678,7 @@ def cluster_front(scene, ray_o, ray_d, far0):
     bound of every hit outside the front cluster. The kernel walks
     `cl_tree` as `cluster_front_culled` does."""
     if _is_cpu(ray_o):
-        return cluster_front_plain(scene, ray_o, ray_d, far0)
+        return twin(cluster_front_plain, scene, ray_o, ray_d, far0)
     ro, rd, far, n = _front_operands(scene, ray_o, ray_d, far0)
     cid = torch.empty(n, dtype=torch.int32, device=ro.device)
     nxt = torch.empty(n, device=ro.device)
@@ -699,8 +699,8 @@ def cluster_pick_closest(scene, ray_o, ray_d, far0, wid0, picks):
     wid = cluster * CM + slot of each strict improvement over wid0.
     Returns (t (N,), wid (N,) i32)."""
     if _is_cpu(ray_o):
-        return cluster_pick_closest_plain(scene, ray_o, ray_d, far0, wid0,
-                                          picks)
+        return twin(cluster_pick_closest_plain, scene, ray_o, ray_d, far0,
+                    wid0, picks)
     n = ray_o.shape[0]
     ro, rd, far, n = _pick_operands(
         scene, ray_o, ray_d, far0,
@@ -725,7 +725,7 @@ def cluster_pick_any(scene, ray_o, ray_d, far0, picks):
     """One any-hit pick pass: True where a live row of the tile's picked
     cluster lies strictly before far0."""
     if _is_cpu(ray_o):
-        return cluster_pick_any_plain(scene, ray_o, ray_d, far0, picks)
+        return twin(cluster_pick_any_plain, scene, ray_o, ray_d, far0, picks)
     n = ray_o.shape[0]
     ro, rd, far, n = _pick_operands(
         scene, ray_o, ray_d, far0,

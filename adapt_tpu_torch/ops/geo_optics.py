@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .math3d import dot, normalize
+from .math3d import dot, normalize, sqrt0
 
 
 def inci_reflect_dir(ray, normal):
@@ -48,9 +48,9 @@ def fresnel_eval(cos_v, n_in, n_tr):
     cos_value = torch.abs(cos_v)
     ior_in = torch.where(neg, n_tr, n_in)
     ior_tr = torch.where(neg, n_in, n_tr)
-    sin_v = torch.sqrt(torch.clamp(1.0 - cos_value * cos_value, min=0.0))
+    sin_v = sqrt0(torch.clamp(1.0 - cos_value * cos_value, min=0.0))
     sin_t = ior_in / ior_tr * sin_v
-    cos_tr = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    cos_tr = sqrt0(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
     return fresnel_equation(ior_in, ior_tr, cos_value, cos_tr)
 
 
@@ -73,7 +73,7 @@ def snell_refraction(incid, normal, dot_n, ni, nr):
     exiting = torch.sign(dot_n)
     ratio = (ni / nr) * torch.ones_like(dot_n)
     cos_r2 = refraction_cos2(dot_n, ni, nr)
-    sqrt_c = torch.sqrt(torch.clamp(cos_r2, min=0.0))
+    sqrt_c = sqrt0(torch.clamp(cos_r2, min=0.0))
     refra = normalize(ratio[..., None] * incid
                       - (ratio * dot_n - exiting * sqrt_c)[..., None] * normal)
     valid = (cos_r2 > 0.0)[..., None]

@@ -20,6 +20,12 @@ Media walks on the brute-force tier take `ray_track_hits` (kernel B3 plus
 the sphere roots): the closest blocker and the null medium interfaces in
 front of it, in one pass.
 
+Hits are constants: every query here runs under no_grad, so its
+results (distances, ids, barycentrics, normals) carry no autograd graph,
+as the kernels' outputs never do. Gradients flow through what the
+renderers compute from a hit (materials, emitters, media), not through
+where the hit lies: geometry and pose gradients are not implemented.
+
 On the CPU the wrappers run their plain twins. The JAX package's one-hot
 gathers and wavefront sorts are TPU workarounds with no counterpart here:
 lookups are plain indexing.
@@ -86,6 +92,7 @@ def _bvh_tier(scene, cfg):
     return big
 
 
+@torch.no_grad()
 def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Closest-hit intersection for a ray batch; returns Interaction.
 
@@ -191,6 +198,7 @@ def _assemble_interaction(scene, cfg, ray_o, ray_d, best_t, best_prim,
                        n_s=n_s, uv=torch.stack([best_u, best_v], dim=-1))
 
 
+@torch.no_grad()
 def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Boolean occlusion test (shadow rays): any hit strictly before max_t.
     Dead lanes (alive False) come back un-occluded."""
@@ -216,6 +224,7 @@ def _is_null_obj(scene, obj_id):
     return (obj_id >= 0) & scene.mat_is_bsdf[idx] & (scene.mat_type[idx] < 0)
 
 
+@torch.no_grad()
 def ray_track_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=2,
                    all_null=False):
     """Everything a media walk needs along each ray, in one batch: the
@@ -303,6 +312,7 @@ def ray_track_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=2,
     return t_k, o_k, d_k, tb, ob, db, ovf
 
 
+@torch.no_grad()
 def ray_k_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=7):
     """First K surface interfaces along each ray, front to back: the
     all-null case of ray_track_hits (every prim an interface). Returns

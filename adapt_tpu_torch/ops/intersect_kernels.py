@@ -310,6 +310,14 @@ def _check(err, fn):
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
 
 
+def twin(fn, *args):
+    """A wrapper's plain version on CPU tensors. Hits are constants: the
+    kernels' outputs never carry an autograd graph, so the twins run
+    under no_grad and a gradient on the CPU equals the card's."""
+    with torch.no_grad():
+        return fn(*args)
+
+
 def _is_cpu(ray_o):
     if ray_o.device.type == "cpu":
         return True
@@ -324,7 +332,7 @@ def tri_closest_hit(scene, ray_o, ray_d, far0):
     Returns (t, tri_row, u, v, n_g, obj): t = far0, tri_row/obj = -1, u/v
     = 0 and n_g = (1,0,0) on a miss; tri_row indexes scene.tri_*."""
     if _is_cpu(ray_o):
-        return tri_closest_hit_plain(scene, ray_o, ray_d, far0)
+        return twin(tri_closest_hit_plain, scene, ray_o, ray_d, far0)
     ro, rd, far, n, geo, ng, obj = _operands(scene, ray_o, ray_d, far0)
     t = torch.empty(n, device=ro.device)
     row = torch.empty(n, dtype=torch.int32, device=ro.device)
@@ -350,7 +358,7 @@ def tri_any_hit(scene, ray_o, ray_d, far0):
     far0 <= RAY_EPS, never). The kernel takes at most STAGED_ROWS
     triangles."""
     if _is_cpu(ray_o):
-        return tri_any_hit_plain(scene, ray_o, ray_d, far0)
+        return twin(tri_any_hit_plain, scene, ray_o, ray_d, far0)
     ro, rd, far, n, geo, _, _ = _operands(scene, ray_o, ray_d, far0)
     _staged(scene, "tri_any_hit")
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
@@ -396,8 +404,8 @@ def tri_track_hits(scene, ray_o, ray_d, far0, K, all_null=False):
     if K < 1:
         raise ValueError(f"K must be at least 1, got {K}")
     if _is_cpu(ray_o):
-        return tri_track_hits_plain(scene, ray_o, ray_d, far0, K,
-                                    null_flags(scene, all_null))
+        return twin(tri_track_hits_plain, scene, ray_o, ray_d, far0, K,
+                    null_flags(scene, all_null))
     (ro, rd, far, n, geo, ng, obj), (solid_p, n_solid, null_p) = \
         _track_operands(scene, ray_o, ray_d, far0, all_null)
     T = geo.shape[0]

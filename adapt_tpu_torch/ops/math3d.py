@@ -5,6 +5,14 @@ Dot products and norms are written out as
 take op by op, so results round like it does (no FMA, no pairwise
 reordering). Where a cancellation magnifies the last bit, `fma_dot`
 takes the fused chain XLA's CPU backend makes of them instead.
+
+Gradient safety (the JAX package's invariants, adapt_tpu/ops/math3d.py
+and docs/differentiable.md "Masked-lane hygiene"): autograd, like
+jax.grad, differentiates both branches of every torch.where, so one
+infinite derivative in a masked lane times its zero cotangent is a NaN
+that poisons the whole image gradient. Every square root of a value that
+can be 0 goes through `sqrt0`, whose derivative there is 0; its forward
+values are torch.sqrt's, bit for bit.
 """
 from __future__ import annotations
 
@@ -42,8 +50,19 @@ def fma_dot(a, b):
     return (a64[..., 2] * b64[..., 2] + s).float()
 
 
+def sqrt0(x):
+    """torch.sqrt(x) with derivative 0 where x <= 0 (sqrt's own is
+    infinite at 0). The guard runs only when x needs a gradient; forward
+    values are torch.sqrt's in both cases, NaN of a negative x included."""
+    if not x.requires_grad:
+        return torch.sqrt(x)
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)),
+                       torch.sqrt(x.detach()))
+
+
 def norm(v, keepdims=False):
-    return torch.sqrt(dot(v, v, keepdims))
+    return sqrt0(dot(v, v, keepdims))
 
 
 def normalize(v, eps=1e-12):
@@ -133,8 +152,7 @@ def convert_to_raw(d_in, normal):
     normal's local frame (reference la/cam_transform.py:70-87); (..., 4)."""
     local_dir = localize_rotate(normal, d_in)
     cos_theta = local_dir[..., 1]
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
-                                       min=0.0))
+    sin_theta = sqrt0(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     safe = sin_theta > 1e-5
     inv_sin = torch.where(safe, 1.0 / torch.clamp(sin_theta, min=1e-12),
                           0.0)

@@ -8,10 +8,11 @@ from __future__ import annotations
 import torch
 
 from ..constants import INV_PI, INV_2PI, INV_4PI, PI, PI2, PI_DIV2, PI_DIV4
+from .math3d import sqrt0
 
 
 def _spherical(cos_theta, phi):
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = sqrt0(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     return torch.stack([torch.cos(phi) * sin_theta, cos_theta,
                         torch.sin(phi) * sin_theta], dim=-1)
 
@@ -64,10 +65,10 @@ def fresnel_hemisphere(u1, u2, nu, nv):
     sin_phi2 = 1.0 - cos_phi2
     cos_phi = torch.sqrt(cos_phi2)
     cos_phi = torch.where((eps1 > 1.0) & (eps1 <= 3.0), -cos_phi, cos_phi)
-    sin_phi = torch.sqrt(sin_phi2) * torch.sign(2.0 - eps1)
+    sin_phi = sqrt0(sin_phi2) * torch.sign(2.0 - eps1)
     power_coeff = nu * cos_phi2 + nv * sin_phi2
     cos_theta = torch.pow(1.0 - u2, 1.0 / (power_coeff + 1.0))
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = sqrt0(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     d = torch.stack([cos_phi * sin_theta, cos_theta, sin_phi * sin_theta],
                     dim=-1)
     return d, power_coeff

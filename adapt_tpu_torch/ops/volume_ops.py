@@ -29,8 +29,18 @@ reads the same table values), `_gather_candidates`' J-major concatenation
 (a plain gather), the sort-based compaction itself (an index of the
 crossing lanes gives the same slots), and the environment knobs
 ADAPT_VOL_HOPS, ADAPT_SV_CAP and ADAPT_VOL_UNROLL, whose shipped values
-are the constants below. The differentiable march (DIFF_STEPS) belongs
-to differentiable rendering, not ported yet.
+are the constants below.
+
+The differentiable march (`DIFF_STEPS` > 0, adapt_tpu/ops/volume_ops.py
+DIFF_STEPS): one round of all N lanes, each lane's slot its index (the
+JAX package skips `_compact_rounds` there), and exactly DIFF_STEPS steps
+with no host read of `done` and no lane dropped, so autograd sees one
+fixed graph. The done mask already makes a finished lane's steps no-ops.
+With the majorants held constant (the caller detaches `sv_maj` and
+`majorant`), the candidate points do not depend on the density, and the
+pathwise gradient of the ratio factors (1 - d / maj) through `grid` is an
+unbiased estimate of the gradient of the expected transmittance.
+`differentiable(steps)` sets it for a block.
 
 `_to_local`'s (N,3) @ (3,3) product is written out as f32 sums of f32
 products, which is how the JAX package's CPU backend rounds it (it
@@ -57,6 +67,7 @@ SV_AXIS_CAP = 16     # supervoxels along the longest axis, at most
 COMPACT_DIV = 8      # round width: N / COMPACT_DIV, rounded up to 128
 COMPACT_MIN = 2048   # at or below this many lanes, one round of N lanes
 STEP_BLOCK = 8       # march steps between two tests of `done`
+DIFF_STEPS = 0       # > 0: each march takes exactly this many steps
 FLT_MIN = float(np.finfo(np.float32).tiny)   # the least normal float32
 
 # the tracking calls while `record_marches()` is open, else None
@@ -76,6 +87,18 @@ def record_marches():
         yield _marches
     finally:
         _marches = saved
+
+
+@contextlib.contextmanager
+def differentiable(steps=64):
+    """Run the tracking marches as the differentiable march of `steps`
+    steps (DIFF_STEPS) while open."""
+    global DIFF_STEPS
+    saved, DIFF_STEPS = DIFF_STEPS, int(steps)
+    try:
+        yield
+    finally:
+        DIFF_STEPS = saved
 
 
 def _sync(x):
@@ -302,7 +325,7 @@ def _lanes(crossing):
     package's `_compact_rounds` layout), and the rounds' count."""
     N = crossing.shape[0]
     lane = torch.nonzero(crossing).squeeze(1)
-    if N <= COMPACT_MIN:
+    if N <= COMPACT_MIN or DIFF_STEPS > 0:
         return lane, torch.zeros_like(lane), lane, 1
     C = -(-N // COMPACT_DIV)
     C = -(-C // 128) * 128
@@ -335,11 +358,22 @@ def _march(key, r, slot, rounds, ins, state, step_fn):
     each step the host reads how many lanes live (issuing a step's ~300
     launches takes longer than the sync); once half of the batch is
     done, the done lanes leave it with their state. Returns the final
-    state of every lane, in lane order."""
+    state of every lane, in lane order. With DIFF_STEPS > 0: exactly
+    DIFF_STEPS steps of every lane, no read and no drop."""
     rec = _marches[-1] if _marches is not None else None
     if rec is not None:
         _sync(r)
         t0 = time.perf_counter()
+    if DIFF_STEPS > 0:
+        for step in range(0, DIFF_STEPS, STEP_BLOCK):
+            u = _lane_uniforms(key, rounds, r, slot, step,
+                               min(STEP_BLOCK, DIFF_STEPS - step))
+            for b in range(u.shape[1]):
+                state = step_fn(ins, state, u[:, b])
+        if rec is not None:
+            _sync(r)
+            rec.update(steps=DIFF_STEPS, s=time.perf_counter() - t0)
+        return state
     out = {k: v.clone() for k, v in state.items()}
     idx = torch.arange(r.shape[0], device=r.device)
     u = None

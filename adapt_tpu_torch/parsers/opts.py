@@ -74,9 +74,9 @@ def get_options(argv=None):
     parser.add_argument("--type", type=str, default="pt",
                         choices=["pt", "vpt", "bdpt", "ao", "direct"])
     parser.add_argument("--multichip", type=int, default=0, metavar="N",
-                        help="render over N devices: not ported yet "
-                             "(ROADMAP.md queue A item 16); anything but "
-                             "0 is refused")
+                        help="render pt/vpt/bdpt over N ranks, one "
+                             "process a device (-1: every visible card; "
+                             "on --arch cpu one rank a core up to 8)")
     parser.add_argument("--save_iter", type=int, default=0,
                         help="checkpoint save cadence (0 = only on exit)")
     parser.add_argument("-p", "--profile", action="store_true",

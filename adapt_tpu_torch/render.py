@@ -9,10 +9,17 @@ dispatch by --type {pt, vpt, bdpt, ao, direct} (reference render.py:33-34).
 
 It renders on the CUDA device unless `--arch cpu` asks for the CPU, where
 every kernel's plain PyTorch version runs; `--arch cuda` without a card
-exits with an error. `--multichip` is refused (ROADMAP.md queue A item
-16); `--no_cache` is accepted and does nothing (the port has no compile
-cache); `--debug` raises after a pass whose film holds a NaN or an
-infinity.
+exits with an error. `--no_cache` is accepted and does nothing (the port
+has no compile cache); `--debug` raises after a pass whose film holds a
+NaN or an infinity.
+
+`--multichip N` renders pt, vpt or bdpt with parallel/sharding.py's
+MultiChipRenderer over N ranks, one process a device (-1: every visible
+card; on --arch cpu, one rank a core up to 8). The CLI starts its ranks
+itself (torch.multiprocessing), or joins the group torchrun made when it
+runs under torchrun. The backend is NCCL on cuda and gloo on cpu. Rank 0
+prints, writes the image and the checkpoint. Transient BDPT shards the
+'spp' axis only.
 """
 from __future__ import annotations
 
@@ -31,7 +38,27 @@ RENDERERS = {"pt": ("pt", "Renderer"), "vpt": ("vpt", "VolumeRenderer"),
              "direct": ("direct", "DirectRenderer")}
 
 
-def build_renderer(opts, scene, cfg):
+def build_renderer(opts, scene, cfg, world=None):
+    """The renderer of --type; with `world` ranks (--multichip) the
+    MultiChipRenderer over all of them."""
+    if world is not None:
+        from .parallel.sharding import MultiChipRenderer, make_mesh
+        if opts.type == "bdpt":
+            kw = {"bdpt": True}
+        elif opts.type == "vpt":
+            from .renderer.vpt import trace_vpt
+            kw = {"trace_fn": trace_vpt}
+        elif opts.type == "pt":
+            kw = {}
+        else:
+            raise SystemExit(f"--multichip supports pt/vpt/bdpt, not "
+                             f"{opts.type}")
+        # transient BDPT scales over independent sample batches (px = 1)
+        spp_par = world if (opts.type == "bdpt" and cfg.transient) else None
+        mesh = make_mesh(world, spp_parallel=spp_par, device=scene.device)
+        if mesh.rank == 0:
+            print(f"multichip mesh: {mesh.shape} over {world} devices")
+        return MultiChipRenderer(scene, cfg, mesh, seed=opts.seed, **kw)
     mod_name, cls_name = RENDERERS[opts.type]
     mod = importlib.import_module(f"adapt_tpu_torch.renderer.{mod_name}")
     return getattr(mod, cls_name)(scene, cfg, seed=opts.seed)
@@ -87,6 +114,10 @@ def _progress():
                     TimeElapsedColumn(), TimeRemainingColumn())
 
 
+def _silent(*_a, **_k):
+    pass
+
+
 def _hold_preview(preview):
     """Keep serving the final frame until SIGTERM or Ctrl-C, as the
     reference's window outlives its render loop (render.py:129-152).
@@ -109,22 +140,51 @@ def _hold_preview(preview):
 
 def main(argv=None):
     opts = get_options(argv)
-    t_start = time.time()
-    if opts.multichip:
-        raise SystemExit("--multichip is not ported yet (ROADMAP.md queue A "
-                         "item 16)")
     import torch
     if opts.arch == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--arch cuda: torch.cuda.is_available() is false "
                          "(--arch cpu renders on the CPU)")
+    if not opts.multichip:
+        return render(opts)
+    from .parallel import sharding
+    if sharding.under_torchrun():
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        dev = sharding.init_ranks(rank, world, None, opts.arch)
+        try:
+            render(opts, world, dev)
+        finally:
+            sharding.dist.destroy_process_group()
+        return
+    if opts.multichip > 0:
+        world = opts.multichip
+    elif opts.arch == "cuda":
+        world = torch.cuda.device_count()
+    else:
+        world = min(os.cpu_count() or 1, 8)
+    sharding.run_ranks(_rank_render, world, opts, device=opts.arch)
 
+
+def _rank_render(rank, world, opts):
+    import torch
+    dev = torch.device("cuda", rank % torch.cuda.device_count()) \
+        if opts.arch == "cuda" else torch.device("cpu")
+    render(opts, world, dev)
+
+
+def render(opts, world=None, device=None):
+    """The progressive render of parsed options; world/device: this
+    rank's world size and device under --multichip (rank 0 prints and
+    writes)."""
+    import torch
+    t_start = time.time()
+    lead = world is None or torch.distributed.get_rank() == 0
     from .scene.compile import load_scene
     from .utils.imaging import (apply_watermark, quantile_normalize,
                                 write_image)
 
     scene, cfg, configs = load_scene(
         os.path.join(opts.input_path, opts.scene), opts.name,
-        device=opts.arch)
+        device=opts.arch if device is None else device)
     if opts.width > 0 or opts.height > 0 or opts.max_bounce > 0:
         w = opts.width or cfg.w
         h = opts.height or cfg.h
@@ -137,29 +197,30 @@ def main(argv=None):
             raise SystemExit("--true_unwarped needs a transient scene "
                              "(decomposition key in the XML)")
         cfg = dataclasses.replace(cfg, unwarp=True)
-    rdr = build_renderer(opts, scene, cfg)
+    rdr = build_renderer(opts, scene, cfg, world)
     where = (f"cuda ({torch.cuda.get_device_name(scene.device)})"
              if scene.device.type == "cuda" else "cpu")
-    print(f"scene '{opts.scene}/{opts.name}' loaded: {scene.n_prims} "
-          f"prims, {cfg.w}x{cfg.h}, renderer={opts.type}, device={where}")
+    say = print if lead else _silent
+    say(f"scene '{opts.scene}/{opts.name}' loaded: {scene.n_prims} "
+        f"prims, {cfg.w}x{cfg.h}, renderer={opts.type}, device={where}")
 
     preview = None
-    if opts.serve >= 0:
+    if opts.serve >= 0 and lead:
         from .utils.preview import PreviewServer
         preview = PreviewServer(port=opts.serve,
                                 name=f"{opts.scene}/{opts.name}")
-        print(f"live preview: http://localhost:{preview.port}/")
+        say(f"live preview: http://localhost:{preview.port}/")
 
     if opts.load and os.path.exists(checkpoint_path(opts, cfg)):
         with open(checkpoint_path(opts, cfg), "rb") as f:
             rdr.load_check_point(pickle.load(f))
-        print(f"resumed from checkpoint at {rdr.cnt} iterations")
+        say(f"resumed from checkpoint at {rdr.cnt} iterations")
 
     iter_num = opts.iter_num if opts.iter_num > 0 \
         else configs.get("sample_count", 64)
 
     prof = None
-    if opts.profile:
+    if opts.profile and lead:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if scene.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -175,6 +236,8 @@ def main(argv=None):
             raise FloatingPointError(
                 f"--debug: the film holds a NaN or an infinity after pass "
                 f"{i + 1} ({rdr.cnt} spp)")
+        if not lead:
+            return
         if opts.save_iter > 0 and (i + 1) % opts.save_iter == 0:
             save_check_point(rdr, opts)
         if opts.output_freq > 0 and (i + 1) % opts.output_freq == 0:
@@ -184,7 +247,7 @@ def main(argv=None):
         if preview is not None and preview.due():
             preview.update(rdr.image(), rdr.cnt)
 
-    progress = _progress()
+    progress = _progress() if lead else None
     try:
         if progress is not None:
             with progress:
@@ -196,9 +259,12 @@ def main(argv=None):
             for i in range(iter_num):
                 loop_body(i)
     except KeyboardInterrupt:
-        print("interrupted; saving checkpoint")
-        save_check_point(rdr, opts)
+        say("interrupted; saving checkpoint")
+        if lead:
+            save_check_point(rdr, opts)
         raise SystemExit(1)
+    if not lead:
+        return
 
     if prof is not None:
         if scene.device.type == "cuda":
@@ -206,7 +272,7 @@ def main(argv=None):
         prof.stop()
         os.makedirs("./profiler_trace", exist_ok=True)
         prof.export_chrome_trace("./profiler_trace/trace.json")
-        print("profiler trace written to ./profiler_trace")
+        say("profiler trace written to ./profiler_trace")
     if preview is not None:
         preview.update(rdr.image(), rdr.cnt, min_interval=0.0)
 
@@ -220,15 +286,15 @@ def main(argv=None):
         out = os.path.join(opts.output_path,
                            f"{opts.img_name}.{opts.img_ext}")
         write_image(out, img)
-        print(f"image written to {out}")
+        say(f"image written to {out}")
 
     if getattr(rdr, "is_transient", False):
         export_transient_profile(rdr, opts, configs)
 
     spp = rdr.cnt
     dt = time.time() - t_start
-    print(f"done: {spp} spp in {dt:.2f}s ({spp / max(dt, 1e-9):.2f} it/s) "
-          f"on {where}")
+    say(f"done: {spp} spp in {dt:.2f}s ({spp / max(dt, 1e-9):.2f} it/s) "
+        f"on {where}")
 
     if preview is not None:
         _hold_preview(preview)

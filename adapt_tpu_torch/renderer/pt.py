@@ -160,10 +160,15 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=(),
         if cfg.use_mis:
             surf_delta = mat.is_delta & (it.obj_id >= 0)
             can_mis = (hit_light >= 0) & ~surf_delta & ~is_specular
+            # dead lanes' t = -3e38 squares to inf; the masked pdf's zero
+            # cotangent times it would be a NaN gradient (forward values
+            # are those of it.t: every can_mis lane is live)
             e_pdf = torch.where(
                 can_mis,
                 emitter_ops.solid_angle_pdf(scene, hit_light.clamp(min=0),
-                                            it.n_s, it.t, new_dir), 0.0)
+                                            it.n_s,
+                                            torch.where(can_mis, it.t, 0.0),
+                                            new_dir), 0.0)
             emission_weight = balance_heuristic(ray_pdf, e_pdf)
         return dict(ray_o=hit_point, ray_d=new_dir, it=it, mat=mat,
                     hit_light=hit_light, color=color,

@@ -1,9 +1,9 @@
-"""Image helpers of the CLI (copy of adapt_tpu/utils/imaging.py but for
-`remove_fireflies`, which only post_processing.py reads; reference
-utils/watermark.py, render.py).
+"""Image helpers of the CLI and the post-process (copy of
+adapt_tpu/utils/imaging.py; reference utils/watermark.py, render.py,
+post_processing.py).
 
 Quantile normalization, watermark stamping, tonemap + write (cv2 when it
-is installed, else PIL).
+is installed, else PIL), firefly removal.
 """
 from __future__ import annotations
 
@@ -59,3 +59,23 @@ def write_image(path: str, img: np.ndarray, gamma: float = 2.2) -> None:
     except ImportError:
         from PIL import Image
         Image.fromarray(u8).save(path)
+
+
+def remove_fireflies(img: np.ndarray, thresh: float = 1.5) -> np.ndarray:
+    """Conservative 3x3 outlier clamp (reference post_processing.py:14-32).
+
+    A pixel whose luminance exceeds thresh x the max of its 8 neighbors is
+    replaced by the neighborhood median.
+    """
+    h, w = img.shape[:2]
+    pad = np.pad(img, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    stack = np.stack([pad[dy:dy + h, dx:dx + w]
+                      for dy in range(3) for dx in range(3)
+                      if not (dy == 1 and dx == 1)], axis=0)   # (8,h,w,3)
+    lum = img.mean(-1)
+    nb_max = stack.mean(-1).max(0)
+    med = np.median(stack, axis=0)
+    fire = lum > thresh * np.maximum(nb_max, 1e-6)
+    out = img.copy()
+    out[fire] = med[fire]
+    return out

@@ -196,6 +196,34 @@ non-zero exit and no result line.
    root in three processes (PT on cbox for 4 passes; `-l` for 2 more,
    the checkpoint's count 6; VPT on cbox-volgrid.xml for 2 passes), each
    exiting 0 on cuda with its image and checkpoint written.
+20. differentiable PT: autograd through `render_batch_pt` on cbox at
+   512², 8 bounces, 2 spp, no Russian roulette or jitter, key 42
+   (tests/test_grad.py's settings at the flagship's width): d mean
+   radiance / d (albedo scale, emitter scale) within 2% of central
+   differences (h 1e-2), g_emit == loss within 1e-5, the (O,3) mat_kd
+   gradient finite, >= -1e-6, its largest entry within 3% of its central
+   difference; B1 and B2 16 launches each in the forward, the profiler's
+   counts of a forward and backward equal the wrappers'; forward and
+   backward ms and peak memory; at 64^2 (3 bounces) the same gradients
+   with the twins in place, within 1e-6 relative (1e-7 absolute for the
+   table); 40 gradient steps recover an albedo scale of 0.7 within 0.02;
+21. density-grid recovery (adapt_tpu_torch/recover_volume.py: 12^3,
+   4,096 rays, DIFF_STEPS 64, 200 Adam steps at lr 0.15, key 11; the
+   bounds of tests/test_grad_volume.py: interior mean error below 0.05 A,
+   correlation above 0.99) and its finite-difference check at 256 rays;
+22. multi-device: MultiChipRenderer (parallel/sharding.py) over NCCL with
+   every visible card, one rank a card (`multi_rank`: PT cbox 512², VPT
+   cbox-volgrid.xml, BDPT cbox at 6 bounces, one render each), each film
+   equal to the single-process passes of its shards with the same keys;
+   then two gloo ranks sharing the one card (CUDA tensors; NCCL refuses
+   two ranks on one card) on a 1 x 2 'px' mesh (PT, BDPT: the splat sum
+   and the gather) and a 2 x 1 'spp' mesh (VPT: the mean), equal the
+   same way; then `python -m adapt_tpu_torch.render --multichip -1` on
+   cbox PT, exiting 0 with its image;
+23. the apps: `python -m adapt_tpu_torch.scene_viz` one-shot (direct,
+   512²) with its <lookat> line, `--serve` answering one key and one
+   frame, `python -m adapt_tpu_torch.post_processing` on phase 19's
+   film.
 Each phase's line ends with its wall time in seconds.
 Every phase that loads a textured scene fails unless each texture it
 names loaded (`load_textured`), and every phase that loads a grid volume
@@ -741,18 +769,24 @@ def kernels_in(torch, fn, warm=False):
 
 
 def device_work(torch, fn):
-    """(device busy ms, kernels) of one call of fn, by torch.profiler
-    tracing the card alone (profile_pt's accounting: the sum of the
-    kernels' durations)."""
+    """(device busy ms, kernels, the 3 kernels of most device time as
+    [(name, ms, calls)]) of one call of fn, by torch.profiler tracing the
+    card alone (profile_pt's accounting: the sum of the kernels'
+    durations)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ks = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and not e.is_user_annotation]
-    return sum(e.time_range.elapsed_us() for e in ks) / 1e3, len(ks)
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            ms, n = by.get(e.name, (0.0, 0))
+            by[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:3]
+    return (sum(ms for ms, _ in by.values()), sum(n for _, n in by.values()),
+            [(name[:60], ms, n) for name, (ms, n) in top])
 
 
 def _gen_procedural():
@@ -937,6 +971,53 @@ def load_textured(directory, file, device="cuda"):
     _require(scene.tex["albedo"].present,
              f"{file}: no albedo texture in the compiled scene")
     return scene, cfg, rows
+
+
+MULTI_CASES = ("pt", "vpt", "bdpt")   # phase 22's renders, in order
+
+
+def multi_rank(rank, world, out):
+    """Phase 22's rank: one render of PT cbox (512^2, 8 bounces), VPT
+    cbox-volgrid.xml (its own settings) and BDPT cbox (6 bounces) over
+    MultiChipRenderer on this rank's card, seed 3. One rank: make_mesh()
+    over the whole world. Two ranks (sharing the card): PT and BDPT on a
+    1 x 2 'px' mesh, VPT on a 2 x 1 'spp' mesh. Each rank writes its
+    films, seconds and launch counts to out/rank<rank>.npz."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from adapt_tpu_torch.ops import bvh_kernels as BK
+    from adapt_tpu_torch.ops import intersect_kernels as K
+    from adapt_tpu_torch.ops import splat as S
+    from adapt_tpu_torch.parallel import sharding as SH
+    from adapt_tpu_torch.renderer.vpt import trace_vpt
+    from adapt_tpu_torch.scene import compile as C
+    from adapt_tpu_torch.scene.assets import load_volume
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cbox = os.path.join(ROOT, "scenes", "cbox")
+    scene, cfg0, _ = C.load_scene(cbox, "cbox.xml", device=dev)
+    vs, vcfg, _ = load_volume(cbox, "cbox-volgrid.xml", device=dev)
+    cases = {"pt": (scene, dataclasses.replace(cfg0, max_bounce=8), {}, 1),
+             "vpt": (vs, vcfg, {"trace_fn": trace_vpt}, world),
+             "bdpt": (scene, dataclasses.replace(cfg0, max_bounce=6),
+                      {"bdpt": True}, 1)}
+    res = {}
+    for name in MULTI_CASES:
+        sc, cfg, kw, spp_par = cases[name]
+        mesh = SH.make_mesh(world, spp_parallel=spp_par, device=dev)
+        r = SH.MultiChipRenderer(sc, cfg, mesh, seed=3, **kw)
+        for mod in (K, BK, S):
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = r.render()
+        torch.cuda.synchronize()
+        res[name] = film.cpu().numpy()
+        res[name + "_s"] = time.perf_counter() - t0
+        for k, n in {**K.launches, **BK.launches, **S.launches}.items():
+            res[f"{name}:{k}"] = n
+        res[name + "_mesh"] = np.array([mesh.shape["spp"], mesh.shape["px"]])
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 
 
 def main():
@@ -2650,7 +2731,7 @@ def main():
             dt = timed_batch(r, spp)
         launches = counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
-        busy, nk = device_work(torch, lambda: r.render_batch(1))
+        busy, nk, _top = device_work(torch, lambda: r.render_batch(1))
         img = r.image()
         nan = float(np.isnan(img).any(axis=-1).mean())
         _require(img.shape == (r.cfg.h, r.cfg.w, 3) and nan == 0.0
@@ -2929,19 +3010,342 @@ def main():
             (("PT cbox 512^2 4 passes", c1), ("-l: 2 more, counter 6", c2),
              ("VPT cbox-volgrid 640^2 2 passes", c3))) + f" [{card}]")
 
+    # ---- 20. differentiable PT at the flagship's width ----
+    gcfg = dataclasses.replace(cfg, use_rr=False, anti_alias=False,
+                               stratified_sampling=False)
+    gkey = rng.PRNGKey(42)
+
+    def gloss(sc, c, kd=1.0, emit=1.0):
+        """tests/test_grad.py's loss: the mean radiance of 2 spp."""
+        s_ = dataclasses.replace(sc, mat_kd=sc.mat_kd * kd,
+                                 emit_intensity=sc.emit_intensity * emit)
+        return pt.render_batch_pt(s_, c, gkey, 1, 2).mean()
+
+    def ggrads(sc, c):
+        """(loss, d/d albedo scale, d/d emitter scale, (O,3) d/d mat_kd)."""
+        a = torch.tensor(1.0, device=dev, requires_grad=True)
+        e = torch.tensor(1.0, device=dev, requires_grad=True)
+        kd = sc.mat_kd.clone().requires_grad_(True)
+        val = gloss(dataclasses.replace(sc, mat_kd=kd), c, a, e)
+        val.backward()
+        return (val.item(), a.grad.item(), e.grad.item(),
+                (kd.grad * 1.0).cpu().numpy())
+
+    ggrads(scene, gcfg)                       # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    a = torch.tensor(1.0, device=dev, requires_grad=True)
+    e = torch.tensor(1.0, device=dev, requires_grad=True)
+    kd = scene.mat_kd.clone().requires_grad_(True)
+    val = gloss(dataclasses.replace(scene, mat_kd=kd), gcfg, a, e)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    val.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    glaunches = counts()
+    gpeak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+    g_val, g_kd, g_emit = val.item(), a.grad.item(), e.grad.item()
+    g_mat = kd.grad.cpu().numpy()
+    del val, a, e, kd
+    want = {**none, "tri_closest_hit": 2 * gcfg.max_bounce,
+            "tri_any_hit": 2 * gcfg.max_bounce * gcfg.num_shadow_ray}
+    _require(glaunches == want, f"phase 20 launches {glaunches}, want {want}")
+    gseen, gcalls = profiled_launches(lambda: ggrads(scene, gcfg),
+                                      "phase 20 forward and backward",
+                                      warm=True)
+    # the backward alone on the card: device busy, kernels, the largest
+    a = torch.tensor(1.0, device=dev, requires_grad=True)
+    e = torch.tensor(1.0, device=dev, requires_grad=True)
+    kd = scene.mat_kd.clone().requires_grad_(True)
+    val = gloss(dataclasses.replace(scene, mat_kd=kd), gcfg, a, e)
+    bw_busy, bw_n, bw_top = device_work(torch, val.backward)
+    del val, a, e, kd
+    h = 1e-2
+    with torch.no_grad():
+        fd_kd = (gloss(scene, gcfg, 1 + h).item()
+                 - gloss(scene, gcfg, 1 - h).item()) / (2 * h)
+        fd_emit = (gloss(scene, gcfg, 1.0, 1 + h).item()
+                   - gloss(scene, gcfg, 1.0, 1 - h).item()) / (2 * h)
+    _require(g_kd > 0 and g_emit > 0 and abs(g_kd - fd_kd) <= 2e-2 * fd_kd
+             and abs(g_emit - fd_emit) <= 2e-2 * fd_emit,
+             f"phase 20 gradients {g_kd}, {g_emit} vs central differences "
+             f"{fd_kd}, {fd_emit}")
+    _require(abs(g_emit - g_val) <= 1e-5 * g_val,
+             f"phase 20 g_emit {g_emit} vs loss {g_val}")
+    o, ch = np.unravel_index(np.argmax(g_mat), g_mat.shape)
+    he = torch.zeros_like(scene.mat_kd)
+    he[o, ch] = 5e-3
+    with torch.no_grad():
+        fd_mat = (gloss(dataclasses.replace(scene, mat_kd=scene.mat_kd + he),
+                        gcfg).item()
+                  - gloss(dataclasses.replace(scene,
+                                              mat_kd=scene.mat_kd - he),
+                          gcfg).item()) / 1e-2
+    _require(bool(np.isfinite(g_mat).all()) and g_mat.min() >= -1e-6
+             and abs(g_mat[o, ch] - fd_mat) <= 3e-2 * abs(fd_mat),
+             f"phase 20 mat_kd gradient min {g_mat.min()}, entry "
+             f"{g_mat[o, ch]} vs central difference {fd_mat}")
+    # the same gradients with the plain twins in place of B1 and B2
+    g64 = _small(gcfg, 64, max_bounce=3)
+    gk = ggrads(scene, g64)
+    with twins():
+        gt = ggrads(scene, g64)
+    twin_rel = max(abs(x - y) / max(abs(y), 1e-12)
+                   for x, y in zip(gk[:3], gt[:3]))
+    twin_mat = float(np.abs(gk[3] - gt[3]).max())
+    _require(twin_rel <= 1e-6 and twin_mat <= 1e-7,
+             f"phase 20 64^2 gradients with the kernels {gk[:3]} vs the "
+             f"twins {gt[:3]}, (O,3) max abs diff {twin_mat}")
+    # recovery of an albedo scale of 0.7 by gradient descent; the step
+    # 0.5 / g^2 (g the slope at scale 1) keeps it from overshooting at
+    # this depth
+    with torch.no_grad():
+        target = gloss(scene, gcfg, 0.7).item()
+    step, sc_ = 0.5 / g_kd ** 2, 1.0
+    t3 = time.perf_counter()
+    for _ in range(40):
+        a = torch.tensor(sc_, device=dev, requires_grad=True)
+        ((gloss(scene, gcfg, a) - target) ** 2).backward()
+        sc_ -= step * a.grad.item()
+    rec_s = time.perf_counter() - t3
+    _require(abs(sc_ - 0.7) < 0.02, f"phase 20 recovered scale {sc_}")
+    say(f"phase 20 differentiable PT cbox {gcfg.w}x{gcfg.h} mb "
+        f"{gcfg.max_bounce}, 2 spp, no RR, key 42: loss {g_val:.6f}, "
+        f"d/d albedo scale {g_kd:.6f} (central difference {fd_kd:.6f}), "
+        f"d/d emitter scale {g_emit:.6f} (central difference "
+        f"{fd_emit:.6f}; == loss within {abs(g_emit - g_val) / g_val:.2g}), "
+        f"(O,3) mat_kd largest entry {g_mat[o, ch]:.6f} vs {fd_mat:.6f}, "
+        f"min {g_mat.min():.3g}; forward {1e3 * (t1 - t0):.1f} ms, "
+        f"backward {1e3 * (t2 - t1):.1f} ms, peak {gpeak:.2f} GiB over "
+        f"{held:.2f} GiB held [{card}]; the backward's device busy "
+        f"{bw_busy:.1f} ms in {bw_n} kernels, most {bw_top}; launches "
+        f"{_shown(glaunches)}, the "
+        f"profiler's {gseen} ({gcalls} call); 64^2 mb 3 kernels vs twins: "
+        f"scalars {twin_rel:.3g} relative, (O,3) {twin_mat:.3g}; 40-step "
+        f"recovery of 0.7: {sc_:.5f} in {rec_s:.1f} s")
+
+    # ---- 21. density-grid recovery through ratio tracking ----
+    from adapt_tpu_torch import recover_volume as RV
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, true, init, curve = RV.recover(4096, 200, 0.15, seed=11,
+                                        device=dev)
+    torch.cuda.synchronize()
+    rv_s = time.perf_counter() - t0
+    rv_err, rv_corr = RV.interior_error(rec, true)
+    _require(rv_err < 0.05 * RV.A and rv_corr > 0.99,
+             f"phase 21 recovery: interior error {rv_err}, correlation "
+             f"{rv_corr}")
+    fro, frd = RV.rays(256, 1, dev)
+    probe = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (RV.R,) * 3).astype(np.float32)).to(dev)
+
+    def eps_loss(eps):
+        g_ = torch.clamp(RV.true_grid(dev) + eps * probe * 0.02, 0.0,
+                         RV.BOUND)
+        return RV.transmittance(g_, fro, frd, rng.PRNGKey(7)).mean()
+    eps = torch.tensor(0.0, device=dev, requires_grad=True)
+    eps_loss(eps).backward()
+    with torch.no_grad():
+        rv_fd = (eps_loss(0.05).item() - eps_loss(-0.05).item()) / 0.1
+    _require(abs(eps.grad.item() - rv_fd) <= 1e-5 + 5e-2 * abs(rv_fd),
+             f"phase 21 gradient {eps.grad.item()} vs central difference "
+             f"{rv_fd}")
+    say(f"phase 21 density-grid recovery ({RV.R}^3, 4096 rays, DIFF_STEPS "
+        f"{RV.STEPS}, 200 Adam steps at lr 0.15, key 11): interior mean "
+        f"error {rv_err:.3g} ({rv_err / RV.A:.3g} A), correlation "
+        f"{rv_corr:.6f}, loss {curve[0]:.3g} -> {curve[-1]:.3g} in "
+        f"{rv_s:.1f} s ({1e3 * rv_s / 200:.1f} ms a step) [{card}]; 256 "
+        f"rays: gradient {eps.grad.item():.6g} vs central difference "
+        f"{rv_fd:.6g}")
+
+    # ---- 22. multi-device rendering ----
+    from adapt_tpu_torch.parallel import sharding as SH
+    from adapt_tpu_torch.renderer.vpt import trace_vpt
+    multi_out = os.path.join(ROOT, "build", "chip_smoke", "multi")
+
+    def shard_films(world):
+        """Phase 22's films by the single-process passes of every shard,
+        with multi_rank's meshes and the shard keys (seed 3, one
+        render)."""
+        _, sub = rng.split(rng.PRNGKey(3))
+        films = {}
+        for name, sc, c, n_spp in (("pt", scene, cfg, 1),
+                                   ("vpt", vg_scene, vg_cfg, world),
+                                   ("bdpt", scene, bcfg, 1)):
+            n_px = world // n_spp
+            shard_n = c.n_pixels // n_px
+            groups = []
+            for spp_i in range(n_spp):
+                cols, splat_sum = [], 0
+                for px_i in range(n_px):
+                    k = rng.fold_in(rng.fold_in(sub, spp_i), px_i)
+                    pix = px_i * shard_n + torch.arange(shard_n, device=dev)
+                    if name == "bdpt":
+                        loc, spl, _b, _c = B.bdpt_pass_core(sc, c, k, n_spp,
+                                                            pix_ids=pix)
+                        cols.append((loc, pix))
+                        splat_sum = spl if px_i == 0 else splat_sum + spl
+                        continue
+                    k_cam, k_tr = rng.split(k)
+                    ro_, rd_ = camera_rays(sc, c, k_cam, n_spp, pix_ids=pix)
+                    trace = pt.trace_pt if name == "pt" else trace_vpt
+                    cols.append(trace(sc, c, k_tr, ro_, rd_))
+                if name == "bdpt":
+                    cols = [loc + splat_sum[pix] for loc, pix in cols]
+                groups.append(torch.cat(cols))
+            mean = groups[0] if n_spp == 1 else \
+                sum(groups[1:], groups[0]) / n_spp
+            films[name] = (torch.nan_to_num(mean, nan=0.0) * n_spp) \
+                .cpu().numpy()
+        return films
+
+    def multi(world, backend):
+        """Phase 22's ranks; returns ({case: film}, {case: launches summed
+        over ranks}, {case: rank 0's seconds})."""
+        import shutil
+        shutil.rmtree(multi_out, ignore_errors=True)
+        os.makedirs(multi_out)
+        SH.run_ranks(multi_rank, world, multi_out, device="cuda",
+                     backend=backend)
+        ranks = [np.load(os.path.join(multi_out, f"rank{r}.npz"))
+                 for r in range(world)]
+        films = {n: ranks[0][n] for n in MULTI_CASES}
+        for rk in ranks[1:]:
+            for n in MULTI_CASES:
+                _require(np.array_equal(rk[n], films[n]),
+                         f"phase 22 {backend}: rank films differ ({n})")
+        lsum = {n: {k: sum(int(rk[f"{n}:{k}"]) for rk in ranks)
+                    for k in KERNELS if f"{n}:{k}" in ranks[0]}
+                for n in MULTI_CASES}
+        return films, lsum, {n: float(ranks[0][n + "_s"])
+                             for n in MULTI_CASES}
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    m_films, m_launches, m_s = multi(n_cards, None)        # NCCL
+    nccl_s = time.perf_counter() - t0
+    ref = shard_films(n_cards)
+    m_err = {n: float(np.abs(m_films[n] - ref[n]).max()) for n in ref}
+    _require(all(v == 0.0 for v in m_err.values()),
+             f"phase 22 NCCL films vs the single-process shards: {m_err}")
+    t0 = time.perf_counter()
+    g_films, g_launches, g_s = multi(2, "gloo")   # two ranks, one card
+    gloo_s = time.perf_counter() - t0
+    ref2 = shard_films(2)
+    g_err = {n: float(np.abs(g_films[n] - ref2[n]).max()) for n in ref2}
+    _require(all(v == 0.0 for v in g_err.values()),
+             f"phase 22 gloo films vs the single-process shards: {g_err}")
+    mlaunch_sum = {k: sum(d.get(k, 0) for d in (*m_launches.values(),
+                                                *g_launches.values()))
+                   for k in KERNELS}
+    _require(all(mlaunch_sum[k] > 0 for k in (
+        "tri_closest_hit", "tri_any_hit", "tri_track_hits",
+        "splat_sorted_accumulate")), f"phase 22 launches {mlaunch_sum}")
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "adapt_tpu_torch.render", "--output_path",
+         cli_out, "--no_watermark", "--scene", "cbox", "--name", "cbox.xml",
+         "--type", "pt", "--multichip", "-1", "--iter_num", "2",
+         "--img_name", "smoke_multi"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=600)
+    mcli_s = time.perf_counter() - t0
+    _require(p.returncode == 0 and "multichip mesh" in p.stdout
+             and os.path.exists(os.path.join(cli_out, "smoke_multi.png")),
+             f"the CLI --multichip -1: exit {p.returncode}, stdout "
+             f"{p.stdout[-1500:]}, stderr {p.stderr[-1500:]}")
+    mesh_line = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("multichip mesh")][0]
+    def ms(secs):
+        return ", ".join(f"{n} {1e3 * secs[n]:.1f} ms" for n in MULTI_CASES)
+    say(f"phase 22 multi-device: NCCL over {n_cards} card(s), one render "
+        f"each (a rank's first, cold) of PT cbox 512^2 mb 8, VPT "
+        f"cbox-volgrid {vg_cfg.w}^2 and BDPT cbox mb 6: {ms(m_s)}, "
+        f"max abs diff to the single-process shards {m_err}, launches "
+        f"{ {n: _shown(v) for n, v in m_launches.items()} } "
+        f"({nccl_s:.1f} s with the ranks' start); two gloo ranks on the "
+        f"one card (CUDA tensors; PT and BDPT 1 x 2 'px', VPT 2 x 1 "
+        f"'spp'): {ms(g_s)}, "
+        f"max abs diff {g_err}, launches "
+        f"{ {n: _shown(v) for n, v in g_launches.items()} } "
+        f"({gloo_s:.1f} s) [{card}]; python -m adapt_tpu_torch.render "
+        f"--multichip -1: '{mesh_line}', image written ({mcli_s:.1f} s)")
+
+    # ---- 23. the apps on the card ----
+    import urllib.request
+    viz_out = os.path.join(ROOT, "build", "chip_smoke", "viz")
+
+    def app(args, timeout=300):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                           env=dict(os.environ, PYTHONPATH=ROOT),
+                           capture_output=True, text=True, timeout=timeout)
+        _require(p.returncode == 0, f"{args}: exit {p.returncode}, stdout "
+                 f"{p.stdout[-1500:]}, stderr {p.stderr[-1500:]}")
+        return p.stdout, time.perf_counter() - t0
+    viz_out_png = os.path.join(viz_out, "direct.png")
+    v_out, v_s = app(["adapt_tpu_torch.scene_viz", "--scene", "cbox",
+                      "--name", "cbox.xml", "--mode", "direct", "--out",
+                      viz_out_png])
+    _require("<lookat" in v_out and os.path.exists(viz_out_png),
+             f"scene_viz one-shot: {v_out[-800:]}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "adapt_tpu_torch.scene_viz", "--scene",
+         "cbox", "--name", "cbox.xml", "--serve", "0"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        port, lines = None, []
+        for ln in proc.stdout:
+            lines.append(ln)
+            if "flythrough: http" in ln:
+                port = int(ln.rsplit(":", 1)[1].strip().rstrip("/"))
+                break
+        _require(port is not None, f"scene_viz --serve: {''.join(lines)}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/key?k=w",
+                                    timeout=120) as rsp:
+            key_json = json.loads(rsp.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/frame.png",
+                                    timeout=120) as rsp:
+            png = rsp.read()
+        _require("<lookat" in key_json["lookat"] and png[:4] == b"\x89PNG",
+                 f"scene_viz --serve: {key_json}, {png[:8]}")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    s_s = time.perf_counter() - t0
+    film_png = os.path.join(cli_out, "smoke_pt.png")
+    pp_out, pp_s = app(["adapt_tpu_torch.post_processing", "--input",
+                        film_png, "--output",
+                        os.path.join(viz_out, "smoke_pt-clean.png")])
+    _require("firefly pixels cleaned" in pp_out, f"post_processing: {pp_out}")
+    say(f"phase 23 the apps on the card: scene_viz one-shot (direct, "
+        f"512^2) {v_s:.1f} s; scene_viz --serve, one key and frame "
+        f"{s_s:.1f} s ({key_json['lookat']}); post_processing on phase 19's "
+        f"film {pp_s:.1f} s ({pp_out.strip()}) [{card}]")
+
     path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]
-                        + vblaunches[k] + vol_launches[k]
+                        + vblaunches[k] + vol_launches[k] + glaunches[k]
+                        + mlaunch_sum[k]
                         for k in ("tri_closest_hit", "tri_any_hit")},
                      **{k: klaunches[k] + bulaunches[k] + bplaunches[k]
                         + orb_launches[k]
                         for k in ("bvh_closest_hit", "bvh_any_hit")},
                      "tri_track_hits": vlaunches["tri_track_hits"]
                      + vblaunches["tri_track_hits"]
-                     + vol_launches["tri_track_hits"],
+                     + vol_launches["tri_track_hits"]
+                     + mlaunch_sum["tri_track_hits"],
                      "splat_sorted_accumulate":
                          blaunches["splat_sorted_accumulate"]
                          + bulaunches["splat_sorted_accumulate"]
-                         + vol_launches["splat_sorted_accumulate"],
+                         + vol_launches["splat_sorted_accumulate"]
+                         + mlaunch_sum["splat_sorted_accumulate"],
                      **{k: tier_launches["sweep"][k] for k in (
                          "cluster_closest_hit", "cluster_any_hit")},
                      **{k: tier_launches["qpick"][k] for k in (

@@ -8,8 +8,10 @@ Each run is a subprocess with `--arch cpu` at 32^2, 3 bounces:
 * `--serve` answers with the preview's PNG while it renders and, with
   ADAPT_SERVE_AFTER=0, exits when the render is done;
 * config-file boolean flags (parsers/opts.py, in process);
-* `--multichip` refused, naming ROADMAP.md queue A item 16; `--arch cuda`
-  without a card exits non-zero without rendering;
+* `--multichip 2`: two gloo ranks render, rank 0 prints the mesh and
+  writes the image and checkpoint, whose film equals the one-process
+  passes of the two shards; `--multichip` refuses --type ao; `--arch
+  cuda` without a card exits non-zero without rendering;
 * the film of cbox at 32^2, 2 spp, seed 0 equals render.py's (the JAX
   package's CLI, `--arch cpu`, the same flags) under the goldens' `_check`
   bound, compared on the checkpoints' accumulated films, not the 8-bit
@@ -157,12 +159,50 @@ def test_config_file_boolean_flags(tmp_path):
         get_options(["--config", str(bad)])
 
 
-def test_cli_refusals(tmp_path):
-    """--multichip names its ROADMAP item; --arch cuda without a card
-    exits non-zero and writes no image."""
+def test_cli_multichip(tmp_path):
+    """--multichip 2 on the CPU: a 1 x 2 mesh of gloo ranks; the image and
+    the checkpoint are rank 0's, and the film is the two 'px' shards'
+    one-process passes (renderer/pt.py trace_pt, the JAX package's keys
+    of each shard) accumulated over the CLI's two passes, exactly."""
+    import dataclasses
+    from adapt_tpu_torch import rng
+    from adapt_tpu_torch.renderer.base import camera_rays
+    from adapt_tpu_torch.renderer.pt import trace_pt
+    from adapt_tpu_torch.scene.compile import load_scene
     tmp = str(tmp_path)
-    p = _run(["--multichip", "4", "--iter_num", "1"], tmp)
-    assert p.returncode != 0 and "queue A item 16" in p.stderr, p.stderr
+    p = _run(["--scene", "cbox", "--name", "cbox.xml", "--type", "pt",
+              "--multichip", "2", "--iter_num", "2", "--img_name", "mc"],
+             tmp)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert "multichip mesh: {'spp': 1, 'px': 2} over 2 devices" in p.stdout
+    assert p.stdout.count("done: 2 spp") == 1, p.stdout
+    assert os.path.exists(os.path.join(tmp, "out", "mc.png"))
+    chk = _checkpoint(tmp, "mc-cbox-pt-32x32.pkl")
+    assert chk["renderer"] == "MultiChip-trace_pt" and chk["counter"] == 2
+    scene, cfg, _ = load_scene(os.path.join(REPO, "scenes", "cbox"),
+                               "cbox.xml", device="cpu")
+    cfg = dataclasses.replace(cfg, w=32, h=32, focal=cfg.focal * 32 / 512,
+                              end_x=32, end_y=32, max_bounce=3)
+    key, film = rng.PRNGKey(0), torch.zeros((cfg.n_pixels, 3))
+    for cnt in (1, 2):
+        key, sub = rng.split(key)
+        cols = []
+        for px_i in range(2):
+            k_cam, k_tr = rng.split(rng.fold_in(rng.fold_in(sub, 0), px_i))
+            pix = px_i * 512 + torch.arange(512)
+            ro, rd = camera_rays(scene, cfg, k_cam, cnt, pix_ids=pix)
+            cols.append(trace_pt(scene, cfg, k_tr, ro, rd))
+        film = film + torch.nan_to_num(torch.cat(cols))
+    np.testing.assert_array_equal(chk["accumulation"], film.numpy())
+
+
+def test_cli_refusals(tmp_path):
+    """--multichip takes pt, vpt and bdpt only; --arch cuda without a
+    card exits non-zero and writes no image."""
+    tmp = str(tmp_path)
+    p = _run(["--multichip", "2", "--type", "ao", "--iter_num", "1"], tmp)
+    assert p.returncode != 0 and "--multichip supports pt/vpt/bdpt" \
+        in p.stderr, p.stderr
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: --arch cuda renders on it")
     cmd = [a if a != "cpu" else "cuda" for a in _cmd(

@@ -176,7 +176,10 @@ def test_port_imports_no_jax():
             "adapt_tpu_torch.ops.volume_ops, adapt_tpu_torch.scene.volume, "
             "adapt_tpu_torch.scene.assets, "
             "adapt_tpu_torch.utils.tdom_analyze, "
-            "adapt_tpu_torch.utils.preview; "
+            "adapt_tpu_torch.utils.preview, "
+            "adapt_tpu_torch.parallel.sharding, adapt_tpu_torch.dryrun, "
+            "adapt_tpu_torch.recover_volume, adapt_tpu_torch.scene_viz, "
+            "adapt_tpu_torch.post_processing, adapt_tpu_torch.utils.tools; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")
