@@ -981,10 +981,14 @@ def multi_rank(rank, world, out):
     cbox-volgrid.xml (its own settings) and BDPT cbox (6 bounces) over
     MultiChipRenderer on this rank's card, seed 3. One rank: make_mesh()
     over the whole world. Two ranks (sharing the card): PT and BDPT on a
-    1 x 2 'px' mesh, VPT on a 2 x 1 'spp' mesh. Each rank writes its
-    films, seconds and launch counts to out/rank<rank>.npz."""
+    1 x 2 'px' mesh, VPT on a 2 x 1 'spp' mesh. First one all_reduce
+    and one all_gather over the world on the card (with one rank the
+    mesh needs no collective; this one runs the backend). Each rank
+    writes its films, seconds, launch counts and backend to
+    out/rank<rank>.npz."""
     import numpy as np
     import torch
+    import torch.distributed as dist
     sys.path.insert(0, ROOT)
     from adapt_tpu_torch.ops import bvh_kernels as BK
     from adapt_tpu_torch.ops import intersect_kernels as K
@@ -994,6 +998,15 @@ def multi_rank(rank, world, out):
     from adapt_tpu_torch.scene import compile as C
     from adapt_tpu_torch.scene.assets import load_volume
     dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    parts = [torch.empty(1, device=dev) for _ in range(world)]
+    dist.all_gather(parts, torch.full((1,), float(rank), device=dev))
+    _require(bool((x == world * (world + 1) / 2).all())
+             and [float(p_) for p_ in parts] == list(map(float,
+                                                         range(world))),
+             f"rank {rank}: {dist.get_backend()} all_reduce {x.tolist()}, "
+             f"all_gather {[float(p_) for p_ in parts]}")
     cbox = os.path.join(ROOT, "scenes", "cbox")
     scene, cfg0, _ = C.load_scene(cbox, "cbox.xml", device=dev)
     vs, vcfg, _ = load_volume(cbox, "cbox-volgrid.xml", device=dev)
@@ -1017,6 +1030,7 @@ def multi_rank(rank, world, out):
         for k, n in {**K.launches, **BK.launches, **S.launches}.items():
             res[f"{name}:{k}"] = n
         res[name + "_mesh"] = np.array([mesh.shape["spp"], mesh.shape["px"]])
+    res["backend"] = dist.get_backend()
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 
 
@@ -3223,18 +3237,19 @@ def main():
                     for k in KERNELS if f"{n}:{k}" in ranks[0]}
                 for n in MULTI_CASES}
         return films, lsum, {n: float(ranks[0][n + "_s"])
-                             for n in MULTI_CASES}
+                             for n in MULTI_CASES}, str(ranks[0]["backend"])
 
     t0 = time.perf_counter()
     n_cards = torch.cuda.device_count()
-    m_films, m_launches, m_s = multi(n_cards, None)        # NCCL
+    m_films, m_launches, m_s, m_backend = multi(n_cards, None)   # NCCL
+    _require(m_backend == "nccl", f"phase 22: backend {m_backend}")
     nccl_s = time.perf_counter() - t0
     ref = shard_films(n_cards)
     m_err = {n: float(np.abs(m_films[n] - ref[n]).max()) for n in ref}
     _require(all(v == 0.0 for v in m_err.values()),
              f"phase 22 NCCL films vs the single-process shards: {m_err}")
     t0 = time.perf_counter()
-    g_films, g_launches, g_s = multi(2, "gloo")   # two ranks, one card
+    g_films, g_launches, g_s, _ = multi(2, "gloo")   # two ranks, one card
     gloo_s = time.perf_counter() - t0
     ref2 = shard_films(2)
     g_err = {n: float(np.abs(g_films[n] - ref2[n]).max()) for n in ref2}
@@ -3263,7 +3278,8 @@ def main():
                  if ln.startswith("multichip mesh")][0]
     def ms(secs):
         return ", ".join(f"{n} {1e3 * secs[n]:.1f} ms" for n in MULTI_CASES)
-    say(f"phase 22 multi-device: NCCL over {n_cards} card(s), one render "
+    say(f"phase 22 multi-device: {m_backend} over {n_cards} card(s) (an "
+        f"all_reduce and an all_gather over the world checked), one render "
         f"each (a rank's first, cold) of PT cbox 512^2 mb 8, VPT "
         f"cbox-volgrid {vg_cfg.w}^2 and BDPT cbox mb 6: {ms(m_s)}, "
         f"max abs diff to the single-process shards {m_err}, launches "
