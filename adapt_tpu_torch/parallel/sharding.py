@@ -50,24 +50,21 @@ def mesh_shape(n_devices: int, spp_parallel: int | None = None):
 @dataclasses.dataclass
 class Mesh:
     """This rank's place in the ('spp', 'px') mesh and its two groups
-    (None where the axis has one rank: its collective is the identity)."""
+    (None where the axis has one rank: its collective is the identity).
+    A rank renders on the device of the scene it is given."""
     shape: dict
     rank: int
     spp_i: int
     px_i: int
     spp_group: object
     px_group: object
-    device: torch.device
 
 
-def make_mesh(n_devices: int | None = None, spp_parallel: int | None = None,
-              device=None):
+def make_mesh(n_devices: int | None = None, spp_parallel: int | None = None):
     """The ('spp', 'px') mesh over ranks 0 .. n_devices - 1 (default: the
     whole world). Every rank of the world must call it (group creation is
     collective); ranks outside the mesh get None. Without an initialized
-    process group the world is this one process. device: this rank's
-    device (default: cuda:<rank mod visible cards> when the backend is
-    NCCL, else the CPU)."""
+    process group the world is this one process."""
     init = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if init else 1
     rank = dist.get_rank() if init else 0
@@ -88,14 +85,9 @@ def make_mesh(n_devices: int | None = None, spp_parallel: int | None = None,
     if rank >= n:
         return None
     spp_i, px_i = divmod(rank, P)
-    if device is None:
-        nccl = init and dist.get_backend() == "nccl"
-        device = torch.device("cuda", rank % torch.cuda.device_count()) \
-            if nccl else torch.device("cpu")
     return Mesh(shape={"spp": S, "px": P}, rank=rank, spp_i=spp_i,
                 px_i=px_i, spp_group=spp_groups[px_i] if spp_groups else None,
-                px_group=px_groups[spp_i] if px_groups else None,
-                device=torch.device(device))
+                px_group=px_groups[spp_i] if px_groups else None)
 
 
 def _psum(x, group):
@@ -152,7 +144,7 @@ def render_pass_multichip(scene, cfg, mesh, trace_fn):
     def step(scene, key, cnt):
         k_cam, k_trace = rng.split(_shard_key(key, mesh))
         pix = mesh.px_i * shard_n + torch.arange(
-            shard_n, dtype=torch.int64, device=mesh.device)
+            shard_n, dtype=torch.int64, device=scene.device)
         ray_o, ray_d = camera_rays(scene, cfg, k_cam, cnt, pix_ids=pix)
         color = _pmean(trace_fn(scene, cfg, k_trace, ray_o, ray_d), mesh)
         return _with_crop(cfg, _gather_px(color, mesh))
@@ -171,7 +163,7 @@ def render_pass_bdpt_multichip(scene, cfg, mesh):
     from ..renderer.bdpt import bdpt_pass_core
 
     n_px = mesh.shape["px"]
-    pix_all = crop_pix_ids(cfg, mesh.device)
+    pix_all = crop_pix_ids(cfg, scene.device)
     n_trace = cfg.n_pixels if pix_all is None else int(pix_all.shape[0])
     if n_trace % n_px:
         raise ValueError(f"traced pixel count {n_trace} (crop window) not "
@@ -186,7 +178,7 @@ def render_pass_bdpt_multichip(scene, cfg, mesh):
         k = _shard_key(key, mesh)
         base = mesh.px_i * shard_n
         pix = base + torch.arange(shard_n, dtype=torch.int64,
-                                  device=mesh.device)
+                                  device=scene.device)
         if pix_all is not None:
             pix = pix_all[pix]
         local, splat, _b, _c = bdpt_pass_core(scene, cfg, k, cnt,
@@ -213,7 +205,7 @@ def render_pass_bdpt_transient_multichip(scene, cfg, mesh):
         raise ValueError(
             "transient BDPT multichip scales over independent sample "
             "batches: build the mesh with make_mesh(n, spp_parallel=n)")
-    pix = crop_pix_ids(cfg, mesh.device)
+    pix = crop_pix_ids(cfg, scene.device)
 
     def step(scene, key, cnt):
         k = rng.fold_in(key, mesh.spp_i)
@@ -245,7 +237,7 @@ class MultiChipRenderer:
         self.cfg = cfg
         self.mesh = mesh
         self.key = rng.PRNGKey(seed)
-        self.color = torch.zeros((cfg.n_pixels, 3), device=mesh.device)
+        self.color = torch.zeros((cfg.n_pixels, 3), device=scene.device)
         self.cnt = 0
         self._kind = "bdpt" if bdpt else \
             getattr(trace_fn, "__name__", "trace_pt")
@@ -253,14 +245,14 @@ class MultiChipRenderer:
         if self.is_transient:
             assert trace_fn is None, "bdpt builds its own pass"
             from ..renderer.base import crop_pix_ids
-            self._pix_ids = crop_pix_ids(cfg, mesh.device)
+            self._pix_ids = crop_pix_ids(cfg, scene.device)
             n_traced = cfg.n_pixels if self._pix_ids is None \
                 else int(self._pix_ids.shape[0])
             self.time_bins = torch.zeros((n_traced, cfg.t_bins, 3),
-                                         device=mesh.device)
+                                         device=scene.device)
             self.time_cnts = torch.zeros((n_traced, cfg.t_bins),
                                          dtype=torch.int32,
-                                         device=mesh.device)
+                                         device=scene.device)
             self._step = render_pass_bdpt_transient_multichip(scene, cfg,
                                                               mesh)
         elif bdpt:
@@ -334,9 +326,9 @@ class MultiChipRenderer:
             self.cfg, chk,
             self.time_bins.shape if self.is_transient else None,
             self.time_cnts.shape if self.is_transient else None,
-            self.is_transient, device=self.mesh.device)
+            self.is_transient, device=self.scene.device)
         self.color = torch.as_tensor(np.asarray(chk["accumulation"]),
-                                     device=self.mesh.device)
+                                     device=self.scene.device)
         self.cnt = int(chk["counter"])
         self.key = key_from_numpy(chk["key"])
         if self.is_transient:

@@ -55,7 +55,7 @@ def build_renderer(opts, scene, cfg, world=None):
                              f"{opts.type}")
         # transient BDPT scales over independent sample batches (px = 1)
         spp_par = world if (opts.type == "bdpt" and cfg.transient) else None
-        mesh = make_mesh(world, spp_parallel=spp_par, device=scene.device)
+        mesh = make_mesh(world, spp_parallel=spp_par)
         if mesh.rank == 0:
             print(f"multichip mesh: {mesh.shape} over {world} devices")
         return MultiChipRenderer(scene, cfg, mesh, seed=opts.seed, **kw)

@@ -1017,7 +1017,7 @@ def multi_rank(rank, world, out):
     res = {}
     for name in MULTI_CASES:
         sc, cfg, kw, spp_par = cases[name]
-        mesh = SH.make_mesh(world, spp_parallel=spp_par, device=dev)
+        mesh = SH.make_mesh(world, spp_parallel=spp_par)
         r = SH.MultiChipRenderer(sc, cfg, mesh, seed=3, **kw)
         for mod in (K, BK, S):
             mod.reset_launches()
