@@ -21,19 +21,19 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _small(name, w, max_bounce=2):
+def _small(name, w, device, max_bounce=2):
     from .scene.assets import load_volume
     from .scene.compile import load_scene
     load = load_volume if name == "cbox-volgrid.xml" else load_scene
     scene, cfg, _ = load(os.path.join(HERE, "scenes", "cbox"), name,
-                         device="cpu")
+                         device=device)
     cfg = dataclasses.replace(
         cfg, w=w, h=w, focal=cfg.focal * w / min(cfg.w, cfg.h),
         max_bounce=max_bounce, start_x=0, end_x=w, start_y=0, end_y=w)
     return scene, cfg
 
 
-def _body(rank, world):
+def _body(rank, world, device):
     """One step of each sharded renderer over make_mesh(world)."""
     from .parallel.sharding import MultiChipRenderer, make_mesh
     from .renderer.vpt import trace_vpt
@@ -42,13 +42,13 @@ def _body(rank, world):
     w = 32                       # the pixel count must divide the px axis
     while (w * w) % mesh.shape["px"]:
         w *= 2
-    scene, cfg = _small("cbox.xml", w)
+    scene, cfg = _small("cbox.xml", w, device)
     out = MultiChipRenderer(scene, cfg, mesh).render()
     assert out.shape == (cfg.n_pixels, 3) and bool(out.isfinite().all())
     assert MultiChipRenderer(scene, cfg, mesh).image().shape == (w, w, 3)
     out = MultiChipRenderer(scene, cfg, mesh, bdpt=True).render()
     assert out.shape == (cfg.n_pixels, 3) and bool(out.isfinite().all())
-    vs, vcfg = _small("cbox-volgrid.xml", w)
+    vs, vcfg = _small("cbox-volgrid.xml", w, device)
     assert vcfg.volume_kind
     out = MultiChipRenderer(vs, vcfg, mesh, trace_fn=trace_vpt).render()
     assert out.shape == (vcfg.n_pixels, 3) and bool(out.isfinite().all())

@@ -20,11 +20,23 @@ Media walks on the brute-force tier take `ray_track_hits` (kernel B3 plus
 the sphere roots): the closest blocker and the null medium interfaces in
 front of it, in one pass.
 
-Hits are constants: every query here runs under no_grad, so its
-results (distances, ids, barycentrics, normals) carry no autograd graph,
-as the kernels' outputs never do. Gradients flow through what the
-renderers compute from a hit (materials, emitters, media), not through
-where the hit lies: geometry and pose gradients are not implemented.
+Hits are found without a graph: every search here runs under no_grad,
+as the kernels' outputs never carry one. The decorators cover what is
+plain PyTorch here (the sphere roots, the interaction record); the
+kernel wrappers' CPU twins run under no_grad of their own
+(intersect_kernels.twin), so a wrapper called alone returns no graph
+either. Which prim a ray hits is a constant. Where the hit lies on it is
+a function of the ray, as in the JAX package: when the ray of a closest-
+hit query needs a gradient (a direction sampled from a glossy lobe or a
+refraction, a scatter point drawn from a medium's extinction),
+`ray_intersect` re-evaluates the hit's distance, barycentrics and
+normals on the found prim in PyTorch (`_follow_ray`), with forward
+values that are the kernel's own, bit for bit. The media walk's
+interface distances (`ray_track_hits`, kernel B3, which returns no prim
+ids) stay constants: renderer/vpt.py `track_ray` takes that walk's
+gradient from its closest-hit loop. Geometry and camera-pose gradients
+are not implemented: they need the visibility edges, which no query
+samples.
 
 On the CPU the wrappers run their plain twins. The JAX package's one-hot
 gathers and wavefront sorts are TPU workarounds with no counterpart here:
@@ -38,7 +50,7 @@ import torch
 
 from ..constants import INV_PI, INV_2PI
 from . import bvh_kernels, cluster_kernels, intersect_kernels as kernels
-from .math3d import axis_vec, dot, fma_dot, normalize
+from .math3d import axis_vec, cross, dot, fma_dot, normalize, sqrt0
 
 RAY_EPS = kernels.RAY_EPS
 FAR = kernels.FAR
@@ -92,13 +104,87 @@ def _bvh_tier(scene, cfg):
     return big
 
 
-@torch.no_grad()
 def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Closest-hit intersection for a ray batch; returns Interaction.
 
     max_t: optional (N,) clip distance (hits accepted strictly before
     max_t - eps). alive: optional (N,) bool; dead lanes are forced to miss
-    (far0 = -3e38) and come back with t = -3e38."""
+    (far0 = -3e38) and come back with t = -3e38. Under autograd, a ray
+    that needs a gradient moves its hit along the found prim
+    (`_follow_ray`)."""
+    it = _closest_hit(scene, cfg, ray_o, ray_d, max_t, alive)
+    if torch.is_grad_enabled() and (ray_o.requires_grad
+                                    or ray_d.requires_grad):
+        it = _follow_ray(scene, cfg, ray_o, ray_d, it)
+    return it
+
+
+def _follow_ray(scene, cfg, ray_o, ray_d, it):
+    """The interaction with its distance, barycentrics and normals as
+    differentiable functions of the ray on each lane's found prim: the
+    triangle's plane and edges (what the JAX package's triangle test
+    differentiates), the sphere root the query took. Straight through:
+    each field is the query's value plus (f - f.detach()), so the forward
+    values do not change by a bit. Lanes that missed, and the quantities
+    of the other prim kind, are masked before anything can divide by 0."""
+    hit = it.obj_id >= 0
+    prim = it.prim_id.long()
+    sph = scene.prim_is_sphere[prim] & hit
+    tri = hit & ~sph
+
+    def follow(value, exact, where):
+        return value + torch.where(where, exact - exact.detach(), 0.0)
+
+    # triangles: Moller-Trumbore on e1, e2, p0 (pre0, pre1, pre2)
+    e1, e2 = scene.pre0[prim], scene.pre1[prim]
+    pvec = cross(ray_d, e2)
+    det = dot(e1, pvec)
+    inv = 1.0 / torch.where(tri & (det != 0.0), det, 1.0)
+    tvec = ray_o - scene.pre2[prim]
+    qvec = cross(tvec, e1)
+    u_tri = dot(tvec, pvec) * inv
+    v_tri = dot(ray_d, qvec) * inv
+    t_tri = dot(e2, qvec) * inv
+    t = torch.where(sph, 0.0, t_tri)
+    uv = [follow(it.uv[:, 0], u_tri, tri), follow(it.uv[:, 1], v_tri, tri)]
+    n_g, n_s = it.n_g, it.n_s
+    if scene.sph_center.shape[0] > 0:
+        # the root the query took: the nearer one when t <= proj
+        center, radius = scene.pre0[prim], scene.pre1[prim][:, 0]
+        s2c = center - ray_o
+        proj = dot(ray_d, s2c)
+        cut = sqrt0(torch.clamp(radius * radius
+                                - (dot(s2c, s2c) - proj * proj), min=0.0))
+        near = it.t <= proj.detach()
+        t = torch.where(sph, proj + torch.where(near, -cut, cut), t)
+        rel = ray_o + t[:, None] * ray_d - center
+        n_sph = rel / torch.clamp(
+            sqrt0(dot(rel, rel, keepdims=True)), min=1e-12)
+        # away from the poles, where atan2 and arccos have no derivative
+        pole = (n_sph[:, 0] ** 2 + n_sph[:, 1] ** 2 < 1e-6).detach()
+        away = sph & ~pole
+        x = torch.where(away, n_sph[:, 0], 1.0)
+        y = torch.where(away, n_sph[:, 1], 0.0)
+        z = torch.where(away, n_sph[:, 2], 0.0)
+        uv = [follow(uv[0], (torch.atan2(y, x) + torch.pi) * INV_2PI, away),
+              follow(uv[1], torch.arccos(z) * INV_PI, away)]
+        n_g = follow(n_g, n_sph, sph[:, None])
+        n_s = follow(n_s, n_sph, sph[:, None])
+    t = follow(it.t, t, hit)
+    if cfg.has_v_normal:
+        vn = scene.prim_vn[prim]
+        w0 = (1.0 - uv[0] - uv[1])[:, None]
+        n_v = vn[:, 0] * w0 + vn[:, 1] * uv[0][:, None] \
+            + vn[:, 2] * uv[1][:, None]
+        ok = tri & (torch.abs(vn).sum(dim=(1, 2)) > 1e-6)
+        n_v = torch.where(ok[:, None], n_v, axis_vec(0, ray_o.device))
+        n_s = follow(n_s, normalize(n_v), ok[:, None])
+    return dataclasses.replace(it, t=t, n_g=n_g, n_s=n_s,
+                               uv=torch.stack(uv, dim=-1))
+
+
+@torch.no_grad()
+def _closest_hit(scene, cfg, ray_o, ray_d, max_t, alive):
     far0 = kernels.far_bound(ray_o, max_t, alive)
     if _bvh_tier(scene, cfg) and cfg.big_tier != "bvh":
         if cfg.big_tier == "sweep":

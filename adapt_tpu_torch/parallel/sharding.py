@@ -363,6 +363,9 @@ def init_ranks(rank: int, world: int, port, device="cuda", backend=None):
     if backend == "nccl" and not dist.is_nccl_available():
         raise RuntimeError("a CUDA multi-device run needs NCCL, which this "
                            "torch build lacks")
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise RuntimeError(f"NCCL takes one rank a card: {world} ranks, "
+                           f"{torch.cuda.device_count()} card(s)")
     if device == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
@@ -378,18 +381,19 @@ def _rank_main(rank, fn, world, port, device, backend, args):
     threads = os.environ.get("OMP_NUM_THREADS")
     if threads:
         torch.set_num_threads(int(threads))
-    init_ranks(rank, world, port, device, backend)
+    dev = init_ranks(rank, world, port, device, backend)
     try:
-        fn(rank, world, *args)
+        fn(rank, world, dev, *args)
     finally:
         dist.destroy_process_group()
 
 
 def run_ranks(fn, world: int, *args, device="cuda", backend=None,
               join=True):
-    """Run fn(rank, world, *args) in `world` new processes joined in one
-    process group (torch.multiprocessing.spawn); returns when every rank
-    has returned and raises if one failed. fn must be importable (a
+    """Run fn(rank, world, device, *args) in `world` new processes joined
+    in one process group (torch.multiprocessing.spawn), `device` the
+    rank's own (init_ranks); returns when every rank has returned and
+    raises if one failed. fn must be importable (a
     module-level function). join=False returns at once with the spawn
     context, whose join() the caller repeats until it returns True."""
     import torch.multiprocessing as mp

@@ -59,7 +59,7 @@ def make_vol(grid_1ch):
         sv_maj=torch.from_numpy(sv).to(dev), sv_size=int(S))
 
 
-def true_grid(device=None):
+def true_grid(device="cuda"):
     """The blob: A exp(-r^2) with r in units of R / 3 from the centre."""
     ax = (np.arange(R) + 0.5 - R / 2) / (R / 3)
     r2 = (ax[:, None, None] ** 2 + ax[None, :, None] ** 2
@@ -67,7 +67,7 @@ def true_grid(device=None):
     return torch.from_numpy(A * np.exp(-r2).astype(np.float32)).to(device)
 
 
-def rays(n, seed, device=None):
+def rays(n, seed, device="cuda"):
     """n rays from the x = -2 plane to the x = R + 2 plane, their end points
     uniform over the grid's y-z extent."""
     g = np.random.default_rng(seed)
@@ -95,7 +95,7 @@ def transmittance(grid_1ch, ro, rd, key, steps=STEPS):
     return tr3[:, 0]
 
 
-def recover(n_rays=4096, steps=200, lr=0.15, seed=11, device=None,
+def recover(n_rays=4096, steps=200, lr=0.15, seed=11, device="cuda",
             log_every=0):
     """Adam on raw (grid = sigmoid(raw) * BOUND) from raw = -1, the loss
     the mean squared transmittance error under step i's key fold_in(key,

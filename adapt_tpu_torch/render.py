@@ -161,14 +161,15 @@ def main(argv=None):
         world = torch.cuda.device_count()
     else:
         world = min(os.cpu_count() or 1, 8)
+    if opts.arch == "cuda" and world > torch.cuda.device_count():
+        raise SystemExit(f"--multichip {world} --arch cuda: one rank a card, "
+                         f"and {torch.cuda.device_count()} card(s) are "
+                         f"visible")
     sharding.run_ranks(_rank_render, world, opts, device=opts.arch)
 
 
-def _rank_render(rank, world, opts):
-    import torch
-    dev = torch.device("cuda", rank % torch.cuda.device_count()) \
-        if opts.arch == "cuda" else torch.device("cpu")
-    render(opts, world, dev)
+def _rank_render(rank, world, device, opts):
+    render(opts, world, device)
 
 
 def render(opts, world=None, device=None):

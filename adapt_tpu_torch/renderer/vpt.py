@@ -251,6 +251,16 @@ def track_ray(scene, cfg, start_p, ray_d, depth, key=None, thp=None,
     if scene.tri_n.shape[0] > 0 and not _bvh_tier(scene, cfg):
         tr, acc = _track_segments_khit(scene, cfg, start_p, ray_d, depth,
                                        active)
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (start_p, ray_d, depth)):
+            # kernel B3 returns no prim to move an interface on: the
+            # sequential walk, whose closest hits follow the ray
+            # (ops/intersect.py), gives the gradient, as the JAX package's
+            # walk on the CPU does; the forward values stay the kernel's
+            tr_l, acc_l = _track_loop(scene, cfg, start_p, ray_d, depth,
+                                      active)
+            tr = tr.detach() + (tr_l - tr_l.detach())
+            acc = acc.detach() + (acc_l - acc_l.detach())
     else:
         tr, acc = _track_loop(scene, cfg, start_p, ray_d, depth, active)
     return tr * vol_tr, acc
@@ -431,8 +441,11 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
             mat_n = bxdf_ops.gather_mat(scene, it_n.obj_id)
             nl = torch.where(it_n.obj_id >= 0, mat_n.emit, -1)
             can = (nl >= 0) & ~mat_n.is_delta & ~is_specular
+            # as in renderer/pt.py: a dead lane's t = -3e38 squared would
+            # be a NaN gradient (every `can` lane hit something)
             e_pdf = torch.where(can, emitter_ops.solid_angle_pdf(
-                scene, nl.clamp(min=0), it_n.n_s, it_n.t, out_dir), 0.0)
+                scene, nl.clamp(min=0), it_n.n_s,
+                torch.where(can, it_n.t, 0.0), out_dir), 0.0)
             ray_pdf = torch.where(is_mi, p_val, s_pdf)
             out["emission_weight"] = torch.where(
                 shade, balance_heuristic(ray_pdf, e_pdf),

@@ -976,7 +976,7 @@ def load_textured(directory, file, device="cuda"):
 MULTI_CASES = ("pt", "vpt", "bdpt")   # phase 22's renders, in order
 
 
-def multi_rank(rank, world, out):
+def multi_rank(rank, world, dev, out):
     """Phase 22's rank: one render of PT cbox (512^2, 8 bounces), VPT
     cbox-volgrid.xml (its own settings) and BDPT cbox (6 bounces) over
     MultiChipRenderer on this rank's card, seed 3. One rank: make_mesh()
@@ -997,7 +997,6 @@ def multi_rank(rank, world, out):
     from adapt_tpu_torch.renderer.vpt import trace_vpt
     from adapt_tpu_torch.scene import compile as C
     from adapt_tpu_torch.scene.assets import load_volume
-    dev = torch.device("cuda", torch.cuda.current_device())
     x = torch.full((4,), float(rank + 1), device=dev)
     dist.all_reduce(x)
     parts = [torch.empty(1, device=dev) for _ in range(world)]
@@ -3114,6 +3113,28 @@ def main():
     _require(twin_rel <= 1e-6 and twin_mat <= 1e-7,
              f"phase 20 64^2 gradients with the kernels {gk[:3]} vs the "
              f"twins {gt[:3]}, (O,3) max abs diff {twin_mat}")
+    # parameters that move rays, so their gradients run through where the
+    # next hit lies (B1's hit re-evaluated on its prim, B3's media walk
+    # differentiated through B1): mat_ks and mat_kg on two csphere scenes,
+    # the media's coefficients through VPT, held to the JAX package's
+    # derivatives that tests/test_torch_grad_shading.py wrote, at that
+    # file's bounds (the excess is 1 at a bound)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_grad_shading as TS      # imports no JAX
+    ts_golden = dict(np.load(TS.GOLDEN))
+    reset()
+    t3 = time.perf_counter()
+    mv_excess = {n: TS.material_excess(ts_golden, n,
+                                       *TS.material_grads(n, dev))
+                 for n in TS.PT_SCENES}
+    mv_excess["vpt cbox"] = TS.media_excess(ts_golden, *TS.media_grads(dev))
+    mv_s = time.perf_counter() - t3
+    mv_launches = counts()
+    _require(all(v <= 1.0 for v in mv_excess.values())
+             and mv_launches["tri_closest_hit"] > 0
+             and mv_launches["tri_track_hits"] > 0,
+             f"phase 20 ray-moving gradients vs the JAX package's: excess "
+             f"{mv_excess}, launches {mv_launches}")
     # recovery of an albedo scale of 0.7 by gradient descent; the step
     # 0.5 / g^2 (g the slope at scale 1) keeps it from overshooting at
     # this depth
@@ -3140,7 +3161,12 @@ def main():
         f"{_shown(glaunches)}, the "
         f"profiler's {gseen} ({gcalls} call); 64^2 mb 3 kernels vs twins: "
         f"scalars {twin_rel:.3g} relative, (O,3) {twin_mat:.3g}; 40-step "
-        f"recovery of 0.7: {sc_:.5f} in {rec_s:.1f} s")
+        f"recovery of 0.7: {sc_:.5f} in {rec_s:.1f} s; ray-moving "
+        f"gradients at 24^2 mb 3 (mat_ks, mat_kg of balls-multi and "
+        f"mix-balls, vpt cbox media) vs the JAX package's, in units of "
+        f"the bounds: "
+        f"{ {n: float(f'{v:.3g}') for n, v in mv_excess.items()} } in "
+        f"{mv_s:.1f} s, launches {_shown(mv_launches)}")
 
     # ---- 21. density-grid recovery through ratio tracking ----
     from adapt_tpu_torch import recover_volume as RV
@@ -3182,41 +3208,20 @@ def main():
     from adapt_tpu_torch.renderer.vpt import trace_vpt
     multi_out = os.path.join(ROOT, "build", "chip_smoke", "multi")
 
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_ranks import shard_film    # imports no JAX
+
     def shard_films(world):
         """Phase 22's films by the single-process passes of every shard,
         with multi_rank's meshes and the shard keys (seed 3, one
         render)."""
         _, sub = rng.split(rng.PRNGKey(3))
-        films = {}
-        for name, sc, c, n_spp in (("pt", scene, cfg, 1),
-                                   ("vpt", vg_scene, vg_cfg, world),
-                                   ("bdpt", scene, bcfg, 1)):
-            n_px = world // n_spp
-            shard_n = c.n_pixels // n_px
-            groups = []
-            for spp_i in range(n_spp):
-                cols, splat_sum = [], 0
-                for px_i in range(n_px):
-                    k = rng.fold_in(rng.fold_in(sub, spp_i), px_i)
-                    pix = px_i * shard_n + torch.arange(shard_n, device=dev)
-                    if name == "bdpt":
-                        loc, spl, _b, _c = B.bdpt_pass_core(sc, c, k, n_spp,
-                                                            pix_ids=pix)
-                        cols.append((loc, pix))
-                        splat_sum = spl if px_i == 0 else splat_sum + spl
-                        continue
-                    k_cam, k_tr = rng.split(k)
-                    ro_, rd_ = camera_rays(sc, c, k_cam, n_spp, pix_ids=pix)
-                    trace = pt.trace_pt if name == "pt" else trace_vpt
-                    cols.append(trace(sc, c, k_tr, ro_, rd_))
-                if name == "bdpt":
-                    cols = [loc + splat_sum[pix] for loc, pix in cols]
-                groups.append(torch.cat(cols))
-            mean = groups[0] if n_spp == 1 else \
-                sum(groups[1:], groups[0]) / n_spp
-            films[name] = (torch.nan_to_num(mean, nan=0.0) * n_spp) \
-                .cpu().numpy()
-        return films
+        return {name: shard_film(sc, c, sub, n_spp, world // n_spp,
+                                 trace).cpu().numpy()
+                for name, sc, c, n_spp, trace in (
+                    ("pt", scene, cfg, 1, pt.trace_pt),
+                    ("vpt", vg_scene, vg_cfg, world, trace_vpt),
+                    ("bdpt", scene, bcfg, 1, None))}
 
     def multi(world, backend):
         """Phase 22's ranks; returns ({case: film}, {case: launches summed

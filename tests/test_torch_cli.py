@@ -166,9 +166,9 @@ def test_cli_multichip(tmp_path):
     of each shard) accumulated over the CLI's two passes, exactly."""
     import dataclasses
     from adapt_tpu_torch import rng
-    from adapt_tpu_torch.renderer.base import camera_rays
     from adapt_tpu_torch.renderer.pt import trace_pt
     from adapt_tpu_torch.scene.compile import load_scene
+    from test_torch_ranks import shard_film
     tmp = str(tmp_path)
     p = _run(["--scene", "cbox", "--name", "cbox.xml", "--type", "pt",
               "--multichip", "2", "--iter_num", "2", "--img_name", "mc"],
@@ -186,13 +186,7 @@ def test_cli_multichip(tmp_path):
     key, film = rng.PRNGKey(0), torch.zeros((cfg.n_pixels, 3))
     for cnt in (1, 2):
         key, sub = rng.split(key)
-        cols = []
-        for px_i in range(2):
-            k_cam, k_tr = rng.split(rng.fold_in(rng.fold_in(sub, 0), px_i))
-            pix = px_i * 512 + torch.arange(512)
-            ro, rd = camera_rays(scene, cfg, k_cam, cnt, pix_ids=pix)
-            cols.append(trace_pt(scene, cfg, k_tr, ro, rd))
-        film = film + torch.nan_to_num(torch.cat(cols))
+        film = film + shard_film(scene, cfg, sub, 1, 2, trace_pt, cnt)
     np.testing.assert_array_equal(chk["accumulation"], film.numpy())
 
 
@@ -230,3 +224,23 @@ def test_cli_film_matches_render_py(tmp_path):
     assert film.shape == ref.shape == (32, 32, 3)
     _close(film, ref)
     assert film.mean() > 0.05
+
+
+def test_multichip_refuses_more_nccl_ranks_than_cards(monkeypatch):
+    """NCCL takes one rank a card: `--multichip N --arch cuda` with N above
+    the visible cards exits with a message before it starts a rank, and
+    init_ranks (the torchrun path) refuses such a world (the card count
+    and NCCL faked here, where there is no card)."""
+    from adapt_tpu_torch import render as R
+    from adapt_tpu_torch.parallel import sharding
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(sharding.dist, "is_nccl_available", lambda: True)
+    started = []
+    monkeypatch.setattr(sharding, "run_ranks",
+                        lambda *a, **k: started.append(a))
+    with pytest.raises(SystemExit, match="one rank a card"):
+        R.main(["--multichip", "2", "--arch", "cuda", "--type", "pt"])
+    assert not started
+    with pytest.raises(RuntimeError, match="one rank a card"):
+        sharding.init_ranks(0, 2, sharding.free_port(), "cuda")

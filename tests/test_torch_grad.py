@@ -37,6 +37,7 @@ from adapt_tpu_torch import rng
 from adapt_tpu_torch.ops import bvh_kernels, cluster_kernels, \
     intersect_kernels
 from adapt_tpu_torch.ops import volume_ops
+from adapt_tpu_torch.ops.math3d import dot
 from adapt_tpu_torch.renderer.base import camera_rays
 from adapt_tpu_torch.renderer.pt import render_batch_pt
 from adapt_tpu_torch.scene.compile import load_scene
@@ -144,7 +145,7 @@ def test_grad_matches_finite_differences(cbox):
     h = 1e-2 within 2%, and the emitter's linearity, g_emit == loss."""
     scene, cfg = cbox
     val, g_kd, g_emit = _grads(scene, cfg)
-    h = 1e-2
+    h = 1e-3
     with torch.no_grad():
         fd_kd = (float(_loss(scene, cfg, 1 + h, 1.0))
                  - float(_loss(scene, cfg, 1 - h, 1.0))) / (2 * h)
@@ -166,7 +167,7 @@ def test_grad_per_object_albedo(cbox):
     g = kd.grad.numpy()
     assert np.isfinite(g).all() and (g >= -1e-6).all()
     o, c = np.unravel_index(np.argmax(g), g.shape)
-    h = 5e-3
+    h = 1e-3
     e = torch.zeros_like(scene.mat_kd)
     e[o, c] = h
     with torch.no_grad():
@@ -241,20 +242,20 @@ def _probe():
 
 
 def _eps_loss(eps, ro, rd):
-    g = torch.clamp(RV.true_grid() + eps * torch.from_numpy(_probe()) * 0.02,
-                    0.0, RV.BOUND)
+    g = torch.clamp(RV.true_grid("cpu")
+                    + eps * torch.from_numpy(_probe()) * 0.02, 0.0, RV.BOUND)
     return RV.transmittance(g, ro, rd, rng.PRNGKey(7)).mean()
 
 
 def test_problem_equals_jax():
     """recover_volume's rays, blob and majorants are the JAX test's."""
-    ro, rd = RV.rays(256, 1)
+    ro, rd = RV.rays(256, 1, "cpu")
     jro, jrd = TV._rays(256, seed=1)
     np.testing.assert_array_equal(ro.numpy(), np.asarray(jro))
     np.testing.assert_array_equal(rd.numpy(), np.asarray(jrd))
-    np.testing.assert_array_equal(RV.true_grid().numpy(),
+    np.testing.assert_array_equal(RV.true_grid("cpu").numpy(),
                                   np.asarray(TV._true_grid()))
-    vol = RV.make_vol(RV.true_grid())
+    vol = RV.make_vol(RV.true_grid("cpu"))
     np.testing.assert_array_equal(vol.sv_maj.numpy(), TV._SV)
     assert vol.sv_size == TV._S_SV and volume_ops.DIFF_STEPS == 0
 
@@ -266,15 +267,16 @@ def test_diff_march_equals_jax(tracking_jax):
     at most 0.5% of lanes may differ (tests/test_torch_volume.py's
     allowance for XLA's CPU log1p), the gradients within 1e-5."""
     tr_j, g_eps_j, g_grid_j = tracking_jax
-    ro, rd = RV.rays(256, 1)
+    ro, rd = RV.rays(256, 1, "cpu")
     with torch.no_grad():
-        tr = RV.transmittance(RV.true_grid(), ro, rd, rng.PRNGKey(7))
+        tr = RV.transmittance(RV.true_grid("cpu"), ro, rd,
+                              rng.PRNGKey(7))
     assert (tr.numpy() != tr_j).mean() <= 5e-3
     np.testing.assert_allclose(tr.numpy(), tr_j, rtol=1e-6, atol=1e-6)
     eps = torch.tensor(0.0, requires_grad=True)
     _eps_loss(eps, ro, rd).backward()
     np.testing.assert_allclose(float(eps.grad), g_eps_j, rtol=1e-5)
-    g = RV.true_grid().requires_grad_(True)
+    g = RV.true_grid("cpu").requires_grad_(True)
     RV.transmittance(g, ro, rd, rng.PRNGKey(7)).mean().backward()
     np.testing.assert_allclose(g.grad.numpy(), g_grid_j, rtol=1e-5,
                                atol=1e-7)
@@ -284,10 +286,10 @@ def test_diff_march_equals_jax(tracking_jax):
 def test_diff_march_matches_finite_differences():
     """tests/test_grad_volume.py's check on the port: central differences
     at h = 0.05 along the probe, rtol 5e-2, atol 1e-5."""
-    ro, rd = RV.rays(256, 1)
+    ro, rd = RV.rays(256, 1, "cpu")
     eps = torch.tensor(0.0, requires_grad=True)
     _eps_loss(eps, ro, rd).backward()
-    h = 0.05
+    h = 1e-3
     with torch.no_grad():
         fd = (float(_eps_loss(h, ro, rd))
               - float(_eps_loss(-h, ro, rd))) / (2 * h)
@@ -300,7 +302,8 @@ def test_short_density_recovery():
     Measured here: interior mean error 5.9e-3 (0.039 A) from 2.4e-2 at the
     start, correlation 0.9725; bounds 0.06 A, a third of the start's error
     and 0.95."""
-    rec, true, init, curve = RV.recover(n_rays=1024, steps=30, lr=0.25)
+    rec, true, init, curve = RV.recover(n_rays=1024, steps=30, lr=0.25,
+                                    device="cpu")
     err, corr = RV.interior_error(rec, true)
     err0 = float(np.abs(init - true)[2:-2, 2:-2, 2:-2].mean())
     assert err < 0.06 * RV.A and corr > 0.95, (err, corr)
@@ -361,3 +364,97 @@ def test_wrappers_outputs_carry_no_graph():
                                                      picks))
     assert len(outs) == 31
     assert not any(o.requires_grad or o.grad_fn is not None for o in outs)
+
+
+def test_hits_follow_the_ray():
+    """The searches of ops/intersect.py return no graph: which prim a ray
+    hits is a constant (the sphere roots and the record that are plain
+    PyTorch there included; csphere/balls-multi.xml has spheres and
+    triangles). Where the hit lies follows the ray: under autograd
+    `ray_intersect` gives the no-grad query's values bit for bit, and the
+    derivative of its distance, barycentrics and normals along a random
+    move of the rays' origins and directions is the central difference
+    of the query on triangle lanes (h = 1e-3, lanes whose prim stays;
+    measured 1.2e-4 relative) and of the reference quadratic, normal and
+    angles in float64 on sphere lanes (h = 1e-6: the float32 sphere test
+    cancels too much to difference; measured 1.9e-4, the float32
+    derivative's own cancellation). Bounds 1e-2 and 1e-3."""
+    from adapt_tpu_torch.ops import intersect
+    scene, cfg, _ = load_scene(os.path.join(SCENE_DIR, "csphere"),
+                               "balls-multi.xml", device="cpu")
+    cfg = dataclasses.replace(cfg, w=32, h=32,
+                              focal=cfg.focal * 32 / min(cfg.w, cfg.h),
+                              end_x=32, end_y=32)
+    ro0, rd0 = camera_rays(scene, cfg, rng.PRNGKey(0), 1)
+    g = np.random.default_rng(5)
+    do = torch.from_numpy(g.standard_normal(ro0.shape).astype(np.float32))
+    dd = torch.from_numpy(g.standard_normal(rd0.shape).astype(np.float32))
+    s = torch.tensor(0.0, requires_grad=True)
+    ro, rd = ro0 + s * do, rd0 + s * dd
+
+    def query(h):
+        with torch.no_grad():
+            return intersect.ray_intersect(scene, cfg, ro0 + h * do,
+                                           rd0 + h * dd)
+
+    it, it0 = intersect.ray_intersect(scene, cfg, ro, rd), query(0.0)
+    for f in ("obj_id", "prim_id", "t", "n_g", "n_s", "uv"):
+        assert torch.equal(getattr(it, f), getattr(it0, f)), f
+    assert not (it.obj_id.requires_grad or it.prim_id.requires_grad)
+    assert it.t.requires_grad and it.uv.requires_grad
+    for out in (intersect._closest_hit(scene, cfg, ro, rd, None, None),
+                [intersect.does_intersect(scene, cfg, ro, rd)],
+                intersect.ray_track_hits(scene, cfg, ro, rd, None),
+                intersect.ray_k_hits(scene, cfg, ro, rd, None)):
+        out = dataclasses.astuple(out) if dataclasses.is_dataclass(out) \
+            else out
+        assert not any(torch.is_tensor(o) and (o.requires_grad
+                                               or o.grad_fn is not None)
+                       for o in out)
+
+    prim = it0.prim_id.long()
+    sph = it0.is_hit & scene.prim_is_sphere[prim]
+    h = 1e-3
+    hp, hm = query(h), query(-h)
+    tri = it0.is_hit & ~sph & (hp.prim_id == it0.prim_id) \
+        & (hm.prim_id == it0.prim_id)
+    # sphere lanes away from the u seam (atan2 at +-pi) and from grazing
+    # (where the float32 derivative of the root cancels as its value does)
+    n = it0.n_g
+    sph &= ~((n[:, 0] < 0.0) & (torch.abs(n[:, 1]) < 0.05)) \
+        & (torch.abs(dot(n, rd0)) > 0.3)
+    assert int(tri.sum()) > 200 and int(sph.sum()) > 50
+    w = torch.from_numpy(g.uniform(0.5, 1.5, (ro.shape[0], 9))
+                         .astype(np.float32))
+
+    def total(x, lanes):
+        m = w * lanes[:, None]
+        return (x.t * m[:, 0]).sum() + (x.uv * m[:, 1:3]).sum() \
+            + (x.n_g * m[:, 3:6]).sum() + (x.n_s * m[:, 6:9]).sum()
+
+    def sphere64(h):
+        """The reference sphere hit in float64: total() of its fields."""
+        o = (ro0.double() + h * do.double()).numpy()[sph.numpy()]
+        d = (rd0.double() + h * dd.double()).numpy()[sph.numpy()]
+        c = scene.pre0[prim[sph]].double().numpy()
+        r = scene.pre1[prim[sph]][:, 0].double().numpy()
+        s2c = c - o
+        proj = (d * s2c).sum(1)
+        t = proj - np.sqrt(r * r - ((s2c * s2c).sum(1) - proj * proj))
+        p = o + t[:, None] * d - c
+        nn = p / np.linalg.norm(p, axis=1, keepdims=True)
+        u = (np.arctan2(nn[:, 1], nn[:, 0]) + np.pi) / (2 * np.pi)
+        v = np.arccos(nn[:, 2]) / np.pi
+        m = w[sph].double().numpy()
+        return (t * m[:, 0]).sum() + (u * m[:, 1]).sum() \
+            + (v * m[:, 2]).sum() + (nn * m[:, 3:6]).sum() \
+            + (nn * m[:, 6:9]).sum()
+
+    assert bool((it0.t[sph] <= dot(rd0, scene.pre0[prim] - ro0)[sph]).all())
+    for lanes, fd, rtol in (
+            (tri, (float(total(hp, tri)) - float(total(hm, tri))) / (2 * h),
+             1e-2),
+            (sph, (sphere64(1e-6) - sphere64(-1e-6)) / 2e-6, 1e-3)):
+        s.grad = None
+        total(it, lanes).backward(retain_graph=True)
+        np.testing.assert_allclose(float(s.grad), fd, rtol=rtol)

@@ -33,7 +33,6 @@ from adapt_tpu.renderer.vpt import trace_vpt as jax_trace_vpt
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch import rng
 from adapt_tpu_torch.parallel import sharding
-from adapt_tpu_torch.renderer.base import camera_rays
 from adapt_tpu_torch.renderer.pt import trace_pt
 from adapt_tpu_torch.renderer.vpt import trace_vpt
 
@@ -88,23 +87,6 @@ def runs(tmp_path_factory):
     return port, jax_res
 
 
-def _shards(scene, cfg, key, trace, n_spp, n_px):
-    """The single-process passes of every mesh shard, with the keys of
-    `render_pass_multichip`; the mean over 'spp', (n_pixels, 3)."""
-    shard_n = cfg.n_pixels // n_px
-    groups = []
-    for spp_i in range(n_spp):
-        cols = []
-        for px_i in range(n_px):
-            k = rng.fold_in(rng.fold_in(key, spp_i), px_i)
-            k_cam, k_tr = rng.split(k)
-            pix = px_i * shard_n + torch.arange(shard_n)
-            ro, rd = camera_rays(scene, cfg, k_cam, n_spp, pix_ids=pix)
-            cols.append(trace(scene, cfg, k_tr, ro, rd))
-        groups.append(torch.cat(cols))
-    return sum(groups[1:], groups[0]) / n_spp if n_spp > 1 else groups[0]
-
-
 def test_mesh_shapes_and_refusals():
     assert sharding.mesh_shape(8) == (2, 4)
     assert sharding.mesh_shape(8, spp_parallel=4) == (4, 2)
@@ -130,7 +112,7 @@ def test_pt_px_mesh(runs):
     scene, cfg, _ = TR.load("cbox", "cbox.xml")
     cfg = TR.small(cfg, 32, 2)
     _, sub = rng.split(rng.PRNGKey(3))
-    ref = _shards(scene, cfg, sub, trace_pt, 1, 8)
+    ref = TR.shard_film(scene, cfg, sub, 1, 8, trace_pt)
     assert np.isfinite(port["pt"]).all() and port["pt"].max() > 0.01
     np.testing.assert_array_equal(port["pt"], ref.numpy())
     assert np.abs(port["pt"] - jax_res["pt"]).max() < JAX_ATOL
@@ -149,17 +131,7 @@ def test_vpt_spp_px_mesh(runs):
     film = torch.zeros((cfg.n_pixels, 3))
     for cnt in (2, 4):
         key, sub = rng.split(key)
-        shards = []
-        for spp_i in range(2):
-            cols = []
-            for px_i in range(4):
-                k_cam, k_tr = rng.split(rng.fold_in(rng.fold_in(sub, spp_i),
-                                                    px_i))
-                pix = px_i * 64 + torch.arange(64)
-                ro, rd = camera_rays(scene, cfg, k_cam, cnt, pix_ids=pix)
-                cols.append(trace_vpt(scene, cfg, k_tr, ro, rd))
-            shards.append(torch.cat(cols))
-        film = film + torch.nan_to_num((shards[0] + shards[1]) / 2) * 2
+        film = film + TR.shard_film(scene, cfg, sub, 2, 4, trace_vpt, cnt)
     assert np.isfinite(port["vpt"]).all() and port["vpt"].max() > 0.01
     np.testing.assert_array_equal(port["vpt"], film.numpy())
     assert np.abs(port["vpt"] - jax_res["vpt"]).max() < JAX_ATOL
@@ -178,7 +150,7 @@ def test_crop_pt(runs):
     assert np.isfinite(out).all() and (out[~mask] == 0.0).all()
     assert out[mask].max() > 0.01
     _, sub = rng.split(rng.PRNGKey(3))
-    ref = _shards(scene, cfg, sub, trace_pt, 1, 4).numpy()
+    ref = TR.shard_film(scene, cfg, sub, 1, 4, trace_pt).numpy()
     np.testing.assert_array_equal(out[mask], ref[mask])
     assert np.abs(out - jax_res["crop_pt"]).max() < JAX_ATOL
 

@@ -22,14 +22,13 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 import test_torch_ranks as TR
 from adapt_tpu.parallel.sharding import MultiChipRenderer as JaxMultiChip
 from adapt_tpu.parallel.sharding import make_mesh as jax_make_mesh
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch import rng
-from adapt_tpu_torch.renderer.bdpt import bdpt_pass_core, render_pass_bdpt
+from adapt_tpu_torch.renderer.bdpt import render_pass_bdpt
 
 from conftest import SCENE_DIR
 from test_torch_parallel import _spawn
@@ -79,15 +78,7 @@ def test_bdpt_px_mesh_splat_sum(runs):
     cfg = TR.small(cfg, 16, 3, world_scattering=False, medium_kinds=(),
                    has_null_bsdf=False)
     _, sub = rng.split(rng.PRNGKey(5))
-    shard_n = cfg.n_pixels // 4
-    locals_, splat_sum = [], 0.0
-    for px_i in range(4):
-        k = rng.fold_in(rng.fold_in(sub, 0), px_i)
-        pix = px_i * shard_n + torch.arange(shard_n)
-        local, splat, _b, _c = bdpt_pass_core(scene, cfg, k, 1, pix_ids=pix)
-        locals_.append(local.numpy())
-        splat_sum = splat_sum + splat.numpy()
-    ref = np.concatenate(locals_) + splat_sum
+    ref = TR.shard_film(scene, cfg, sub, 1, 4).numpy()
     out = port["bdpt"]
     assert np.isfinite(out).all() and out.max() > 0.01
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-7)
