@@ -228,7 +228,7 @@ def _ggx_sample_wh(wo_l, ax, ay, u1, u2):
     t1 = r * torch.cos(phi)
     t2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vh[:, 1])
-    t2 = (1.0 - s) * sqrt0(torch.clamp(1.0 - t1 * t1, min=0.0)) \
+    t2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - t1 * t1, min=0.0)) \
         + s * t2
     nh = (t1[:, None] * T1 + t2[:, None] * T2
           + sqrt0(torch.clamp(1.0 - t1 * t1 - t2 * t2, min=0.0))[:, None]

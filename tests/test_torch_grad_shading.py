@@ -190,8 +190,8 @@ def _lanes(n=64):
     """Normals and directions with the lanes that put a square root's
     argument at exactly 0: directions along the normal and against it
     (lanes 0-15), perpendicular to it (16-23), and axis-aligned ones whose
-    cosine is exactly 0 (24-31); uniforms at 0 (0-7) and at (1, 0)
-    (8-15); the rest random."""
+    cosine is exactly 0 (24-31); uniforms at 0 (0-7 and the first of
+    24-31) and at (1, 0) (8-15); the rest random."""
     g = np.random.default_rng(0)
     nrm = _unit(g.standard_normal((n, 3))).astype(np.float32)
     d = _unit(g.standard_normal((n, 3))).astype(np.float32)
@@ -199,7 +199,7 @@ def _lanes(n=64):
     d[16:24] = _unit(np.cross(nrm[16:24], g.standard_normal((8, 3))))
     nrm[24:32], d[24:32] = (0.0, 1.0, 0.0), (1.0, 0.0, 0.0)
     u = g.uniform(0, 1, (n, 8)).astype(np.float32)
-    u[:8], u[8:16, 0], u[8:16, 1] = 0.0, 1.0, 0.0
+    u[:8], u[8:16, 0], u[8:16, 1], u[24:32, 0] = 0.0, 1.0, 0.0, 0.0
     return (torch.from_numpy(nrm).requires_grad_(True),
             torch.from_numpy(d).requires_grad_(True), torch.from_numpy(u))
 
@@ -255,8 +255,11 @@ def _site(name):
         return list(sampling.fresnel_hemisphere(u[:, 0], u[:, 1], nu,
                                                 nv)), [nu, nv]
     if name == "fresnel_eval":
+        # normal incidence (lanes 0-7); grazing at a unit ratio (8-15)
         c = _full(n, 0.3, slice(0, 8), 1.0)
+        c.data[8:16] = 0.0
         n_in, n_tr = _full(n, 1.0), _full(n, 1.5, slice(32, n), 0.6)
+        n_tr.data[8:16] = 1.0
         return [geo_optics.fresnel_eval(c, n_in, n_tr)], [c, n_in, n_tr]
     if name == "snell_refraction":
         ni, nr = _full(n, 1.5, slice(24, 32), 1.0), _full(n, 1.0)
