@@ -18,7 +18,10 @@ or below it there is one round of all N lanes, a lane's slot its index.
 The port marches every crossing lane in one batch and draws each lane's
 row from its own round's key (`_lane_uniforms`), so a lane's numbers
 depend only on (round, step, slot) and the batch equals the JAX
-package's sequential rounds. Done lanes are no-ops: the port draws
+package's sequential rounds. A call may take a list of keys, one for
+each block of its lanes: each block then marches as a call of its own
+would, all in one batch (BDPT's strategies that the JAX package
+connects one at a time). Done lanes are no-ops: the port draws
 STEP_BLOCK steps' uniforms at once, reads after each step whether any
 lane lives, drops the done lanes once half of the batch is done, and
 steps no lane past MAX_STEPS.
@@ -77,10 +80,11 @@ _marches = None
 @contextlib.contextmanager
 def record_marches():
     """Record every tracking call while open. Yields a list that gets one
-    dict a call: lanes (handed to it), crossing (those that march), rounds
-    (the JAX package's), steps (the march's) and s (its seconds, the
-    device synchronized at both ends); steps and s stay 0 where no lane
-    crosses."""
+    dict a call: lanes (handed to it), crossing (those that march), blocks
+    (the marches it runs side by side, one a key), rounds (the JAX
+    package's, the most of any one block), steps (the march's) and s (its
+    seconds, the device synchronized at both ends); steps and s stay 0
+    where no lane crosses."""
     global _marches
     saved, _marches = _marches, []
     try:
@@ -320,36 +324,49 @@ def _one_hot_tr(kind, tr, pdf, ch):
     return tr[:, None].expand(tr.shape[0], 3)
 
 
-def _lanes(crossing):
+def _lanes(crossing, blocks=1):
     """The lanes that march, their rounds and their slots (the JAX
-    package's `_compact_rounds` layout), and the rounds' count."""
-    N = crossing.shape[0]
+    package's `_compact_rounds` layout), and each block's count of rounds.
+
+    The lanes are `blocks` marches of N = len / blocks lanes side by side,
+    each laid out as if it ran alone: a lane's slot is its place in a
+    round of its own block, and its round is numbered among all blocks'
+    rounds, block after block."""
+    N = crossing.shape[0] // blocks
     lane = torch.nonzero(crossing).squeeze(1)
+    blk = torch.div(lane, N, rounding_mode="floor")
     if N <= COMPACT_MIN or DIFF_STEPS > 0:
-        return lane, torch.zeros_like(lane), lane, 1
+        return lane, blk, lane - blk * N, [1] * blocks
     C = -(-N // COMPACT_DIV)
     C = -(-C // 128) * 128
-    rank = torch.arange(lane.shape[0], device=lane.device)
-    return lane, rank // C, rank % C, max(1, -(-lane.shape[0] // C))
+    per = torch.bincount(blk, minlength=blocks)
+    rank = torch.arange(lane.shape[0], device=lane.device) \
+        - (torch.cumsum(per, 0) - per)[blk]
+    rounds = [max(1, -(-n // C)) for n in per.tolist()]
+    first = torch.tensor(np.cumsum([0] + rounds[:-1]), dtype=torch.int64,
+                         device=lane.device)
+    return lane, first[blk] + rank // C, rank % C, rounds
 
 
-def _lane_uniforms(key, rounds, r, slot, step0, steps):
-    """(n, steps, VOL_HOPS + 4) uniforms: row `slot` of round r's
-    `uniform(fold_in(key, r * (MAX_STEPS + 1) + s), (C, VOL_HOPS + 4))`
-    for s = step0 .. step0 + steps - 1."""
+def _lane_uniforms(keys, rounds, r, slot, step0, steps):
+    """(n, steps, VOL_HOPS + 4) uniforms: row `slot` of round rr's
+    `uniform(fold_in(key, rr * (MAX_STEPS + 1) + s), (C, VOL_HOPS + 4))`
+    for s = step0 .. step0 + steps - 1, where `r` numbers the rounds of
+    all blocks (`_lanes`) and block b draws from keys[b]."""
     D = VOL_HOPS + 4
     dev = slot.device
-    keys = torch.tensor(
+    table = torch.tensor(
         [[rng.fold_in(key, rr * (MAX_STEPS + 1) + step0 + s)
-          for s in range(steps)] for rr in range(rounds)],
+          for s in range(steps)]
+         for key, n in zip(keys, rounds) for rr in range(n)],
         dtype=torch.int64, device=dev)                 # (rounds, steps, 2)
-    k = keys[r]                                        # (n, steps, 2)
+    k = table[r]                                       # (n, steps, 2)
     ctr = slot[:, None, None] * D + torch.arange(D, device=dev)
     b1, b2 = rng.threefry2x32(k[:, :, 0, None], k[:, :, 1, None], 0, ctr)
     return rng._bits_to_unit_float(b1 ^ b2)
 
 
-def _march(key, r, slot, rounds, ins, state, step_fn):
+def _march(keys, r, slot, rounds, ins, state, step_fn):
     """Step every marching lane until all are done or MAX_STEPS steps ran.
 
     ins: per-lane march inputs (`_walk`'s, far, ch, ...); state: per-lane
@@ -366,7 +383,7 @@ def _march(key, r, slot, rounds, ins, state, step_fn):
         t0 = time.perf_counter()
     if DIFF_STEPS > 0:
         for step in range(0, DIFF_STEPS, STEP_BLOCK):
-            u = _lane_uniforms(key, rounds, r, slot, step,
+            u = _lane_uniforms(keys, rounds, r, slot, step,
                                min(STEP_BLOCK, DIFF_STEPS - step))
             for b in range(u.shape[1]):
                 state = step_fn(ins, state, u[:, b])
@@ -380,7 +397,7 @@ def _march(key, r, slot, rounds, ins, state, step_fn):
     for step in range(MAX_STEPS):
         b = step % STEP_BLOCK
         if b == 0:
-            u = _lane_uniforms(key, rounds, r, slot, step,
+            u = _lane_uniforms(keys, rounds, r, slot, step,
                                min(STEP_BLOCK, MAX_STEPS - step))
         state = step_fn(ins, state, u[:, b])
         live = ~state["done"]
@@ -459,21 +476,28 @@ def _ratio_step(tab):
 
 def _setup(vol, key, ray_o, ray_d, thp, max_t, active):
     """The march's shared prologue: interval, channel pick, crossing
-    lanes and their inputs."""
+    lanes and their inputs. key: one key, or a list of keys, one for each
+    block of len(ray_o) / len(key) lanes, which then marches as its own
+    call with that key would (`_lanes`)."""
     N = ray_o.shape[0]
+    keys = key if isinstance(key, list) else [key]
+    n = N // len(keys)
     lo, ld, near, far = _march_interval(vol, ray_o, ray_d, max_t)
-    key, k_ch = rng.split(key)
-    u_ch = rng.uniform(k_ch, (N,), device=ray_o.device)
+    splits = [rng.split(k) for k in keys]
+    keys = [k for k, _ in splits]
+    u_ch = torch.cat([rng.uniform(k_ch, (n,), device=ray_o.device)
+                      for _, k_ch in splits])
     ch, pdf = _pick_channel(vol, thp, u_ch)
     crossing = (near < far) & (far > 0.0)
     if active is not None:
         crossing = crossing & active
-    lane, r, slot, rounds = _lanes(crossing)
+    lane, r, slot, rounds = _lanes(crossing, len(keys))
     if _marches is not None:
-        _marches.append(dict(lanes=N, crossing=lane.shape[0], rounds=rounds,
-                             steps=0, s=0.0))
+        _marches.append(dict(lanes=N, crossing=lane.shape[0],
+                             rounds=max(rounds), blocks=len(keys), steps=0,
+                             s=0.0))
     ins = dict(_walk(lo[lane], ld[lane]), far=far[lane], ch=ch[lane])
-    return key, ch, pdf, crossing, lane, r, slot, rounds, ins, near[lane]
+    return keys, ch, pdf, crossing, lane, r, slot, rounds, ins, near[lane]
 
 
 def sample_distance_delta_tracking(vol, kind, key, ray_o, ray_d, thp,
@@ -484,14 +508,14 @@ def sample_distance_delta_tracking(vol, kind, key, ray_o, ray_d, thp,
     beta multiplies the throughput only where t > 0. Dead lanes (active
     False) do not march."""
     N = ray_o.shape[0]
-    key, ch, pdf, crossing, lane, r, slot, rounds, ins, near = _setup(
+    keys, ch, pdf, crossing, lane, r, slot, rounds, ins, near = _setup(
         vol, key, ray_o, ray_d, thp, max_t, active)
     hit_t = torch.full((N,), -1.0, device=ray_o.device)
     tr = torch.ones(N, device=ray_o.device)
     if lane.numel():
         ins["alb"] = vol.albedo[ins["ch"]]
         n = lane.shape[0]
-        st = _march(key, r, slot, rounds, ins, dict(
+        st = _march(keys, r, slot, rounds, ins, dict(
             t=near, tr=torch.ones(n, device=near.device),
             hit_t=torch.full((n,), -1.0, device=near.device),
             done=torch.zeros(n, dtype=torch.bool, device=near.device)),
@@ -506,14 +530,16 @@ def sample_distance_delta_tracking(vol, kind, key, ray_o, ray_d, thp,
 def eval_tr_ratio_tracking(vol, kind, key, ray_o, ray_d, thp, max_t,
                            active=None):
     """Spectral ratio-tracking transmittance (volume.py:404-463). Dead
-    lanes (active False) do not march and return Tr = 1."""
+    lanes (active False) do not march and return Tr = 1. key: one key, or
+    a list of keys for blocks of lanes that march as calls of their own
+    (`_setup`)."""
     N = ray_o.shape[0]
-    key, ch, pdf, crossing, lane, r, slot, rounds, ins, near = _setup(
+    keys, ch, pdf, crossing, lane, r, slot, rounds, ins, near = _setup(
         vol, key, ray_o, ray_d, thp, max_t, active)
     tr = torch.ones(N, device=ray_o.device)
     if lane.numel():
         n = lane.shape[0]
-        st = _march(key, r, slot, rounds, ins, dict(
+        st = _march(keys, r, slot, rounds, ins, dict(
             t=near, tr=torch.ones(n, device=near.device),
             done=torch.zeros(n, dtype=torch.bool, device=near.device)),
             _ratio_step(_tables(vol)))

@@ -36,10 +36,18 @@ semantics:
   one-hot read `_gather_vertex` turned -0.0 into +0.0; the JAX package
   never calls it, and an index read keeps the sign (`_has_normal` tests
   `!= 0.0`, which -0.0 passes as +0.0 does);
-* the `lax.scan` strategy groups `run_group` and FLAT_MAX_CHUNKS, which
-  exist for XLA's compile time, and with them `connect_strategy`'s
-  single-strategy form: every group runs in the flat form
-  (`run_group_flat`), in chunks of at most FLAT_LANES // N strategies.
+* `lax.scan` itself, which exists for XLA's compile time, and with it
+  `connect_strategy`'s single-strategy form (traced s and t): every group
+  runs in chunks of at most FLAT_LANES // N strategies, as the JAX
+  package's flat form (`run_group_flat`) does. A group of more than
+  FLAT_MAX_CHUNKS chunks, which the JAX package scans (`run_group`),
+  keeps the scan's semantics in those chunks: each strategy's
+  ratio-tracking key comes from its own sub-key fold_in(k_con, k_idx)
+  (bdpt.py:1156, :1216-1217) and its march runs as a call of its own
+  would (a key a block of N lanes, `volume_ops._setup`), its radiance is
+  added to the film one strategy after another (:1438), and a transient
+  pass bins it one strategy at a time (:1440-1441). So FLAT_MAX_CHUNKS
+  decides which random stream and which sum order a group takes, and
   FLAT_LANES stays, as a memory cap;
 * the walk's unroll by 2 (a TPU loop-overhead measure).
 
@@ -74,7 +82,6 @@ from ..ops.intersect import Interaction, ray_intersect
 from ..ops.math3d import dot, norm, normalize
 from ..ops.splat import splat_sorted_accumulate
 from ..ops.texture_ops import get_uv_item, process_ns
-from ..scene.compile import check_supported
 from .base import ProgressiveRenderer, camera_rays, crop_pix_ids
 from .vpt import _is_null_surface, effective_medium, track_ray, \
     volume_phase_kinds, volume_phase_rows, world_bound_time
@@ -88,6 +95,9 @@ NULL_BUDGET = 4
 # as one (K*N,) wavefront through connect_strategy; the cap bounds the
 # chunk's temporaries (16 strategies at 512^2)
 FLAT_LANES = 4 << 20
+# a group of more chunks than this takes the JAX package's scan form
+# (bdpt.py:59-60; tests set it to 0 to force that form at toy size)
+FLAT_MAX_CHUNKS = 4
 
 # vertex bool bits (reference path_utils.py / bdpt.py get_bool)
 B_POS_DELTA = 0x01
@@ -772,7 +782,7 @@ def _mis_weight(scene, cfg, cam_buf, lit_buf, cam_side, lit_side, s, t,
 
 
 def connect_strategy(scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
-                     rows, case=None, planes=None):
+                     rows, case=None, planes=None, scan=False):
     """A flat batch of (t, s) strategies over the whole wavefront
     (reference bdpt.py:306-410, its `rows` form). Returns (radiance
     (K*N, 3), raster flat index (K*N,) or -1, path_time (K*N,), warp_off
@@ -781,7 +791,9 @@ def connect_strategy(scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
     rows=[(s, t, k_idx), ...], one case: the K strategies' endpoints are
     concatenated to (K*N,) lanes and the whole connection runs once over
     them. `key` is the group base key; row sub-keys fold k_idx, so s1's
-    sampled endpoints keep their per-strategy streams."""
+    sampled endpoints keep their per-strategy streams. scan: the group is
+    one the JAX package scans, so each row's transmittance draws from its
+    own sub-key as the scan's single-strategy form does."""
     rows_st = [(r[0], r[1]) for r in rows]
     sub_keys = [rng.fold_in(key, r[2]) for r in rows]
     if case is None:
@@ -903,8 +915,15 @@ def connect_strategy(scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
     # transmittance + propagation time (bdpt.py:394-397)
     need_tr = calc_tr & (le.amax(dim=-1) > 0.0)
     if case != "s0":
-        # the JAX package's key (it feeds only grid-volume ratio tracking)
-        k_tr = rng.fold_in(key, 1 << 31)
+        # the JAX package's key (it feeds only grid-volume ratio
+        # tracking): the flat form's one key for the chunk (bdpt.py:1222),
+        # or the scan form's split of each row's sub-key, for s1 after
+        # the endpoint's three-way split (:1156, :1216-1217)
+        if scan:
+            base = [p[0] for p in picks] if case == "s1" else sub_keys
+            k_tr = [rng.split(k)[1] for k in base]
+        else:
+            k_tr = rng.fold_in(key, 1 << 31)
         tr, track_depth = track_ray(scene, cfg, track_pos, conn_dir, depth,
                                     key=k_tr, thp=torch.ones((NF, 3),
                                                              device=dev),
@@ -958,6 +977,14 @@ def _strategy_groups(cfg, max_bnc):
             k_idx += 1
             groups[_strategy_case(s, t)].append((s, t, k_idx))
     return groups
+
+
+def scan_form(n_rows, N):
+    """Whether the JAX package scans a group of n_rows strategies over N
+    lanes: more than FLAT_MAX_CHUNKS chunks of FLAT_LANES // N
+    (bdpt.py:1418-1421)."""
+    Q = max(1, FLAT_LANES // max(N, 1))
+    return -(-n_rows // Q) > FLAT_MAX_CHUNKS
 
 
 def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
@@ -1042,28 +1069,38 @@ def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
         return splat_sorted_accumulate(film, ii.contiguous(),
                                        rr[perm].contiguous())
 
+    Q = max(1, FLAT_LANES // max(N, 1))
     for case in ("s0", "t1", "s1", "gen"):
         table = groups[case]
         if not table:
             continue
-        Q = max(1, FLAT_LANES // max(N, 1))
+        # the scan form's draws and sums, where the JAX package scans
+        scan = scan_form(len(table), N)
         ii_all, rr_all = [], []
         for c0 in range(0, len(table), Q):
             rows = table[c0:c0 + Q]
             radiance, raster, p_time, warp_off = connect_strategy(
                 scene, cfg, k_con, cam_buf, cam_vnum, lit_buf, lit_vnum,
-                rows, case=case, planes=mis_planes)
+                rows, case=case, planes=mis_planes, scan=scan)
             if case == "t1":
                 ok = raster >= 0
                 ii_all.append(torch.where(ok, raster, drop))
                 rr_all.append(torch.where(ok[:, None], radiance, 0.0))
+            elif scan:                 # strategy after strategy (:1438)
+                for k in range(len(rows)):
+                    color_local = color_local + radiance[k * N:(k + 1) * N]
             else:
                 r = radiance.reshape(len(rows), N, 3)
                 acc = r[0]
                 for k in range(1, len(rows)):
                     acc = acc + r[k]
                 color_local = color_local + acc
-            if cfg.transient:
+            if cfg.transient and scan:  # one strategy at a time (:1440)
+                for k in range(len(rows)):
+                    lanes = slice(k * N, (k + 1) * N)
+                    accum_transient(case, radiance[lanes], raster[lanes],
+                                    p_time[lanes], 1, warp_off[lanes])
+            elif cfg.transient:
                 accum_transient(case, radiance, raster, p_time, len(rows),
                                 warp_off)
             del radiance, raster, p_time, warp_off
@@ -1074,7 +1111,6 @@ def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
 
 
 def _check(scene, cfg):
-    check_supported(scene, cfg, "bdpt")
     if cfg.n_emitters < 1:
         raise ValueError("BDPT needs at least one emitter")
 

@@ -14,7 +14,6 @@ import torch
 from ..ops import bxdf_ops
 from ..ops.intersect import ray_intersect, does_intersect
 from ..ops.math3d import dot, normalize, norm
-from ..scene.compile import check_supported
 from .base import ProgressiveRenderer, camera_rays
 
 
@@ -32,7 +31,6 @@ def render_pass_direct(scene, cfg, key, cnt):
     """One preview pass; returns (color (N,3), depth (N,), normal (N,3)):
     depth 0 and normal 0 where the primary ray misses, the normal packed
     as n_s * 0.5 + 0.5."""
-    check_supported(scene, cfg, "direct")
     ray_o, ray_d = camera_rays(scene, cfg, key, cnt)
     it = ray_intersect(scene, cfg, ray_o, ray_d)
     hit_p, ld, d = shadow_rays(scene, ray_o, ray_d, it.t)

@@ -10,6 +10,12 @@ Python loop over a state dict; a length-compaction schedule
 (renderer/compact.py) narrows it to the alive lanes at its splits.
 Renderers of scenes with AUTO_MIN_PRIMS prims or more derive that
 schedule from one probe pass (adapt_tpu/renderer/pt.py:357-392).
+
+PT renders every scene the tables hold, as the JAX package's PT does:
+every BRDF and BSDF, textures and mixtures, the four light kinds. It reads
+no medium but the world's IOR and no grid volume; a null BSDF (a medium
+boundary) passes the ray straight on as a delta of weight 1
+(ops/bxdf_ops.py `surface_sample`, the JAX package's arm).
 """
 from __future__ import annotations
 
@@ -24,7 +30,6 @@ from ..ops.intersect import ray_intersect, does_intersect
 from ..ops.math3d import norm
 from ..ops.sampling import balance_heuristic
 from ..ops.texture_ops import get_uv_item, process_ns
-from ..scene.compile import check_supported
 from . import compact
 from .base import ProgressiveRenderer, camera_rays, crop_pix_ids
 
@@ -60,7 +65,6 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=(),
     equals the plain one lane for lane. collect_alive: also return the
     (max_bounce,) alive lane counts after each bounce (no compaction), the
     profile auto-compaction derives its schedule from."""
-    check_supported(scene, cfg)
     N = ray_o.shape[0]
     dev = ray_o.device
     world_ior = scene.world_medium.ior[0]
@@ -238,7 +242,6 @@ class Renderer(ProgressiveRenderer):
     derived schedule."""
 
     def __init__(self, scene, cfg, seed: int = 0):
-        check_supported(scene, cfg)
         super().__init__(scene, cfg, seed)
         self._auto = scene.n_prims >= _AUTO_MIN_PRIMS
         self._sched = None

@@ -20,7 +20,6 @@ from .. import rng
 from ..ops.intersect import ray_intersect
 from ..ops.math3d import delocalize_rotate, dot, norm
 from ..ops.sampling import uniform_hemisphere
-from ..scene.compile import check_supported
 from .base import ProgressiveRenderer, camera_rays
 
 
@@ -33,7 +32,6 @@ def depth_prepass(scene, cfg, key):
     """Averaged primary-hit depth map, (N,): sample s traces camera rays
     with the key of the s-th split and count s (reference
     ssao.py:46-63)."""
-    check_supported(scene, cfg, "ssao")
     N = cfg.n_pixels
     acc = torch.zeros(N, device=scene.device)
     cnt = torch.zeros(N, device=scene.device)
@@ -49,7 +47,6 @@ def depth_prepass(scene, cfg, key):
 def render_pass_ssao(scene, cfg, key, cnt, depth_map):
     """One AO sample pass; returns (N,3) occlusion as gray (0 where the
     primary ray misses)."""
-    check_supported(scene, cfg, "ssao")
     key, cam_key = rng.split(key)
     ray_o, ray_d = camera_rays(scene, cfg, cam_key, cnt)
     N = ray_o.shape[0]

@@ -55,7 +55,6 @@ from ..ops.intersect import _is_null_obj as _is_null_surface
 from ..ops.math3d import dot, norm
 from ..ops.sampling import balance_heuristic
 from ..ops.texture_ops import get_uv_item, process_ns
-from ..scene.compile import check_supported
 from . import compact
 from .base import ProgressiveRenderer, camera_rays, crop_pix_ids
 from .pt import _scatter
@@ -231,8 +230,10 @@ def track_ray(scene, cfg, start_p, ray_d, depth, key=None, thp=None,
     non-null surface blocks the segment. active: dead lanes take no
     intersection work (their results are unused). key and thp feed the
     grid volume's ratio tracking (vpt.py:110-112), required on a scene
-    with one. (The JAX `key_hint`, a TPU wavefront sort key, has no
-    counterpart.)"""
+    with one; key may be a list of keys, one for each block of
+    N / len(key) lanes, each block then drawing as a call of its own
+    (`volume_ops._setup`). (The JAX `key_hint`, a TPU wavefront sort key,
+    has no counterpart.)"""
     N = start_p.shape[0]
     w_ior = scene.world_medium.ior[0]
     if not (cfg.world_scattering or cfg.has_null_bsdf or cfg.volume_kind
@@ -243,7 +244,8 @@ def track_ray(scene, cfg, start_p, ray_d, depth, key=None, thp=None,
                 * torch.ones((N, 3), device=start_p.device)), depth * w_ior
     vol_tr = 1.0
     if cfg.volume_kind:
-        key, k_vol = rng.split(key)
+        k_vol = [rng.split(k)[1] for k in key] if isinstance(key, list) \
+            else rng.split(key)[1]
         vol_tr = volume_ops.eval_tr_ratio_tracking(
             scene.volume, cfg.volume_kind, k_vol, start_p, ray_d,
             torch.ones((N, 3), device=start_p.device) if thp is None
@@ -271,7 +273,6 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
     (N,3) radiance of each lane. schedule: length-compaction splits
     (renderer/compact.py); a compacted trace equals the plain one lane
     for lane."""
-    check_supported(scene, cfg, "vpt")
     N = ray_o.shape[0]
     dev = ray_o.device
     world_ior = scene.world_medium.ior[0]
@@ -488,7 +489,6 @@ class VolumeRenderer(ProgressiveRenderer):
     default; () for none)."""
 
     def __init__(self, scene, cfg, seed: int = 0, schedule=SCHEDULE):
-        check_supported(scene, cfg, "vpt")
         super().__init__(scene, cfg, seed)
         self.schedule = tuple(schedule)
 

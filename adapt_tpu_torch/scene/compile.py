@@ -20,9 +20,10 @@ walks. Each texture tag gets its per-object table and its packed atlas
 mixtures their table (`MixtureTable`, ops/mixture_ops.py) with the
 component materials appended after the objects' material rows, and a
 scene's grid volume its tables (`GridVolumeData`, ops/volume_ops.py;
-`dummy_volume()` when it has none). What the port cannot render yet
-raises NotImplementedError in `check_supported`, naming the ROADMAP item
-that ports it: the port never silently takes another path.
+`dummy_volume()` when it has none). Every renderer takes every scene
+the tables hold, as the JAX package's do; what the parser cannot read (a
+Mie medium, an unknown BxDF or volume type) raises NotImplementedError
+when the scene loads.
 
 Scenes load onto the CUDA device unless the caller asks for another; with
 no CUDA device that default raises (`resolve_device`).
@@ -34,7 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..constants import MediumTag, SPHERE
+from ..constants import SPHERE
 from ..native import bvh_build
 from ..ops.math3d import np_rotation_between, fov2focal
 from ..ops.mixture_ops import MixtureTable, N_COMPONENTS
@@ -271,36 +272,6 @@ class RenderConfig:
     @property
     def n_pixels(self) -> int:
         return self.w * self.h
-
-
-def check_supported(scene: SceneData, cfg: RenderConfig, renderer="pt"):
-    """Raise NotImplementedError for what a renderer of the port cannot
-    render yet; `renderer` is "pt", "vpt", "bdpt", "direct" or "ssao".
-
-    PT, VPT and BDPT take every BRDF, the det-refraction and lambertian
-    BSDFs, point, area, spot and collimated lights, albedo, normal and
-    bump textures and BxDF mixtures. VPT and BDPT also take null BSDFs
-    (medium boundaries) and HG, multi-HG and Rayleigh media; PT takes no
-    null BSDF, and reads no medium (the JAX package's PT reads only the
-    world IOR: cbox itself declares a scattering world medium).
-    The direct preview and SSAO read only the geometry, mat_kd/ks/kg and
-    emitter 0's position and intensity, so they take every scene the
-    port's tables hold. VPT and BDPT render heterogeneous grid volumes
-    (mono and RGB, delta and ratio tracking); PT, as the JAX package's,
-    reads none (cbox-volgrid.xml renders there as an empty box)."""
-    def nope(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md queue A item {item})")
-
-    if renderer not in ("pt", "vpt", "bdpt", "direct", "ssao"):
-        raise ValueError(f"unknown renderer {renderer!r}")
-    if renderer in ("direct", "ssao"):
-        return
-    if renderer == "pt" and cfg.has_null_bsdf:
-        nope("null BSDFs (medium boundaries) under pt", 11)
-    if renderer != "pt" and set(cfg.medium_kinds) - {
-            MediumTag.HG, MediumTag.MULTI_HG, MediumTag.RAYLEIGH}:
-        nope(f"medium kinds {cfg.medium_kinds}", 11)
 
 
 # the leaves `tri_tables` reads

@@ -179,10 +179,14 @@ non-zero exit and no result line.
 16. VPT cbox-volgrid: the same on cbox-volgrid.xml (640^2, 12 bounces, 2
    shadow rays, the mono plume grid);
 17. BDPT cbox-volgrid: BDPT on cbox-volgrid.xml at 640^2 and the scene's
-   12 bounces, one spp without a warm-up: 24 closest hits, a media walk
-   (and a ratio tracking) for each chunk of the t1, s1 and gen groups, one
-   film splat; the same numbers; at 64^2 (3 bounces) against the twins'
-   render under the goldens' bounds;
+   12 bounces, one spp without a warm-up: the groups in the JAX package's
+   scan form with their strategy counts (the 66 gen strategies, 7 chunks
+   of 10: renderer/bdpt.py `scan_form`), 24 closest hits, a media walk
+   (and a ratio tracking, a key a strategy in the scan form) for each
+   chunk of the t1, s1 and gen groups, one film splat; the same numbers;
+   at 64^2 (3 bounces) against the twins' render under the goldens'
+   bounds, and again with every group in the scan form (FLAT_MAX_CHUNKS
+   0: the closest hit, media walk and film splat under it);
 18. PT ite-orb: Renderer on ite-orb.xml at its own settings (681x629, 24
    bounces, 480,004 triangles on the BVH tier; its meshes and two JPEG
    textures written by scripts/gen_procedural.py where missing,
@@ -223,7 +227,16 @@ non-zero exit and no result line.
 23. the apps: `python -m adapt_tpu_torch.scene_viz` one-shot (direct,
    512²) with its <lookat> line, `--serve` answering one key and one
    frame, `python -m adapt_tpu_torch.post_processing` on phase 19's
-   film.
+   film;
+24. PT on null BSDFs: Renderer on scenes/vpt/cbox.xml (a null-BSDF box of
+   HG medium, which PT crosses as a delta of weight 1) at its own
+   settings (512^2, 16 bounces, 1 shadow ray; the brute-force tier): one
+   warm-up spp, then render_batch of 2 spp with 16 closest hits and 16
+   any hits an spp; the image finite and not black, and at 64^2 equal to
+   the twins' render; then `python -m adapt_tpu_torch.render --type pt`
+   on trans/foam.xml (12 null-BSDF triangles under a collimated light,
+   which gives nothing under PT with MIS) for one pass, its image
+   written.
 Each phase's line ends with its wall time in seconds.
 Every phase that loads a textured scene fails unless each texture it
 names loaded (`load_textured`), and every phase that loads a grid volume
@@ -261,6 +274,7 @@ VOLGRID_SPP = 2    # VPT cbox-volgrid samples per pixel (after a warm-up spp)
 VOLGRID_BDPT_SPP = 1       # BDPT cbox-volgrid samples per pixel
 VOLGRID_BDPT_BOUNCES = 12  # BDPT cbox-volgrid bounces (the scene's own)
 ORB_SPP = 1        # PT ite-orb samples per pixel (after a warm-up spp)
+NULL_SPP = 2       # PT vpt cbox (null BSDFs) samples per pixel (after one)
 PROF_BOUNCES = 3   # bounces of phase 2a's profiled balls-multi and vpt passes
 TWIN_BOUNCES = 3   # bounces of the 64^2 twin renders of the BVH-tier scenes
 REPS = 5           # kernel timing repetitions (median)
@@ -2863,6 +2877,12 @@ def main():
     vgroups = B._strategy_groups(vb_cfg, vb_cfg.max_bounce)
     vQ = max(1, B.FLAT_LANES // vb_cfg.n_pixels)
     vchunks = {case: -(-len(rows) // vQ) for case, rows in vgroups.items()}
+    # the groups the JAX package scans (more than FLAT_MAX_CHUNKS chunks):
+    # each strategy's own ratio-tracking key and march, sums in turn
+    vscan = {case: len(rows) for case, rows in vgroups.items()
+             if B.scan_form(len(rows), vb_cfg.n_pixels)}
+    _require(vscan.get("gen") == 66 and vchunks["gen"] == 7,
+             f"phase 17 scan-form groups {vscan}, chunks {vchunks}")
     res = path_run(lambda: B.BDPT(vg_scene, vb_cfg, seed=0),
                    VOLGRID_BDPT_SPP, warm=False)
     # two walks of max_bounce closest hits; one media walk (and one ratio
@@ -2883,13 +2903,34 @@ def main():
     with twins():
         rb.render_batch(1)
     vb_twin, _, _ = _check(ra.image(), rb.image())
+    vb_equal = bool(torch.equal(ra.color, rb.color))
+    # every group in the scan form at 64^2: B1, B3 and B4 under it against
+    # their plain versions
+    saved_chunks, B.FLAT_MAX_CHUNKS = B.FLAT_MAX_CHUNKS, 0
+    try:
+        ra = B.BDPT(vg_scene, tw_cfg, seed=1)
+        reset()
+        ra.render_batch(1)
+        scan_launches = counts()
+        rb = B.BDPT(vg_scene, tw_cfg, seed=1)
+        with twins():
+            rb.render_batch(1)
+    finally:
+        B.FLAT_MAX_CHUNKS = saved_chunks
+    _require(all(scan_launches[k] > 0 for k in (
+        "tri_closest_hit", "tri_track_hits", "splat_sorted_accumulate")),
+             f"phase 17 scan-form twins launches {scan_launches}")
+    vs_twin, _, _ = _check(ra.image(), rb.image())
     say(f"phase 17 main path BDPT cbox-volgrid.xml {vb_cfg.w}x{vb_cfg.h} "
         f"mb {vb_cfg.max_bounce} (the scene's: {vg_cfg.max_bounce}), "
         f"{sum(map(len, vgroups.values()))} strategies in chunks {vchunks}, "
+        f"in the scan form (strategies) {vscan}, "
         f"{VOLGRID_BDPT_SPP} spp, no warm-up: "
         + perf_text(res, VOLGRID_BDPT_SPP) + "; "
         + march_text(res, VOLGRID_BDPT_SPP) + f"; 64^2 at {TWIN_BOUNCES} "
-        f"bounces: max abs diff to twins {vb_twin:.3g} (equal: "
+        f"bounces: max abs diff to twins {vb_twin:.3g} (equal: {vb_equal}), "
+        f"every group in the scan form (FLAT_MAX_CHUNKS 0, launches "
+        f"{_shown(scan_launches)}): {vs_twin:.3g} (equal: "
         f"{bool(torch.equal(ra.color, rb.color))})")
     del res, ra, rb
 
@@ -3351,9 +3392,47 @@ def main():
         f"{s_s:.1f} s ({key_json['lookat']}); post_processing on phase 19's "
         f"film {pp_s:.1f} s ({pp_out.strip()}) [{card}]")
 
+    # ---- 24. PT on null BSDFs: vpt/cbox.xml, foam.xml by the CLI ----
+    nscene, ncfg, _ = C.load_scene(os.path.join(ROOT, "scenes", "vpt"),
+                                   "cbox.xml")
+    _require(ncfg.has_null_bsdf and not ncfg.use_bvh
+             and (ncfg.w, ncfg.h, ncfg.max_bounce, ncfg.num_shadow_ray)
+             == (512, 512, 16, 1), f"vpt cbox.xml settings ({ncfg})")
+    r = pt.Renderer(nscene, ncfg, seed=0)
+    _require(not r._auto, "vpt cbox is under the auto-compaction gate")
+    r.render_batch(1)                         # warm-up sample, not timed
+    reset()
+    dt_n = timed_batch(r, NULL_SPP)
+    nlaunches = counts()
+    nimage = r.image()
+    n_nan = float(np.isnan(nimage).any(axis=-1).mean())
+    _require(nimage.shape == (ncfg.h, ncfg.w, 3) and n_nan == 0.0
+             and bool(np.isfinite(nimage).all()) and nimage.mean() > 0.01,
+             f"PT vpt cbox: shape {nimage.shape}, NaN share {n_nan}, mean "
+             f"{nimage.mean()}")
+    # one closest hit a bounce, one any hit a shadow ray a bounce
+    want = {**none, "tri_closest_hit": NULL_SPP * ncfg.max_bounce,
+            "tri_any_hit": NULL_SPP * ncfg.max_bounce * ncfg.num_shadow_ray}
+    _require(nlaunches == want,
+             f"PT vpt cbox launch counts {nlaunches}, want {want}")
+    n_twin = twin_equal(lambda c: pt.Renderer(nscene, c, seed=1), ncfg)
+    foam, foam_s = cli("--scene", "trans", "--name", "foam.xml", "--type",
+                       "pt", "--iter_num", "1", "--img_name", "smoke_foam")
+    _require(os.path.exists(os.path.join(cli_out, "smoke_foam.png")),
+             "the CLI's PT image of foam.xml")
+    say(f"phase 24 PT on null BSDFs: vpt/cbox.xml {ncfg.w}x{ncfg.h} mb "
+        f"{ncfg.max_bounce} ({nscene.n_prims} prims, {ncfg.n_null_objs} "
+        f"null-BSDF objects), {NULL_SPP} spp: "
+        f"{1e3 * dt_n / NULL_SPP:.2f} ms/spp; launches per spp "
+        + ", ".join(f"{k} {n // NULL_SPP}"
+                    for k, n in _shown(nlaunches).items())
+        + f"; image mean {nimage.mean():.6f}, no NaN pixel; 64^2 render "
+        f"equal to the twins' (max abs diff {n_twin:.3g}); the CLI on "
+        f"trans/foam.xml: {foam} (process {foam_s:.1f} s) [{card}]")
+
     path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]
                         + vblaunches[k] + vol_launches[k] + glaunches[k]
-                        + mlaunch_sum[k]
+                        + mlaunch_sum[k] + nlaunches[k]
                         for k in ("tri_closest_hit", "tri_any_hit")},
                      **{k: klaunches[k] + bulaunches[k] + bplaunches[k]
                         + orb_launches[k]

@@ -5,6 +5,7 @@ Each run is a subprocess with `--arch cpu` at 32^2, 3 bounces:
 * an image and a checkpoint written; `-l` resumes and continues the count;
 * the transient export with `--analyze` on trans/cbox-point.xml (one
   frame per time bin, frames.npy, the time-domain curve);
+* PT on trans/foam.xml (null BSDFs): one pass, image and film;
 * `--serve` answers with the preview's PNG while it renders and, with
   ADAPT_SERVE_AFTER=0, exits when the render is done;
 * config-file boolean flags (parsers/opts.py, in process);
@@ -94,6 +95,21 @@ def test_cli_transient_analyze(tmp_path):
     assert len([f for f in os.listdir(tdir) if f.endswith(".png")]) >= 400
     assert os.path.exists(os.path.join(tdir, "tdom_curve.npy"))
     assert "transient profile: 400 frames" in p.stdout
+
+
+def test_cli_pt_on_null_bsdfs(tmp_path):
+    """`--type pt` renders trans/foam.xml (a null-BSDF foam of HG medium
+    under a collimated light, which contributes nothing under PT with
+    MIS, as in the JAX package): one pass, its image and a finite film."""
+    tmp = str(tmp_path)
+    p = _run(["--scene", "trans", "--name", "foam.xml", "--type", "pt",
+              "--iter_num", "1", "--img_name", "foam"], tmp)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert "renderer=pt" in p.stdout and "done: 1 spp" in p.stdout, p.stdout
+    assert os.path.exists(os.path.join(tmp, "out", "foam.png"))
+    film = np.asarray(_checkpoint(tmp, "foam-trans-pt-32x32.pkl")[
+        "accumulation"])
+    assert film.shape == (32, 32, 3) and np.isfinite(film).all()
 
 
 def test_cli_serve_preview(tmp_path):

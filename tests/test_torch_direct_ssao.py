@@ -15,7 +15,10 @@ Same scene, same key (jax.random.PRNGKey(42) / the port's rng.PRNGKey(42)):
 * both passes under the goldens' `_check`;
 * `DirectRenderer` / `SSAORenderer`: two passes against the JAX
   renderers', and a checkpoint taken after the first pass that resumes
-  into a new renderer bit for bit.
+  into a new renderer bit for bit;
+* both previews on cbox-volgrid.xml, a scene with a grid volume that
+  they read nothing of (as the JAX package's), at 24^2 against the JAX
+  passes under the same bounds.
 """
 import dataclasses
 
@@ -36,7 +39,8 @@ from adapt_tpu_torch.ops import intersect
 from adapt_tpu_torch.ops.sampling import uniform_hemisphere
 from adapt_tpu_torch.renderer import direct, ssao
 from adapt_tpu_torch.renderer.base import camera_rays
-from adapt_tpu_torch.scene.compile import check_supported, load_scene
+from adapt_tpu_torch.scene.assets import load_volume
+from adapt_tpu_torch.scene.compile import load_scene
 
 from conftest import SCENE_DIR
 from test_goldens import _check, _small
@@ -152,10 +156,40 @@ def test_renderer_two_passes_and_checkpoint(cbox, kind):
     assert torch.equal(resumed.color, r.color) and resumed.cnt == 2
 
 
-def test_preview_kinds_pass_the_gate(cbox):
-    _, _, scene, cfg = cbox
-    for kind in ("direct", "ssao"):
-        check_supported(scene, cfg, kind)
-        # a grid volume, which they refused until it was ported: the
-        # previews read none, as the JAX package's do
-        check_supported(scene, dataclasses.replace(cfg, volume_kind=1), kind)
+@pytest.mark.parametrize("kind", ["direct", "ssao"])
+def test_preview_on_a_grid_volume(kind):
+    """cbox-volgrid.xml, which the previews refused until grid volumes
+    were ported: a pass at 24^2 against the JAX package's (which reads no
+    volume either), and the renderer's first pass finite."""
+    from test_torch_volume import volume_assets
+    volume_assets()
+    d = SCENE_DIR + "/cbox/"
+    jscene, jcfg, _ = jax_load_scene(d, "cbox-volgrid.xml")
+    scene, cfg, _ = load_volume(d, "cbox-volgrid.xml", "cpu")
+    jcfg, cfg = _small(jcfg, 24), _small(cfg, 24)
+    assert cfg.volume_kind
+    if kind == "direct":
+        got = direct.render_pass_direct(scene, cfg, rng.PRNGKey(42), 1)
+        want = jdirect.render_pass_direct(
+            jscene, jcfg, jax.random.PRNGKey(42), jnp.int32(1))
+        for name, g, w in zip(("color", "depth", "normal"), got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=ATOL[name], err_msg=name)
+        r = direct.DirectRenderer(scene, cfg)
+    else:
+        dm = ssao.depth_prepass(scene, cfg, rng.PRNGKey(42))
+        jdm = jssao.depth_prepass(jscene, jcfg, jax.random.PRNGKey(42))
+        np.testing.assert_allclose(dm.numpy(), np.asarray(jdm), rtol=0,
+                                   atol=1e-4)
+        got = ssao.render_pass_ssao(scene, cfg, rng.PRNGKey(42), 1,
+                                    dm).numpy()
+        want = np.asarray(jssao.render_pass_ssao(
+            jscene, jcfg, jax.random.PRNGKey(42), jnp.int32(1), jdm))
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1.0 / cfg.smp_hemisphere)
+        assert abs(got.mean() - want.mean()) < 1e-4
+        got = (got,)
+        r = ssao.SSAORenderer(scene, cfg)
+    assert got[0].mean() > 0.01
+    r.render()
+    assert np.isfinite(r.image()).all() and r.image().mean() > 0.01

@@ -37,7 +37,7 @@ from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch import rng
 from adapt_tpu_torch.ops import emitter_ops as tem
 from adapt_tpu_torch.renderer import bdpt, pt, vpt
-from adapt_tpu_torch.scene.compile import check_supported, load_scene
+from adapt_tpu_torch.scene.compile import load_scene
 
 from conftest import SCENE_DIR
 from test_goldens import _check, _small
@@ -250,7 +250,7 @@ def test_collimated_pt_pass_matches_jax(mis, w):
     assert lit == (1 if w % 2 and not mis else 0)
 
 
-# ------------------------------ the gate ------------------------------
+# ------------------------- every renderer takes it -------------------------
 
 _OPEN = [("csphere", f) for f in (
     "balls-glossy.xml", "balls-mono.xml", "balls-multi-showcase.xml",
@@ -277,11 +277,9 @@ def test_pt_and_vpt_take_the_scene(scene_file):
     if f == "whiskey.xml":
         _whiskey_standins()
     scene, cfg, _ = load_scene(f"{SCENE_DIR}/{d}/", f, device="cpu")
-    check_supported(scene, cfg, "pt")
-    check_supported(scene, cfg, "vpt")
     assert set(cfg.brdf_types) - {1} or cfg.bsdf_types \
         or set(cfg.emitter_kinds) - {0}
-    check_supported(scene, cfg, "bdpt")
     small = dataclasses.replace(cfg, w=8, h=8, start_x=0, end_x=8,
                                 start_y=0, end_y=8)
-    assert bdpt.BDPT(scene, small).cnt == 0
+    for make in (pt.Renderer, vpt.VolumeRenderer, bdpt.BDPT):
+        assert make(scene, small).cnt == 0

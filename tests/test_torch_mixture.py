@@ -39,7 +39,7 @@ from adapt_tpu_torch.convert import MIXTURE_NAMES, scene_leaves
 from adapt_tpu_torch.ops import bxdf_ops as tbx, mixture_ops as tmx
 from adapt_tpu_torch.ops.intersect import Interaction
 from adapt_tpu_torch.renderer import bdpt, pt
-from adapt_tpu_torch.scene.compile import check_supported, load_scene
+from adapt_tpu_torch.scene.compile import load_scene
 
 from conftest import SCENE_DIR
 from test_goldens import _check, _small
@@ -123,8 +123,6 @@ def test_tables_equal_jax(mixed):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     # the mixture's own row is not in the dispatch tables
     assert 8 not in cfg.brdf_types
-    for r in ("pt", "vpt", "bdpt"):
-        check_supported(scene, cfg, r)
 
 
 def _inputs(scene, seed, n=N):

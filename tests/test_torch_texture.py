@@ -53,9 +53,9 @@ from adapt_tpu_torch.convert import scene_leaves, \
     vertex_buffers_from_numpy, vertex_buffers_to_numpy
 from adapt_tpu_torch.ops import texture_ops as ttx
 from adapt_tpu_torch.ops.intersect import ray_intersect
-from adapt_tpu_torch.renderer import bdpt, pt
+from adapt_tpu_torch.renderer import bdpt, pt, vpt
 from adapt_tpu_torch.renderer.base import camera_rays
-from adapt_tpu_torch.scene.compile import TextureTable, check_supported
+from adapt_tpu_torch.scene.compile import TextureTable
 
 import chip_smoke
 from conftest import SCENE_DIR
@@ -277,7 +277,8 @@ def test_bunny_assets_import_no_jax():
 
 def test_bunny_takes_every_renderer():
     """The full bunny.xml at its own settings: the textures load, the
-    BVH tier holds its 65,290 triangles, and PT, VPT and BDPT take it."""
+    BVH tier holds its 65,290 triangles, and PT's, VPT's and BDPT's
+    renderers take it (at 8^2)."""
     bunny_assets(meshes=True)
     scene, cfg, _ = chip_smoke.load_textured(
         os.path.join(SCENE_DIR, "cbox"), "bunny.xml", device="cpu")
@@ -285,8 +286,9 @@ def test_bunny_takes_every_renderer():
     assert (cfg.w, cfg.h, cfg.max_bounce) == (800, 800, 10)
     assert cfg.brdf_types == (1, 5) and cfg.bsdf_types == (0,)
     assert cfg.emitter_kinds == (2,) and cfg.world_scattering
-    for r in ("pt", "vpt", "bdpt"):
-        check_supported(scene, cfg, r)
+    small = dataclasses.replace(cfg, w=8, h=8, end_x=8, end_y=8)
+    for make in (pt.Renderer, vpt.VolumeRenderer, bdpt.BDPT):
+        assert make(scene, small).cnt == 0
 
 
 def test_vertex_buffers_carry_the_tex_plane():
