@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import obs
 from ..ops import _build
 
 SRC = Path(__file__).resolve().parent / "bvh_builder.cpp"
@@ -46,6 +47,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@obs.spanned("setup.scene.bvh", lambda aabbs: {"prims": aabbs.shape[0]},
+             setup=True)
 def bvh_build(aabbs: np.ndarray):
     """Binned-SAH BVH with skip-offset linearization.
 

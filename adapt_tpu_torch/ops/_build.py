@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import obs
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adapt_tpu_torch"
 # -fmad=false: no FMA contraction, so every product and sum rounds once, as
@@ -47,15 +49,17 @@ def compiled(name: str, src: Path, compiler, flags) -> ctypes.CDLL:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        subprocess.run([compiler(), *flags, "-o", str(tmp), str(src)],
-                       check=True)
-        build_seconds[name] = time.perf_counter() - t0
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    with obs.setup_span("setup.lib", lib=name, built=0) as sp:
+        if not so.exists():
+            sp.set(built=1)
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            subprocess.run([compiler(), *flags, "-o", str(tmp), str(src)],
+                           check=True)
+            build_seconds[name] = time.perf_counter() - t0
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     return lib
 

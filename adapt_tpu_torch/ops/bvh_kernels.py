@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from .. import obs
 from . import bvh
 from .intersect_kernels import _check, _is_cpu, twin
 
@@ -109,10 +110,11 @@ def bvh_closest_hit(scene, ray_o, ray_d, far0):
         return t, prim, u, v
     next_ray = torch.zeros(1, dtype=torch.int32, device=ro.device)
     stream = torch.cuda.current_stream(ro.device).cuda_stream
-    err = _lib().bvh_closest_hit(
-        ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, nodes.data_ptr(),
-        nodes.shape[0], prims.data_ptr(), t.data_ptr(), prim.data_ptr(),
-        u.data_ptr(), v.data_ptr(), next_ray.data_ptr(), stream)
+    with obs.span("kernel.bvh_closest_hit", n=n):
+        err = _lib().bvh_closest_hit(
+            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, nodes.data_ptr(),
+            nodes.shape[0], prims.data_ptr(), t.data_ptr(), prim.data_ptr(),
+            u.data_ptr(), v.data_ptr(), next_ray.data_ptr(), stream)
     _check(err, "bvh_closest_hit")
     launches["bvh_closest_hit"] += 1
     return t, prim, u, v
@@ -127,9 +129,11 @@ def bvh_any_hit(scene, ray_o, ray_d, far0):
     if n == 0:
         return occ
     stream = torch.cuda.current_stream(ro.device).cuda_stream
-    err = _lib().bvh_any_hit(ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-                             nodes.data_ptr(), nodes.shape[0],
-                             prims.data_ptr(), occ.data_ptr(), stream)
+    with obs.span("kernel.bvh_any_hit", n=n):
+        err = _lib().bvh_any_hit(ro.data_ptr(), rd.data_ptr(),
+                                 far.data_ptr(), n, nodes.data_ptr(),
+                                 nodes.shape[0], prims.data_ptr(),
+                                 occ.data_ptr(), stream)
     _check(err, "bvh_any_hit")
     launches["bvh_any_hit"] += 1
     return occ

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from .. import obs
 from ..constants import BRDFTag, BSDFTag, INV_PI, TRANSPORT_RAD, TRANSPORT_UNI
 from .geo_optics import (fresnel_equation, fresnel_eval, inci_reflect_dir,
                          refraction_cos2, schlick_fresnel, snell_refraction)
@@ -688,6 +689,15 @@ def _mixture_lanes(scene, it):
     return mix_id.clamp(min=0), (it.obj_id >= 0) & (mix_id >= 0)
 
 
+def _arms(cfg, mat, *_, scene=None, **__):
+    """A shading span's attributes: lanes, and the material arms issued
+    (each BRDF and BSDF kind, and the mixture overlay)."""
+    return {"n": mat.kd.shape[0],
+            "arms": len(cfg.brdf_types) + len(cfg.bsdf_types)
+            + int(scene is not None and scene.mixture is not None)}
+
+
+@obs.spanned("shade.eval", _arms)
 def surface_eval(cfg, mat, it, incid, out, world_ior, mode=TRANSPORT_UNI,
                  scene=None):
     """PathTracer.eval for surface interactions (path_tracer.py:459-479).
@@ -714,6 +724,7 @@ def surface_eval(cfg, mat, it, incid, out, world_ior, mode=TRANSPORT_UNI,
     return res
 
 
+@obs.spanned("shade.sample", _arms)
 def surface_sample(cfg, mat, it, incid, u, world_ior, mode=TRANSPORT_UNI,
                    scene=None):
     """PathTracer.sample_new_ray surface path (path_tracer.py:447-457).
@@ -751,6 +762,7 @@ def surface_sample(cfg, mat, it, incid, u, world_ior, mode=TRANSPORT_UNI,
     return out, spec, pdf, is_specular
 
 
+@obs.spanned("shade.pdf", _arms)
 def surface_pdf(cfg, mat, it, outdir, incid, world_ior, scene=None):
     """PathTracer.surface_pdf (path_tracer.py:481-494). scene: see
     surface_eval."""

@@ -38,6 +38,7 @@ import ctypes
 
 import torch
 
+from .. import obs
 from . import bvh_kernels
 from .bvh import _slab_test
 from .intersect_kernels import DEAD, FAR, RAY_EPS, _check, _is_cpu, twin
@@ -73,6 +74,8 @@ PRIM_OPS = 47
 launches = {"cluster_closest_hit": 0, "cluster_any_hit": 0,
             "cluster_front": 0, "cluster_pick_closest": 0,
             "cluster_pick_any": 0}
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = {w: w.removesuffix("_hit") + "_kernel" for w in launches}
 
 
 def reset_launches():
@@ -141,7 +144,12 @@ def _whole_tests(tt, cand, t0):
     """How many pairs of a closest-hit visit need the whole prim test: row
     k is tested against the best t before it, min(t0, tt[..., :k])."""
     before = torch.cat([t0[..., None], tt[..., :-1]], dim=-1)
-    return int((cand < torch.cummin(before, dim=-1).values).sum())
+    return _count(cand < torch.cummin(before, dim=-1).values)
+
+
+def _count(x):
+    """x.sum() read to the host: the plain versions' work counts."""
+    return int(obs.host_read(x.sum(), "cluster.stats"))
 
 
 def _pieces(n, width):
@@ -174,7 +182,7 @@ def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False,
     C, CM = scene.n_clusters, scene.cluster_size
     K = scene.cl_chunk.shape[1]
     CK = CM // K
-    counts = scene.cl_count.tolist()
+    counts = obs.host_read(scene.cl_count, "cluster.counts").tolist()
     spheres = _has_spheres(scene)
     inv = _inv_dir(ray_d)
     N, dev = ray_o.shape[0], ray_o.device
@@ -186,7 +194,7 @@ def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False,
     for c in range(C if N else 0):
         live = walking & ~occ
         if stats:
-            box_tests += int(live.sum())
+            box_tests += _count(live)
         lanes = torch.nonzero(live & _slab_test(
             ray_o, inv, scene.cl_aabb[c, 0:3], scene.cl_aabb[c, 3:6],
             t)).squeeze(1)
@@ -215,9 +223,9 @@ def _sweep_plain(scene, ray_o, ray_d, far0, any_hit=False, stats=False,
                         first = torch.where(before, slot, m - 1).amin(dim=1)
                         tested[s:e] = first + 1
                     if stats:
-                        prim_tests += int((first + 1).sum())
-                        whole_tests += int(((cand < far0[ln, None])
-                                            & (slot <= first[:, None])).sum())
+                        prim_tests += _count(first + 1)
+                        whole_tests += _count((cand < far0[ln, None])
+                                              & (slot <= first[:, None]))
                 else:
                     if stats:
                         whole_tests += _whole_tests(tt, cand, t[ln])
@@ -248,11 +256,11 @@ def warp_divergence(visits):
     lanes need, 32 when it does one."""
     tests = thread_iters = warp_iters = 0
     for _base, m, lanes, rows in visits:
-        tests += int(rows.sum())
+        tests += _count(rows)
         warps, inv = torch.unique(lanes // 32, return_inverse=True)
         longest = torch.zeros_like(warps).scatter_reduce(
             0, inv, rows, "amax", include_self=False)
-        thread_iters += int(longest.sum())
+        thread_iters += _count(longest)
         warp_iters += lanes.numel() * -(-m // 32)
     return tests, thread_iters, warp_iters
 
@@ -637,14 +645,15 @@ def cluster_closest_hit(scene, ray_o, ray_d, far0):
     n_g = torch.empty((n, 3), device=dev)
     if n == 0:
         return t, gid, u, v, n_g, obj
-    err = _lib().cluster_closest_hit(
-        ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-        scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
-        scene.cl_count.data_ptr(), scene.cl_rows.data_ptr(),
-        scene.cl_rows_v4.data_ptr(), scene.n_clusters,
-        scene.cl_chunk.shape[1], scene.cluster_size,
-        t.data_ptr(), gid.data_ptr(), u.data_ptr(), v.data_ptr(),
-        n_g.data_ptr(), obj.data_ptr(), sph.data_ptr(), _stream(ro))
+    with obs.span("kernel.cluster_closest_hit", n=n):
+        err = _lib().cluster_closest_hit(
+            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+            scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
+            scene.cl_count.data_ptr(), scene.cl_rows.data_ptr(),
+            scene.cl_rows_v4.data_ptr(), scene.n_clusters,
+            scene.cl_chunk.shape[1], scene.cluster_size,
+            t.data_ptr(), gid.data_ptr(), u.data_ptr(), v.data_ptr(),
+            n_g.data_ptr(), obj.data_ptr(), sph.data_ptr(), _stream(ro))
     _check(err, "cluster_closest_hit")
     launches["cluster_closest_hit"] += 1
     if _has_spheres(scene):
@@ -660,12 +669,13 @@ def cluster_any_hit(scene, ray_o, ray_d, far0):
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ
-    err = _lib().cluster_any_hit(
-        ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-        scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
-        scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
-        scene.n_clusters, scene.cl_chunk.shape[1], scene.cluster_size,
-        occ.data_ptr(), _stream(ro))
+    with obs.span("kernel.cluster_any_hit", n=n):
+        err = _lib().cluster_any_hit(
+            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+            scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
+            scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
+            scene.n_clusters, scene.cl_chunk.shape[1], scene.cluster_size,
+            occ.data_ptr(), _stream(ro))
     _check(err, "cluster_any_hit")
     launches["cluster_any_hit"] += 1
     return occ
@@ -684,10 +694,11 @@ def cluster_front(scene, ray_o, ray_d, far0):
     nxt = torch.empty(n, device=ro.device)
     if n == 0:
         return cid, nxt
-    err = _lib().cluster_front(
-        ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-        scene.cl_tree.data_ptr(), scene.cl_tree.shape[0], scene.n_clusters,
-        cid.data_ptr(), nxt.data_ptr(), _stream(ro))
+    with obs.span("kernel.cluster_front", n=n):
+        err = _lib().cluster_front(
+            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+            scene.cl_tree.data_ptr(), scene.cl_tree.shape[0], scene.n_clusters,
+            cid.data_ptr(), nxt.data_ptr(), _stream(ro))
     _check(err, "cluster_front")
     launches["cluster_front"] += 1
     return cid, nxt
@@ -711,11 +722,12 @@ def cluster_pick_closest(scene, ray_o, ray_d, far0, wid0, picks):
     wid = torch.empty(n, dtype=torch.int32, device=ro.device)
     if n == 0:
         return t, wid
-    err = _lib().cluster_pick_closest(
-        picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-        far.data_ptr(), wid0.data_ptr(), n,
-        scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
-        scene.cluster_size, t.data_ptr(), wid.data_ptr(), _stream(ro))
+    with obs.span("kernel.cluster_pick_closest", n=n):
+        err = _lib().cluster_pick_closest(
+            picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+            far.data_ptr(), wid0.data_ptr(), n,
+            scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
+            scene.cluster_size, t.data_ptr(), wid.data_ptr(), _stream(ro))
     _check(err, "cluster_pick_closest")
     launches["cluster_pick_closest"] += 1
     return t, wid
@@ -734,11 +746,12 @@ def cluster_pick_any(scene, ray_o, ray_d, far0, picks):
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ
-    err = _lib().cluster_pick_any(
-        picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-        far.data_ptr(), n, scene.cl_count.data_ptr(),
-        scene.cl_rows_v4.data_ptr(), scene.cluster_size, occ.data_ptr(),
-        _stream(ro))
+    with obs.span("kernel.cluster_pick_any", n=n):
+        err = _lib().cluster_pick_any(
+            picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+            far.data_ptr(), n, scene.cl_count.data_ptr(),
+            scene.cl_rows_v4.data_ptr(), scene.cluster_size, occ.data_ptr(),
+            _stream(ro))
     _check(err, "cluster_pick_any")
     launches["cluster_pick_any"] += 1
     return occ

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..constants import EmitterTag, BIT_POS_DELTA, INV_PI, INV_2PI
 from .math3d import axis_vec, delocalize_rotate, dot, norm, normalize, \
     world_frame
@@ -16,6 +17,7 @@ from .sampling import (concentric_disk, cosine_hemisphere, sample_triangle,
                        uniform_cone, uniform_sphere)
 
 
+@obs.spanned("light.sample", lambda cfg, u, no_sample: {"n": u.shape[0]})
 def sample_light_index(cfg, u, no_sample):
     """Uniform light pick with exclusion (reference path_tracer.py:537-554).
     Returns (idx, pdf, valid)."""
@@ -79,6 +81,8 @@ def _area_sample_hit(scene, eid, hit_pos, u, e_int, e_inv_area):
     return ret_pos, ret_int, ret_pdf, normal
 
 
+@obs.spanned("light.sample",
+             lambda scene, cfg, eid, hit_pos, u: {"n": u.shape[0]})
 def sample_hit(scene, cfg, eid, hit_pos, u):
     """NEE light sample toward `hit_pos`; returns (pos, intensity, pdf,
     normal) (reference abtract_source.py:82-158). For area lights the

@@ -48,6 +48,7 @@ import dataclasses
 
 import torch
 
+from .. import obs
 from ..constants import INV_PI, INV_2PI
 from . import bvh_kernels, cluster_kernels, intersect_kernels as kernels
 from .math3d import axis_vec, cross, dot, fma_dot, normalize, sqrt0
@@ -104,6 +105,13 @@ def _bvh_tier(scene, cfg):
     return big
 
 
+def _rays(scene, cfg, ray_o, *_, **__):
+    """An intersection span's attributes: rays, and the kernels' tier."""
+    return {"n": ray_o.shape[0],
+            "tier": cfg.big_tier if _bvh_tier(scene, cfg) else "brute"}
+
+
+@obs.spanned("isect.closest", _rays)
 def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Closest-hit intersection for a ray batch; returns Interaction.
 
@@ -285,6 +293,7 @@ def _assemble_interaction(scene, cfg, ray_o, ray_d, best_t, best_prim,
 
 
 @torch.no_grad()
+@obs.spanned("isect.any", _rays)
 def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Boolean occlusion test (shadow rays): any hit strictly before max_t.
     Dead lanes (alive False) come back un-occluded."""
@@ -310,6 +319,7 @@ def _is_null_obj(scene, obj_id):
     return (obj_id >= 0) & scene.mat_is_bsdf[idx] & (scene.mat_type[idx] < 0)
 
 
+@obs.spanned("isect.track", _rays)
 @torch.no_grad()
 def ray_track_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=2,
                    all_null=False):

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from .. import obs
 from .math3d import axis_vec
 
 RAY_EPS = 1e-4
@@ -343,11 +344,12 @@ def tri_closest_hit(scene, ray_o, ray_d, far0):
     if n == 0:
         return t, row, u, v, ng_out, obj_out
     stream = torch.cuda.current_stream(ro.device).cuda_stream
-    err = _lib().tri_closest_hit(
-        ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
-        ng.data_ptr(), obj.data_ptr(), geo.shape[0], t.data_ptr(),
-        row.data_ptr(), u.data_ptr(), v.data_ptr(), ng_out.data_ptr(),
-        obj_out.data_ptr(), stream)
+    with obs.span("kernel.tri_closest_hit", n=n):
+        err = _lib().tri_closest_hit(
+            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
+            ng.data_ptr(), obj.data_ptr(), geo.shape[0], t.data_ptr(),
+            row.data_ptr(), u.data_ptr(), v.data_ptr(), ng_out.data_ptr(),
+            obj_out.data_ptr(), stream)
     _check(err, "tri_closest_hit")
     launches["tri_closest_hit"] += 1
     return t, row, u, v, ng_out, obj_out
@@ -365,9 +367,10 @@ def tri_any_hit(scene, ray_o, ray_d, far0):
     if n == 0:
         return occ
     stream = torch.cuda.current_stream(ro.device).cuda_stream
-    err = _lib().tri_any_hit(ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-                             geo.data_ptr(), geo.shape[0], occ.data_ptr(),
-                             stream)
+    with obs.span("kernel.tri_any_hit", n=n):
+        err = _lib().tri_any_hit(ro.data_ptr(), rd.data_ptr(),
+                                 far.data_ptr(), n, geo.data_ptr(),
+                                 geo.shape[0], occ.data_ptr(), stream)
     _check(err, "tri_any_hit")
     launches["tri_any_hit"] += 1
     return occ
@@ -419,11 +422,12 @@ def tri_track_hits(scene, ray_o, ray_d, far0, K, all_null=False):
     if n == 0:
         return t_k, o_k, d_k, tb, ob, db, ov
     stream = torch.cuda.current_stream(ro.device).cuda_stream
-    err = _lib().tri_track_hits(
-        ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
-        ng.data_ptr(), obj.data_ptr(), solid_p, n_solid, null_p,
-        T - n_solid, K, t_k.data_ptr(), o_k.data_ptr(), d_k.data_ptr(),
-        tb.data_ptr(), ob.data_ptr(), db.data_ptr(), ov.data_ptr(), stream)
+    with obs.span("kernel.tri_track_hits", n=n):
+        err = _lib().tri_track_hits(
+            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
+            ng.data_ptr(), obj.data_ptr(), solid_p, n_solid, null_p,
+            T - n_solid, K, t_k.data_ptr(), o_k.data_ptr(), d_k.data_ptr(),
+            tb.data_ptr(), ob.data_ptr(), db.data_ptr(), ov.data_ptr(), stream)
     _check(err, "tri_track_hits")
     launches["tri_track_hits"] += 1
     return t_k, o_k, d_k, tb, ob, db, ov

@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from .. import obs
+
 launches = {"splat_sorted_accumulate": 0}
 # the wrapper's kernel, by the name the profiler gives it
 kernel_names = {"splat_sorted_accumulate": "splat_kernel"}
@@ -47,7 +49,8 @@ def splat_sorted_accumulate_plain(film, idx, rgb):
     if M:
         lo, hi = _segments(idx, P)
         n = hi - lo
-        for j in range(int(n.max()) if P else 0):
+        longest = int(obs.host_read(n.max(), "splat.longest")) if P else 0
+        for j in range(longest):
             take = j < n
             row = torch.clamp(lo + j, max=M - 1)
             acc = acc + torch.where(take[:, None], rgb[row], 0.0)
@@ -97,9 +100,10 @@ def splat_sorted_accumulate(film, idx, rgb):
     if P == 0:
         return out
     stream = torch.cuda.current_stream(film.device).cuda_stream
-    err = _lib().splat_sorted_accumulate(film.data_ptr(), idx.data_ptr(),
-                                         rgb.data_ptr(), P, M,
-                                         out.data_ptr(), stream)
+    with obs.span("kernel.splat_sorted_accumulate", n=M):
+        err = _lib().splat_sorted_accumulate(film.data_ptr(), idx.data_ptr(),
+                                             rgb.data_ptr(), P, M,
+                                             out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"splat_sorted_accumulate: CUDA launch failed with error {err}")

@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from .. import obs
 from ..scene.texture import MODE_CHECKER, MODE_INVALID
 from .math3d import delocalize_rotate, normalize
 
@@ -78,6 +79,8 @@ def query_texture(table, obj_id, u, v):
     return torch.where(valid[:, None], color, -1.0), valid
 
 
+@obs.spanned("shade.texture",
+             lambda scene, table, it: {"n": it.obj_id.shape[0]})
 def get_uv_item(scene, table, it):
     """Texture color of `table`'s tag at each hit: ((N,3) color, (N,)
     valid). Triangles interpolate their vertex uvs with the hit's

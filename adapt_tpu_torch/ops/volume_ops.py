@@ -61,7 +61,7 @@ import time
 import numpy as np
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..constants import VolumeTag
 
 MAX_STEPS = 1024     # march cap: a lane still live here stops
@@ -342,7 +342,8 @@ def _lanes(crossing, blocks=1):
     per = torch.bincount(blk, minlength=blocks)
     rank = torch.arange(lane.shape[0], device=lane.device) \
         - (torch.cumsum(per, 0) - per)[blk]
-    rounds = [max(1, -(-n // C)) for n in per.tolist()]
+    rounds = [max(1, -(-n // C))
+              for n in obs.host_read(per, "vol.rounds").tolist()]
     first = torch.tensor(np.cumsum([0] + rounds[:-1]), dtype=torch.int64,
                          device=lane.device)
     return lane, first[blk] + rank // C, rank % C, rounds
@@ -366,6 +367,7 @@ def _lane_uniforms(keys, rounds, r, slot, step0, steps):
     return rng._bits_to_unit_float(b1 ^ b2)
 
 
+@obs.spanned("vol.march", lambda keys, r, *_: {"lanes": r.shape[0]})
 def _march(keys, r, slot, rounds, ins, state, step_fn):
     """Step every marching lane until all are done or MAX_STEPS steps ran.
 
@@ -390,6 +392,7 @@ def _march(keys, r, slot, rounds, ins, state, step_fn):
         if rec is not None:
             _sync(r)
             rec.update(steps=DIFF_STEPS, s=time.perf_counter() - t0)
+        obs.annotate(steps=DIFF_STEPS)
         return state
     out = {k: v.clone() for k, v in state.items()}
     idx = torch.arange(r.shape[0], device=r.device)
@@ -401,7 +404,7 @@ def _march(keys, r, slot, rounds, ins, state, step_fn):
                                min(STEP_BLOCK, MAX_STEPS - step))
         state = step_fn(ins, state, u[:, b])
         live = ~state["done"]
-        n_live = int(live.sum())
+        n_live = int(obs.host_read(live.sum(), "vol.n_live"))
         if 2 * n_live > idx.shape[0] and step + 1 < MAX_STEPS:
             continue
         for k, v in state.items():
@@ -414,6 +417,7 @@ def _march(keys, r, slot, rounds, ins, state, step_fn):
     if rec is not None:
         _sync(r)
         rec.update(steps=step + 1, s=time.perf_counter() - t0)
+    obs.annotate(steps=step + 1)
     return out
 
 

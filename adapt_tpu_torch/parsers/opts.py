@@ -80,7 +80,10 @@ def get_options(argv=None):
     parser.add_argument("--save_iter", type=int, default=0,
                         help="checkpoint save cadence (0 = only on exit)")
     parser.add_argument("-p", "--profile", action="store_true",
-                        help="write a torch.profiler trace to "
+                        help="write a torch.profiler trace (trace.json, "
+                             "with the program's layer spans as ranges) "
+                             "and the program's spans and counters "
+                             "(program.json, adapt_tpu_torch/obs.py) to "
                              "./profiler_trace")
     parser.add_argument("--no_gui", action="store_true", default=True,
                         help="headless (always true here; kept for "

@@ -12,6 +12,7 @@ import os
 import numpy as np
 import xml.etree.ElementTree as xet
 
+from .. import obs
 from ..constants import TRIANGLE_MESH, SPHERE
 from ..scene.bxdf import parse_bxdf_node
 from ..scene.emitters import parse_emitters
@@ -130,6 +131,7 @@ def parse_global_sensor(sensor_elem):
     return config
 
 
+@obs.spanned("setup.scene.parse", setup=True)
 def scene_parsing(directory: str, file: str):
     """Top-level scene parse; mirrors reference xml_parser.py:246-289."""
     tree = xet.parse(os.path.join(directory, file))

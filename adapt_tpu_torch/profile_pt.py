@@ -1,6 +1,6 @@
 """Where the time of a PT (VPT, BDPT) pass goes on the GPU: wall time per
 spp, device busy and idle share, launches per spp, and device and host time
-by range.
+by the program's own spans (adapt_tpu_torch/obs.py).
 
     python -m adapt_tpu_torch.profile_pt scenes/cbox knot290k.xml --spp 2
     python -m adapt_tpu_torch.profile_pt scenes/cbox knot290k.xml --tier qpick
@@ -15,20 +15,20 @@ by range.
 Loads the scene on the CUDA device, renders one warm-up spp (which also
 runs the auto-compaction probe), times `--runs` unprofiled render_batch
 calls of `--spp` samples (host clock around work that ends in a
-synchronize), then traces one more under torch.profiler with one range per
-stage of the bounce loop (for BDPT: the two walks, and each connection
-case; under `--tier qpick`, PT's front pass and sort, tile picks, unsort
-and winner read-out; a grid volume's delta and ratio tracking), and one
-around each brute-force kernel's wrapper
-(B1, B2, B3: its host time a call). A range's device time counts the
-PyTorch kernels launched inside it; the port's own kernels (launched
-through ctypes, which the profiler ties to no range) are attributed to
-the ranges open when their wrapper launched them, in launch order, and
-shown beside ("own"). `--tier` names the kernels of the big-scene tier
-(`RenderConfig.big_tier`: bvh, sweep or qpick). Prints one line per
-range, the kernels that take the most device time and the port's own
-kernels, and a JSON summary (also written to `--out` when given). Needs
-one CUDA device.
+synchronize), then traces one more under torch.profiler, where the
+program records a span at each layer boundary and opens a profiler range
+of the span's name. One row a span name: calls, device time of the
+PyTorch kernels launched inside it, host time and self time (less its
+child spans). The port's own kernels (launched through ctypes, which the
+profiler ties to no range) are matched to their `kernel.<wrapper>` spans
+in launch order and attributed to every span around them ("own"). The
+device's idle gaps are attributed to the innermost span open at their
+midpoint, on the clock the spans share with the profiler. `--tier`
+names the kernels of the big-scene tier (`RenderConfig.big_tier`: bvh,
+sweep or qpick). Prints the rows, the idle gaps by span, the host reads
+by site, the program's counters, the kernels that take the most device
+time and the port's own kernels, and a JSON summary (also written to
+`--out` when given). Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -41,138 +41,92 @@ import time
 
 import torch
 
-from . import rng
-from .ops import bvh_kernels, bxdf_ops, cluster_kernels, emitter_ops
-from .ops import intersect_kernels, medium_ops, splat, volume_ops
+from . import obs
+from .ops import bvh_kernels, cluster_kernels, intersect_kernels, splat
 from .ops.intersect import BIG_TIERS
-from .renderer import bdpt, compact, pt, vpt
+from .renderer import bdpt, pt, vpt
 from .scene.compile import load_scene
 
-_SHADING = (
-    (bxdf_ops, "surface_sample", "surface_sample"),
-    (bxdf_ops, "surface_eval", "surface_eval"),
-    (bxdf_ops, "surface_pdf", "surface_pdf"),
-    (bxdf_ops, "gather_mat", "gather_mat"),
-)
-# the brute-force kernels' wrappers, timed on their own (host ms a call)
-_WRAPPERS = (
-    (intersect_kernels, "tri_closest_hit", "B1 wrapper"),
-    (intersect_kernels, "tri_any_hit", "B2 wrapper"),
-    (intersect_kernels, "tri_track_hits", "B3 wrapper"),
-)
-# the grid volume's march (ops/volume_ops.py): delta tracking on each
-# segment, ratio tracking in each track_ray
-_VOLUME = (
-    (volume_ops, "sample_distance_delta_tracking", "delta tracking"),
-    (volume_ops, "eval_tr_ratio_tracking", "ratio tracking"),
-)
-# (module, attribute, range name): the stages a pass spends time in, per
-# renderer; ranges may nest (track_ray holds ray_track_hits)
-RANGES = {
-    "pt": ((rng, "lane_uniform", "rng.lane_uniform"),
-           (pt, "ray_intersect", "ray_intersect"),
-           (pt, "get_uv_item", "texture fetch"),
-           (pt, "does_intersect", "does_intersect"),
-           (cluster_kernels, "_front_sort", "qpick front + sort"),
-           (cluster_kernels, "tile_picks", "qpick tile_picks"),
-           (cluster_kernels, "_unsort", "qpick unsort"),
-           (cluster_kernels, "resolve_winner", "resolve_winner"),
-           *_SHADING,
-           (pt, "camera_rays", "camera_rays"),
-           (compact, "run_compacted", "bounce loop"), *_WRAPPERS),
-    "vpt": ((rng, "lane_uniform", "rng.lane_uniform"),
-            (vpt, "ray_intersect", "ray_intersect"),
-            (vpt, "get_uv_item", "texture fetch"),
-            (vpt, "track_ray", "track_ray"),
-            (vpt, "_track_loop", "_track_loop"),
-            (vpt, "ray_track_hits", "ray_track_hits"),
-            (medium_ops, "sample_mfp", "sample_mfp"),
-            (medium_ops, "phase_sample", "phase_sample"),
-            (medium_ops, "phase_eval", "phase_eval"),
-            (emitter_ops, "sample_hit", "sample_hit"),
-            *_VOLUME, *_SHADING,
-            (vpt, "camera_rays", "camera_rays"),
-            (compact, "run_compacted", "iteration loop"), *_WRAPPERS),
-    # "{case}": one range per connection case (s0, t1, s1, gen)
-    "bdpt": ((rng, "uniform", "rng.uniform"),
-             (bdpt, "generate_eye_path", "eye walk"),
-             (bdpt, "generate_light_path", "light walk"),
-             (bdpt, "ray_intersect", "ray_intersect"),
-             (bdpt, "get_uv_item", "texture fetch"),
-             (bdpt, "connect_strategy", "connect {case}"),
-             (bdpt, "eval_vertex", "eval_vertex"),
-             (bdpt, "pdf_vertex", "pdf_vertex"),
-             (bdpt, "_mis_weight", "_mis_weight"),
-             (bdpt, "track_ray", "track_ray"),
-             (vpt, "_track_loop", "_track_loop"),
-             (vpt, "ray_track_hits", "ray_track_hits"),
-             (medium_ops, "sample_mfp", "sample_mfp"),
-             (medium_ops, "phase_sample", "phase_sample"),
-             (emitter_ops, "sample_hit", "sample_hit"),
-             *_VOLUME, *_SHADING,
-             (bdpt, "splat_sorted_accumulate", "film splat"), *_WRAPPERS),
-}
-CASES = ("s0", "t1", "s1", "gen")
+RENDERERS = {"pt": pt.Renderer, "vpt": vpt.VolumeRenderer, "bdpt": bdpt.BDPT}
 TOP = 8               # kernels listed by device time
 # the port's hand-written kernels (csrc/), always listed
 OWN_KERNELS = ("tri_", "bvh_", "splat_", "cluster_")
-# (module, wrapper, its launch counter, kernel): the wrappers whose
-# launches are attributed to the ranges open at the call (BDPT calls the
-# film splat by the name it imported)
-_OWN = tuple((at, wrapper, ops.launches, kernel)
-             for at, ops in ((bvh_kernels, bvh_kernels),
-                             (intersect_kernels, intersect_kernels),
-                             (bdpt, splat))
-             for wrapper, kernel in ops.kernel_names.items())
+# each own-kernel wrapper's kernel, by the profiler's name for it
+KERNELS = {w: k for m in (intersect_kernels, bvh_kernels, splat,
+                          cluster_kernels)
+           for w, k in m.kernel_names.items()}
 
 
-def _ranged(fn, name, opened):
-    """fn inside a profiler range; `opened` lists the ranges open now,
-    innermost last."""
-    def wrapped(*args, **kw):
-        full = name.format(case=kw.get("case"))
-        opened.append(full)
-        try:
-            with torch.profiler.record_function(full):
-                return fn(*args, **kw)
-        finally:
-            opened.pop()
-    return wrapped
+def _union(intervals):
+    """(total length of the union of (start, end) intervals, the gaps
+    between them)."""
+    total, gaps, cur = 0, [], None
+    for s, e in sorted(intervals):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+                gaps.append((cur[1], s))
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total, gaps
 
 
-def _recorded(fn, counter, key, opened, calls):
-    """fn, appending the open ranges to `calls` at each launch that
-    counter[key] counts."""
-    def wrapped(*args, **kw):
-        before = counter[key]
-        out = fn(*args, **kw)
-        calls.extend([tuple(opened)] * (counter[key] - before))
-        return out
-    return wrapped
+def _self_ns(spans):
+    """{span id: its ns less the union of its children's}."""
+    kids = {}
+    for s in spans:
+        kids.setdefault(s["parent"], []).append((s["start_ns"], s["end_ns"]))
+    return {s["id"]: s["end_ns"] - s["start_ns"]
+            - _union(kids.get(s["id"], ()))[0] for s in spans}
 
 
-def _own_by_range(kernels, calls, spp):
-    """{range: device ms/spp of the port's kernels launched inside it}:
-    the k-th kernel of a name on the card is the k-th launch its wrapper
-    counted (one stream). A name whose counts disagree is left out."""
+def _own_by_span(kernels, spans):
+    """{span name: device ms of the own kernels launched inside such
+    spans}: the k-th `kernel.<wrapper>` span is the k-th kernel of its
+    name on the card (one stream). A name whose counts disagree is left
+    out."""
+    by_id = {s["id"]: s for s in spans}
     out = {}
-    for kname, opened in calls.items():
+    for wrapper, kname in KERNELS.items():
+        mine = sorted((s for s in spans if s["name"] == "kernel." + wrapper),
+                      key=lambda s: s["start_ns"])
         evs = sorted((e for e in kernels
                       if e.name.removeprefix("void ").startswith(kname)),
                      key=lambda e: e.time_range.start)
-        if len(evs) != len(opened):
+        if len(evs) != len(mine):
             continue
-        for e, ranges in zip(evs, opened):
-            for name in set(ranges):
-                out[name] = out.get(name, 0.0) \
-                    + e.time_range.elapsed_us() / 1e3 / spp
+        for s, e in zip(mine, evs):
+            names, p = set(), s
+            while p is not None:
+                names.add(p["name"])
+                p = by_id.get(p["parent"])
+            for n in names:
+                out[n] = out.get(n, 0.0) + e.time_range.elapsed_us() / 1e3
     return out
 
 
-def _names(ranges):
-    """Every range name, "{case}" ones once per case."""
-    return [n.format(case=c) for _, _, n in ranges
-            for c in (CASES if "{case}" in n else (None,))]
+def _idle_by_span(gaps, spans):
+    """{innermost span open at each (start_ns, end_ns) gap's midpoint:
+    seconds}, by a sweep over the nested spans."""
+    marks = [(s["start_ns"], 0, s["start_ns"] - s["end_ns"], s)
+             for s in spans]
+    marks += [(s["end_ns"], 2, s["end_ns"] - s["start_ns"], s)
+              for s in spans]
+    marks += [((a + b) // 2, 1, b - a, None) for a, b in gaps]
+    opened, out = [], {}
+    for _t, kind, x, s in sorted(marks, key=lambda m: m[:3]):
+        if kind == 0:
+            opened.append(s)
+        elif kind == 2:
+            opened.remove(s)
+        else:
+            label = opened[-1]["name"] if opened \
+                else "outside the program's spans"
+            out[label] = out.get(label, 0.0) + x / 1e9
+    return out
 
 
 def _timed(r, spp):
@@ -191,12 +145,11 @@ def main(argv=None):
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--max-bounce", type=int, default=0,
                     help="override the scene's max_bounce (0: keep)")
-    ap.add_argument("--renderer", choices=tuple(RANGES), default="pt")
+    ap.add_argument("--renderer", choices=tuple(RENDERERS), default="pt")
     ap.add_argument("--tier", choices=BIG_TIERS, default="bvh",
                     help="kernels of the big-scene tier (big_tier)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    ranges = RANGES[args.renderer]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -205,47 +158,49 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, big_tier=args.tier)
     if args.max_bounce:
         cfg = dataclasses.replace(cfg, max_bounce=args.max_bounce)
-    r = {"pt": pt.Renderer, "vpt": vpt.VolumeRenderer,
-         "bdpt": bdpt.BDPT}[args.renderer](scene, cfg, seed=0)
+    r = RENDERERS[args.renderer](scene, cfg, seed=0)
     r.render_batch(1)
     walls = [_timed(r, args.spp) / args.spp for _ in range(args.runs)]
     wall = statistics.median(walls)
 
-    saved = [(m, a, getattr(m, a)) for m, a, _ in ranges]
-    opened = []
-    for (m, a, name), (_, _, fn) in zip(ranges, saved):
-        setattr(m, a, _ranged(fn, name, opened))
-    calls = {k: [] for *_, k in _OWN}
-    saved += [(m, a, getattr(m, a)) for m, a, _, _ in _OWN]
-    for m, a, counter, k in _OWN:
-        setattr(m, a, _recorded(getattr(m, a), counter, a, opened,
-                                calls[k]))
+    obs.reset()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            prof_wall = _timed(r, args.spp) / args.spp
-    finally:
-        for m, a, fn in reversed(saved):
-            setattr(m, a, fn)
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_wall = _timed(r, args.spp) / args.spp
+    rec = obs.export()
+    spans = rec["spans"]
 
     spp = args.spp
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events
                if e.device_type == cuda and not e.is_user_annotation]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / spp
-    own_in = _own_by_range(kernels, calls, spp)
-    rows = []
-    for name in _names(ranges):
-        hits = [e for e in events if e.name == name and e.device_type != cuda]
-        if hits:      # device ms: the kernels launched inside the range
-            host = sum(e.cpu_time_total for e in hits) / 1e3
-            rows.append({
-                "range": name, "calls": len(hits) / spp,
-                "device_ms": sum(e.device_time_total for e in hits) / 1e3
-                / spp, "own_device_ms": own_in.get(name, 0.0),
-                "host_ms": host / spp, "host_ms_per_call": host / len(hits)})
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    busy_us, gaps = _union([(e.time_range.start, e.time_range.end)
+                            for e in kernels])
+    busy = busy_us / 1e3 / spp
+    idle = _idle_by_span([(t0 + round(a * 1e3), t0 + round(b * 1e3))
+                          for a, b in gaps], spans)
+    own_in = _own_by_span(kernels, spans)
+    self_ns = _self_ns(spans)
+    device = {}
+    for e in events:
+        if e.device_type != cuda:
+            device[e.name] = device.get(e.name, 0.0) + e.device_time_total
+    rows = {}
+    for s in spans:
+        row = rows.setdefault(s["name"], [0, 0, 0])
+        row[0] += 1
+        row[1] += s["end_ns"] - s["start_ns"]
+        row[2] += self_ns[s["id"]]
+    rows = [{"range": name, "calls": n / spp,
+             "device_ms": device.get(name, 0.0) / 1e3 / spp,
+             "own_device_ms": own_in.get(name, 0.0) / spp,
+             "host_ms": host / 1e6 / spp, "self_host_ms": own / 1e6 / spp,
+             "host_ms_per_call": host / 1e6 / n}
+            for name, (n, host, own) in sorted(rows.items(),
+                                               key=lambda kv: -kv[1][1])]
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) \
@@ -253,6 +208,10 @@ def main(argv=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
     own = {k: v for k, v in by_name.items()
            if k.removeprefix("void ").startswith(OWN_KERNELS)}
+    c = rec["counters"]
+    reads = {site: {"reads": n / spp,
+                    "wait_ms": c["host.read_wait_ns"][site] / 1e6 / spp}
+             for site, n in c["host.reads"].items()}
     out = {"scene": args.file, "w": cfg.w, "h": cfg.h,
            "max_bounce": cfg.max_bounce, "spp": spp, "card": card,
            "renderer": args.renderer, "tier": args.tier,
@@ -263,6 +222,15 @@ def main(argv=None):
            "device_busy_ms_per_spp": busy,
            "idle_share": 1.0 - busy / (1e3 * wall),
            "kernels_per_spp": len(kernels) / spp, "ranges": rows,
+           "idle_s_by_span": dict(sorted(idle.items(),
+                                         key=lambda kv: -kv[1])),
+           "host_reads_per_spp": reads,
+           "live_lane_share": c["lanes.live"] / c["lanes.issued"]
+           if c["lanes.issued"] else None,
+           "counters_per_spp": {k: c[k] / spp for k in (
+               "rng.words", "lanes.issued", "compact.splits",
+               "compact.overflows")},
+           "dropped_spans": rec["dropped"],
            "top_kernels_ms_per_spp": dict(top),
            "own_kernels_ms_per_spp": own}
     print(f"{args.file} {cfg.w}x{cfg.h} mb {cfg.max_bounce} tier "
@@ -271,12 +239,19 @@ def main(argv=None):
           f"(profiled {1e3 * prof_wall:.3f}); device busy {busy:.3f} ms/spp,"
           f" idle share {out['idle_share']:.3f}; "
           f"{out['kernels_per_spp']:.0f} kernels/spp; schedule "
-          f"{out['schedule']}")
+          f"{out['schedule']}; live lanes {out['live_lane_share']}; "
+          f"{out['counters_per_spp']}")
     for row in rows:
-        print(f"  {row['range']:<20} calls {row['calls']:>6.1f}  device "
+        print(f"  {row['range']:<24} calls {row['calls']:>6.1f}  device "
               f"{row['device_ms']:9.3f} ms (+ own {row['own_device_ms']:.3f})"
-              f"  host {row['host_ms']:9.3f} ms "
-              f"({row['host_ms_per_call']:.4f} a call)")
+              f"  host {row['host_ms']:9.3f} ms, self "
+              f"{row['self_host_ms']:8.3f} ({row['host_ms_per_call']:.4f} "
+              "a call)")
+    for name, s in out["idle_s_by_span"].items():
+        print(f"  idle in {name:<24} {1e3 * s / spp:9.3f} ms/spp")
+    for site, v in reads.items():
+        print(f"  host read {site:<22} {v['reads']:7.1f} a spp, wait "
+              f"{v['wait_ms']:.3f} ms/spp")
     for name, ms in top + sorted(own.items()):
         print(f"  kernel {name[:60]:<60} {ms:9.3f} ms/spp")
     print(json.dumps(out))

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import json
 import os
 import pickle
 import time
@@ -179,6 +180,7 @@ def render(opts, world=None, device=None):
     import torch
     t_start = time.time()
     lead = world is None or torch.distributed.get_rank() == 0
+    from . import obs
     from .scene.compile import load_scene
     from .utils.imaging import (apply_watermark, quantile_normalize,
                                 write_image)
@@ -273,7 +275,10 @@ def render(opts, world=None, device=None):
         prof.stop()
         os.makedirs("./profiler_trace", exist_ok=True)
         prof.export_chrome_trace("./profiler_trace/trace.json")
-        say("profiler trace written to ./profiler_trace")
+        with open("./profiler_trace/program.json", "w") as fh:
+            json.dump(obs.export(), fh)
+        say("profiler trace and the program's spans written to "
+            "./profiler_trace")
     if preview is not None:
         preview.update(rdr.image(), rdr.cnt, min_interval=0.0)
 

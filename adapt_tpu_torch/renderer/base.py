@@ -11,7 +11,7 @@ import math
 import numpy as np
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..convert import key_from_numpy, key_to_numpy
 from ..ops.math3d import normalize
 
@@ -19,6 +19,8 @@ _EPS = 1e-4
 _INV_EPS = 1.0 - 2.0 * _EPS
 
 
+@obs.spanned("render.camera", lambda scene, cfg, key, cnt, pix_ids=None:
+             {"n": cfg.n_pixels if pix_ids is None else pix_ids.shape[0]})
 def camera_rays(scene, cfg, key, cnt, pix_ids=None):
     """One primary ray per pixel; returns (ray_o, ray_d) of (N,3).
 
@@ -87,9 +89,12 @@ class ProgressiveRenderer:
     def render(self, *_args):
         """One progressive iteration: +1 spp into the accumulator."""
         self.cnt += 1
-        self.key, sub = rng.split(self.key)
-        radiance = torch.nan_to_num(self.render_pass(sub, self.cnt), nan=0.0)
-        self.color = self.color + radiance.reshape(self.cfg.w, self.cfg.h, 3)
+        with obs.span(obs.PASS, cnt=self.cnt, spp=1):
+            self.key, sub = rng.split(self.key)
+            radiance = torch.nan_to_num(self.render_pass(sub, self.cnt),
+                                        nan=0.0)
+            self.color = self.color + radiance.reshape(self.cfg.w,
+                                                       self.cfg.h, 3)
         return self.color
 
     def render_batch(self, spp: int):
@@ -106,7 +111,8 @@ class ProgressiveRenderer:
     def image(self) -> np.ndarray:
         """Averaged frame as (h, w, 3) float32 numpy: the (w, h) y-up film
         transposed and flipped vertically (reference imwrite mapping)."""
-        return self.pixels.transpose(0, 1).flip(0).cpu().numpy()
+        return obs.host_read(self.pixels.transpose(0, 1).flip(0),
+                             "film.image").numpy()
 
     # --- checkpointing (reference path_tracer.py:181-211) ---
     _CHECK_KEYS = ("w", "h", "focal", "max_bounce",
@@ -116,7 +122,8 @@ class ProgressiveRenderer:
         chk = {k: getattr(self.cfg, k) for k in self._CHECK_KEYS}
         chk.update({
             "renderer": type(self).__name__,
-            "accumulation": self.color.cpu().numpy(),
+            "accumulation": obs.host_read(self.color,
+                                          "film.checkpoint").numpy(),
             "counter": self.cnt,
             "key": key_to_numpy(self.key),
         })

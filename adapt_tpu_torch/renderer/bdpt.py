@@ -73,7 +73,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..constants import (EmitterTag, INV_2PI, INV_PI, TRANSPORT_IMP,
                          TRANSPORT_RAD, VERTEX_CAMERA, VERTEX_EMITTER,
                          VERTEX_MEDIUM, VERTEX_SURFACE)
@@ -435,6 +435,7 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
         if not no_media:
             thp = thp * torch.where(active[:, None], path_beta, 1.0)
         active = active & (thp.amax(dim=-1) >= 5e-5)
+        obs.lanes(active)
 
         hit_point = ray_o + ray_d * mfp[:, None]
         mat = bxdf_ops.gather_mat(scene, obj_id)
@@ -536,6 +537,9 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
     return buf, vnum + 1
 
 
+@obs.spanned("bdpt.eye_walk",
+             lambda scene, cfg, key, cnt, max_bnc, pix_ids=None:
+             {"n": cfg.n_pixels if pix_ids is None else pix_ids.shape[0]})
 def generate_eye_path(scene, cfg, key, cnt, max_bnc, pix_ids=None):
     N = cfg.n_pixels if pix_ids is None else pix_ids.shape[0]
     dev = scene.device
@@ -558,6 +562,9 @@ def generate_eye_path(scene, cfg, key, cnt, max_bnc, pix_ids=None):
                             0.0, max_bnc)
 
 
+@obs.spanned("bdpt.light_walk",
+             lambda scene, cfg, key, max_bnc, n_paths=None:
+             {"n": cfg.n_pixels if n_paths is None else n_paths})
 def generate_light_path(scene, cfg, key, max_bnc, n_paths=None):
     N = cfg.n_pixels if n_paths is None else n_paths
     dev = scene.device
@@ -670,6 +677,8 @@ def _sweep_table(steps, gates):
     return torch.cat([torch.zeros_like(A[:1]), A[:-1]]) + g
 
 
+@obs.spanned("bdpt.mis", lambda *a, case=None, rows=None, **k:
+             {"case": case, "strategies": len(rows) if rows else 1})
 def _mis_weight(scene, cfg, cam_buf, lit_buf, cam_side, lit_side, s, t,
                 case=None, planes=None, rows=None):
     """MIS weight of a strategy, or of a flat batch of them (reference
@@ -781,6 +790,10 @@ def _mis_weight(scene, cfg, cam_buf, lit_buf, cam_side, lit_side, s, t,
     return 1.0 / (1.0 + total)
 
 
+@obs.spanned("bdpt.connect",
+             lambda scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
+             rows, case=None, **_: {"case": case, "strategies": len(rows),
+                                    "lanes": len(rows) * cam_vnum.shape[0]})
 def connect_strategy(scene, cfg, key, cam_buf, cam_vnum, lit_buf, lit_vnum,
                      rows, case=None, planes=None, scan=False):
     """A flat batch of (t, s) strategies over the whole wavefront
@@ -1065,9 +1078,10 @@ def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
         """ONE pixel-sorted film splat for all t = 1 strategies: a stable
         sort by pixel, the rgb gathered by its permutation, then kernel B4
         (the plain version on the CPU)."""
-        ii, perm = torch.sort(ii, stable=True)
-        return splat_sorted_accumulate(film, ii.contiguous(),
-                                       rr[perm].contiguous())
+        with obs.span("bdpt.splat", n=ii.shape[0]):
+            ii, perm = torch.sort(ii, stable=True)
+            return splat_sorted_accumulate(film, ii.contiguous(),
+                                           rr[perm].contiguous())
 
     Q = max(1, FLAT_LANES // max(N, 1))
     for case in ("s0", "t1", "s1", "gen"):
@@ -1141,9 +1155,10 @@ def render_batch_bdpt(scene, cfg, key, cnt0, spp):
     package's stream (pass i keyed by fold_in(key, i))."""
     acc = torch.zeros((cfg.n_pixels, 3), device=scene.device)
     for i in range(spp):
-        color, _b, _c = render_pass_bdpt(scene, cfg, rng.fold_in(key, i),
-                                         cnt0 + i)
-        acc = acc + torch.nan_to_num(color, nan=0.0)
+        with obs.span(obs.PASS, cnt=cnt0 + i, spp=1):
+            color, _b, _c = render_pass_bdpt(scene, cfg,
+                                             rng.fold_in(key, i), cnt0 + i)
+            acc = acc + torch.nan_to_num(color, nan=0.0)
     return acc
 
 
@@ -1154,8 +1169,8 @@ def transient_check_point(cfg, time_bins, time_cnts) -> dict:
     """Transient additions to a checkpoint dict: the histograms and the
     binning config they were accumulated under."""
     chk = {k: getattr(cfg, k) for k in _TRANSIENT_KEYS}
-    chk["time_bins"] = time_bins.cpu().numpy()
-    chk["time_cnts"] = time_cnts.cpu().numpy()
+    chk["time_bins"] = obs.host_read(time_bins, "film.checkpoint").numpy()
+    chk["time_cnts"] = obs.host_read(time_cnts, "film.checkpoint").numpy()
     return chk
 
 
@@ -1209,8 +1224,10 @@ def transient_copy_average(cfg, time_bins, time_cnts, pix_ids, time_idx):
 def transient_frames_np(cfg, time_bins, time_cnts, pix_ids):
     """All time bins as (T, h, w, 3) image-oriented numpy."""
     return np.stack([
-        transient_copy_average(cfg, time_bins, time_cnts, pix_ids, i)
-        .transpose(0, 1).cpu().numpy()[::-1] for i in range(cfg.t_bins)])
+        obs.host_read(transient_copy_average(cfg, time_bins, time_cnts,
+                                             pix_ids, i).transpose(0, 1),
+                      "film.transient").numpy()[::-1]
+        for i in range(cfg.t_bins)])
 
 
 class BDPT(ProgressiveRenderer):

@@ -30,6 +30,8 @@ import dataclasses
 
 import torch
 
+from .. import obs
+
 
 def parse_schedule(s):
     """"8:4,14:16" -> ((8, 4), (14, 16)): at iteration `at`, gather alive
@@ -103,18 +105,25 @@ def run_compacted(iteration, state, iters, schedule):
             break
         (at, div), splits = splits[0], splits[1:]
         start = at
-        # the JAX package's order: alive lanes first, each class by
-        # original lane id, also when the alive lanes overflow the prefix
-        # (a grid volume's march draws by a lane's place in the wavefront)
-        skey = state["pos"].long() + torch.where(state["active"], 0, N)
-        order = torch.argsort(skey)
-        W2 = N // div
-        if int(state["active"].sum()) > W2:
-            splits = []                    # overflow: stay at this width
-            state = take(state, order)
-            continue
-        # lanes left behind are finished: their colors are final
-        out[state["pos"].long()] = state["color"]
-        state = take(state, order[:W2])
+        with obs.span("pt.compact", at=at, width_in=w) as sp:
+            # the JAX package's order: alive lanes first, each class by
+            # original lane id, also when the alive lanes overflow the
+            # prefix (a grid volume's march draws by a lane's place in the
+            # wavefront)
+            skey = state["pos"].long() + torch.where(state["active"], 0, N)
+            order = torch.argsort(skey)
+            W2 = N // div
+            overflow = int(obs.host_read(state["active"].sum(),
+                                         "compact.alive")) > W2
+            obs.count("compact.splits")
+            sp.set(width_out=w if overflow else W2, overflow=int(overflow))
+            if overflow:
+                obs.count("compact.overflows")
+                splits = []                # overflow: stay at this width
+                state = take(state, order)
+            else:
+                # lanes left behind are finished: their colors are final
+                out[state["pos"].long()] = state["color"]
+                state = take(state, order[:W2])
     out[state["pos"].long()] = state["color"]
     return out

@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..ops import bxdf_ops, emitter_ops
 from ..ops.intersect import ray_intersect, does_intersect
 from ..ops.math3d import norm
@@ -82,6 +82,10 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=(),
         pos=torch.arange(N, dtype=torch.int32, device=dev))
 
     def bounce(b, st):
+        with obs.span("pt.bounce", b=b, n=st["active"].shape[0]):
+            return _bounce(b, st)
+
+    def _bounce(b, st):
         it, mat, hit_light = st["it"], st["mat"], st["hit_light"]
         ray_o, ray_d = st["ray_o"], st["ray_d"]
         contribution = st["contribution"]
@@ -99,6 +103,7 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=(),
             active = active & ~killed
         else:
             active = active & (max_val >= 1e-4)
+        obs.lanes(active)
 
         # dead lanes carry t = -3e38; clamp them to the origin so no
         # overflow breeds inf/nan in the masked branches below
@@ -213,13 +218,15 @@ def render_batch_pt(scene, cfg, key, cnt0, spp, schedule=()):
     pix = crop_pix_ids(cfg, scene.device)
     acc = None
     for i in range(spp):
-        sub = rng.fold_in(key, i)
-        k_cam, _ = rng.split(rng.fold_in(sub, 0))
-        ray_o, ray_d = camera_rays(scene, cfg, k_cam, cnt0 + i, pix_ids=pix)
-        color = torch.nan_to_num(
-            trace_pt(scene, cfg, rng.fold_in(sub, 7919), ray_o, ray_d,
-                     schedule=schedule), nan=0.0)
-        acc = color if acc is None else acc + color
+        with obs.span(obs.PASS, cnt=cnt0 + i, spp=1):
+            sub = rng.fold_in(key, i)
+            k_cam, _ = rng.split(rng.fold_in(sub, 0))
+            ray_o, ray_d = camera_rays(scene, cfg, k_cam, cnt0 + i,
+                                       pix_ids=pix)
+            color = torch.nan_to_num(
+                trace_pt(scene, cfg, rng.fold_in(sub, 7919), ray_o, ray_d,
+                         schedule=schedule), nan=0.0)
+            acc = color if acc is None else acc + color
     if acc is None:
         n = cfg.n_pixels if pix is None else pix.shape[0]
         acc = torch.zeros((n, 3), device=scene.device)
@@ -251,10 +258,11 @@ class Renderer(ProgressiveRenderer):
             # the probe draws from a fold_in of the current key (self.key
             # untouched) and its sample is discarded, so the stream and
             # the image equal a schedule-free renderer's exactly
-            _, counts = probe_alive_pt(self.scene, self.cfg,
-                                       rng.fold_in(self.key, 0x5EED), 1)
-            profile = counts.cpu().numpy().astype(np.float64) \
-                / self.cfg.n_pixels
+            with obs.setup_span("setup.probe"):
+                _, counts = probe_alive_pt(self.scene, self.cfg,
+                                           rng.fold_in(self.key, 0x5EED), 1)
+                profile = obs.host_read(counts, "pt.probe").numpy() \
+                    .astype(np.float64) / self.cfg.n_pixels
             self._sched = compact.derive_schedule(profile,
                                                   self.cfg.max_bounce)
         return self._sched or ()

@@ -46,7 +46,7 @@ import dataclasses
 
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..ops import bxdf_ops, emitter_ops, medium_ops, volume_ops
 from ..ops.intersect import (FAR, _bvh_tier, does_intersect, ray_intersect,
                              ray_track_hits)
@@ -176,7 +176,7 @@ def _track_segments_khit(scene, cfg, start_p, ray_d, depth, active):
 
     # exact fallback for the lanes that overflowed (dead lanes never do)
     ovf_l = ovf if active is None else ovf & active
-    if bool(ovf_l.any()):
+    if bool(obs.host_read(ovf_l.any(), "vpt.track_overflow")):
         tr_f, acc_f = _track_loop(scene, cfg, start_p, ray_d, depth, ovf_l)
         tr = torch.where(ovf[:, None], tr_f, tr)
         acc = torch.where(ovf, acc_f, acc)
@@ -197,7 +197,7 @@ def _track_loop(scene, cfg, start_p, ray_d, depth, active):
     alive = torch.ones(N, dtype=torch.bool, device=dev) if active is None \
         else active
     for _step in range(TRACK_STEPS):
-        if not bool(alive.any()):
+        if not bool(obs.host_read(alive.any(), "vpt.track_alive")):
             break
         it = ray_intersect(scene, cfg, p, ray_d, max_t=remaining,
                            alive=alive)
@@ -222,6 +222,8 @@ def _track_loop(scene, cfg, start_p, ray_d, depth, active):
     return tr, acc
 
 
+@obs.spanned("vol.track", lambda scene, cfg, start_p, *a, **k:
+             {"lanes": start_p.shape[0]})
 def track_ray(scene, cfg, start_p, ray_d, depth, key=None, thp=None,
               active=None):
     """Transmittance and ior-weighted propagation time along a shadow
@@ -297,6 +299,10 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
         pos=torch.arange(N, dtype=torch.int32, device=dev))
 
     def iteration(i, st):
+        with obs.span("vpt.iter", b=i, n=st["active"].shape[0]):
+            return _iteration(i, st)
+
+    def _iteration(i, st):
         active, thp = st["active"], st["thp"]
         ray_o, ray_d = st["ray_o"], st["ray_d"]
         n = active.shape[0]
@@ -347,6 +353,7 @@ def trace_vpt(scene, cfg, key, ray_o, ray_d, schedule=SCHEDULE):
             is_mi = is_mi | is_vol
             rows = volume_phase_rows(scene, cfg, rows, is_vol)
         active = active & ~(miss & ~is_mi)       # left the world bound
+        obs.lanes(active)
         hit_point = ray_o + ray_d * torch.where(active, mfp, 0.0)[:, None]
         thp = thp * torch.where(active[:, None], beta, 1.0)
 
@@ -474,12 +481,14 @@ def render_batch_vpt(scene, cfg, key, cnt0, spp, schedule=SCHEDULE):
     n = cfg.n_pixels if pix is None else pix.shape[0]
     acc = torch.zeros((n, 3), device=scene.device)
     for i in range(spp):
-        sub = rng.fold_in(key, i)
-        k_cam, _ = rng.split(rng.fold_in(sub, 0))
-        ray_o, ray_d = camera_rays(scene, cfg, k_cam, cnt0 + i, pix_ids=pix)
-        acc = acc + torch.nan_to_num(
-            trace_vpt(scene, cfg, rng.fold_in(sub, 7919), ray_o, ray_d,
-                      schedule=schedule), nan=0.0)
+        with obs.span(obs.PASS, cnt=cnt0 + i, spp=1):
+            sub = rng.fold_in(key, i)
+            k_cam, _ = rng.split(rng.fold_in(sub, 0))
+            ray_o, ray_d = camera_rays(scene, cfg, k_cam, cnt0 + i,
+                                       pix_ids=pix)
+            acc = acc + torch.nan_to_num(
+                trace_vpt(scene, cfg, rng.fold_in(sub, 7919), ray_o, ray_d,
+                          schedule=schedule), nan=0.0)
     return _scatter(cfg, pix, acc)
 
 

@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from . import obs
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -75,9 +77,12 @@ def _bits_to_unit_float(bits):
     return f - 1.0
 
 
+@obs.spanned("rng.draw", lambda key, shape, device=None:
+             {"n": shape[0] if shape else 1, "words": math.prod(shape)})
 def uniform(key: Key, shape, device=None) -> torch.Tensor:
     """`jax.random.uniform(key, shape)` in float32 on `device`."""
     n = math.prod(shape)
+    obs.count("rng.words", n)
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(key[0], key[1], lo >> 32, lo & MASK)
     return _bits_to_unit_float(b1 ^ b2).reshape(shape)
@@ -88,10 +93,13 @@ def fold_in_lanes(key: Key, data: torch.Tensor):
     return threefry2x32(key[0], key[1], 0, data.to(torch.int64) & MASK)
 
 
+@obs.spanned("rng.draw", lambda it_key, pos, D:
+             {"n": pos.shape[0], "words": pos.shape[0] * D})
 def lane_uniform(it_key: Key, pos: torch.Tensor, D: int) -> torch.Tensor:
     """(n, D) uniforms keyed by (iteration, original lane id): the port of
     adapt_tpu/renderer/compact.py `lane_uniform` — a per-lane fold_in on
     `pos`, then `uniform(lane_key, (D,))`."""
+    obs.count("rng.words", pos.shape[0] * D)
     k1, k2 = fold_in_lanes(it_key, pos)
     j = torch.arange(D, dtype=torch.int64, device=pos.device)[None, :]
     b1, b2 = threefry2x32(k1[:, None], k2[:, None], 0, j)

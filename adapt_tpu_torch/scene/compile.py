@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import obs
 from ..constants import SPHERE
 from ..native import bvh_build
 from ..ops.math3d import np_rotation_between, fov2focal
@@ -346,6 +347,7 @@ def _cut_walk(node_pack, cm):
     return out
 
 
+@obs.spanned("setup.scene.cluster", setup=True)
 def _cluster_cut(node_pack, rows18, prim_aabb):
     """Cut the skip-offset tree into disjoint subtree clusters (numpy copy
     of adapt_tpu/scene/compile.py `_cluster_cut`, CM fixed at CLUSTER_MAX).
@@ -624,6 +626,7 @@ def _stack3(vals):
     return np.stack(vals).astype(np.float32)
 
 
+@obs.spanned("setup.scene.compile", setup=True)
 def compile_scene(emitters, array_info, objects, configs, device="cuda",
                   scene_dir="."):
     """Assemble (SceneData, RenderConfig) from parsed host structures,
@@ -867,7 +870,10 @@ def load_scene(directory: str, file: str, device="cuda"):
     there is none); the CPU takes device="cpu"."""
     from ..parsers.xml_parser import scene_parsing
     device = resolve_device(device)
-    emitters, array_info, objects, configs = scene_parsing(directory, file)
-    scene, cfg = compile_scene(emitters, array_info, objects, configs,
-                               device, scene_dir=directory)
+    with obs.setup_span("setup.scene") as sp:
+        emitters, array_info, objects, configs = scene_parsing(directory,
+                                                               file)
+        scene, cfg = compile_scene(emitters, array_info, objects, configs,
+                                   device, scene_dir=directory)
+        sp.set(prims=int(scene.n_prims))
     return scene, cfg, configs

@@ -3,6 +3,8 @@
 Each run is a subprocess with `--arch cpu` at 32^2, 3 bounces:
 
 * an image and a checkpoint written; `-l` resumes and continues the count;
+* `--profile` writes the chrome trace, with the program's spans as
+  ranges, and program.json (adapt_tpu_torch/obs.py's export);
 * the transient export with `--analyze` on trans/cbox-point.xml (one
   frame per time bin, frames.npy, the time-domain curve);
 * PT on trans/foam.xml (null BSDFs): one pass, image and film;
@@ -81,6 +83,25 @@ def test_cli_render_checkpoint_resume(tmp_path):
     assert p.returncode == 0, p.stderr[-2000:]
     assert "resumed from checkpoint at 2 iterations" in p.stdout
     assert _checkpoint(tmp, ck)["counter"] == 4
+
+
+def test_cli_profile_writes_program_spans(tmp_path):
+    """--profile: the chrome trace carries the program's span names as
+    ranges, and program.json holds the spans and counters of the pass."""
+    import json
+    tmp = str(tmp_path)
+    p = _run(["--scene", "cbox", "--name", "cbox.xml", "--type", "pt",
+              "--iter_num", "1", "--img_name", "prof", "--profile"], tmp)
+    assert p.returncode == 0, p.stderr[-2000:]
+    with open(os.path.join(tmp, "profiler_trace", "program.json")) as f:
+        rec = json.load(f)
+    names = [s["name"] for s in rec["spans"]]
+    assert names.count("render.pass") == 1 and names.count("pt.bounce") == 3
+    assert "setup.scene" in names
+    assert rec["counters"]["lanes.issued"] == 3 * 32 * 32
+    with open(os.path.join(tmp, "profiler_trace", "trace.json")) as f:
+        trace = f.read()
+    assert '"pt.bounce"' in trace and '"rng.draw"' in trace
 
 
 def test_cli_transient_analyze(tmp_path):
