@@ -270,6 +270,7 @@ def export() -> dict:
     they closed, each {"name", "id", "parent", "pass", "start_ns",
     "end_ns", "attrs"}. Reads the live-lane accumulators from the device
     (one read each)."""
+    from . import rng
     from .ops import _build, bvh_kernels, cluster_kernels, intersect_kernels
     from .ops import splat
     t = TRACER
@@ -280,7 +281,7 @@ def export() -> dict:
     counters = {
         "launches": {m.__name__.rsplit(".", 1)[-1]: dict(m.launches)
                      for m in (intersect_kernels, bvh_kernels, splat,
-                               cluster_kernels)},
+                               cluster_kernels, rng)},
         "build_seconds": dict(_build.build_seconds),
         "rng.words": counts.get("rng.words", 0),
         "lanes.issued": counts.get("lanes.issued", 0),

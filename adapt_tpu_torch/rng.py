@@ -8,7 +8,12 @@ held against the JAX package and the goldens pixel by pixel:
   * `PRNGKey`, `split`, `fold_in` on single keys run in Python integers on
     the host (two 32-bit words; no device round trip);
   * `uniform`, `fold_in_lanes` and `lane_uniform` hash whole tensors on
-    the tensor's device.
+    the tensor's device: on a CUDA device `uniform` and `lane_uniform`
+    launch one hand-written kernel each (csrc/rng.cu, 32-bit registers),
+    elsewhere they run their plain versions `uniform_plain` and
+    `lane_uniform_plain` (int64 tensor ops, any device), the twins the
+    tests hold to jax.random and the kernels to bit for bit. `launches`
+    counts the kernels' launches.
 
 Tensors carry the 32-bit words in int64 masked to 32 bits: CUDA support
 for `torch.uint32` shifts and adds is patchy, and int64 holds every
@@ -21,6 +26,7 @@ and jax/_src/random.py `_uniform` (23 mantissa bits under exponent 0).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -31,6 +37,16 @@ MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 Key = tuple  # (k1, k2): two Python ints in [0, 2^32)
+
+launches = {"lane_uniform": 0, "uniform": 0}
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = {"lane_uniform": "threefry_lane_uniform_kernel",
+                "uniform": "threefry_uniform_kernel"}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
 
 
 def _rotl(x, r):
@@ -80,9 +96,19 @@ def _bits_to_unit_float(bits):
 @obs.spanned("rng.draw", lambda key, shape, device=None:
              {"n": shape[0] if shape else 1, "words": math.prod(shape)})
 def uniform(key: Key, shape, device=None) -> torch.Tensor:
-    """`jax.random.uniform(key, shape)` in float32 on `device`."""
+    """`jax.random.uniform(key, shape)` in float32 on `device`: one kernel
+    on a CUDA device, `uniform_plain` elsewhere."""
     n = math.prod(shape)
     obs.count("rng.words", n)
+    if device is not None and torch.device(device).type == "cuda":
+        return _uniform_cuda(key, shape, n, torch.device(device))
+    return uniform_plain(key, shape, device)
+
+
+def uniform_plain(key: Key, shape, device=None) -> torch.Tensor:
+    """`uniform` in int64 tensor ops on any device: the twin of csrc/rng.cu
+    `threefry_uniform_kernel`."""
+    n = math.prod(shape)
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(key[0], key[1], lo >> 32, lo & MASK)
     return _bits_to_unit_float(b1 ^ b2).reshape(shape)
@@ -98,9 +124,83 @@ def fold_in_lanes(key: Key, data: torch.Tensor):
 def lane_uniform(it_key: Key, pos: torch.Tensor, D: int) -> torch.Tensor:
     """(n, D) uniforms keyed by (iteration, original lane id): the port of
     adapt_tpu/renderer/compact.py `lane_uniform` — a per-lane fold_in on
-    `pos`, then `uniform(lane_key, (D,))`."""
+    `pos`, then `uniform(lane_key, (D,))`. One kernel on a CUDA tensor,
+    `lane_uniform_plain` elsewhere."""
     obs.count("rng.words", pos.shape[0] * D)
+    if pos.device.type == "cuda":
+        return _lane_uniform_cuda(it_key, pos, D)
+    return lane_uniform_plain(it_key, pos, D)
+
+
+def lane_uniform_plain(it_key: Key, pos: torch.Tensor,
+                       D: int) -> torch.Tensor:
+    """`lane_uniform` in int64 tensor ops on any device: the twin of
+    csrc/rng.cu `threefry_lane_uniform_kernel`."""
     k1, k2 = fold_in_lanes(it_key, pos)
     j = torch.arange(D, dtype=torch.int64, device=pos.device)[None, :]
     b1, b2 = threefry2x32(k1[:, None], k2[:, None], 0, j)
     return _bits_to_unit_float(b1 ^ b2)
+
+
+_P = ctypes.c_void_p
+_U32 = ctypes.c_uint32
+
+
+def _lib():
+    from .ops import _build
+    lib = _build.load("rng")
+    if not getattr(lib, "_typed", False):
+        lib.threefry_lane_uniform.argtypes = [_U32, _U32, _P, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int, _P,
+                                              _P]
+        lib.threefry_lane_uniform.restype = ctypes.c_int
+        lib.threefry_uniform.argtypes = [_U32, _U32, ctypes.c_longlong, _P,
+                                         _P]
+        lib.threefry_uniform.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _raised(wrapper, err):
+    if err != 0:
+        raise RuntimeError(f"{wrapper}: CUDA launch failed with error {err}")
+
+
+def _lane_uniform_cuda(key, pos, D):
+    """`lane_uniform` on a CUDA tensor: one threefry_lane_uniform_kernel."""
+    if pos.dim() != 1 or pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"pos: want a 1-D int32 or int64 tensor, got "
+                         f"{pos.dtype} of shape {tuple(pos.shape)}")
+    if not pos.is_contiguous():
+        raise ValueError("pos: must be contiguous")
+    D = int(D)
+    if D < 1:
+        raise ValueError(f"D: want at least 1, got {D}")
+    n = pos.shape[0]
+    if n >= 2 ** 31 or D >= 2 ** 31:
+        raise ValueError(f"sizes n={n}, D={D} do not fit in 32-bit ints")
+    out = torch.empty((n, D), dtype=torch.float32, device=pos.device)
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    with obs.span("kernel.lane_uniform", n=n):
+        err = _lib().threefry_lane_uniform(
+            key[0] & MASK, key[1] & MASK, pos.data_ptr(),
+            int(pos.dtype == torch.int64), n, D, out.data_ptr(), stream)
+    _raised("lane_uniform", err)
+    launches["lane_uniform"] += 1
+    return out
+
+
+def _uniform_cuda(key, shape, n, device):
+    """`uniform` on a CUDA device: one threefry_uniform_kernel."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with obs.span("kernel.uniform", n=n):
+        err = _lib().threefry_uniform(key[0] & MASK, key[1] & MASK, n,
+                                      out.data_ptr(), stream)
+    _raised("uniform", err)
+    launches["uniform"] += 1
+    return out

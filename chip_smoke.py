@@ -68,7 +68,17 @@ non-zero exit and no result line.
    the neighbour), with times (single calls and CUDA-graph device times)
    and bounds, the five kernels' registers, spills, residency and waves,
    and the sweeps' divergence factor
-   (`cluster_kernels.warp_divergence`);
+   (`cluster_kernels.warp_divergence`); 2f (checked first of the
+   phase-2 kernels, before any CUDA graph, and timed after 2d): the two
+   threefry kernels of csrc/rng.cu against their int64 twins
+   (`rng.lane_uniform_plain`, `rng.uniform_plain`) on the card at the
+   main path's draws, PT cbox's
+   (262,144, 11) and the bunny's (640,000, 15) over permuted lane ids and
+   the camera's (262,144, 2): bit-equal, one kernel a call by the
+   profiler and by `rng.launches`, times (single calls and CUDA-graph
+   device times) of kernel and twin and the bound (bytes, or the
+   integer ALU pipe's operations at INT_OPS); the JSON line's `launches` of the two
+   kernels count the draws of the main paths of phases 4 and 14;
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
    same for render_pass_vpt against tests/goldens/vptcbox_48.npy; 3c: for
@@ -86,7 +96,8 @@ non-zero exit and no result line.
    bunny_bdpt_48.npy and cbox_tex_pt_48.npy;
 4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
    setting), render_batch of a few spp with the launch counts read around
-   it; the image must be finite with mean > 0.05 and match the same render
+   it (the threefry kernels: one lane_uniform a bounce and one uniform
+   for the camera, each spp); the image must be finite with mean > 0.05 and match the same render
    with the twins in place of the kernels under the goldens' bounds;
 5. knot290k main path: Renderer on knot290k.xml at its own settings (512^2,
    12 bounces, auto-compaction): the derived schedule, one warm-up spp,
@@ -153,7 +164,8 @@ non-zero exit and no result line.
    without textures on the textured floor;
 14. bunny PT: Renderer on bunny.xml at its own settings (2 shadow rays,
    auto-compaction): 10 BVH closest hits and 20 BVH any hits per spp (by
-   the wrappers and the profiler), peak memory, the BVH any hit on the
+   the wrappers and the profiler), 10 lane_uniform and 1 uniform threefry
+   launches per spp, peak memory, the BVH any hit on the
    first shadow rays of one pass, bit-equal to its twin, with device time
    and bound; the image finite, at 64^2 (3 bounces) equal to the twins'
    render, and different from the untextured one on the floor;
@@ -293,6 +305,14 @@ PIXELS_DIFFER = 1e-4
 # the tensor cores; a kernel's bound is the larger of its two times
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+# integer ALU-pipe operations/s: 64 a clock on each of 132 SMs at 1.98 GHz
+INT_OPS = 16.7e12
+# ALU-pipe operations of one threefry2x32 hash (csrc/rng.cu): its 20
+# rotates (funnel shifts) and 20 xors, which only that pipe runs; the adds
+# may issue on the FMA pipe (IMAD) and are not counted. And of turning a
+# hash's two words into a float: xor, shift, or (the subtract is a float)
+HASH_OPS = 40
+FLOAT_OPS = 3
 # operations of one (ray, triangle) test of csrc/tri_intersect.cu: six
 # 3-term dots (5 each), the flat test, t, u, v and the five compares; of
 # them the plane half (two dots, d - o.n, the flat test, the divide and the
@@ -420,9 +440,10 @@ def _graph_ms(torch, fn, calls=10):
     return statistics.median(times)
 
 
-def _bound(nbytes, ops):
-    """(least ms the card could take, what sets it)."""
-    b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+def _bound(nbytes, ops, peak=F32_OPS):
+    """(least ms the card could take, what sets it); peak: the operations
+    a second (INT_OPS for integer work)."""
+    b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -1079,6 +1100,7 @@ def main():
         BK.reset_launches()
         S.reset_launches()
         CK.reset_launches()
+        rng.reset_launches()
 
     def counts():
         return {**K.launches, **BK.launches, **S.launches, **CK.launches}
@@ -1115,9 +1137,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+    with concurrent.futures.ThreadPoolExecutor(6) as ex:
         for f in [ex.submit(fn) for fn in (K._lib, BK._lib, S._lib, CK._lib,
-                                           native._lib)]:
+                                           rng._lib, native._lib)]:
             f.result()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1154,6 +1176,44 @@ def main():
         f"s of which BVH build {bvh_s[0]:.2f} s "
         f"({kscene.bvh_node_pack.shape[0]} nodes), upload {upload_s:.3f} "
         f"s")
+
+    # ---- 2f. threefry kernels against their twins, at the main path's
+    # draws: checked and counted first of the phase-2 kernels (the
+    # profiler's count of a call's kernels comes before any CUDA graph: it
+    # misses kernels after one), timed on graphs after phase 2d ----
+    rkey = rng.fold_in(rng.PRNGKey(7), 3)
+    rg = torch.Generator(device=dev).manual_seed(5)
+    draws = []
+    for tag, n, D in (("cbox", 262144, 11), ("bunny", 640000, 15)):
+        # compacted lanes: original ids in no order
+        p = torch.randperm(n, generator=rg, device=dev).to(torch.int32)
+        draws.append((f"{tag} lane_uniform ({n}, {D})", "lane_uniform",
+                      lambda p=p, D=D: rng.lane_uniform(rkey, p, D),
+                      lambda p=p, D=D: rng.lane_uniform_plain(rkey, p, D),
+                      n * (D + 1), n * D, 4 * n * (D + 1)))
+    draws.append(("camera uniform (262144, 2)", "uniform",
+                  lambda: rng.uniform(rkey, (262144, 2), device=dev),
+                  lambda: rng.uniform_plain(rkey, (262144, 2), device=dev),
+                  2 * 262144, 2 * 262144, 4 * 2 * 262144))
+    rng_seen, rng_err = [], {}
+    for tag, wrapper, fn, plain, *_work in draws:
+        before = rng.launches[wrapper]
+        got, want = fn(), plain()
+        _require(rng.launches[wrapper] == before + 1,
+                 f"{tag}: the wrapper did not count one launch")
+        err = (got - want).abs().max().item()
+        _require(got.dtype == torch.float32 and torch.equal(got, want),
+                 f"{tag}: the kernel is not bit-equal to the twin (max abs "
+                 f"diff {err})")
+        rng_err[wrapper] = max(rng_err.get(wrapper, 0.0), err)
+        for call in range(1, 4):
+            names = kernels_in(torch, fn)
+            if len(names) == 1 and names[0].removeprefix("void ") \
+                    .startswith(rng.kernel_names[wrapper]):
+                break
+            _require(len(names) == 0 and call < 3,
+                     f"{tag}: one call launched {names}")
+        rng_seen.append(len(names))
 
     # ---- 2a. brute-force kernels against their twins, cbox 512^2 ----
     scene, cfg0, _ = C.load_scene(cbox_dir, "cbox.xml")
@@ -1997,6 +2057,25 @@ def main():
             for tag, nk, k, p, b, lb, mx, kb, ib in splat_rows)
         + f" [{card}]")
 
+    # ---- 2f, timed: the threefry draws on CUDA graphs ----
+    rng_rows = [
+        (tag, nk, _time_ms(torch, fn), _time_ms(torch, plain),
+         _graph_ms(torch, fn), _graph_ms(torch, plain),
+         _bound(nbytes, hashes * HASH_OPS + words * FLOAT_OPS, INT_OPS))
+        for (tag, _w, fn, plain, hashes, words, nbytes), nk
+        in zip(draws, rng_seen)]
+    # the JSON line takes each wrapper's first draw (cbox's, the camera's)
+    rng_json = {}
+    for (_tag, wrapper, *_rest), (_t, _n, k, p, kd, _pd, b) in zip(
+            draws, rng_rows):
+        rng_json.setdefault(wrapper, (k, p, kd, b))
+    say("phase 2f threefry kernels vs twin: bit-equal on every draw; "
+        + "; ".join(
+            f"{tag}: {nk} kernel a call, kernel {k:.4f} ms, plain "
+            f"{p:.4f} ms; device: kernel {kd:.4f}, plain {pd:.4f} ms; "
+            f"bound {b[0]:.4f} ms ({b[1]})"
+            for tag, nk, k, p, kd, pd, b in rng_rows) + f" [{card}]")
+
     # ---- 3. golden on the card ----
     golden = dict(anti_alias=False, stratified_sampling=False,
                   use_rr=False)             # tests/test_goldens.py:25-29
@@ -2163,7 +2242,7 @@ def main():
         """The path's wrappers swapped for their plain twins."""
         saved = (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
                  BK.bvh_closest_hit, BK.bvh_any_hit,
-                 B.splat_sorted_accumulate)
+                 B.splat_sorted_accumulate, rng.lane_uniform, rng.uniform)
         K.tri_closest_hit = K.tri_closest_hit_plain
         K.tri_any_hit = K.tri_any_hit_plain
         K.tri_track_hits = lambda s, o, d, f, k, all_null=False: \
@@ -2171,12 +2250,15 @@ def main():
         BK.bvh_closest_hit = BK.bvh_closest_hit_plain
         BK.bvh_any_hit = BK.bvh_any_hit_plain
         B.splat_sorted_accumulate = S.splat_sorted_accumulate_plain
+        rng.lane_uniform = rng.lane_uniform_plain
+        rng.uniform = rng.uniform_plain
         try:
             yield
         finally:
             (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
              BK.bvh_closest_hit, BK.bvh_any_hit,
-             B.splat_sorted_accumulate) = saved
+             B.splat_sorted_accumulate, rng.lane_uniform,
+             rng.uniform) = saved
 
     def timed_batch(r, spp):
         torch.cuda.synchronize()
@@ -2194,7 +2276,7 @@ def main():
     r.render_batch(1)                         # warm-up sample, not timed
     reset()
     dt = timed_batch(r, SPP)
-    launches = counts()
+    launches, rlaunches = counts(), dict(rng.launches)
     image = r.image()
     _require(image.shape == (cfg.h, cfg.w, 3), f"image shape {image.shape}")
     _require(bool(np.isfinite(image).all()) and image.mean() > 0.05,
@@ -2202,6 +2284,10 @@ def main():
     want = {**none, "tri_closest_hit": SPP * cfg.max_bounce,
             "tri_any_hit": SPP * cfg.max_bounce * cfg.num_shadow_ray}
     _require(launches == want, f"cbox launch counts {launches}, want {want}")
+    # a threefry draw a bounce and the camera's, each spp
+    rwant = {"lane_uniform": SPP * cfg.max_bounce, "uniform": SPP}
+    _require(rlaunches == rwant,
+             f"cbox threefry launch counts {rlaunches}, want {rwant}")
     r_twin = pt.Renderer(scene, cfg, seed=0)
     with twins():
         r_twin.render_batch(1)
@@ -2214,7 +2300,7 @@ def main():
         f"{1e3 * dt_twin / SPP:.2f} ms/spp, "
         f"{rays * SPP / dt_twin / 1e6:.3f} Mrays/s [{card}]; image mean "
         f"{image.mean():.6f}, max abs diff to twins {twin_err:.3g}; "
-        f"launches {_shown(launches)}")
+        f"launches {_shown(launches)}, threefry {rlaunches}")
 
     # ---- 5. knot290k main path at full size, auto-compaction ----
     r = pt.Renderer(kscene, kcfg, seed=0)
@@ -2676,7 +2762,7 @@ def main():
     r.render_batch(1)                         # warm-up sample (and probe)
     reset()
     dt_bp = timed_batch(r, BUNNY_PT_SPP)
-    bplaunches = counts()
+    bplaunches, bprlaunches = counts(), dict(rng.launches)
     bp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     bpimage = r.image()
     _require(bpimage.shape == (bucfg.h, bucfg.w, 3), f"shape {bpimage.shape}")
@@ -2689,6 +2775,10 @@ def main():
             * bucfg.num_shadow_ray}
     _require(bplaunches == want, f"bunny PT launch counts {bplaunches}, "
              f"want {want}")
+    rwant = {"lane_uniform": BUNNY_PT_SPP * bucfg.max_bounce,
+             "uniform": BUNNY_PT_SPP}
+    _require(bprlaunches == rwant,
+             f"bunny PT threefry launch counts {bprlaunches}, want {rwant}")
     bp_seen, bp_calls = profiled_launches(lambda: r.render_batch(1),
                                           "bunny PT", warm=True)
     _require(bp_seen == {k: n // BUNNY_PT_SPP
@@ -2726,6 +2816,7 @@ def main():
         "hold; launches per spp "
         + ", ".join(f"{k} {n // BUNNY_PT_SPP}"
                     for k, n in _shown(bplaunches).items())
+        + f", threefry {bprlaunches} in all"
         + f" (profiler, one spp: {bp_seen}, spp profiled {bp_calls}); B5b "
         f"on the first shadow rays of a pass, bit-equal: {bp_b5b[0]} rays "
         f"({bp_b5b[1]} live, "
@@ -3458,7 +3549,15 @@ def main():
          "plain_ms": times[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": times[k][2] if len(times[k]) > 2 else None}
-        for k, (src, rep) in KERNELS.items()]}))
+        for k, (src, rep) in KERNELS.items()] + [
+        {"name": rng.kernel_names[w], "route": "cuda",
+         "source": "adapt_tpu_torch/csrc/rng.cu",
+         "replaces": "none (jax.random, lowered by XLA)",
+         "launches": rlaunches[w] + bprlaunches[w],
+         "max_abs_err": rng_err[w], "ms": k,
+         "device_ms": kd, "plain_ms": p, "bound_ms": b[0], "bound_by": b[1],
+         "library_ms": None}
+        for w, (k, p, kd, b) in rng_json.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
