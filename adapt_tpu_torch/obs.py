@@ -9,7 +9,8 @@ Recording is on while a torch.profiler session is active
 (`torch.autograd._profiler_enabled()`) or inside `recording()`.
 Otherwise `span()` returns one shared no-op context after one flag test:
 it allocates no span, launches no device operation and reads nothing
-back, and `count`, `lanes` and `annotate` return after the same test.
+back, and `count`, `lanes`, `tally` and `annotate` return after the
+same test.
 Set-up spans (`setup_span`: a handful a process) are recorded always.
 Under the profiler each recorded span also opens a profiler range of its
 name (`torch.profiler.record_function`, in its C++ form), so a chrome
@@ -28,7 +29,8 @@ anchor and the clock does not drift across a long run. A span's interval
 encloses its profiler event.
 
 Span names: `setup.*` (set-up), `render.*` (a pass and its camera rays),
-`pt.*`, `vpt.*`, `bdpt.*` (the integrators' loops and connections),
+`pt.*`, `vpt.*`, `bdpt.*` (the integrators' loops and connections;
+`bdpt.bin`, with its strategy case and lanes, a transient binning),
 `rng.*`, `isect.*`, `kernel.<wrapper>` (a hand-written kernel's launch on
 CUDA), `shade.*`, `light.*`, `vol.*`. None equals a range name the
 benchmark sets around calls into the program (port_bench/drivers), nor
@@ -39,8 +41,12 @@ wrappers' own dicts, counted always), `build_seconds` (ops/_build.py),
 `rng.words` (uniforms drawn), `lanes.issued` (the wavefront's width, each
 bounce), `lanes.live` (an int64 device accumulator of each bounce's live
 lanes: added on the device, read once by `export()`), `compact.splits`,
-`compact.overflows`, and by site `host.reads` and `host.read_wait_ns`
-(every deliberate device-to-host read goes through `host_read`).
+`compact.overflows`, `transient.offered` (the lanes BDPT's transient
+binning is offered, `bdpt.bin`'s `lanes`), `transient.binned` (the
+histogram entries it keeps: a device counter, `tally`, one int64 slot
+added on the device, read once by `export()`), and by site `host.reads`
+and `host.read_wait_ns` (every deliberate device-to-host read goes
+through `host_read`).
 """
 from __future__ import annotations
 
@@ -128,6 +134,7 @@ class Tracer:
             self.reads = {}
             self.wait_ns = {}
             self.live = {}            # device -> int64 accumulators
+            self.tallies = {}         # (name, device) -> one int64 slot
 
     def _stack(self):
         st = getattr(self._local, "stack", None)
@@ -233,6 +240,20 @@ def lanes(active):
     acc[-1][:n].add_(active)
 
 
+def tally(name, mask):
+    """A device counter: the True entries of `mask` added into the int64
+    slot `name` on mask's device (a sum and an add, no read; `export()`
+    reads each slot once)."""
+    if not (TRACER.forced or _profiling()):
+        return
+    with TRACER._lock:
+        slot = TRACER.tallies.get((name, mask.device))
+        if slot is None:
+            slot = TRACER.tallies[(name, mask.device)] = torch.zeros(
+                1, dtype=torch.int64, device=mask.device)
+    slot.add_(mask.sum())
+
+
 def host_read(t, site):
     """`t` on the host (`t.cpu()`): a deliberate device-to-host read,
     counted and timed by site while recording."""
@@ -278,6 +299,7 @@ def export() -> dict:
         closed, counts = list(t.closed), dict(t.counts)
         reads, wait_ns = dict(t.reads), dict(t.wait_ns)
         live, dropped = list(t.live.values()), t.dropped
+        tallies = dict(t.tallies)
     counters = {
         "launches": {m.__name__.rsplit(".", 1)[-1]: dict(m.launches)
                      for m in (intersect_kernels, bvh_kernels, splat,
@@ -289,6 +311,10 @@ def export() -> dict:
                           for a in acc),
         "compact.splits": counts.get("compact.splits", 0),
         "compact.overflows": counts.get("compact.overflows", 0),
+        "transient.offered": counts.get("transient.offered", 0),
+        "transient.binned": sum(int(v.item()) for (n, _d), v
+                                in tallies.items()
+                                if n == "transient.binned"),
         "host.reads": reads, "host.read_wait_ns": wait_ns}
     spans = [{"name": n, "id": i, "parent": p, "pass": c, "start_ns": s,
               "end_ns": e, "attrs": dict(a)}

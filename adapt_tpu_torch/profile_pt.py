@@ -11,6 +11,8 @@ by the program's own spans (adapt_tpu_torch/obs.py).
         --renderer bdpt --spp 1 --runs 2
     python -m adapt_tpu_torch.profile_pt scenes/cbox cbox-rgbvol.xml \
         --renderer vpt --spp 1
+    python -m adapt_tpu_torch.profile_pt scenes/trans cbox-point.xml \
+        --renderer bdpt --spp 1 --runs 1
 
 Loads the scene on the CUDA device, renders one warm-up spp (which also
 runs the auto-compaction probe), times `--runs` unprofiled render_batch
@@ -229,7 +231,8 @@ def main(argv=None):
            if c["lanes.issued"] else None,
            "counters_per_spp": {k: c[k] / spp for k in (
                "rng.words", "lanes.issued", "compact.splits",
-               "compact.overflows")},
+               "compact.overflows", "transient.offered",
+               "transient.binned")},
            "dropped_spans": rec["dropped"],
            "top_kernels_ms_per_spp": dict(top),
            "own_kernels_ms_per_spp": own}

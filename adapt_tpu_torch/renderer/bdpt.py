@@ -1000,6 +1000,51 @@ def scan_form(n_rows, N):
     return -(-n_rows // Q) > FLAT_MAX_CHUNKS
 
 
+@obs.spanned("bdpt.bin", lambda cfg, bins, cnts, case, radiance, *_:
+             {"case": case, "lanes": radiance.shape[0]})
+def bin_transient(cfg, bins, cnts, case, radiance, raster, p_time, n_rows,
+                  warp_off, N, full):
+    """Transient binning of a chunk of `n_rows` strategies over N lanes
+    into the pass's histograms `bins` (N, t_bins, 3) and `cnts` (N,
+    t_bins), in place (a plain accumulating index_put_: on the card its
+    float order varies from run to run). A t == 1 chunk bins at its raster
+    targets (full: a full-frame pass; else crop-local, as
+    `bdpt_pass_core` says), any other chunk at its own lanes. cfg.unwarp
+    subtracts the camera first-leg time (bdpt.py:42-46)."""
+    obs.count("transient.offered", radiance.shape[0])
+    if cfg.unwarp:
+        p_time = torch.clamp(p_time - warp_off, min=0.0)
+    tid = torch.floor((p_time - cfg.t_min) / cfg.t_interval) \
+        .to(torch.int64)
+    in_range = (p_time > cfg.t_min) \
+        & (p_time < cfg.t_min + cfg.t_interval * cfg.t_bins) \
+        & (radiance.amax(dim=-1) > 0.0)
+    if case == "t1":
+        if full:
+            target = raster.long()
+        else:
+            # full-film raster -> crop-local bin index (raster >= 0
+            # implies inside the crop window, _rasterize_pinhole)
+            ch_ = cfg.end_y - cfg.start_y
+            pi = torch.div(raster, cfg.h, rounding_mode="floor")
+            pj = raster % cfg.h
+            target = ((pi - cfg.start_x) * ch_
+                      + (pj - cfg.start_y)).long()
+        keep = in_range & (raster >= 0)
+    else:
+        target = torch.arange(N, device=radiance.device).repeat(n_rows)
+        keep = in_range
+    # out-of-range targets (the JAX package's `drop`) are dropped
+    keep = keep & (target < N) & (target >= 0)
+    obs.tally("transient.binned", keep)
+    tid = tid.clamp(0, cfg.t_bins - 1)
+    sel = keep.nonzero()[:, 0]
+    tg, tb = target[sel], tid[sel]
+    bins.index_put_((tg, tb), radiance[sel], accumulate=True)
+    cnts.index_put_((tg, tb), torch.ones_like(tg, dtype=torch.int32),
+                    accumulate=True)
+
+
 def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
     """One BDPT pass, optionally restricted to the crop window's pixels.
 
@@ -1039,41 +1084,6 @@ def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
         cnts = torch.zeros((N, cfg.t_bins), dtype=torch.int32, device=dev)
     groups = _strategy_groups(cfg, max_bnc)
 
-    def accum_transient(case, radiance, raster, p_time, n_rows, warp_off):
-        """Transient binning of a chunk, in place (a plain accumulating
-        index_put_: on the card its float order varies from run to run).
-        cfg.unwarp subtracts the camera first-leg time (bdpt.py:42-46)."""
-        if cfg.unwarp:
-            p_time = torch.clamp(p_time - warp_off, min=0.0)
-        tid = torch.floor((p_time - cfg.t_min) / cfg.t_interval) \
-            .to(torch.int64)
-        in_range = (p_time > cfg.t_min) \
-            & (p_time < cfg.t_min + cfg.t_interval * cfg.t_bins) \
-            & (radiance.amax(dim=-1) > 0.0)
-        if case == "t1":
-            if full:
-                target = raster.long()
-            else:
-                # full-film raster -> crop-local bin index (raster >= 0
-                # implies inside the crop window, _rasterize_pinhole)
-                ch_ = cfg.end_y - cfg.start_y
-                pi = torch.div(raster, cfg.h, rounding_mode="floor")
-                pj = raster % cfg.h
-                target = ((pi - cfg.start_x) * ch_
-                          + (pj - cfg.start_y)).long()
-            keep = in_range & (raster >= 0)
-        else:
-            target = torch.arange(N, device=dev).repeat(n_rows)
-            keep = in_range
-        # out-of-range targets (the JAX package's `drop`) are dropped
-        keep = keep & (target < N) & (target >= 0)
-        tid = tid.clamp(0, cfg.t_bins - 1)
-        sel = keep.nonzero()[:, 0]
-        tg, tb = target[sel], tid[sel]
-        bins.index_put_((tg, tb), radiance[sel], accumulate=True)
-        cnts.index_put_((tg, tb), torch.ones_like(tg, dtype=torch.int32),
-                        accumulate=True)
-
     def splat_sorted(film, ii, rr):
         """ONE pixel-sorted film splat for all t = 1 strategies: a stable
         sort by pixel, the rgb gathered by its permutation, then kernel B4
@@ -1112,11 +1122,12 @@ def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
             if cfg.transient and scan:  # one strategy at a time (:1440)
                 for k in range(len(rows)):
                     lanes = slice(k * N, (k + 1) * N)
-                    accum_transient(case, radiance[lanes], raster[lanes],
-                                    p_time[lanes], 1, warp_off[lanes])
+                    bin_transient(cfg, bins, cnts, case, radiance[lanes],
+                                  raster[lanes], p_time[lanes], 1,
+                                  warp_off[lanes], N, full)
             elif cfg.transient:
-                accum_transient(case, radiance, raster, p_time, len(rows),
-                                warp_off)
+                bin_transient(cfg, bins, cnts, case, radiance, raster,
+                              p_time, len(rows), warp_off, N, full)
             del radiance, raster, p_time, warp_off
         if case == "t1":
             color_splat = splat_sorted(color_splat, torch.cat(ii_all),

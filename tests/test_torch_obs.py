@@ -103,6 +103,38 @@ def test_a_recorded_pass(cbox):
     assert 0 < c["lanes.live"] < c["lanes.issued"]
 
 
+@pytest.fixture(scope="module")
+def trans():
+    scene, cfg, _ = load_scene(SCENE_DIR + "/trans/", "cbox-point.xml",
+                               device="cpu")
+    return scene, _small(cfg, max_bounce=3, t_bins=8, t_interval=4.0)
+
+
+def test_transient_counters(trans):
+    """Off, the binning's counters stay 0 and allocate nothing (so launch
+    nothing); under recording, a `bdpt.bin` span a group (4 groups of 3
+    strategies at 3 bounces, each one chunk), `transient.offered` the
+    lanes offered (the spans' `lanes`) and `transient.binned` the entries
+    kept: one count each in the pass's histogram of counts."""
+    scene, cfg = trans
+    bdpt.BDPT(scene, cfg, seed=11).render()
+    out = obs.export()
+    assert out["spans"] == [] and obs.TRACER.tallies == {}
+    c = out["counters"]
+    assert (c["transient.offered"], c["transient.binned"]) == (0, 0)
+    r = bdpt.BDPT(scene, cfg, seed=11)
+    with obs.recording():
+        r.render()
+    out = obs.export()
+    bins = [s for s in out["spans"] if s["name"] == "bdpt.bin"]
+    N = cfg.w * cfg.h
+    assert [(s["attrs"]["case"], s["attrs"]["lanes"]) for s in bins] \
+        == [("s0", 3 * N), ("t1", 3 * N), ("s1", 3 * N), ("gen", 3 * N)]
+    c = out["counters"]
+    assert c["transient.offered"] == 12 * N
+    assert c["transient.binned"] == int(r.time_cnts.sum()) > 0
+
+
 def _render(make, passes=1):
     r = make()
     for _ in range(passes):
