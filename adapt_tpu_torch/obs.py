@@ -38,15 +38,18 @@ benchmark sets around calls into the program (port_bench/drivers), nor
 
 Counters (all in `export()["counters"]`): `launches` (the kernel
 wrappers' own dicts, counted always), `build_seconds` (ops/_build.py),
-`rng.words` (uniforms drawn), `lanes.issued` (the wavefront's width, each
-bounce), `lanes.live` (an int64 device accumulator of each bounce's live
-lanes: added on the device, read once by `export()`), `compact.splits`,
-`compact.overflows`, `transient.offered` (the lanes BDPT's transient
-binning is offered, `bdpt.bin`'s `lanes`), `transient.binned` (the
-histogram entries it keeps: a device counter, `tally`, one int64 slot
-added on the device, read once by `export()`), and by site `host.reads`
-and `host.read_wait_ns` (every deliberate device-to-host read goes
-through `host_read`).
+`rng.words` (uniforms drawn), `shade.kernel` and `shade.eager` (the
+shading calls that took the kernel, and the plain route on CPU tensors:
+ops/shade_kernels.py `route`), `lanes.issued` (the
+wavefront's width, each bounce), `lanes.live` (an int64 device
+accumulator of each bounce's live lanes: added on the device, read once
+by `export()`), `compact.splits`, `compact.overflows`,
+`transient.offered` (the lanes BDPT's transient binning is offered,
+`bdpt.bin`'s `lanes`), `transient.binned` (the histogram entries it
+keeps: a device counter, `tally`, one int64 slot added on the device,
+read once by `export()`), and by site `host.reads` and
+`host.read_wait_ns` (every deliberate device-to-host read goes through
+`host_read`).
 """
 from __future__ import annotations
 
@@ -293,7 +296,7 @@ def export() -> dict:
     (one read each)."""
     from . import rng
     from .ops import _build, bvh_kernels, cluster_kernels, intersect_kernels
-    from .ops import splat
+    from .ops import shade_kernels, splat
     t = TRACER
     with t._lock:
         closed, counts = list(t.closed), dict(t.counts)
@@ -303,9 +306,11 @@ def export() -> dict:
     counters = {
         "launches": {m.__name__.rsplit(".", 1)[-1]: dict(m.launches)
                      for m in (intersect_kernels, bvh_kernels, splat,
-                               cluster_kernels, rng)},
+                               cluster_kernels, rng, shade_kernels)},
         "build_seconds": dict(_build.build_seconds),
         "rng.words": counts.get("rng.words", 0),
+        "shade.kernel": counts.get("shade.kernel", 0),
+        "shade.eager": counts.get("shade.eager", 0),
         "lanes.issued": counts.get("lanes.issued", 0),
         "lanes.live": sum(int(a.sum().item()) for acc in live
                           for a in acc),

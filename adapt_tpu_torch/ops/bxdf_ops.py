@@ -9,7 +9,11 @@ whole wavefront; the dispatcher evaluates only the models present in the
 scene (cfg.brdf_types, cfg.bsdf_types) and blends with masks; BxDF
 mixture lanes are overlaid on that (ops/mixture_ops.py) where the caller
 passes the scene. Operations follow the JAX package's order, so results
-round as it does.
+round as it does. On a CUDA device the unified dispatch `surface_eval`,
+`surface_sample` and `surface_pdf` runs in one hand-written kernel a call
+(ops/shade_kernels.py), which gives the plain version's bits
+(`surface_*_plain`, the eager code below); `shade_kernels.route` says
+which calls it takes.
 
 Conventions (as in the reference):
   incid : ray direction pointing INTO the surface (camera->surface)
@@ -25,6 +29,7 @@ import torch
 
 from .. import obs
 from ..constants import BRDFTag, BSDFTag, INV_PI, TRANSPORT_RAD, TRANSPORT_UNI
+from . import shade_kernels
 from .geo_optics import (fresnel_equation, fresnel_eval, inci_reflect_dir,
                          refraction_cos2, schlick_fresnel, snell_refraction)
 from .math3d import (axis_vec, convert_to_raw, cross, delocalize_rotate, dot,
@@ -689,17 +694,68 @@ def _mixture_lanes(scene, it):
     return mix_id.clamp(min=0), (it.obj_id >= 0) & (mix_id >= 0)
 
 
+def _mixture_eval(cfg, it, incid, out, world_ior, mode, scene, res):
+    """res with the BxDF-mixture lanes' eval overlaid (it: after the
+    two-sided flip)."""
+    from . import mixture_ops
+    mid, is_mix = _mixture_lanes(scene, it)
+    m_res = mixture_ops.mixture_eval(scene, cfg, scene.mixture, mid, it,
+                                     incid, out, world_ior, mode)
+    return torch.where(is_mix[:, None], m_res, res)
+
+
+def _mixture_sample(cfg, it, incid, u, world_ior, mode, scene, out, spec,
+                    pdf, is_specular):
+    """The sample with the BxDF-mixture lanes overlaid."""
+    from . import mixture_ops
+    mid, is_mix = _mixture_lanes(scene, it)
+    m_out, m_spec, m_pdf, m_del = mixture_ops.mixture_sample(
+        scene, cfg, scene.mixture, mid, it, incid, u, world_ior, mode)
+    return (torch.where(is_mix[:, None], m_out, out),
+            torch.where(is_mix[:, None], m_spec, spec),
+            torch.where(is_mix, m_pdf, pdf),
+            torch.where(is_mix, m_del, is_specular))
+
+
+def _mixture_pdf(cfg, it, outdir, incid, world_ior, scene, pdf):
+    """pdf with the BxDF-mixture lanes overlaid."""
+    from . import mixture_ops
+    mid, is_mix = _mixture_lanes(scene, it)
+    m_pdf = mixture_ops.mixture_pdf(scene, cfg, scene.mixture, mid, it,
+                                    outdir, incid, world_ior)
+    return torch.where(is_mix, m_pdf, pdf)
+
+
+def _has_mixture(scene):
+    return scene is not None and scene.mixture is not None
+
+
 def _arms(cfg, mat, *_, scene=None, **__):
     """A shading span's attributes: lanes, and the material arms issued
     (each BRDF and BSDF kind, and the mixture overlay)."""
     return {"n": mat.kd.shape[0],
             "arms": len(cfg.brdf_types) + len(cfg.bsdf_types)
-            + int(scene is not None and scene.mixture is not None)}
+            + int(_has_mixture(scene))}
 
 
 @obs.spanned("shade.eval", _arms)
 def surface_eval(cfg, mat, it, incid, out, world_ior, mode=TRANSPORT_UNI,
                  scene=None):
+    """surface_eval_plain, in one CUDA kernel where shade_kernels.route
+    allows."""
+    if not shade_kernels.route(mat, it, (incid, out), world_ior):
+        return surface_eval_plain(cfg, mat, it, incid, out, world_ior, mode,
+                                  scene)
+    res = shade_kernels.surface_eval(cfg, mat, it, incid, out, world_ior,
+                                     mode)
+    if _has_mixture(scene):
+        res = _mixture_eval(cfg, _apply_two_sides(cfg, mat, it, incid),
+                            incid, out, world_ior, mode, scene, res)
+    return res
+
+
+def surface_eval_plain(cfg, mat, it, incid, out, world_ior,
+                       mode=TRANSPORT_UNI, scene=None):
     """PathTracer.eval for surface interactions (path_tracer.py:459-479).
 
     mode (TRANSPORT_RAD / _IMP / _UNI) scales the refracting BSDFs'
@@ -715,20 +771,31 @@ def surface_eval(cfg, mat, it, incid, out, world_ior, mode=TRANSPORT_UNI,
         res = torch.where(mat.is_bsdf[:, None],
                           bsdf_eval(cfg, mat, it, incid, out, world_ior,
                                     mode), res)
-    if scene is not None and scene.mixture is not None:
-        from . import mixture_ops
-        mid, is_mix = _mixture_lanes(scene, it)
-        m_res = mixture_ops.mixture_eval(scene, cfg, scene.mixture, mid, it,
-                                         incid, out, world_ior, mode)
-        res = torch.where(is_mix[:, None], m_res, res)
+    if _has_mixture(scene):
+        res = _mixture_eval(cfg, it, incid, out, world_ior, mode, scene, res)
     return res
 
 
 @obs.spanned("shade.sample", _arms)
 def surface_sample(cfg, mat, it, incid, u, world_ior, mode=TRANSPORT_UNI,
                    scene=None):
+    """surface_sample_plain, in one CUDA kernel where shade_kernels.route
+    allows."""
+    if not shade_kernels.route(mat, it, (incid, u), world_ior):
+        return surface_sample_plain(cfg, mat, it, incid, u, world_ior, mode,
+                                    scene)
+    res = shade_kernels.surface_sample(cfg, mat, it, incid, u, world_ior,
+                                       mode)
+    if _has_mixture(scene):
+        res = _mixture_sample(cfg, _apply_two_sides(cfg, mat, it, incid),
+                              incid, u, world_ior, mode, scene, *res)
+    return res
+
+
+def surface_sample_plain(cfg, mat, it, incid, u, world_ior,
+                         mode=TRANSPORT_UNI, scene=None):
     """PathTracer.sample_new_ray surface path (path_tracer.py:447-457).
-    mode, scene: see surface_eval."""
+    mode, scene: see surface_eval_plain."""
     it = _apply_two_sides(cfg, mat, it, incid)
     N = incid.shape[0]
     out = axis_vec(1, incid.device).expand(N, 3)
@@ -750,22 +817,29 @@ def surface_sample(cfg, mat, it, incid, u, world_ior, mode=TRANSPORT_UNI,
         spec = torch.where(sel[:, None], s_spec, spec)
         pdf = torch.where(sel, s_pdf, pdf)
         is_specular = torch.where(sel, s_del, is_specular)
-    if scene is not None and scene.mixture is not None:
-        from . import mixture_ops
-        mid, is_mix = _mixture_lanes(scene, it)
-        m_out, m_spec, m_pdf, m_del = mixture_ops.mixture_sample(
-            scene, cfg, scene.mixture, mid, it, incid, u, world_ior, mode)
-        out = torch.where(is_mix[:, None], m_out, out)
-        spec = torch.where(is_mix[:, None], m_spec, spec)
-        pdf = torch.where(is_mix, m_pdf, pdf)
-        is_specular = torch.where(is_mix, m_del, is_specular)
+    if _has_mixture(scene):
+        return _mixture_sample(cfg, it, incid, u, world_ior, mode, scene,
+                               out, spec, pdf, is_specular)
     return out, spec, pdf, is_specular
 
 
 @obs.spanned("shade.pdf", _arms)
 def surface_pdf(cfg, mat, it, outdir, incid, world_ior, scene=None):
+    """surface_pdf_plain, in one CUDA kernel where shade_kernels.route
+    allows."""
+    if not shade_kernels.route(mat, it, (outdir, incid), world_ior):
+        return surface_pdf_plain(cfg, mat, it, outdir, incid, world_ior,
+                                 scene)
+    pdf = shade_kernels.surface_pdf(cfg, mat, it, outdir, incid, world_ior)
+    if _has_mixture(scene):
+        pdf = _mixture_pdf(cfg, _apply_two_sides(cfg, mat, it, incid),
+                           outdir, incid, world_ior, scene, pdf)
+    return pdf
+
+
+def surface_pdf_plain(cfg, mat, it, outdir, incid, world_ior, scene=None):
     """PathTracer.surface_pdf (path_tracer.py:481-494). scene: see
-    surface_eval."""
+    surface_eval_plain."""
     it = _apply_two_sides(cfg, mat, it, incid)
     pdf = torch.zeros(incid.shape[:-1], device=incid.device)
     if cfg.brdf_types:
@@ -774,10 +848,6 @@ def surface_pdf(cfg, mat, it, outdir, incid, world_ior, scene=None):
     if cfg.bsdf_types:
         pdf = torch.where(mat.is_bsdf,
                           bsdf_pdf(cfg, mat, it, outdir, incid, world_ior), pdf)
-    if scene is not None and scene.mixture is not None:
-        from . import mixture_ops
-        mid, is_mix = _mixture_lanes(scene, it)
-        m_pdf = mixture_ops.mixture_pdf(scene, cfg, scene.mixture, mid, it,
-                                        outdir, incid, world_ior)
-        pdf = torch.where(is_mix, m_pdf, pdf)
+    if _has_mixture(scene):
+        pdf = _mixture_pdf(cfg, it, outdir, incid, world_ior, scene, pdf)
     return pdf

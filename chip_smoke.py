@@ -97,8 +97,11 @@ non-zero exit and no result line.
 4. cbox main path: Renderer on cbox 512^2 at 8 bounces (bench.py's
    setting), render_batch of a few spp with the launch counts read around
    it (the threefry kernels: one lane_uniform a bounce and one uniform
-   for the camera, each spp); the image must be finite with mean > 0.05 and match the same render
-   with the twins in place of the kernels under the goldens' bounds;
+   for the camera, each spp; the shading kernels: a shade_sample a
+   bounce, a shade_eval and a shade_pdf a shadow ray, each spp); the
+   image must be finite with mean > 0.05 and match the same render
+   with the twins in place of the kernels under the goldens' bounds
+   (the twins: every kernel's plain version, the shading arms' too);
 5. knot290k main path: Renderer on knot290k.xml at its own settings (512^2,
    12 bounces, auto-compaction): the derived schedule, one warm-up spp,
    then render_batch of a few spp with 12 launches of each BVH kernel per
@@ -165,6 +168,7 @@ non-zero exit and no result line.
 14. bunny PT: Renderer on bunny.xml at its own settings (2 shadow rays,
    auto-compaction): 10 BVH closest hits and 20 BVH any hits per spp (by
    the wrappers and the profiler), 10 lane_uniform and 1 uniform threefry
+   launches per spp, 10 shade_sample, 20 shade_eval and 20 shade_pdf
    launches per spp, peak memory, the BVH any hit on the
    first shadow rays of one pass, bit-equal to its twin, with device time
    and bound; the image finite, at 64^2 (3 bounces) equal to the twins'
@@ -218,7 +222,9 @@ non-zero exit and no result line.
    radiance / d (albedo scale, emitter scale) within 2% of central
    differences (h 1e-2), g_emit == loss within 1e-5, the (O,3) mat_kd
    gradient finite, >= -1e-6, its largest entry within 3% of its central
-   difference; B1 and B2 16 launches each in the forward, the profiler's
+   difference; B1 and B2 16 launches each in the forward, and the three
+   shading kernels 16 each (inputs that need a gradient take them; the
+   backward is the plain arms'), the profiler's
    counts of a forward and backward equal the wrappers'; forward and
    backward ms and peak memory; at 64^2 (3 bounces) the same gradients
    with the twins in place, within 1e-6 relative (1e-7 absolute for the
@@ -248,7 +254,21 @@ non-zero exit and no result line.
    the twins' render; then `python -m adapt_tpu_torch.render --type pt`
    on trans/foam.xml (12 null-BSDF triangles under a collimated light,
    which gives nothing under PT with MIS) for one pass, its image
-   written.
+   written;
+25. the shading kernels (csrc/shade.cu; `shade_phase`, which also runs
+   alone: `python3 -c "import chip_smoke; chip_smoke.shade_phase()"`):
+   the first `surface_sample`, `surface_eval` and `surface_pdf` call of
+   one PT pass, recorded at their entry points, on cbox 512^2 (262,144
+   lanes) and on bunny.xml 800^2 (640,000 lanes: textured k_d, glass, the
+   Fresnel blend, 2 shadow rays): each call again through its entry
+   point (one kernel launch) bit-equal to the plain version
+   (`surface_*_plain`) on the same arguments, with the max abs
+   difference; single-call ms of both, device ms (a CUDA graph of 10
+   calls over copies of the arguments that together pass twice the L2,
+   so that each call reads from HBM) and the byte bound at HBM_BPS of
+   what each lane's arm reads and writes (`shade_bytes`). The JSON line's
+   `launches` of the three kernels count the main paths' calls of phases
+   4 and 14.
 Each phase's line ends with its wall time in seconds.
 Every phase that loads a textured scene fails unless each texture it
 names loaded (`load_textured`), and every phase that loads a grid volume
@@ -1008,6 +1028,192 @@ def load_textured(directory, file, device="cuda"):
     return scene, cfg, rows
 
 
+def shade_calls(bxdf_ops, run):
+    """{"sample" | "eval" | "pdf": (args, kwargs)} of the first call of
+    each of bxdf_ops's surface_sample, surface_eval and surface_pdf while
+    run() runs, recorded at those entry points."""
+    calls, saved = {}, {}
+    for name in ("sample", "eval", "pdf"):
+        fn = saved[name] = getattr(bxdf_ops, "surface_" + name)
+
+        def record(*a, _fn=fn, _name=name, **kw):
+            calls.setdefault(_name, (a, kw))
+            return _fn(*a, **kw)
+        setattr(bxdf_ops, "surface_" + name, record)
+    try:
+        run()
+    finally:
+        for name, fn in saved.items():
+            setattr(bxdf_ops, "surface_" + name, fn)
+    return calls
+
+
+# the material rows each arm of csrc/shade.cu reads in each call (dc: k_d,
+# or the albedo texel where the lane has one), by (is BSDF, tag)
+SHADE_READS = {
+    (False, 0): ("dc ks kg", "dc ks kg", ""),              # blinn-phong
+    (False, 1): ("dc", "dc", ""),                          # lambertian
+    (False, 2): ("", "dc", ""),                            # specular
+    (False, 3): ("dc ks kg", "dc ks kg", "kg"),            # GGX
+    (False, 4): ("dc ks kg", "dc ks kg mean", "dc ks mean"),  # mod. Phong
+    (False, 5): ("dc ks kg", "dc ks kg", "kg"),            # Fresnel blend
+    (False, 6): ("dc kg", "dc kg", ""),                    # Oren-Nayar
+    (False, 7): ("dc ks kg", "dc ks kg", "kg"),            # thin coat
+    (True, -1): ("", "", ""),                              # NULL
+    (True, 0): ("dc ior", "dc ior", "ior"),                # det-refraction
+    (True, 1): ("dc ior", "dc ior", "ior"),                # lambertian
+}
+SHADE_ROW = {"ks": 12, "kg": 12, "mean": 12, "ior": 4}
+
+
+def shade_bytes(torch, name, mat, it):
+    """Bytes a shading kernel call reads and writes, each once, counting
+    for each lane only what its arm reads: kind and BSDF flag (5), the
+    arriving ray (12), the call's own operand and outputs (eval: the
+    scattered direction 12 and the throughput 12; sample: the 6 uniforms
+    24, direction 12, throughput 12, pdf 4 and flag 1; pdf: the direction
+    12 and the pdf 4), the shading normal (12, but for NULL lanes), the
+    geometric normal (12, BRDF lanes in eval and sample: the hemisphere
+    gate and the leak guard), and the arm's material rows (SHADE_READS:
+    the albedo texel 12 where the scene is textured, then k_d 12 where the
+    lane has no texel)."""
+    col = ("eval", "sample", "pdf").index(name)
+    own = {"eval": 24, "sample": 53, "pdf": 16}[name]
+    kind, bsdf = mat.kind.long(), mat.is_bsdf
+    per = torch.full(kind.shape, 5 + 12 + own, dtype=torch.int64,
+                     device=kind.device)
+    no_tex = torch.ones_like(bsdf) if it.tex is None else it.tex[:, 0] < 0
+    for (is_bsdf, tag), reads in SHADE_READS.items():
+        lane = (bsdf == is_bsdf) & (kind == tag)
+        b = 12 * (tag != -1 or not is_bsdf)
+        b += 12 * (not is_bsdf and name != "pdf")
+        b += sum(SHADE_ROW[f] for f in reads[col].split() if f != "dc")
+        add = torch.where(lane, b, 0)
+        if "dc" in reads[col].split():
+            add = add + torch.where(lane, 12 * no_tex.long()
+                                    + 12 * (it.tex is not None), 0)
+        per += add
+    return int(per.sum())
+
+
+def _copies(torch, x):
+    """x with every tensor in it copied (dataclasses field by field)."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _copies(torch, getattr(x, f.name))
+            for f in dataclasses.fields(x)
+            if torch.is_tensor(getattr(x, f.name))
+            or dataclasses.is_dataclass(getattr(x, f.name))})
+    if isinstance(x, tuple):
+        return tuple(_copies(torch, y) for y in x)
+    return x
+
+
+def _tensor_bytes(torch, x):
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return sum(_tensor_bytes(torch, getattr(x, f.name))
+                   for f in dataclasses.fields(x))
+    if isinstance(x, (tuple, list)):
+        return sum(_tensor_bytes(torch, y) for y in x)
+    return 0
+
+
+L2_BYTES = 50 * 2 ** 20      # an H100's L2
+
+
+def shade_phase(card=None):
+    """Phase 25 (module docstring); returns {kernel name: (max abs
+    difference, kernel ms, device ms, plain ms, bound)} of the bunny's
+    calls, the difference over both scenes."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from adapt_tpu_torch import rng
+    from adapt_tpu_torch.ops import bxdf_ops, shade_kernels as SK
+    from adapt_tpu_torch.renderer import pt
+    from adapt_tpu_torch.scene import compile as C
+    t_start = time.perf_counter()
+    card = card or subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    bunny_assets()
+    cbox_dir = os.path.join(ROOT, "scenes", "cbox")
+    scenes = [("cbox", *C.load_scene(cbox_dir, "cbox.xml", device="cuda")[:2])]
+    bscene, bcfg, _rows = load_textured(cbox_dir, "bunny.xml")
+    scenes.append(("bunny", bscene, bcfg))
+    rows, out, errs = [], {}, {}
+    for tag, scene, cfg in scenes:
+        calls = shade_calls(bxdf_ops, lambda: pt.render_pass_pt(
+            scene, cfg, rng.PRNGKey(5), 1))
+        torch.cuda.synchronize()
+        for name in ("sample", "eval", "pdf"):
+            _require(name in calls, f"phase 25 {tag}: no surface_{name} "
+                     "call in a pass")
+            a, kw = calls[name]
+            kernel = getattr(bxdf_ops, "surface_" + name)     # routed
+            plain = getattr(bxdf_ops, "surface_" + name + "_plain")
+            wrapper = "surface_" + name
+            before = SK.launches[wrapper]
+            got = kernel(*a, **kw)
+            _require(SK.launches[wrapper] == before + 1,
+                     f"phase 25 {tag} surface_{name}: one launch a call")
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain(*a, **kw)
+            want = want if isinstance(want, tuple) else (want,)
+            err = 0.0
+            for g, w in zip(got, want, strict=True):
+                _require(g.dtype == w.dtype and g.shape == w.shape,
+                         f"phase 25 {tag} surface_{name}: shapes")
+                if g.dtype == torch.bool:
+                    err = max(err, float((g != w).sum()))
+                    same = torch.equal(g, w)
+                else:
+                    both = torch.isnan(g) & torch.isnan(w)
+                    err = max(err, float(torch.where(
+                        both, 0.0, (g - w).abs()).max()))
+                    same = torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+                _require(same, f"phase 25 {tag} surface_{name}: the kernel "
+                         f"is not bit-equal to the plain version (max abs "
+                         f"difference {err})")
+            kname = SK.kernel_names[wrapper]
+            errs[kname] = max(errs.get(kname, 0.0), err)
+            mat, it = a[1], a[2]
+            n = mat.kind.shape[0]
+            bound = _bound(shade_bytes(torch, name, mat, it), 0)
+            k_ms = _time_ms(torch, lambda: kernel(*a, **kw))
+            p_ms = _time_ms(torch, lambda: plain(*a, **kw))
+            # copies that together pass twice the L2: a call's operands
+            # were evicted by the calls between
+            k = 1 + -(-2 * L2_BYTES // _tensor_bytes(torch, a))
+            sets = [(a, kw)] + [_copies(torch, (a, kw)) for _ in range(k - 1)]
+            turn = iter(range(10 ** 9))
+
+            def rotating():
+                a_, kw_ = sets[next(turn) % len(sets)]
+                return kernel(*a_, **kw_)
+            d_ms = _graph_ms(torch, rotating, calls=2 * k)
+            del sets
+            rows.append((tag, name, n, k_ms, d_ms, p_ms, bound, k))
+            if tag == "bunny":
+                out[kname] = (k_ms, d_ms, p_ms, bound)
+    print("phase 25 shading kernels vs plain, the first calls of a PT "
+          "pass, bit-equal: " + "; ".join(
+              f"{tag} {name} ({n} lanes): kernel {k:.4f} ms, plain "
+              f"{p:.4f} ms, device {d:.4f} ms over {c} copies, bound "
+              f"{b[0]:.4f} ms ({b[1]}, {100 * b[0] / d:.1f}%)"
+              for tag, name, n, k, d, p, b, c in rows)
+          + " max abs difference " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items())
+          + f" [{card}] ({time.perf_counter() - t_start:.1f} s)",
+          flush=True)
+    return {k: (errs[k], *v) for k, v in out.items()}
+
+
 MULTI_CASES = ("pt", "vpt", "bdpt")   # phase 22's renders, in order
 
 
@@ -1079,6 +1285,7 @@ def main():
     from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
     from adapt_tpu_torch.ops import cluster_kernels as CK
     from adapt_tpu_torch.ops import intersect_kernels as K
+    from adapt_tpu_torch.ops import shade_kernels as SK
     from adapt_tpu_torch.ops import splat as S
     from adapt_tpu_torch.ops import volume_ops as V
     from adapt_tpu_torch.ops.intersect import DEAD
@@ -1101,9 +1308,18 @@ def main():
         S.reset_launches()
         CK.reset_launches()
         rng.reset_launches()
+        SK.reset_launches()
 
     def counts():
         return {**K.launches, **BK.launches, **S.launches, **CK.launches}
+
+    def shade_want(c, spp):
+        """The shading kernels' launches in spp PT samples: a sample a
+        bounce, an eval and (with MIS) a pdf a shadow ray."""
+        per = spp * c.max_bounce
+        return {"surface_sample": per,
+                "surface_eval": per * c.num_shadow_ray,
+                "surface_pdf": per * c.num_shadow_ray * int(c.use_mis)}
 
     none = {k: 0 for k in KERNELS}
     # each wrapper's kernel, by the name the profiler gives it
@@ -2242,7 +2458,8 @@ def main():
         """The path's wrappers swapped for their plain twins."""
         saved = (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
                  BK.bvh_closest_hit, BK.bvh_any_hit,
-                 B.splat_sorted_accumulate, rng.lane_uniform, rng.uniform)
+                 B.splat_sorted_accumulate, rng.lane_uniform, rng.uniform,
+                 SK.route)
         K.tri_closest_hit = K.tri_closest_hit_plain
         K.tri_any_hit = K.tri_any_hit_plain
         K.tri_track_hits = lambda s, o, d, f, k, all_null=False: \
@@ -2252,13 +2469,14 @@ def main():
         B.splat_sorted_accumulate = S.splat_sorted_accumulate_plain
         rng.lane_uniform = rng.lane_uniform_plain
         rng.uniform = rng.uniform_plain
+        SK.route = lambda *a, **kw: False     # surface_*: the plain arms
         try:
             yield
         finally:
             (K.tri_closest_hit, K.tri_any_hit, K.tri_track_hits,
              BK.bvh_closest_hit, BK.bvh_any_hit,
              B.splat_sorted_accumulate, rng.lane_uniform,
-             rng.uniform) = saved
+             rng.uniform, SK.route) = saved
 
     def timed_batch(r, spp):
         torch.cuda.synchronize()
@@ -2277,6 +2495,7 @@ def main():
     reset()
     dt = timed_batch(r, SPP)
     launches, rlaunches = counts(), dict(rng.launches)
+    slaunches = dict(SK.launches)
     image = r.image()
     _require(image.shape == (cfg.h, cfg.w, 3), f"image shape {image.shape}")
     _require(bool(np.isfinite(image).all()) and image.mean() > 0.05,
@@ -2288,6 +2507,9 @@ def main():
     rwant = {"lane_uniform": SPP * cfg.max_bounce, "uniform": SPP}
     _require(rlaunches == rwant,
              f"cbox threefry launch counts {rlaunches}, want {rwant}")
+    swant = shade_want(cfg, SPP)
+    _require(slaunches == swant,
+             f"cbox shading launch counts {slaunches}, want {swant}")
     r_twin = pt.Renderer(scene, cfg, seed=0)
     with twins():
         r_twin.render_batch(1)
@@ -2300,7 +2522,8 @@ def main():
         f"{1e3 * dt_twin / SPP:.2f} ms/spp, "
         f"{rays * SPP / dt_twin / 1e6:.3f} Mrays/s [{card}]; image mean "
         f"{image.mean():.6f}, max abs diff to twins {twin_err:.3g}; "
-        f"launches {_shown(launches)}, threefry {rlaunches}")
+        f"launches {_shown(launches)}, threefry {rlaunches}, shading "
+        f"{slaunches}")
 
     # ---- 5. knot290k main path at full size, auto-compaction ----
     r = pt.Renderer(kscene, kcfg, seed=0)
@@ -2763,6 +2986,7 @@ def main():
     reset()
     dt_bp = timed_batch(r, BUNNY_PT_SPP)
     bplaunches, bprlaunches = counts(), dict(rng.launches)
+    bpslaunches = dict(SK.launches)
     bp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     bpimage = r.image()
     _require(bpimage.shape == (bucfg.h, bucfg.w, 3), f"shape {bpimage.shape}")
@@ -2779,6 +3003,9 @@ def main():
              "uniform": BUNNY_PT_SPP}
     _require(bprlaunches == rwant,
              f"bunny PT threefry launch counts {bprlaunches}, want {rwant}")
+    swant = shade_want(bucfg, BUNNY_PT_SPP)
+    _require(bpslaunches == swant,
+             f"bunny PT shading launch counts {bpslaunches}, want {swant}")
     bp_seen, bp_calls = profiled_launches(lambda: r.render_batch(1),
                                           "bunny PT", warm=True)
     _require(bp_seen == {k: n // BUNNY_PT_SPP
@@ -2816,7 +3043,7 @@ def main():
         "hold; launches per spp "
         + ", ".join(f"{k} {n // BUNNY_PT_SPP}"
                     for k, n in _shown(bplaunches).items())
-        + f", threefry {bprlaunches} in all"
+        + f", threefry {bprlaunches} and shading {bpslaunches} in all"
         + f" (profiler, one spp: {bp_seen}, spp profiled {bp_calls}); B5b "
         f"on the first shadow rays of a pass, bit-equal: {bp_b5b[0]} rays "
         f"({bp_b5b[1]} live, "
@@ -3191,7 +3418,7 @@ def main():
     val.backward()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    glaunches = counts()
+    glaunches, gslaunches = counts(), dict(SK.launches)
     gpeak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
     g_val, g_kd, g_emit = val.item(), a.grad.item(), e.grad.item()
     g_mat = kd.grad.cpu().numpy()
@@ -3199,6 +3426,11 @@ def main():
     want = {**none, "tri_closest_hit": 2 * gcfg.max_bounce,
             "tri_any_hit": 2 * gcfg.max_bounce * gcfg.num_shadow_ray}
     _require(glaunches == want, f"phase 20 launches {glaunches}, want {want}")
+    # the forward shades through the kernels (the backward is the plain
+    # arms' vector-Jacobian product, ops/shade_kernels.py `_Replay`)
+    swant = shade_want(gcfg, 2)
+    _require(gslaunches == swant,
+             f"phase 20 shading launches {gslaunches}, want {swant}")
     gseen, gcalls = profiled_launches(lambda: ggrads(scene, gcfg),
                                       "phase 20 forward and backward",
                                       warm=True)
@@ -3521,6 +3753,9 @@ def main():
         f"equal to the twins' (max abs diff {n_twin:.3g}); the CLI on "
         f"trans/foam.xml: {foam} (process {foam_s:.1f} s) [{card}]")
 
+    shade_json = shade_phase(card)
+    said[0] = time.perf_counter()
+
     path_launches = {**{k: launches[k] + preview_launches[k] + mlaunches[k]
                         + vblaunches[k] + vol_launches[k] + glaunches[k]
                         + mlaunch_sum[k] + nlaunches[k]
@@ -3557,7 +3792,15 @@ def main():
          "max_abs_err": rng_err[w], "ms": k,
          "device_ms": kd, "plain_ms": p, "bound_ms": b[0], "bound_by": b[1],
          "library_ms": None}
-        for w, (k, p, kd, b) in rng_json.items()]}))
+        for w, (k, p, kd, b) in rng_json.items()] + [
+        {"name": name, "route": "cuda",
+         "source": "adapt_tpu_torch/csrc/shade.cu",
+         "replaces": "none (bxdf_ops.py's arms, fused by XLA)",
+         "launches": slaunches[w] + bpslaunches[w], "max_abs_err": err,
+         "ms": k, "device_ms": kd, "plain_ms": p, "bound_ms": b[0],
+         "bound_by": b[1], "library_ms": None}
+        for w, name in SK.kernel_names.items()
+        for err, k, kd, p, b in [shade_json[name]]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

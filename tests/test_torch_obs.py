@@ -56,7 +56,8 @@ def test_off_records_nothing(cbox):
             c["compact.splits"], c["compact.overflows"]) == (0, 0, 0, 0, 0)
     assert c["host.reads"] == {} and c["host.read_wait_ns"] == {}
     assert set(c["launches"]) == {"intersect_kernels", "bvh_kernels",
-                                  "splat", "cluster_kernels", "rng"}
+                                  "splat", "cluster_kernels", "rng",
+                                  "shade_kernels"}
 
 
 def test_a_recorded_pass(cbox):
