@@ -1,13 +1,12 @@
-"""The native host code, C++ loaded over a plain C ABI.
+"""The BVH builder in C++ loaded over a plain C ABI, and the mitsuba3
+`.vol` reader and writer in numpy.
 
 `bvh_builder.cpp` is a copy of the JAX package's binned-SAH BVH builder
 (kBins=16, kLeafMax=4, DFS order with skip offsets, single-threaded and so
-deterministic); `vol_loader.cpp` a copy of its mitsuba3 `.vol` reader.
-Each compiles with g++ at first use, with the flags of
+deterministic). It compiles with g++ at first use, with the flags of
 adapt_tpu/native/Makefile, into build/adapt_tpu_torch/. There is no
 fallback: a different builder would give a different tree, and the
 port's tables must equal the JAX package's. A failed build raises.
-`write_vol` is plain numpy.
 """
 from __future__ import annotations
 
@@ -21,7 +20,6 @@ from .. import obs
 from ..ops import _build
 
 SRC = Path(__file__).resolve().parent / "bvh_builder.cpp"
-VOL_SRC = SRC.with_name("vol_loader.cpp")
 # adapt_tpu/native/Makefile:3-4, compile and link in one call
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-std=c++17",
              "-Wall", "-shared")
@@ -73,17 +71,31 @@ def bvh_build(aabbs: np.ndarray):
     return node_f[:m].copy(), node_i[:m].copy(), order
 
 
-def _vol_lib() -> ctypes.CDLL:
-    lib = _build.compiled("vol_loader", VOL_SRC, _gxx, CXX_FLAGS)
-    if not getattr(lib, "_typed", False):
-        lib.vol_read_header.argtypes = [ctypes.c_char_p,
-                                        ctypes.POINTER(ctypes.c_int32)]
-        lib.vol_read_header.restype = ctypes.c_int
-        lib.vol_read.argtypes = [ctypes.c_char_p,
-                                 ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-        lib.vol_read.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+# a .vol's header: "VOL", version 3, int32 encoding (1: float32), int32
+# x, y, z and channels, six float32 bounds; then the float32 payload laid
+# out [z][y][x][channel]
+VOL_HEADER = 48
+
+
+def _vol_dims(path, head):
+    """(x, y, z, channels) of a .vol's header bytes. Raises ValueError
+    with the error code of the JAX package's C++ reader
+    (adapt_tpu/native/vol_loader.cpp `vol_read_header`)."""
+    def bad(rc):
+        return ValueError(f"bad .vol file '{path}' (error {rc})")
+    if head[:3] != b"VOL" or head[3:4] != b"\x03":
+        raise bad(-2)
+    if len(head) < 8 or np.frombuffer(head, np.int32, 1, 4)[0] != 1:
+        raise bad(-3)
+    if len(head) < 24:
+        raise bad(-4)
+    x, y, z, c = np.frombuffer(head, np.int32, 4, 8).tolist()
+    # non-positive dims would make a nonsense payload size
+    if min(x, y, z) <= 0:
+        raise bad(-6)
+    if c not in (1, 3, 6):
+        raise bad(-5)
+    return x, y, z, c
 
 
 def vol_file_to_numpy(path: str, force_mono: bool = False) -> np.ndarray:
@@ -91,19 +103,23 @@ def vol_file_to_numpy(path: str, force_mono: bool = False) -> np.ndarray:
     channel 0 with force_mono: one channel broadcast to three, six cut to
     the first three (reference vol2numpy.cpp:124-131). Raises ValueError
     on a bad header or a short payload."""
-    lib = _vol_lib()
-    dims = (ctypes.c_int32 * 4)()
-    rc = lib.vol_read_header(path.encode(), dims)
-    if rc != 0:
-        raise ValueError(f"bad .vol file '{path}' (error {rc})")
-    x, y, z = dims[0], dims[1], dims[2]
-    out = np.empty(z * y * x * (1 if force_mono else 3), np.float32)
-    rc = lib.vol_read(path.encode(),
-                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                      int(force_mono))
-    if rc != 0:
-        raise ValueError(f".vol payload read failed ({rc})")
-    return out.reshape((z, y, x) if force_mono else (z, y, x, 3))
+    try:
+        f = open(path, "rb")
+    except OSError:
+        raise ValueError(f"bad .vol file '{path}' (error -1)") from None
+    with f:
+        head = f.read(VOL_HEADER)
+        x, y, z, c = _vol_dims(path, head)
+        n = z * y * x * c
+        grid = np.fromfile(f, np.float32, n)
+    if len(head) < VOL_HEADER or grid.size != n:
+        raise ValueError(".vol payload read failed (-6)")
+    grid = grid.reshape(z, y, x, c)
+    if force_mono:
+        return np.ascontiguousarray(grid[..., 0])
+    if c == 1:
+        return np.repeat(grid, 3, axis=-1)
+    return np.ascontiguousarray(grid[..., :3])
 
 
 def write_vol(path: str, grid: np.ndarray) -> None:

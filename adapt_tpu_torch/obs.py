@@ -36,14 +36,15 @@ CUDA), `shade.*`, `light.*`, `vol.*`. None equals a range name the
 benchmark sets around calls into the program (port_bench/drivers), nor
 "pass".
 
-Counters (all in `export()["counters"]`): `launches` (the kernel
-wrappers' own dicts, counted always), `build_seconds` (ops/_build.py),
-`rng.words` (uniforms drawn), `shade.kernel` and `shade.eager` (the
-shading calls that took the kernel, and the plain route on CPU tensors:
-ops/shade_kernels.py `route`), `lanes.issued` (the
-wavefront's width, each bounce), `lanes.live` (an int64 device
-accumulator of each bounce's live lanes: added on the device, read once
-by `export()`), `compact.splits`, `compact.overflows`,
+Counters (all in `export()["counters"]`): `launches` (ops/_build.py's
+launch counts, {module: {wrapper: n}} of each kernel module imported,
+counted always), `build_seconds` (ops/_build.py), `rng.words` (uniforms
+drawn), `shade.kernel` and `shade.eager` (the shading calls that took
+the kernel, and the plain route on CPU tensors: ops/shade_kernels.py
+`route`), `lanes.issued` (the wavefront's width, each bounce),
+`lanes.live` (an int64 device accumulator of each bounce's live lanes:
+added on the device, read once by `export()`), `compact.splits`,
+`compact.overflows`,
 `transient.offered` (the lanes BDPT's transient binning is offered,
 `bdpt.bin`'s `lanes`), `transient.binned` (the histogram entries it
 keeps: a device counter, `tally`, one int64 slot added on the device,
@@ -284,8 +285,8 @@ def recording():
 
 
 def reset():
-    """Drop every recorded span and counter (the `launches` dicts and
-    `build_seconds` are their modules' own and stay)."""
+    """Drop every recorded span and counter (`launches` and
+    `build_seconds` are ops/_build.py's and stay)."""
     TRACER.reset()
 
 
@@ -294,9 +295,7 @@ def export() -> dict:
     they closed, each {"name", "id", "parent", "pass", "start_ns",
     "end_ns", "attrs"}. Reads the live-lane accumulators from the device
     (one read each)."""
-    from . import rng
-    from .ops import _build, bvh_kernels, cluster_kernels, intersect_kernels
-    from .ops import shade_kernels, splat
+    from .ops import _build
     t = TRACER
     with t._lock:
         closed, counts = list(t.closed), dict(t.counts)
@@ -304,9 +303,7 @@ def export() -> dict:
         live, dropped = list(t.live.values()), t.dropped
         tallies = dict(t.tallies)
     counters = {
-        "launches": {m.__name__.rsplit(".", 1)[-1]: dict(m.launches)
-                     for m in (intersect_kernels, bvh_kernels, splat,
-                               cluster_kernels, rng, shade_kernels)},
+        "launches": {m: dict(c) for m, c in _build.launches.items()},
         "build_seconds": dict(_build.build_seconds),
         "rng.words": counts.get("rng.words", 0),
         "shade.kernel": counts.get("shade.kernel", 0),

@@ -9,8 +9,8 @@ hand-written kernel (csrc/bvh_intersect.cu, built by ops/_build.py) or
 raises; on a CPU tensor it runs the plain twin, ops/bvh.py `walk`, which
 walks the same tables in the same order. The kernels read the tables'
 float4 rows (`bvh_node_v4`, `bvh_prim_v4`), the twin the (M, 9) and
-(P, 14) packs they are made from. `launches` counts kernel launches per
-wrapper; `kernel_info` reads what the compiler and the card give each
+(P, 14) packs they are made from. ops/_build.py launches the kernels and
+counts them; `kernel_info` reads what the compiler and the card give each
 kernel.
 """
 from __future__ import annotations
@@ -19,19 +19,19 @@ import ctypes
 
 import torch
 
-from .. import obs
-from . import bvh
-from .intersect_kernels import _check, _is_cpu, twin
+from . import _build, bvh
+from .intersect_kernels import _is_cpu, twin
 
-launches = {"bvh_closest_hit": 0, "bvh_any_hit": 0}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LIB = _build.Library(__name__, "bvh_intersect", {
+    "bvh_closest_hit": ("bvh_closest_hit", "bvh_closest_kernel",
+                        [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]),
+    "bvh_any_hit": ("bvh_any_hit", "bvh_any_kernel",
+                    [_P, _P, _P, _I, _P, _I, _P, _P, _P])},
+    queries={"bvh_kernel_info": [_I, _P]})
 # each wrapper's kernel, by the name the profiler gives it
-kernel_names = {"bvh_closest_hit": "bvh_closest_kernel",
-                "bvh_any_hit": "bvh_any_kernel"}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
+kernel_names = _LIB.kernel_names
 
 
 def bvh_closest_hit_plain(scene, ray_o, ray_d, far0):
@@ -42,24 +42,6 @@ def bvh_closest_hit_plain(scene, ray_o, ray_d, far0):
 def bvh_any_hit_plain(scene, ray_o, ray_d, far0):
     """Twin of `bvh_any_hit` in plain PyTorch (any device)."""
     return bvh.walk(scene, ray_o, ray_d, far0, any_hit=True)[1] >= 0
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _lib():
-    from . import _build
-    lib = _build.load("bvh_intersect")
-    if not getattr(lib, "_typed", False):
-        lib.bvh_closest_hit.argtypes = [_P, _P, _P, _I, _P, _I, _P, _P, _P,
-                                        _P, _P, _P, _P]
-        lib.bvh_any_hit.argtypes = [_P, _P, _P, _I, _P, _I, _P, _P, _P]
-        lib.bvh_kernel_info.argtypes = [_I, _P]
-        lib.bvh_closest_hit.restype = lib.bvh_any_hit.restype = ctypes.c_int
-        lib.bvh_kernel_info.restype = ctypes.c_int
-        lib._typed = True
-    return lib
 
 
 # the tables both kernels read: (field, row width)
@@ -109,14 +91,11 @@ def bvh_closest_hit(scene, ray_o, ray_d, far0):
     if n == 0:
         return t, prim, u, v
     next_ray = torch.zeros(1, dtype=torch.int32, device=ro.device)
-    stream = torch.cuda.current_stream(ro.device).cuda_stream
-    with obs.span("kernel.bvh_closest_hit", n=n):
-        err = _lib().bvh_closest_hit(
-            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, nodes.data_ptr(),
-            nodes.shape[0], prims.data_ptr(), t.data_ptr(), prim.data_ptr(),
-            u.data_ptr(), v.data_ptr(), next_ray.data_ptr(), stream)
-    _check(err, "bvh_closest_hit")
-    launches["bvh_closest_hit"] += 1
+    _LIB.launch("bvh_closest_hit", ro.device, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                nodes.data_ptr(), nodes.shape[0], prims.data_ptr(),
+                t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+                next_ray.data_ptr())
     return t, prim, u, v
 
 
@@ -128,14 +107,10 @@ def bvh_any_hit(scene, ray_o, ray_d, far0):
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ
-    stream = torch.cuda.current_stream(ro.device).cuda_stream
-    with obs.span("kernel.bvh_any_hit", n=n):
-        err = _lib().bvh_any_hit(ro.data_ptr(), rd.data_ptr(),
-                                 far.data_ptr(), n, nodes.data_ptr(),
-                                 nodes.shape[0], prims.data_ptr(),
-                                 occ.data_ptr(), stream)
-    _check(err, "bvh_any_hit")
-    launches["bvh_any_hit"] += 1
+    _LIB.launch("bvh_any_hit", ro.device, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                nodes.data_ptr(), nodes.shape[0], prims.data_ptr(),
+                occ.data_ptr())
     return occ
 
 
@@ -146,12 +121,11 @@ def kernel_info(n):
     "waves" is the rays each resident thread takes; the any-hit kernel
     gives a thread one ray, so its waves are n over the resident threads,
     rounded up. Needs the card."""
-    lib = _lib()
     out = {}
     for which, name in ((0, "bvh_closest_hit"), (1, "bvh_any_hit")):
         vals = (ctypes.c_int * 5)()
-        _check(lib.bvh_kernel_info(which, ctypes.addressof(vals)),
-               f"{name} info")
+        _LIB.query("bvh_kernel_info", f"{name} info", which,
+                   ctypes.addressof(vals))
         regs, spill, per_sm, sms, block = vals
         resident = per_sm * sms * block
         waves = n / resident if which == 0 else -(-n // resident)

@@ -22,8 +22,8 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 tensor it runs the plain version beside it, which repeats the kernel's
 steps in the same operation order (each dot (x0*y0 + x1*y1) + x2*y2,
 u = (o.U + t*(d.U)) - cu, every operation rounded once), so that the two
-agree bit for bit on the card. `launches` counts kernel launches per
-wrapper.
+agree bit for bit on the card. ops/_build.py launches the kernels and
+counts them.
 
 `resolve_winner` (a plain function, as in the JAX package) turns a winner
 slot into (gid, u, v, n_g, obj). `qpick_closest` and `qpick_any` are the
@@ -39,9 +39,9 @@ import ctypes
 import torch
 
 from .. import obs
-from . import bvh_kernels
+from . import _build, bvh_kernels
 from .bvh import _slab_test
-from .intersect_kernels import DEAD, FAR, RAY_EPS, _check, _is_cpu, twin
+from .intersect_kernels import DEAD, FAR, RAY_EPS, _is_cpu, twin
 
 TILE = 128             # rays of one pick tile (the JAX package's LANE_B)
 QP_P = 2               # pick passes of the queue-pick schedule (its QP_P)
@@ -70,18 +70,6 @@ PLAIN_LANES = 1 << 22
 BOX_OPS = 26
 PLANE_OPS = 17
 PRIM_OPS = 47
-
-launches = {"cluster_closest_hit": 0, "cluster_any_hit": 0,
-            "cluster_front": 0, "cluster_pick_closest": 0,
-            "cluster_pick_any": 0}
-# each wrapper's kernel, by the name the profiler gives it
-kernel_names = {w: w.removesuffix("_hit") + "_kernel" for w in launches}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
 
 # ----------------------------- plain versions -----------------------------
 
@@ -493,29 +481,25 @@ def cluster_pick_any_plain(scene, ray_o, ray_d, far0, picks, stats=False):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def _lib():
-    from . import _build
-    lib = _build.load("cluster_intersect")
-    if not getattr(lib, "_typed", False):
-        lib.cluster_closest_hit.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P,
-                                            _P, _I, _I, _I] + [_P] * 8
-        lib.cluster_any_hit.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I,
-                                        _I, _I, _P, _P]
-        lib.cluster_front.argtypes = [_P, _P, _P, _I, _P, _I, _I, _P, _P,
-                                      _P]
-        lib.cluster_pick_closest.argtypes = [_P, _P, _P, _P, _P, _I, _P, _P,
-                                             _I, _P, _P, _P]
-        lib.cluster_pick_any.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _P,
-                                         _P]
-        lib.cluster_kernel_info.argtypes = [_I, _I, _I, _P]
-        for fn in (lib.cluster_closest_hit, lib.cluster_any_hit,
-                   lib.cluster_front, lib.cluster_pick_closest,
-                   lib.cluster_pick_any, lib.cluster_kernel_info):
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_LIB = _build.Library(__name__, "cluster_intersect", {
+    "cluster_closest_hit": (
+        "cluster_closest_hit", "cluster_closest_kernel",
+        [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I] + [_P] * 8),
+    "cluster_any_hit": (
+        "cluster_any_hit", "cluster_any_kernel",
+        [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "cluster_front": (
+        "cluster_front", "cluster_front_kernel",
+        [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P]),
+    "cluster_pick_closest": (
+        "cluster_pick_closest", "cluster_pick_closest_kernel",
+        [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P]),
+    "cluster_pick_any": (
+        "cluster_pick_any", "cluster_pick_any_kernel",
+        [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P])},
+    queries={"cluster_kernel_info": [_I, _I, _I, _P]})
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = _LIB.kernel_names
 
 
 def _operands(scene, ray_o, ray_d, far0, extra=()):
@@ -604,24 +588,19 @@ def _front_operands(scene, ray_o, ray_d, far0):
     return out
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def kernel_info(n, C, CM):
     """{kernel: (registers a thread, spilled bytes a thread, blocks
     resident on one SM (the sweeps with a table of C clusters in shared
     memory, the pick kernels with a cluster's CM rows), SMs, threads a
     block, waves)} of the five cluster kernels for n rays: one thread a
     ray, PICK_SPLIT for the pick kernels. Needs the card."""
-    lib = _lib()
     out = {}
     for which, name in ((0, "cluster_closest_hit"), (1, "cluster_any_hit"),
                         (2, "cluster_front"), (3, "cluster_pick_closest"),
                         (4, "cluster_pick_any")):
         vals = (ctypes.c_int * 5)()
-        _check(lib.cluster_kernel_info(which, C, CM, ctypes.addressof(vals)),
-               f"{name} info")
+        _LIB.query("cluster_kernel_info", f"{name} info", which, C, CM,
+                   ctypes.addressof(vals))
         regs, spill, per_sm, sms, block = vals
         rays = block // PICK_SPLIT if which >= 3 else block
         out[name] = (regs, spill, per_sm, sms, block,
@@ -645,17 +624,14 @@ def cluster_closest_hit(scene, ray_o, ray_d, far0):
     n_g = torch.empty((n, 3), device=dev)
     if n == 0:
         return t, gid, u, v, n_g, obj
-    with obs.span("kernel.cluster_closest_hit", n=n):
-        err = _lib().cluster_closest_hit(
-            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-            scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
-            scene.cl_count.data_ptr(), scene.cl_rows.data_ptr(),
-            scene.cl_rows_v4.data_ptr(), scene.n_clusters,
-            scene.cl_chunk.shape[1], scene.cluster_size,
-            t.data_ptr(), gid.data_ptr(), u.data_ptr(), v.data_ptr(),
-            n_g.data_ptr(), obj.data_ptr(), sph.data_ptr(), _stream(ro))
-    _check(err, "cluster_closest_hit")
-    launches["cluster_closest_hit"] += 1
+    _LIB.launch("cluster_closest_hit", dev, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
+                scene.cl_count.data_ptr(), scene.cl_rows.data_ptr(),
+                scene.cl_rows_v4.data_ptr(), scene.n_clusters,
+                scene.cl_chunk.shape[1], scene.cluster_size,
+                t.data_ptr(), gid.data_ptr(), u.data_ptr(), v.data_ptr(),
+                n_g.data_ptr(), obj.data_ptr(), sph.data_ptr())
     if _has_spheres(scene):
         u, v = _sphere_uv(n_g, sph > 0, u, v)
     return t, gid, u, v, n_g, obj
@@ -669,15 +645,12 @@ def cluster_any_hit(scene, ray_o, ray_d, far0):
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ
-    with obs.span("kernel.cluster_any_hit", n=n):
-        err = _lib().cluster_any_hit(
-            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-            scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
-            scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
-            scene.n_clusters, scene.cl_chunk.shape[1], scene.cluster_size,
-            occ.data_ptr(), _stream(ro))
-    _check(err, "cluster_any_hit")
-    launches["cluster_any_hit"] += 1
+    _LIB.launch("cluster_any_hit", ro.device, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                scene.cl_aabb.data_ptr(), scene.cl_chunk.data_ptr(),
+                scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
+                scene.n_clusters, scene.cl_chunk.shape[1], scene.cluster_size,
+                occ.data_ptr())
     return occ
 
 
@@ -694,13 +667,10 @@ def cluster_front(scene, ray_o, ray_d, far0):
     nxt = torch.empty(n, device=ro.device)
     if n == 0:
         return cid, nxt
-    with obs.span("kernel.cluster_front", n=n):
-        err = _lib().cluster_front(
-            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
-            scene.cl_tree.data_ptr(), scene.cl_tree.shape[0], scene.n_clusters,
-            cid.data_ptr(), nxt.data_ptr(), _stream(ro))
-    _check(err, "cluster_front")
-    launches["cluster_front"] += 1
+    _LIB.launch("cluster_front", ro.device, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                scene.cl_tree.data_ptr(), scene.cl_tree.shape[0],
+                scene.n_clusters, cid.data_ptr(), nxt.data_ptr())
     return cid, nxt
 
 
@@ -722,14 +692,11 @@ def cluster_pick_closest(scene, ray_o, ray_d, far0, wid0, picks):
     wid = torch.empty(n, dtype=torch.int32, device=ro.device)
     if n == 0:
         return t, wid
-    with obs.span("kernel.cluster_pick_closest", n=n):
-        err = _lib().cluster_pick_closest(
-            picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-            far.data_ptr(), wid0.data_ptr(), n,
-            scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
-            scene.cluster_size, t.data_ptr(), wid.data_ptr(), _stream(ro))
-    _check(err, "cluster_pick_closest")
-    launches["cluster_pick_closest"] += 1
+    _LIB.launch("cluster_pick_closest", ro.device, n,
+                picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                far.data_ptr(), wid0.data_ptr(), n,
+                scene.cl_count.data_ptr(), scene.cl_rows_v4.data_ptr(),
+                scene.cluster_size, t.data_ptr(), wid.data_ptr())
     return t, wid
 
 
@@ -746,14 +713,11 @@ def cluster_pick_any(scene, ray_o, ray_d, far0, picks):
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ
-    with obs.span("kernel.cluster_pick_any", n=n):
-        err = _lib().cluster_pick_any(
-            picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
-            far.data_ptr(), n, scene.cl_count.data_ptr(),
-            scene.cl_rows_v4.data_ptr(), scene.cluster_size, occ.data_ptr(),
-            _stream(ro))
-    _check(err, "cluster_pick_any")
-    launches["cluster_pick_any"] += 1
+    _LIB.launch("cluster_pick_any", ro.device, n,
+                picks.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                far.data_ptr(), n, scene.cl_count.data_ptr(),
+                scene.cl_rows_v4.data_ptr(), scene.cluster_size,
+                occ.data_ptr())
     return occ
 
 

@@ -12,7 +12,7 @@ order. The wrappers read the scene's triangle tables, made once per scene
 (`SceneData.tri_geo`, `tri_ng`, `tri_obj` and the media walk's row lists,
 scene/compile.py `tri_tables`): a call checks its operands, allocates its
 outputs and launches one kernel. The twins keep building their table with
-`tri_table`. `launches` counts kernel launches per wrapper.
+`tri_table`. ops/_build.py launches the kernels and counts them.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .. import obs
+from . import _build
 from .math3d import axis_vec
 
 RAY_EPS = 1e-4
@@ -39,18 +39,6 @@ STAGED_ROWS = 256
 # null rows the media-walk kernel keeps in registers (its kNullCap); above
 # it the walk re-sweeps
 NULL_CAP = 16
-
-launches = {"tri_closest_hit": 0, "tri_any_hit": 0, "tri_track_hits": 0}
-# each wrapper's kernel, by the name the profiler gives it
-kernel_names = {"tri_closest_hit": "tri_closest_kernel",
-                "tri_any_hit": "tri_any_kernel",
-                "tri_track_hits": "tri_track_kernel"}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
 
 def far_bound(ray_o, max_t=None, alive=None):
     """(N,) far bound every intersection kernel takes: hits count strictly
@@ -200,32 +188,19 @@ def tri_track_hits_plain(scene, ray_o, ray_d, far0, K, null_flags):
 # ------------------------------- kernels -------------------------------
 
 _P = ctypes.c_void_p
-
-
 _I = ctypes.c_int
-
-
-def typed(lib):
-    """`lib` (a build of csrc/tri_intersect.cu) with its entry points'
-    argument types set."""
-    if not getattr(lib, "_typed", False):
-        lib.tri_closest_hit.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _P,
-                                        _P, _P, _P, _P, _P, _P]
-        lib.tri_any_hit.argtypes = [_P, _P, _P, _I, _P, _I, _P, _P]
-        lib.tri_track_hits.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I,
-                                       _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                                       _P, _P]
-        lib.tri_kernel_info.argtypes = [_I, _P]
-        for fn in (lib.tri_closest_hit, lib.tri_any_hit, lib.tri_track_hits,
-                   lib.tri_kernel_info):
-            fn.restype = _I
-        lib._typed = True
-    return lib
-
-
-def _lib():
-    from . import _build
-    return typed(_build.load("tri_intersect"))
+_LIB = _build.Library(__name__, "tri_intersect", {
+    "tri_closest_hit": ("tri_closest_hit", "tri_closest_kernel",
+                        [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                         _P, _P]),
+    "tri_any_hit": ("tri_any_hit", "tri_any_kernel",
+                    [_P, _P, _P, _I, _P, _I, _P, _P]),
+    "tri_track_hits": ("tri_track_hits", "tri_track_kernel",
+                       [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+                        _P, _P, _P, _P, _P, _P, _P])},
+    queries={"tri_kernel_info": [_I, _P]})
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = _LIB.kernel_names
 
 
 def kernel_info(n):
@@ -233,12 +208,11 @@ def kernel_info(n):
     threads resident on one SM, SMs, 256, waves)} for n rays, and the
     media walk's null-row cap the build holds (NULL_CAP). Needs the
     card."""
-    lib = _lib()
     out, cap = {}, None
-    for which, name in enumerate(launches):
+    for which, name in enumerate(kernel_names):
         vals = (ctypes.c_int * 6)()
-        _check(lib.tri_kernel_info(which, ctypes.addressof(vals)),
-               f"{name} info")
+        _LIB.query("tri_kernel_info", f"{name} info", which,
+                   ctypes.addressof(vals))
         regs, spill, per_sm, sms, block, cap = vals
         out[name] = (regs, spill, per_sm, sms, block,
                      -(-n // (per_sm * sms * block)))
@@ -306,11 +280,6 @@ def _track_operands(scene, ray_o, ray_d, far0, all_null):
     return ops, (solid.data_ptr(), Ts, nulls.data_ptr())
 
 
-def _check(err, fn):
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
-
-
 def twin(fn, *args):
     """A wrapper's plain version on CPU tensors. Hits are constants: the
     kernels' outputs never carry an autograd graph, so the twins run
@@ -343,15 +312,11 @@ def tri_closest_hit(scene, ray_o, ray_d, far0):
     obj_out = torch.empty(n, dtype=torch.int32, device=ro.device)
     if n == 0:
         return t, row, u, v, ng_out, obj_out
-    stream = torch.cuda.current_stream(ro.device).cuda_stream
-    with obs.span("kernel.tri_closest_hit", n=n):
-        err = _lib().tri_closest_hit(
-            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
-            ng.data_ptr(), obj.data_ptr(), geo.shape[0], t.data_ptr(),
-            row.data_ptr(), u.data_ptr(), v.data_ptr(), ng_out.data_ptr(),
-            obj_out.data_ptr(), stream)
-    _check(err, "tri_closest_hit")
-    launches["tri_closest_hit"] += 1
+    _LIB.launch("tri_closest_hit", ro.device, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                geo.data_ptr(), ng.data_ptr(), obj.data_ptr(), geo.shape[0],
+                t.data_ptr(), row.data_ptr(), u.data_ptr(), v.data_ptr(),
+                ng_out.data_ptr(), obj_out.data_ptr())
     return t, row, u, v, ng_out, obj_out
 
 
@@ -366,13 +331,9 @@ def tri_any_hit(scene, ray_o, ray_d, far0):
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return occ
-    stream = torch.cuda.current_stream(ro.device).cuda_stream
-    with obs.span("kernel.tri_any_hit", n=n):
-        err = _lib().tri_any_hit(ro.data_ptr(), rd.data_ptr(),
-                                 far.data_ptr(), n, geo.data_ptr(),
-                                 geo.shape[0], occ.data_ptr(), stream)
-    _check(err, "tri_any_hit")
-    launches["tri_any_hit"] += 1
+    _LIB.launch("tri_any_hit", ro.device, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                geo.data_ptr(), geo.shape[0], occ.data_ptr())
     return occ
 
 
@@ -421,13 +382,10 @@ def tri_track_hits(scene, ray_o, ray_d, far0, K, all_null=False):
     ov = torch.empty(n, dtype=torch.bool, device=ro.device)
     if n == 0:
         return t_k, o_k, d_k, tb, ob, db, ov
-    stream = torch.cuda.current_stream(ro.device).cuda_stream
-    with obs.span("kernel.tri_track_hits", n=n):
-        err = _lib().tri_track_hits(
-            ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n, geo.data_ptr(),
-            ng.data_ptr(), obj.data_ptr(), solid_p, n_solid, null_p,
-            T - n_solid, K, t_k.data_ptr(), o_k.data_ptr(), d_k.data_ptr(),
-            tb.data_ptr(), ob.data_ptr(), db.data_ptr(), ov.data_ptr(), stream)
-    _check(err, "tri_track_hits")
-    launches["tri_track_hits"] += 1
+    _LIB.launch("tri_track_hits", ro.device, n,
+                ro.data_ptr(), rd.data_ptr(), far.data_ptr(), n,
+                geo.data_ptr(), ng.data_ptr(), obj.data_ptr(), solid_p,
+                n_solid, null_p, T - n_solid, K, t_k.data_ptr(),
+                o_k.data_ptr(), d_k.data_ptr(), tb.data_ptr(), ob.data_ptr(),
+                db.data_ptr(), ov.data_ptr())
     return t_k, o_k, d_k, tb, ob, db, ov

@@ -18,8 +18,8 @@ backward is the plain version's (`_Replay`): it recomputes the plain
 result from the saved inputs and returns its vector-Jacobian product. A
 scene that lists a tag csrc/shade.cu does not know is refused at the
 launch (ValueError), not shaded. The counters `shade.kernel` and
-`shade.eager` say how often each route was taken; `launches` counts the
-kernels' launches.
+`shade.eager` say how often each route was taken; ops/_build.py launches
+the kernels and counts them.
 """
 from __future__ import annotations
 
@@ -30,18 +30,7 @@ import torch
 
 from .. import obs
 from ..constants import TRANSPORT_UNI
-
-launches = {"surface_eval": 0, "surface_sample": 0, "surface_pdf": 0}
-# each wrapper's kernel, by the name the profiler gives it
-kernel_names = {"surface_eval": "shade_eval_kernel",
-                "surface_sample": "shade_sample_kernel",
-                "surface_pdf": "shade_pdf_kernel"}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
+from . import _build
 
 def _inputs(mat, it, dirs, world_ior):
     ts = [mat.kind, mat.is_bsdf, mat.kd, mat.ks, mat.kg, mat.mean, mat.ior,
@@ -83,18 +72,27 @@ class _ShadeIn(ctypes.Structure):
                 ("n", ctypes.c_int)]
 
 
-def _lib():
-    from . import _build
-    lib = _build.load("shade")
-    if not getattr(lib, "_typed", False):
-        arg = ctypes.POINTER(_ShadeIn)
-        lib.shade_eval.argtypes = [arg, _P, _P]
-        lib.shade_sample.argtypes = [arg, _P, _P, _P, _P, _P]
-        lib.shade_pdf.argtypes = [arg, _P, _P]
-        for fn in (lib.shade_eval, lib.shade_sample, lib.shade_pdf):
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+def _refused(wrapper, err, args):
+    """The ValueError of csrc/shade.cu's UNKNOWN_TAG (-1: nothing
+    launched); None for any other status."""
+    if err == -1:
+        cfg = args[0].cfg
+        return ValueError(f"{wrapper}: the scene lists a material tag "
+                          f"csrc/shade.cu does not know (BRDFs "
+                          f"{tuple(cfg.brdf_types)}, BSDFs "
+                          f"{tuple(cfg.bsdf_types)})")
+    return None
+
+
+_IN = ctypes.POINTER(_ShadeIn)
+_LIB = _build.Library(__name__, "shade", {
+    "surface_eval": ("shade_eval", "shade_eval_kernel", [_IN, _P, _P]),
+    "surface_sample": ("shade_sample", "shade_sample_kernel",
+                       [_IN, _P, _P, _P, _P, _P]),
+    "surface_pdf": ("shade_pdf", "shade_pdf_kernel", [_IN, _P, _P])},
+    refused=_refused)
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = _LIB.kernel_names
 
 
 def _rows(t, n, width, name, dtype=torch.float32):
@@ -107,8 +105,8 @@ def _rows(t, n, width, name, dtype=torch.float32):
 
 
 def _operands(cfg, mat, it, incid, d, u, world_ior, mode):
-    """The call's ShadeIn, and the tensors it points into (kept alive
-    until the launch is queued)."""
+    """The call's ShadeIn (holding cfg, which a refusal names), and the
+    tensors it points into (kept alive until the launch is queued)."""
     n = incid.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"{n} lanes do not fit in a 32-bit int")
@@ -145,18 +143,8 @@ def _operands(cfg, mat, it, incid, d, u, world_ior, mode):
         sum(1 << t for t in cfg.brdf_types),
         sum(1 << (t + 1) for t in cfg.bsdf_types), int(cfg.brdf_two_sides),
         int(mode), n)
+    args.cfg = cfg
     return args, keep
-
-
-def _launched(wrapper, cfg, err):
-    if err == -1:       # csrc/shade.cu UNKNOWN_TAG: nothing launched
-        raise ValueError(f"{wrapper}: the scene lists a material tag "
-                         f"csrc/shade.cu does not know (BRDFs "
-                         f"{tuple(cfg.brdf_types)}, BSDFs "
-                         f"{tuple(cfg.bsdf_types)})")
-    if err != 0:
-        raise RuntimeError(f"{wrapper}: CUDA launch failed with error {err}")
-    launches[wrapper] += 1
 
 
 def _eval(cfg, mat, it, incid, out, world_ior, mode):
@@ -165,11 +153,7 @@ def _eval(cfg, mat, it, incid, out, world_ior, mode):
     if n:
         args, _keep = _operands(cfg, mat, it, incid, out, None, world_ior,
                                 mode)
-        stream = torch.cuda.current_stream(incid.device).cuda_stream
-        with obs.span("kernel.surface_eval", n=n):
-            err = _lib().shade_eval(ctypes.byref(args), res.data_ptr(),
-                                    stream)
-        _launched("surface_eval", cfg, err)
+        _LIB.launch("surface_eval", incid.device, n, args, res.data_ptr())
     return (res,)
 
 
@@ -182,12 +166,8 @@ def _sample(cfg, mat, it, incid, u, world_ior, mode):
     is_specular = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         args, _keep = _operands(cfg, mat, it, incid, None, u, world_ior, mode)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with obs.span("kernel.surface_sample", n=n):
-            err = _lib().shade_sample(
-                ctypes.byref(args), out.data_ptr(), spec.data_ptr(),
-                pdf.data_ptr(), is_specular.data_ptr(), stream)
-        _launched("surface_sample", cfg, err)
+        _LIB.launch("surface_sample", dev, n, args, out.data_ptr(),
+                    spec.data_ptr(), pdf.data_ptr(), is_specular.data_ptr())
     return out, spec, pdf, is_specular
 
 
@@ -197,11 +177,7 @@ def _pdf(cfg, mat, it, outdir, incid, world_ior, mode):
     if n:
         args, _keep = _operands(cfg, mat, it, incid, outdir, None, world_ior,
                                 mode)
-        stream = torch.cuda.current_stream(incid.device).cuda_stream
-        with obs.span("kernel.surface_pdf", n=n):
-            err = _lib().shade_pdf(ctypes.byref(args), pdf.data_ptr(),
-                                   stream)
-        _launched("surface_pdf", cfg, err)
+        _LIB.launch("surface_pdf", incid.device, n, args, pdf.data_ptr())
     return (pdf,)
 
 

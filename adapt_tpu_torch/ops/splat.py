@@ -14,8 +14,8 @@ by chunk, in a block that holds a long segment).
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `splat_sorted_accumulate_plain`, which adds in the kernel's
 order (segment offsets by searchsorted, then one pixel-parallel add per
-position in the segments), so the two agree bit for bit. `launches`
-counts kernel launches. The sort stays with the caller.
+position in the segments), so the two agree bit for bit. ops/_build.py
+launches the kernel and counts it. The sort stays with the caller.
 """
 from __future__ import annotations
 
@@ -24,15 +24,15 @@ import ctypes
 import torch
 
 from .. import obs
+from . import _build
 
-launches = {"splat_sorted_accumulate": 0}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LIB = _build.Library(__name__, "splat", {
+    "splat_sorted_accumulate": ("splat_sorted_accumulate", "splat_kernel",
+                                [_P, _P, _P, _I, _I, _P, _P])})
 # the wrapper's kernel, by the name the profiler gives it
-kernel_names = {"splat_sorted_accumulate": "splat_kernel"}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
+kernel_names = _LIB.kernel_names
 
 
 def _segments(idx, P):
@@ -55,20 +55,6 @@ def splat_sorted_accumulate_plain(film, idx, rgb):
             row = torch.clamp(lo + j, max=M - 1)
             acc = acc + torch.where(take[:, None], rgb[row], 0.0)
     return film + acc
-
-
-_P = ctypes.c_void_p
-
-
-def _lib():
-    from . import _build
-    lib = _build.load("splat")
-    if not getattr(lib, "_typed", False):
-        lib.splat_sorted_accumulate.argtypes = [_P, _P, _P, ctypes.c_int,
-                                                ctypes.c_int, _P, _P]
-        lib.splat_sorted_accumulate.restype = ctypes.c_int
-        lib._typed = True
-    return lib
 
 
 def _checked(film, idx, rgb):
@@ -99,13 +85,7 @@ def splat_sorted_accumulate(film, idx, rgb):
     out = torch.empty_like(film)
     if P == 0:
         return out
-    stream = torch.cuda.current_stream(film.device).cuda_stream
-    with obs.span("kernel.splat_sorted_accumulate", n=M):
-        err = _lib().splat_sorted_accumulate(film.data_ptr(), idx.data_ptr(),
-                                             rgb.data_ptr(), P, M,
-                                             out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"splat_sorted_accumulate: CUDA launch failed with error {err}")
-    launches["splat_sorted_accumulate"] += 1
+    _LIB.launch("splat_sorted_accumulate", film.device, M,
+                film.data_ptr(), idx.data_ptr(), rgb.data_ptr(), P, M,
+                out.data_ptr())
     return out

@@ -20,16 +20,15 @@ calls of `--spp` samples (host clock around work that ends in a
 synchronize), then traces one more under torch.profiler, where the
 program records a span at each layer boundary and opens a profiler range
 of the span's name. One row a span name: calls, device time of the
-PyTorch kernels launched inside it, host time and self time (less its
-child spans). The port's own kernels (launched through ctypes, which the
-profiler ties to no range) are matched to their `kernel.<wrapper>` spans
-in launch order and attributed to every span around them ("own"). The
-device's idle gaps are attributed to the innermost span open at their
-midpoint, on the clock the spans share with the profiler. `--tier`
-names the kernels of the big-scene tier (`RenderConfig.big_tier`: bvh,
-sweep or qpick). Prints the rows, the idle gaps by span, the host reads
-by site, the program's counters, the kernels that take the most device
-time and the port's own kernels, and a JSON summary (also written to
+kernels launched inside it (the port's own kernels too: the profiler ties
+a ctypes launch to the ranges open around it), host time and self time
+(less its child spans). The device's idle gaps are attributed to the
+innermost span open at their midpoint, on the clock the spans share with
+the profiler. `--tier` names the kernels of the big-scene tier
+(`RenderConfig.big_tier`: bvh, sweep or qpick). Prints the rows, the idle
+gaps by span, the host reads by site, the program's counters, the
+kernels that take the most device time and the port's own kernels (those
+of ops/_build.py's libraries), and a JSON summary (also written to
 `--out` when given). Needs one CUDA device.
 """
 from __future__ import annotations
@@ -44,19 +43,13 @@ import time
 import torch
 
 from . import obs
-from .ops import bvh_kernels, cluster_kernels, intersect_kernels, splat
+from .ops import _build
 from .ops.intersect import BIG_TIERS
 from .renderer import bdpt, pt, vpt
 from .scene.compile import load_scene
 
 RENDERERS = {"pt": pt.Renderer, "vpt": vpt.VolumeRenderer, "bdpt": bdpt.BDPT}
 TOP = 8               # kernels listed by device time
-# the port's hand-written kernels (csrc/), always listed
-OWN_KERNELS = ("tri_", "bvh_", "splat_", "cluster_")
-# each own-kernel wrapper's kernel, by the profiler's name for it
-KERNELS = {w: k for m in (intersect_kernels, bvh_kernels, splat,
-                          cluster_kernels)
-           for w, k in m.kernel_names.items()}
 
 
 def _union(intervals):
@@ -83,31 +76,6 @@ def _self_ns(spans):
         kids.setdefault(s["parent"], []).append((s["start_ns"], s["end_ns"]))
     return {s["id"]: s["end_ns"] - s["start_ns"]
             - _union(kids.get(s["id"], ()))[0] for s in spans}
-
-
-def _own_by_span(kernels, spans):
-    """{span name: device ms of the own kernels launched inside such
-    spans}: the k-th `kernel.<wrapper>` span is the k-th kernel of its
-    name on the card (one stream). A name whose counts disagree is left
-    out."""
-    by_id = {s["id"]: s for s in spans}
-    out = {}
-    for wrapper, kname in KERNELS.items():
-        mine = sorted((s for s in spans if s["name"] == "kernel." + wrapper),
-                      key=lambda s: s["start_ns"])
-        evs = sorted((e for e in kernels
-                      if e.name.removeprefix("void ").startswith(kname)),
-                     key=lambda e: e.time_range.start)
-        if len(evs) != len(mine):
-            continue
-        for s, e in zip(mine, evs):
-            names, p = set(), s
-            while p is not None:
-                names.add(p["name"])
-                p = by_id.get(p["parent"])
-            for n in names:
-                out[n] = out.get(n, 0.0) + e.time_range.elapsed_us() / 1e3
-    return out
 
 
 def _idle_by_span(gaps, spans):
@@ -184,7 +152,6 @@ def main(argv=None):
     busy = busy_us / 1e3 / spp
     idle = _idle_by_span([(t0 + round(a * 1e3), t0 + round(b * 1e3))
                           for a, b in gaps], spans)
-    own_in = _own_by_span(kernels, spans)
     self_ns = _self_ns(spans)
     device = {}
     for e in events:
@@ -198,7 +165,6 @@ def main(argv=None):
         row[2] += self_ns[s["id"]]
     rows = [{"range": name, "calls": n / spp,
              "device_ms": device.get(name, 0.0) / 1e3 / spp,
-             "own_device_ms": own_in.get(name, 0.0) / spp,
              "host_ms": host / 1e6 / spp, "self_host_ms": own / 1e6 / spp,
              "host_ms_per_call": host / 1e6 / n}
             for name, (n, host, own) in sorted(rows.items(),
@@ -208,8 +174,10 @@ def main(argv=None):
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3 / spp
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
+    own_names = tuple(k for lib in _build.libraries.values()
+                      for k in lib.kernel_names.values())
     own = {k: v for k, v in by_name.items()
-           if k.removeprefix("void ").startswith(OWN_KERNELS)}
+           if k.removeprefix("void ").startswith(own_names)}
     c = rec["counters"]
     reads = {site: {"reads": n / spp,
                     "wait_ms": c["host.read_wait_ns"][site] / 1e6 / spp}
@@ -246,10 +214,9 @@ def main(argv=None):
           f"{out['counters_per_spp']}")
     for row in rows:
         print(f"  {row['range']:<24} calls {row['calls']:>6.1f}  device "
-              f"{row['device_ms']:9.3f} ms (+ own {row['own_device_ms']:.3f})"
-              f"  host {row['host_ms']:9.3f} ms, self "
-              f"{row['self_host_ms']:8.3f} ({row['host_ms_per_call']:.4f} "
-              "a call)")
+              f"{row['device_ms']:9.3f} ms  host {row['host_ms']:9.3f} ms, "
+              f"self {row['self_host_ms']:8.3f} "
+              f"({row['host_ms_per_call']:.4f} a call)")
     for name, s in out["idle_s_by_span"].items():
         print(f"  idle in {name:<24} {1e3 * s / spp:9.3f} ms/spp")
     for site, v in reads.items():

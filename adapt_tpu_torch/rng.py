@@ -12,8 +12,8 @@ held against the JAX package and the goldens pixel by pixel:
     launch one hand-written kernel each (csrc/rng.cu, 32-bit registers),
     elsewhere they run their plain versions `uniform_plain` and
     `lane_uniform_plain` (int64 tensor ops, any device), the twins the
-    tests hold to jax.random and the kernels to bit for bit. `launches`
-    counts the kernels' launches.
+    tests hold to jax.random and the kernels to bit for bit.
+    ops/_build.py launches the kernels and counts them.
 
 Tensors carry the 32-bit words in int64 masked to 32 bits: CUDA support
 for `torch.uint32` shifts and adds is patchy, and int64 holds every
@@ -32,22 +32,12 @@ import math
 import torch
 
 from . import obs
+from .ops import _build
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 Key = tuple  # (k1, k2): two Python ints in [0, 2^32)
-
-launches = {"lane_uniform": 0, "uniform": 0}
-# each wrapper's kernel, by the name the profiler gives it
-kernel_names = {"lane_uniform": "threefry_lane_uniform_kernel",
-                "uniform": "threefry_uniform_kernel"}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
 
 def _rotl(x, r):
     return ((x << r) | (x >> (32 - r))) & MASK
@@ -143,27 +133,15 @@ def lane_uniform_plain(it_key: Key, pos: torch.Tensor,
 
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _U32 = ctypes.c_uint32
-
-
-def _lib():
-    from .ops import _build
-    lib = _build.load("rng")
-    if not getattr(lib, "_typed", False):
-        lib.threefry_lane_uniform.argtypes = [_U32, _U32, _P, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_int, _P,
-                                              _P]
-        lib.threefry_lane_uniform.restype = ctypes.c_int
-        lib.threefry_uniform.argtypes = [_U32, _U32, ctypes.c_longlong, _P,
-                                         _P]
-        lib.threefry_uniform.restype = ctypes.c_int
-        lib._typed = True
-    return lib
-
-
-def _raised(wrapper, err):
-    if err != 0:
-        raise RuntimeError(f"{wrapper}: CUDA launch failed with error {err}")
+_LIB = _build.Library(__name__, "rng", {
+    "lane_uniform": ("threefry_lane_uniform", "threefry_lane_uniform_kernel",
+                     [_U32, _U32, _P, _I, _I, _I, _P, _P]),
+    "uniform": ("threefry_uniform", "threefry_uniform_kernel",
+                [_U32, _U32, ctypes.c_longlong, _P, _P])})
+# each wrapper's kernel, by the name the profiler gives it
+kernel_names = _LIB.kernel_names
 
 
 def _lane_uniform_cuda(key, pos, D):
@@ -182,13 +160,9 @@ def _lane_uniform_cuda(key, pos, D):
     out = torch.empty((n, D), dtype=torch.float32, device=pos.device)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
-    with obs.span("kernel.lane_uniform", n=n):
-        err = _lib().threefry_lane_uniform(
-            key[0] & MASK, key[1] & MASK, pos.data_ptr(),
-            int(pos.dtype == torch.int64), n, D, out.data_ptr(), stream)
-    _raised("lane_uniform", err)
-    launches["lane_uniform"] += 1
+    _LIB.launch("lane_uniform", pos.device, n,
+                key[0] & MASK, key[1] & MASK, pos.data_ptr(),
+                int(pos.dtype == torch.int64), n, D, out.data_ptr())
     return out
 
 
@@ -197,10 +171,6 @@ def _uniform_cuda(key, shape, n, device):
     out = torch.empty(shape, dtype=torch.float32, device=device)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with obs.span("kernel.uniform", n=n):
-        err = _lib().threefry_uniform(key[0] & MASK, key[1] & MASK, n,
-                                      out.data_ptr(), stream)
-    _raised("uniform", err)
-    launches["uniform"] += 1
+    _LIB.launch("uniform", device, n,
+                key[0] & MASK, key[1] & MASK, n, out.data_ptr())
     return out

@@ -75,10 +75,11 @@ non-zero exit and no result line.
    main path's draws, PT cbox's
    (262,144, 11) and the bunny's (640,000, 15) over permuted lane ids and
    the camera's (262,144, 2): bit-equal, one kernel a call by the
-   profiler and by `rng.launches`, times (single calls and CUDA-graph
-   device times) of kernel and twin and the bound (bytes, or the
-   integer ALU pipe's operations at INT_OPS); the JSON line's `launches` of the two
-   kernels count the draws of the main paths of phases 4 and 14;
+   profiler and by ops/_build.py's `launches`, times (single calls and
+   CUDA-graph device times) of kernel and twin and the bound (bytes, or
+   the integer ALU pipe's operations at INT_OPS); the JSON line's
+   `launches` of the two kernels count the draws of the main paths of
+   phases 4 and 14;
 3. golden: render_pass_pt on the card at the settings of
    tests/test_goldens.py against tests/goldens/cbox_pt_48.npy; 3b: the
    same for render_pass_vpt against tests/goldens/vptcbox_48.npy; 3c: for
@@ -1132,7 +1133,7 @@ def shade_phase(card=None):
     import torch
     sys.path.insert(0, ROOT)
     from adapt_tpu_torch import rng
-    from adapt_tpu_torch.ops import bxdf_ops, shade_kernels as SK
+    from adapt_tpu_torch.ops import _build, bxdf_ops, shade_kernels as SK
     from adapt_tpu_torch.renderer import pt
     from adapt_tpu_torch.scene import compile as C
     t_start = time.perf_counter()
@@ -1157,9 +1158,10 @@ def shade_phase(card=None):
             kernel = getattr(bxdf_ops, "surface_" + name)     # routed
             plain = getattr(bxdf_ops, "surface_" + name + "_plain")
             wrapper = "surface_" + name
-            before = SK.launches[wrapper]
+            launched = _build.launches["shade_kernels"]
+            before = launched[wrapper]
             got = kernel(*a, **kw)
-            _require(SK.launches[wrapper] == before + 1,
+            _require(launched[wrapper] == before + 1,
                      f"phase 25 {tag} surface_{name}: one launch a call")
             got = got if isinstance(got, tuple) else (got,)
             want = plain(*a, **kw)
@@ -1231,9 +1233,10 @@ def multi_rank(rank, world, dev, out):
     import torch
     import torch.distributed as dist
     sys.path.insert(0, ROOT)
-    from adapt_tpu_torch.ops import bvh_kernels as BK
-    from adapt_tpu_torch.ops import intersect_kernels as K
-    from adapt_tpu_torch.ops import splat as S
+    # _build counts the launches of the kernel modules imported: these
+    # are the ones whose counts the ranks write
+    from adapt_tpu_torch.ops import (  # noqa: F401
+        _build, bvh_kernels, intersect_kernels, splat)
     from adapt_tpu_torch.parallel import sharding as SH
     from adapt_tpu_torch.renderer.vpt import trace_vpt
     from adapt_tpu_torch.scene import compile as C
@@ -1259,19 +1262,46 @@ def multi_rank(rank, world, dev, out):
         sc, cfg, kw, spp_par = cases[name]
         mesh = SH.make_mesh(world, spp_parallel=spp_par)
         r = SH.MultiChipRenderer(sc, cfg, mesh, seed=3, **kw)
-        for mod in (K, BK, S):
-            mod.reset_launches()
+        _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         film = r.render()
         torch.cuda.synchronize()
         res[name] = film.cpu().numpy()
         res[name + "_s"] = time.perf_counter() - t0
-        for k, n in {**K.launches, **BK.launches, **S.launches}.items():
+        for k, n in _launches("intersect_kernels", "bvh_kernels",
+                              "splat").items():
             res[f"{name}:{k}"] = n
         res[name + "_mesh"] = np.array([mesh.shape["spp"], mesh.shape["px"]])
     res["backend"] = dist.get_backend()
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+
+
+def _launches(*modules):
+    """The launch counts of the kernel modules named, in one dict (a copy
+    of ops/_build.py's `launches`)."""
+    from adapt_tpu_torch.ops import _build
+    out = {}
+    for m in modules:
+        out.update(_build.launches[m])
+    return out
+
+
+def residual_rays(scene, ro, rd, far):
+    """Queue-pick's cleanup set of an any-hit batch (ops/cluster_kernels.py
+    `qpick_any`): the sorted rays, far kept on the residual lanes and -3e38
+    on the others."""
+    import torch
+    from adapt_tpu_torch.ops import cluster_kernels as CK
+    from adapt_tpu_torch.ops.intersect_kernels import DEAD
+    C = scene.n_clusters
+    _perm, qro, qrd, qfar, cid, nxt = CK._front_sort(scene, ro, rd, far)
+    picks, covered = CK.tile_picks(cid, C, CK.QP_P)
+    occ = torch.zeros_like(covered)
+    for p in range(CK.QP_P):
+        occ |= CK.cluster_pick_any(scene, qro, qrd, qfar, picks[p])
+    res = (cid < C) & ~occ & (~covered | (nxt < CK.BIG))
+    return qro, qrd, torch.where(res, qfar, DEAD)
 
 
 def main():
@@ -1281,7 +1311,6 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
     from adapt_tpu_torch import native, rng
-    from adapt_tpu_torch.front_any_ab import residual_rays
     from adapt_tpu_torch.ops import _build, bvh, bvh_kernels as BK
     from adapt_tpu_torch.ops import cluster_kernels as CK
     from adapt_tpu_torch.ops import intersect_kernels as K
@@ -1302,16 +1331,11 @@ def main():
         print(f"{line} ({now - said[0]:.1f} s)", flush=True)
         said[0] = now
 
-    def reset():
-        K.reset_launches()
-        BK.reset_launches()
-        S.reset_launches()
-        CK.reset_launches()
-        rng.reset_launches()
-        SK.reset_launches()
+    reset = _build.reset_launches
 
     def counts():
-        return {**K.launches, **BK.launches, **S.launches, **CK.launches}
+        return _launches("intersect_kernels", "bvh_kernels", "splat",
+                         "cluster_kernels")
 
     def shade_want(c, spp):
         """The shading kernels' launches in spp PT samples: a sample a
@@ -1354,8 +1378,9 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(6) as ex:
-        for f in [ex.submit(fn) for fn in (K._lib, BK._lib, S._lib, CK._lib,
-                                           rng._lib, native._lib)]:
+        for f in [ex.submit(fn) for fn in (
+                *(lib.entries for lib in _build.libraries.values()),
+                native._lib)]:
             f.result()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1413,9 +1438,9 @@ def main():
                   2 * 262144, 2 * 262144, 4 * 2 * 262144))
     rng_seen, rng_err = [], {}
     for tag, wrapper, fn, plain, *_work in draws:
-        before = rng.launches[wrapper]
+        before = _build.launches["rng"][wrapper]
         got, want = fn(), plain()
-        _require(rng.launches[wrapper] == before + 1,
+        _require(_build.launches["rng"][wrapper] == before + 1,
                  f"{tag}: the wrapper did not count one launch")
         err = (got - want).abs().max().item()
         _require(got.dtype == torch.float32 and torch.equal(got, want),
@@ -2494,8 +2519,8 @@ def main():
     r.render_batch(1)                         # warm-up sample, not timed
     reset()
     dt = timed_batch(r, SPP)
-    launches, rlaunches = counts(), dict(rng.launches)
-    slaunches = dict(SK.launches)
+    launches, rlaunches = counts(), _launches("rng")
+    slaunches = _launches("shade_kernels")
     image = r.image()
     _require(image.shape == (cfg.h, cfg.w, 3), f"image shape {image.shape}")
     _require(bool(np.isfinite(image).all()) and image.mean() > 0.05,
@@ -2861,11 +2886,12 @@ def main():
     track_loop, track_b5a = vpt._track_loop, [0]
 
     def counted_track(*a, **kw):
-        before = BK.launches["bvh_closest_hit"]
+        before = _build.launches["bvh_kernels"]["bvh_closest_hit"]
         try:
             return track_loop(*a, **kw)
         finally:
-            track_b5a[0] += BK.launches["bvh_closest_hit"] - before
+            track_b5a[0] += (_build.launches["bvh_kernels"]
+                             ["bvh_closest_hit"] - before)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2 ** 30   # earlier phases' own
@@ -2985,8 +3011,8 @@ def main():
     r.render_batch(1)                         # warm-up sample (and probe)
     reset()
     dt_bp = timed_batch(r, BUNNY_PT_SPP)
-    bplaunches, bprlaunches = counts(), dict(rng.launches)
-    bpslaunches = dict(SK.launches)
+    bplaunches, bprlaunches = counts(), _launches("rng")
+    bpslaunches = _launches("shade_kernels")
     bp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     bpimage = r.image()
     _require(bpimage.shape == (bucfg.h, bucfg.w, 3), f"shape {bpimage.shape}")
@@ -3418,7 +3444,7 @@ def main():
     val.backward()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    glaunches, gslaunches = counts(), dict(SK.launches)
+    glaunches, gslaunches = counts(), _launches("shade_kernels")
     gpeak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
     g_val, g_kd, g_emit = val.item(), a.grad.item(), e.grad.item()
     g_mat = kd.grad.cpu().numpy()

@@ -526,7 +526,8 @@ def test_dispatch_picks_the_tier(twin_calls, scene_file, tier):
     does_intersect(scene, cfg, *args, torch.from_numpy(max_t))
     assert twin_calls == {f"{tier}_closest_hit_plain": 1,
                           f"{tier}_any_hit_plain": 1}
-    assert bvh_kernels.launches == {"bvh_closest_hit": 0, "bvh_any_hit": 0}
+    assert _build.launches["bvh_kernels"] == {"bvh_closest_hit": 0,
+                                              "bvh_any_hit": 0}
 
 
 def test_wrappers_refuse_other_devices(knot):
@@ -596,7 +597,7 @@ def test_kernels_match_twin_on_card(knot):
     dev = scene.to("cuda")
     for name in ("bvh_node_v4", "bvh_prim_v4"):
         assert getattr(dev, name).data_ptr() % 16 == 0, name
-    before = dict(bvh_kernels.launches)
+    before = dict(_build.launches["bvh_kernels"])
     seeds = (21, 22, 23)
     for seed in seeds:
         ro, rd, alive, max_t = _rays(scene, cfg, seed)
@@ -611,7 +612,7 @@ def test_kernels_match_twin_on_card(knot):
         np.testing.assert_array_equal(
             bvh_kernels.bvh_any_hit(dev, *args).cpu().numpy(),
             bvh_kernels.bvh_any_hit_plain(dev, *args).cpu().numpy())
-    assert bvh_kernels.launches == {
+    assert _build.launches["bvh_kernels"] == {
         k: n + len(seeds) for k, n in before.items()}
     # the any hit where most lanes are dead, and on the adversarial set
     sparse = torch.where(torch.arange(far.shape[0], device="cuda") % 3 == 0,

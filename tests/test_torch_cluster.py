@@ -56,7 +56,7 @@ from adapt_tpu.renderer import pt as jpt
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch import rng
 from adapt_tpu_torch.convert import scene_from_numpy, scene_leaves
-from adapt_tpu_torch.ops import bvh_kernels, cluster_kernels as ck
+from adapt_tpu_torch.ops import _build, bvh_kernels, cluster_kernels as ck
 from adapt_tpu_torch.ops import intersect_kernels
 from adapt_tpu_torch.ops.intersect import does_intersect, ray_intersect
 from adapt_tpu_torch.renderer import pt
@@ -967,8 +967,8 @@ def test_dispatch_picks_the_tier(knot, plain_calls, tier, want):
     ray_intersect(scene, cfg, *args, alive=torch.from_numpy(alive))
     does_intersect(scene, cfg, *args, torch.from_numpy(max_t))
     assert plain_calls == want
-    assert not any(ck.launches.values())
-    assert not any(bvh_kernels.launches.values())
+    assert not any(_build.launches["cluster_kernels"].values())
+    assert not any(_build.launches["bvh_kernels"].values())
 
 
 def test_unknown_tier_raises(knot):
@@ -1048,7 +1048,7 @@ def test_render_pass_matches_jax(tier, flags, w):
                 jax.random.PRNGKey(9), jnp.int32(1)))
     finally:
         jax.clear_caches()
-    ck.reset_launches()
+    _build.reset_launches()
     img = pt.render_pass_pt(scene, dataclasses.replace(cfg, big_tier=tier,
                                                        **kw),
                             rng.PRNGKey(9), 1).numpy()
@@ -1056,7 +1056,8 @@ def test_render_pass_matches_jax(tier, flags, w):
     assert abs(img.mean() - ref.mean()) < 1e-3 * max(ref.mean(), 1e-3)
     assert np.abs(img - ref).max() < 5e-2, np.abs(img - ref).max()
     assert img.mean() > 0.05
-    assert not any(ck.launches.values())             # CPU: plain versions
+    # CPU: plain versions
+    assert not any(_build.launches["cluster_kernels"].values())
     # and the port's own BVH tier renders the same pass
     bvh_img = pt.render_pass_pt(scene, dataclasses.replace(cfg, **kw),
                                 rng.PRNGKey(9), 1).numpy()
@@ -1066,9 +1067,7 @@ def test_render_pass_matches_jax(tier, flags, w):
 def test_cluster_modules_import_no_jax():
     code = ("import sys; import adapt_tpu_torch.ops.cluster_kernels, "
             "adapt_tpu_torch.ops.intersect, adapt_tpu_torch.scene.compile, "
-            "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt, "
-            "adapt_tpu_torch.sweep_ab, adapt_tpu_torch.front_any_ab, "
-            "adapt_tpu_torch.pick_ab; "
+            "adapt_tpu_torch.convert, adapt_tpu_torch.profile_pt; "
             "bad = [m for m in sys.modules if m in ('jax', 'adapt_tpu') "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "
             "assert not bad, bad")
@@ -1099,7 +1098,7 @@ def test_kernels_match_plain_on_card(knot):
     for seed in (21, 22):
         _arrs, tt = _batch(scene, cfg, seed, max_t_fill=0.0)
         ro, rd, far = (tt[k].cuda() for k in ("ro", "rd", "far0"))
-        before = dict(ck.launches)
+        before = dict(_build.launches["cluster_kernels"])
         same(ck.cluster_closest_hit(dev, ro, rd, far),
              ck.cluster_closest_hit_plain(dev, ro, rd, far), "closest")
         same([ck.cluster_any_hit(dev, ro, rd, far)],
@@ -1115,7 +1114,8 @@ def test_kernels_match_plain_on_card(knot):
              [ck.cluster_pick_any_plain(dev, pro, prd, pfar, pick)],
              "pick any")
         # `_pick_inputs` ran the front pass on the CPU: no launch there
-        assert ck.launches == {k: n + 1 for k, n in before.items()}
+        assert _build.launches["cluster_kernels"] == {
+            k: n + 1 for k, n in before.items()}
         for tier in ("sweep", "qpick"):
             tcfg = dataclasses.replace(cfg, big_tier=tier)
             got = ray_intersect(dev, tcfg, ro, rd, alive=far > 0)

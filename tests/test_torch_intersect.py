@@ -25,7 +25,7 @@ from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu.ops import intersect_pallas
 from adapt_tpu.ops.intersect import ray_intersect as jax_ray_intersect
 from adapt_tpu.ops.intersect import does_intersect as jax_does_intersect
-from adapt_tpu_torch.ops import intersect_kernels
+from adapt_tpu_torch.ops import _build, intersect_kernels
 from adapt_tpu_torch.ops.intersect import ray_intersect, does_intersect
 from adapt_tpu_torch.renderer.base import camera_rays
 from adapt_tpu_torch.scene.compile import load_scene
@@ -235,7 +235,7 @@ def test_kernels_match_twins_on_card(cbox):
     far = _far(n, 21)
     dev = scene.to("cuda")
     args = [torch.from_numpy(x).cuda() for x in (ro, rd, far)]
-    before = dict(intersect_kernels.launches)
+    before = dict(_build.launches["intersect_kernels"])
     # the seeded rays, all lanes dead, far0 = 2e7 > FAR (a ray with no
     # valid row takes row 0 at t = FAR), rays at shared vertices and edges
     # (chip_smoke.py `tie_rays`) with an odd count, and four fifths dead
@@ -257,7 +257,7 @@ def test_kernels_match_twins_on_card(cbox):
     np.testing.assert_array_equal(
         occ.cpu().numpy(),
         intersect_kernels.tri_any_hit_plain(dev, *args).cpu().numpy())
-    assert intersect_kernels.launches["tri_closest_hit"] \
+    assert _build.launches["intersect_kernels"]["tri_closest_hit"] \
         == before["tri_closest_hit"] + len(sets)
-    assert intersect_kernels.launches["tri_any_hit"] \
+    assert _build.launches["intersect_kernels"]["tri_any_hit"] \
         == before["tri_any_hit"] + 1

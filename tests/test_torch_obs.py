@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from adapt_tpu_torch import obs, rng
+from adapt_tpu_torch.ops import _build
 from adapt_tpu_torch.renderer import bdpt, pt, vpt
 from adapt_tpu_torch.renderer.base import camera_rays
 from adapt_tpu_torch.scene.compile import load_scene
@@ -203,13 +204,16 @@ def test_spans_sit_on_the_profilers_clock(cbox):
 
 
 def _program_span_names():
-    """Every span name the program's sources give."""
+    """Every span name the program's sources give, and the launch spans
+    ops/_build.py opens for each kernel wrapper a module declares."""
     names = set()
     for path in (ROOT / "adapt_tpu_torch").rglob("*.py"):
         text = path.read_text()
         names |= set(re.findall(
             r'obs\.(?:span|setup_span|spanned)\(\s*"([^"]+)"', text))
     names.add(obs.PASS)
+    names |= {"kernel." + w for lib in _build.libraries.values()
+              for w in lib.kernels}
     return names
 
 
@@ -267,3 +271,62 @@ def test_profile_pt_attributes_by_span():
     assert idle == pytest.approx({"rng.draw": 2e-9, "pt.bounce": 8e-9,
                                   "render.pass": 4e-9,
                                   "outside the program's spans": 1e-8})
+
+
+SEAM_SRC = r"""
+extern "C" int twice(int a, int *out, void *stream) {
+    *out = 2 * a + (int)(long)stream;
+    return a < 0 ? a : 0;
+}
+extern "C" int info(int which, int *out) { *out = which; return which < 0 ? 5 : 0; }
+"""
+
+
+def test_launch_seam_types_launches_checks_and_counts(tmp_path, monkeypatch):
+    """ops/_build.py's launch path, on a stand-in library built with g++
+    and a stand-in stream: the entry points typed from the declaration,
+    the stream passed last, the `kernel.<wrapper>` span with its `n`, a
+    non-zero status raised (through `refused` where it gives an
+    exception) and left uncounted, and the count in `launches`, which
+    obs.export() reports."""
+    for name in ("_LIBS", "launches", "libraries"):
+        monkeypatch.setattr(_build, name, {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    src = tmp_path / "seam.cpp"
+    src.write_text(SEAM_SRC)
+    monkeypatch.setattr(_build, "load", lambda name: _build.compiled(
+        name, src, lambda: "g++", ("-shared", "-fPIC")))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: (
+        type("Stream", (), {"cuda_stream": 7})))
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    def refused(wrapper, err, args):
+        return ValueError(f"{wrapper} refused {args[0]}") if err == -2 \
+            else None
+    lib = _build.Library("pkg.seam_kernels", "seam", {
+        "double": ("twice", "twice_kernel", [I, P, P])},
+        queries={"info": [I, P]}, refused=refused)
+    assert lib.kernel_names == {"double": "twice_kernel"}
+    assert _build.launches == {"seam_kernels": {"double": 0}}
+    out = ctypes.c_int()
+    with obs.recording():
+        lib.launch("double", "cuda", 5, 20, ctypes.addressof(out))
+    assert out.value == 47 and _build.launches["seam_kernels"]["double"] == 1
+    spans = obs.export()["spans"]
+    assert [(s["name"], s["attrs"]) for s in spans if
+            s["name"].startswith("kernel.")] == [("kernel.double", {"n": 5})]
+    assert obs.export()["counters"]["launches"] == {
+        "seam_kernels": {"double": 1}}
+    with pytest.raises(RuntimeError,
+                       match="^double: CUDA launch failed with error -3$"):
+        lib.launch("double", "cuda", 1, -3, ctypes.addressof(out))
+    with pytest.raises(ValueError, match="^double refused -2$"):
+        lib.launch("double", "cuda", 1, -2, ctypes.addressof(out))
+    assert _build.launches["seam_kernels"]["double"] == 1
+    lib.query("info", "double info", 3, ctypes.addressof(out))
+    assert out.value == 3
+    with pytest.raises(RuntimeError, match="^double info: CUDA launch"):
+        lib.query("info", "double info", -1, ctypes.addressof(out))
+    _build.reset_launches()
+    assert _build.launches == {"seam_kernels": {"double": 0}}

@@ -14,6 +14,7 @@ import torch
 
 from adapt_tpu.renderer.compact import lane_uniform as jax_lane_uniform
 from adapt_tpu_torch import obs, rng
+from adapt_tpu_torch.ops import _build
 from adapt_tpu_torch.convert import key_from_numpy, key_to_numpy
 
 SEEDS = (0, 1, 42, 7919, 2 ** 31 - 1, -5)
@@ -63,11 +64,12 @@ def test_lane_uniform(seed, D):
 
 
 def test_cpu_draws_launch_no_kernel():
-    rng.reset_launches()
+    _build.reset_launches()
     rng.uniform(rng.PRNGKey(3), (5, 2))
     rng.lane_uniform(rng.PRNGKey(4), torch.arange(9, dtype=torch.int32), 3)
-    assert rng.launches == {"lane_uniform": 0, "uniform": 0}
-    assert obs.export()["counters"]["launches"]["rng"] == rng.launches
+    assert _build.launches["rng"] == {"lane_uniform": 0, "uniform": 0}
+    assert obs.export()["counters"]["launches"]["rng"] \
+        == _build.launches["rng"]
 
 
 @pytest.mark.parametrize("pos, D, what", [
@@ -105,10 +107,10 @@ def test_lane_uniform_kernel_on_card(D, dtype):
             pos = (2 ** 31 - 1 - g.permutation(n)).astype(np.int32)
             if dtype == torch.int64:   # and the low 32 bits of larger ids
                 pos = pos.astype(np.int64) + (g.integers(0, 4, n) << 32)
-            before = rng.launches["lane_uniform"]
+            before = _build.launches["rng"]["lane_uniform"]
             got = rng.lane_uniform(key, torch.from_numpy(pos).to(dev), D)
             torch.cuda.synchronize()
-            assert rng.launches["lane_uniform"] == before + (n > 0)
+            assert _build.launches["rng"]["lane_uniform"] == before + (n > 0)
             assert got.dtype == torch.float32 and got.shape == (n, D)
             want = rng.lane_uniform(key, torch.from_numpy(pos), D)
             np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
@@ -126,10 +128,10 @@ def test_lane_uniform_kernel_on_card(D, dtype):
 def test_uniform_kernel_on_card(shape):
     dev = _card()
     for key in CARD_KEYS:
-        before = rng.launches["uniform"]
+        before = _build.launches["rng"]["uniform"]
         got = rng.uniform(key, shape, device=dev)
         torch.cuda.synchronize()
-        assert rng.launches["uniform"] == before + 1
+        assert _build.launches["rng"]["uniform"] == before + 1
         assert got.dtype == torch.float32 and got.shape == shape
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       rng.uniform(key, shape).numpy())

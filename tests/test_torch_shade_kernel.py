@@ -38,7 +38,7 @@ import torch
 from adapt_tpu_torch import obs
 from adapt_tpu_torch.constants import (BRDFTag, BSDFTag, TRANSPORT_IMP,
                                        TRANSPORT_RAD, TRANSPORT_UNI)
-from adapt_tpu_torch.ops import bxdf_ops, shade_kernels
+from adapt_tpu_torch.ops import _build, bxdf_ops, shade_kernels
 from adapt_tpu_torch.ops.intersect import Interaction
 from adapt_tpu_torch.scene.compile import load_scene
 
@@ -359,9 +359,9 @@ def test_kernel_equals_plain_on_card(arm, name, mode, two_sides, textured):
         wavefront(seed, [arm], textured=textured), dev)
     cfg = cfg_of([arm], two_sides)
     w = torch.tensor([1.0, 1.33], device=dev)[int(arm[0] and seed % 2)]
-    before = shade_kernels.launches["surface_" + name]
+    before = _build.launches["shade_kernels"]["surface_" + name]
     got = call(name, "routed", cfg, mat, it, incid, out, u, w, MODES[mode])
-    assert shade_kernels.launches["surface_" + name] == before + 1
+    assert _build.launches["shade_kernels"]["surface_" + name] == before + 1
     want = call(name, "plain", cfg, mat, it, incid, out, u, w, MODES[mode])
     assert_same(got, want)
     if name == "sample" and arm == (False, BRDFTag.SPECULAR):
@@ -407,9 +407,9 @@ def test_grad_on_card_equals_plain(name, order, recorded):
             for f in dataclasses.fields(inputs[k])
             if torch.is_tensor(getattr(inputs[k], f.name))})
     want_res, want = _grads(name, "plain", inputs, order)
-    before = shade_kernels.launches["surface_" + name]
+    before = _build.launches["shade_kernels"]["surface_" + name]
     got_res, got = _grads(name, "routed", inputs, order)
-    assert shade_kernels.launches["surface_" + name] == before + 1
+    assert _build.launches["shade_kernels"]["surface_" + name] == before + 1
     assert _counters() == (1, 0)
     assert_same(got_res, want_res)
     assert_grads(got, want, order)
@@ -423,12 +423,12 @@ def test_unknown_tag_is_refused_on_card():
     mat, it, incid, out, u = on_device(wavefront(8, ARMS, n=256), dev)
     cfg = cfg_of(ARMS)
     cfg.brdf_types = cfg.brdf_types + (BRDFTag.MIXTURE,)
-    before = dict(shade_kernels.launches)
+    before = dict(_build.launches["shade_kernels"])
     for name in ("eval", "sample", "pdf"):
         with pytest.raises(ValueError, match="does not know"):
             call(name, "routed", cfg, mat, it, incid, out, u, 1.0,
                  TRANSPORT_UNI)
-    assert shade_kernels.launches == before
+    assert _build.launches["shade_kernels"] == before
 
 
 def _small(cfg, w=32, mb=3):

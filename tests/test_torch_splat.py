@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from adapt_tpu.ops import splat_pallas
-from adapt_tpu_torch.ops import splat
+from adapt_tpu_torch.ops import _build, splat
 
 RTOL = ATOL = 1e-5
 
@@ -156,9 +156,9 @@ def test_plain_adds_in_stream_order():
 
 def test_wrapper_checks_and_cpu_path():
     film, idx, rgb = (torch.from_numpy(x) for x in _stream(64, 100, seed=1))
-    splat.reset_launches()
+    _build.reset_launches()
     splat.splat_sorted_accumulate(film, idx, rgb)
-    assert splat.launches == {"splat_sorted_accumulate": 0}
+    assert _build.launches["splat"] == {"splat_sorted_accumulate": 0}
     with pytest.raises(ValueError, match="idx"):
         splat.splat_sorted_accumulate(film, idx.long(), rgb)
     with pytest.raises(ValueError, match="rgb"):
@@ -181,7 +181,7 @@ def test_kernel_matches_plain_on_card():
                _stream(P, 70000, seed=12, drop_frac=0.0, hi=1024),
                _stream(777, 1024, seed=13), _stream(P, 0, seed=14),
                *(_window_stream(case) for case in WINDOW_CASES)]
-    before = splat.launches["splat_sorted_accumulate"]
+    before = _build.launches["splat"]["splat_sorted_accumulate"]
     for film, idx, rgb in streams:
         args = [torch.from_numpy(x).cuda() for x in (film, idx, rgb)]
         got = splat.splat_sorted_accumulate(*args)
@@ -189,4 +189,5 @@ def test_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         # the same adds in the same order: bit-equal
         np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
-    assert splat.launches["splat_sorted_accumulate"] == before + len(streams)
+    assert _build.launches["splat"]["splat_sorted_accumulate"] \
+        == before + len(streams)

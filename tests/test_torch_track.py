@@ -26,7 +26,7 @@ from adapt_tpu.ops import intersect_pallas
 from adapt_tpu.ops.intersect import ray_track_hits as jax_ray_track_hits
 from adapt_tpu.renderer.vpt import track_ray as jax_track_ray
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
-from adapt_tpu_torch.ops import intersect_kernels
+from adapt_tpu_torch.ops import _build, intersect_kernels
 from adapt_tpu_torch.ops.intersect import FAR, RAY_EPS, _is_null_obj, \
     ray_k_hits, ray_track_hits
 from adapt_tpu_torch.renderer import vpt
@@ -318,7 +318,7 @@ def test_track_kernel_matches_twin_on_card():
     far[::7] = -3e38
     dev = s.to("cuda")
     args = [torch.from_numpy(x).cuda() for x in (o, d, far)]
-    before = intersect_kernels.launches["tri_track_hits"]
+    before = _build.launches["intersect_kernels"]["tri_track_hits"]
     # the scene's null rows, every row null (above the kernel's null-row
     # cap), and the null rows layered at and above the cap: exact
     # duplicates and copies RAY_EPS behind (chip_smoke.py `null_layers`)
@@ -338,5 +338,5 @@ def test_track_kernel_matches_twin_on_card():
         for name, a, b in zip(NAMES, got, want):
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(),
                                           err_msg=name)
-    assert intersect_kernels.launches["tri_track_hits"] \
+    assert _build.launches["intersect_kernels"]["tri_track_hits"] \
         == before + len(cases)

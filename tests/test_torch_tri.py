@@ -344,10 +344,12 @@ def test_wrappers_build_nothing(monkeypatch):
 
 
 def test_tri_ab_imports_no_jax():
+    """The brute-force kernels' module and ops/_build.py, which loads and
+    launches them, import nothing of the JAX package."""
     import os
     import subprocess
     import sys
-    code = ("import sys; import adapt_tpu_torch.tri_ab, "
+    code = ("import sys; import adapt_tpu_torch.ops._build, "
             "adapt_tpu_torch.ops.intersect_kernels; "
             "bad = [m for m in sys.modules if m in ('jax', 'adapt_tpu') "
             "or m.startswith(('jax.', 'adapt_tpu.'))]; "

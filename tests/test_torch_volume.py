@@ -2,7 +2,8 @@
 passes.
 
 * I/O: `vol_file_to_numpy` reads what the JAX loader reads from 1-, 3-
-  and 6-channel grids, with and without `force_mono`; `write_vol` writes
+  and 6-channel grids, with and without `force_mono`, and refuses what it
+  refuses (a bad header, 2 channels, a short payload); `write_vol` writes
   the JAX writer's bytes; adapt_tpu_torch/scene/assets.py `vol_assets`
   writes the bytes scripts/gen_procedural.py `ensure_vol` writes, and it
   and chip_smoke's `orb_assets` load nothing of the JAX package;
@@ -98,15 +99,32 @@ def scenes():
 
 # ------------------------------- .vol I/O -----------------------------------
 
-@pytest.mark.parametrize("channels", [1, 3, 6])
+@pytest.mark.parametrize("channels", [1, 3, 6, 2, "short"])
 def test_vol_io_equals_jax(tmp_path, channels):
-    g = np.random.default_rng(channels).uniform(
-        0, 4, (5, 6, 7, channels)).astype(np.float32)
+    """Each grid read as the JAX package reads it; 2 channels (a bad
+    count) and a 3-channel file cut short of its payload refused by both
+    readers."""
+    short = channels == "short"
+    c = 3 if short else channels
+    g = np.random.default_rng(c).uniform(
+        0, 4, (5, 6, 7, c)).astype(np.float32)
     jpath, tpath = str(tmp_path / "j.vol"), str(tmp_path / "t.vol")
     jax_native.write_vol(jpath, g)
     native.write_vol(tpath, g)
     with open(jpath, "rb") as a, open(tpath, "rb") as b:
-        assert a.read() == b.read()
+        data = a.read()
+        assert data == b.read()
+    if short:
+        for path in (jpath, tpath):
+            with open(path, "wb") as f:
+                f.write(data[:-4])
+    if short or c == 2:
+        with pytest.raises(ValueError):
+            jax_native.vol_file_to_numpy(jpath)
+        with pytest.raises(ValueError, match=".vol payload" if short
+                           else r"bad .vol file .* \(error -5\)"):
+            native.vol_file_to_numpy(tpath)
+        return
     for mono in (False, True):
         got = native.vol_file_to_numpy(tpath, force_mono=mono)
         want = jax_native.vol_file_to_numpy(jpath, force_mono=mono)

@@ -28,8 +28,7 @@ from adapt_tpu.renderer import vpt as jvpt
 from adapt_tpu.scene.compile import load_scene as jax_load_scene
 from adapt_tpu_torch import rng
 from adapt_tpu_torch.constants import MediumTag
-from adapt_tpu_torch.ops import bxdf_ops, emitter_ops, intersect_kernels, \
-    medium_ops
+from adapt_tpu_torch.ops import _build, bxdf_ops, emitter_ops, medium_ops
 from adapt_tpu_torch.ops.intersect import Interaction
 from adapt_tpu_torch.renderer import vpt
 from adapt_tpu_torch.scene.compile import load_scene
@@ -205,10 +204,10 @@ def test_null_bsdf_dispatch_matches_jax(vcbox):
 
 def test_golden_and_jax_pass(vcbox):
     jscene, jcfg, scene, cfg = vcbox
-    intersect_kernels.reset_launches()
+    _build.reset_launches()
     img = vpt.render_pass_vpt(scene, _small(cfg), rng.PRNGKey(42), 1)
     # the CPU path runs the twins: no kernel launches
-    assert all(v == 0 for v in intersect_kernels.launches.values())
+    assert not any(_build.launches["intersect_kernels"].values())
     _check(img.numpy(), "vptcbox_48.npy")
     ref = jvpt.render_pass_vpt(jscene, _small(jcfg), jax.random.PRNGKey(42),
                                jnp.int32(1))
